@@ -1,0 +1,32 @@
+"""Carry a JAX parameter tree over to the port.
+
+The port keeps the JAX package's parameter keys and layouts — linear weights
+(in, out) applied as ``x @ w``, the patch embedding as a (p·p·3, width)
+matmul weight over NHWC patches — so conversion transposes nothing: each
+array becomes a tensor of the same shape and values. The tree arrives as
+NumPy arrays (``jax.tree.map(np.asarray, params)``), which keeps this module
+free of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree, device="cpu", dtype: torch.dtype | None = None):
+    """Nested dicts/lists of arrays -> the same nesting of tensors on
+    ``device``. Floating arrays are cast to ``dtype`` when it is given."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device, dtype) for v in tree]
+    arr = np.array(tree, copy=True)
+    if arr.dtype.kind not in "biuf":
+        # ml_dtypes' bfloat16 (what a bf16 JAX array becomes) has no torch
+        # counterpart in from_numpy; f32 holds it exactly.
+        arr = arr.astype(np.float32)
+    t = torch.from_numpy(arr).to(device)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t

@@ -1,0 +1,167 @@
+"""Scoring surface on tensors — the port of ``panoptikon_tpu/ops/scoring.py``.
+
+The serving fast path, :func:`int8_topk_rescored`, takes its oversampled
+candidates from the fused int8 scan (``ops.int8_scan.int8_topk``) and
+re-ranks them exactly against the f32 rows in plain PyTorch, as the JAX
+version left its rescore to XLA. The JAX version takes its candidates from
+``lax.approx_min_k``, which has no PyTorch counterpart; the scan computes
+the same candidate stage exactly (off the TPU ``approx_min_k`` is exact too).
+
+Distances over int8 codes follow the reference's quant arm: cosine on codes
+equals cosine on the dequantized vectors (the scale cancels); L2 on codes is
+the true distance ÷ scale, rescaled here by the frozen scale.
+
+Only the one-row-per-group (``identity``) path of :func:`grouped_scores` is
+ported; the segmented aggregation path is still to come.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from panoptikon_tpu_torch.ops import int8_scan
+from panoptikon_tpu_torch.ops.exact import INF, Distance, int8_dots, row_sumsq, smallest_k
+
+
+def row_sumsq_chunked(corpus: torch.Tensor, chunk_rows: int = 250_000) -> torch.Tensor:
+    """:func:`row_sumsq` a slice at a time: the widened square is 8 bytes per
+    int8 element, 4 GiB at 1M×512 if taken whole."""
+    n = corpus.shape[0]
+    if n <= chunk_rows:
+        return row_sumsq(corpus)
+    return torch.cat([row_sumsq(corpus[i:i + chunk_rows]) for i in range(0, n, chunk_rows)])
+
+
+def _chunk_dots(queries: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+    """(Q, D) × (C, D)ᵀ. int8 inputs give exact int32 dots; others f32."""
+    if chunk.dtype == torch.int8:
+        return int8_dots(queries, chunk)
+    return queries.to(torch.float32) @ chunk.to(torch.float32).T
+
+
+def _distance_epilogue(dots, chunk_sumsq, query_sumsq, distance: Distance, scale: float):
+    """Dot products -> distances on the true axis, all f32."""
+    dots = dots.to(torch.float32)
+    xx = chunk_sumsq.to(torch.float32)[None, :]
+    qq = query_sumsq.to(torch.float32)[:, None]
+    if distance == "cosine":
+        return 1.0 - dots / torch.sqrt(torch.clamp(xx * qq, min=1e-30))
+    if distance == "l2":
+        return float(scale) * torch.sqrt(torch.clamp(qq - 2.0 * dots + xx, min=0.0))
+    raise ValueError(f"Unknown distance {distance!r}")
+
+
+def exact_oneshot(corpus, row_valid, queries, *, k: int, distance: Distance = "cosine"):
+    """One-shot exact fp32 top-k (materializes (Q, N); TF32 is off, see
+    ``ops.exact``). Returns (dist, row_idx, valid)."""
+    corpus = corpus.to(torch.float32)
+    queries = queries.to(torch.float32)
+    dots = queries @ corpus.T
+    dist = _distance_epilogue(dots, row_sumsq(corpus), row_sumsq(queries), distance, 1.0)
+    top_v, idx = smallest_k(torch.where(row_valid[None, :], dist, INF), k)
+    return top_v, idx, torch.isfinite(top_v)
+
+
+def streaming_topk(
+    corpus, sumsq, row_valid, queries, *, k: int, distance: Distance = "cosine",
+    scale: float = 1.0, chunk_rows: int = 32768,
+):
+    """Top-k rows per query, one corpus chunk at a time; ascending distance,
+    lowest row first among ties. corpus (N, D) int8 codes or f32, N a
+    multiple of ``chunk_rows``; queries in the corpus's domain."""
+    n = corpus.shape[0]
+    if n % chunk_rows:
+        raise ValueError(f"corpus rows {n} must be a multiple of chunk_rows {chunk_rows}")
+    query_sumsq = row_sumsq(queries)
+    q = queries.shape[0]
+    top_v = torch.full((q, k), INF, dtype=torch.float32, device=corpus.device)
+    top_i = torch.full((q, k), torch.iinfo(torch.int32).max, dtype=torch.int64, device=corpus.device)
+    for lo in range(0, n, chunk_rows):
+        hi = lo + chunk_rows
+        dist = _distance_epilogue(
+            _chunk_dots(queries, corpus[lo:hi]), sumsq[lo:hi], query_sumsq, distance, scale
+        )
+        dist = torch.where(row_valid[None, lo:hi], dist, INF)
+        rows = torch.arange(lo, hi, device=corpus.device).expand(q, -1)
+        # Carried rows come first and are lower than this chunk's, so the
+        # positional tiebreak is the ascending-row tiebreak.
+        cand_v = torch.cat([top_v, dist], dim=1)
+        cand_i = torch.cat([top_i, rows], dim=1)
+        top_v, sel = smallest_k(cand_v, k)
+        top_i = torch.gather(cand_i, 1, sel)
+    return top_v, top_i, torch.isfinite(top_v)
+
+
+def rescore_candidates(cand_v, cand_i, corpus_f32, q_f32, *, k: int, distance: Distance = "cosine"):
+    """Exact f32 re-rank of (Q, kk) candidates, lowest candidate position
+    first among equal distances. Candidates at +inf stay at +inf."""
+    cand_rows = corpus_f32[cand_i].to(torch.float32)  # (Q, kk, D)
+    qf = q_f32.to(torch.float32)
+    cdots = torch.einsum("qd,qkd->qk", qf, cand_rows)
+    if distance == "cosine":
+        cn = torch.linalg.norm(cand_rows, dim=-1)
+        qn = torch.linalg.norm(qf, dim=-1)[:, None]
+        exact_d = 1.0 - cdots / torch.clamp(cn * qn, min=1e-30)
+    else:
+        csq = torch.sum(cand_rows * cand_rows, dim=-1)
+        qsq = torch.sum(qf * qf, dim=-1)[:, None]
+        exact_d = torch.sqrt(torch.clamp(qsq - 2.0 * cdots + csq, min=0.0))
+    exact_d = torch.where(torch.isfinite(cand_v), exact_d, INF)
+    top_v, sel = smallest_k(exact_d, k)
+    return top_v, torch.gather(cand_i, 1, sel), torch.isfinite(top_v)
+
+
+def int8_topk_rescored(
+    codes, sumsq, row_valid, corpus_f32, q_codes, q_f32, *, k: int,
+    oversample: int = 8, distance: Distance = "cosine", scale: float = 1.0,
+    rescore: bool = True,
+):
+    """The serving fast path: int8 candidates (k·oversample) + f32 rescore.
+
+    Cosine candidates come from the fused scan kernel on the card. L2 has no
+    kernel (the reference kernel is cosine-only): it raises on CUDA and runs
+    the streamed plain path on the CPU. Returns (dist (Q,k), row (Q,k),
+    valid (Q,k))."""
+    kk = min(k * oversample, codes.shape[0])
+    if distance == "cosine":
+        cand_v, cand_i, _ = int8_scan.int8_topk(codes, sumsq, row_valid, q_codes, k=kk)
+    elif codes.device.type == "cuda":
+        raise NotImplementedError("int8_topk_rescored on CUDA supports distance='cosine' only")
+    else:
+        cand_v, cand_i, _ = streaming_topk(
+            codes, sumsq, row_valid, q_codes, k=kk, distance=distance, scale=scale,
+            chunk_rows=codes.shape[0],
+        )
+    if not rescore:
+        return cand_v[:, :k], cand_i[:, :k], torch.isfinite(cand_v[:, :k])
+    return rescore_candidates(cand_v, cand_i, corpus_f32, q_f32, k=k, distance=distance)
+
+
+def grouped_scores(
+    corpus, sumsq, row_valid, queries, *, num_groups: int,
+    distance: Distance = "cosine", scale: float = 1.0, identity: bool = False,
+):
+    """Per-group score surface (Q, num_groups): distances, validity, counts.
+
+    Only the one-row-per-group layout (``identity=True``) is ported: row i
+    is group slot i, so the surface is the per-row epilogue and the
+    reference's ``group_ids``, aggregation and weights have nothing to do.
+    They join the signature with the segmented path."""
+    if not identity:
+        raise NotImplementedError("grouped_scores: only identity=True is ported")
+    dots = _chunk_dots(queries, corpus)
+    dist = _distance_epilogue(dots, sumsq, row_sumsq(queries), distance, scale)
+    dist = torch.where(row_valid[None, :], dist, INF)[:, :num_groups]
+    group_valid = row_valid[None, :num_groups].expand(dist.shape)
+    return dist, group_valid, group_valid.to(torch.float32)
+
+
+def topk_of_scores(dist, valid, *, kk: int, largest: bool = False):
+    """Exact top-kk over a (Q, M) score surface, lowest slot first among
+    ties; invalid slots come back at ±inf and not valid."""
+    if largest:
+        neg, idx = smallest_k(-torch.where(valid, dist, -INF), kk)
+        top_v = -neg
+    else:
+        top_v, idx = smallest_k(torch.where(valid, dist, INF), kk)
+    return top_v, idx, torch.isfinite(top_v)

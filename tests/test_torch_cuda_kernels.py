@@ -1,0 +1,79 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU and
+skip without one. This file imports no JAX (the machine with the card has
+none); run it there without the repo's conftest, which imports JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from panoptikon_tpu.ops import codec as host_codec
+from panoptikon_tpu_torch.ops import int8_scan, scoring, vit_attention
+
+pytestmark = pytest.mark.cuda
+
+ATTN_SHAPES = {
+    # name: (b, n_q, n_kv, h, d, causal, masked)
+    "vit_b32_image": (4, 50, 50, 12, 64, False, False),
+    "clip_text": (4, 77, 77, 8, 64, True, False),
+    "masked": (3, 40, 40, 4, 64, False, True),
+    "cross": (2, 64, 300, 8, 64, False, False),
+    "long": (1, 1500, 1500, 2, 64, False, False),
+    "head_dim_80": (2, 33, 33, 2, 80, False, False),
+    "head_dim_16": (2, 9, 9, 2, 16, True, False),
+}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(ATTN_SHAPES))
+def test_mha_kernel_matches_plain(cuda_device, shape, dtype):
+    b, nq, nkv, h, d, causal, masked = ATTN_SHAPES[shape]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device=cuda_device).to(tdt)
+               for n in (nq, nkv, nkv))
+    mask = None
+    if masked:
+        mask = torch.rand((b, nkv), generator=gen, device=cuda_device) < 0.7
+        mask[-1] = False  # a fully masked row
+    before = vit_attention.mha.launches
+    got = vit_attention.mha(q, k, v, causal=causal, key_mask=mask)
+    want = vit_attention.mha_plain(q, k, v, causal=causal, key_mask=mask)
+    torch.cuda.synchronize()
+    assert vit_attention.mha.launches == before + 1
+    assert got.dtype == tdt
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("n,d,q,k", [(5000, 128, 40, 80), (70_000, 512, 17, 10), (1100, 32, 3, 1)])
+def test_int8_topk_kernel_matches_plain(cuda_device, n, d, q, k):
+    rng = np.random.default_rng(n)
+    corpus = rng.normal(size=(n, d)).astype(np.float32)
+    corpus[[n // 2, n - 1]] = corpus[3]  # equal rows in different tiles
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    queries[0] = corpus[3]
+    scale = host_codec.scale_from_absmax(host_codec.corpus_absmax(corpus))
+    codes = torch.from_numpy(host_codec.quantize_int8(corpus, scale)).to(cuda_device)
+    q_codes = torch.from_numpy(host_codec.quantize_int8(queries, scale)).to(cuda_device)
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(cuda_device)
+    valid[[3, n // 2, n - 1]] = True
+    args = (codes, scoring.row_sumsq(codes), valid, q_codes)
+    before = int8_scan.int8_topk.launches
+    gv, gi, gok = int8_scan.int8_topk(*args, k=k)
+    pv, pi, pok = int8_scan.int8_topk_plain(*args, k=k)
+    torch.cuda.synchronize()
+    assert int8_scan.int8_topk.launches == before + 1
+    assert torch.equal(gi, pi) and torch.equal(gok, pok) and torch.equal(gv, pv)
+    assert gi[0, :min(k, 3)].tolist() == [3, n // 2, n - 1][:k]

@@ -1,0 +1,49 @@
+"""The port imports no JAX, and never falls back from CUDA to the CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from panoptikon_tpu_torch.device import device
+
+REPO = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import panoptikon_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(panoptikon_tpu_torch.__path__, "panoptikon_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+assert not [m for m in leaked if sys.modules[m] is not None], leaked
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 10  # every module of the port was imported
+
+
+def test_cuda_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        device("cuda")
+    with pytest.raises(RuntimeError):
+        device("cuda:0")
+    assert device("cpu") == torch.device("cpu")
+
+
+def test_missing_cuda_ordinal_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert device("cuda") == torch.device("cuda", 0)
+    with pytest.raises(RuntimeError):
+        device("cuda:1")
