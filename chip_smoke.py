@@ -1,37 +1,59 @@
-"""Drive the PyTorch port's search core once on one NVIDIA GPU.
+"""Drive the PyTorch port's search core and serving embed once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each:
 
-1. env      the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
-2. build    both kernels compiled from panoptikon_tpu_torch/csrc/;
+1. env      the card (nvidia-smi name and power limit), torch, CUDA, nvcc,
+            Triton;
+2. build    the three kernel sources of panoptikon_tpu_torch/csrc/, one nvcc
+            each, all started together (ptxas registers and spills);
 3. kernels  each kernel against its plain PyTorch version on the card, at
-            the shapes the main path gives it (mha bf16 ≤ 2e-2; the int8
-            scan with identical ids and distances within 1e-6), and timed;
-4. main     the slice at the full width of CLIP ViT-B/32 with seeded random
-            bf16 weights: embed 4,096 images, index them with seeded unit
-            vectors to 1,048,576 × 512 in a host VectorIndex, build the int8
-            arm, upload it (DeviceIndex), embed 64 text queries and search
-            them top-10, and search 256 Gaussian unit queries;
-5. check    launch counters of the main path, the scan kernel's k·oversample
+            the shapes the main paths give it, timed kernel/plain/plain/
+            kernel: mha and mha_qkv bf16 ≤ 2e-2 max abs; int8 outputs
+            (mha_qkv, ln_quant) at most one code apart and at most 0.5 % of
+            codes apart; the int8 scan, cosine and L2, with identical ids and
+            distances within 1e-6; torch._int_mm identical to an exact GEMM,
+            and timed with its B operand column-major and row-major;
+4. main     the ViT-B/32 search slice with seeded random bf16 weights: embed
+            4,096 images, index them with seeded unit vectors to
+            1,048,576 × 512 in a host VectorIndex, build the int8 arm, upload
+            it (DeviceIndex), embed 64 text queries and search them top-10,
+            and search 256 Gaussian unit queries;
+5. check    launch counters of that path, the scan kernel's k·oversample
             candidates at 1,048,576 rows against its plain version for both
-            query sets (identical ids, distances within 1e-6), recall@10 of
-            the 256 queries against the exact fp32 top-10 (≥ 0.99), the text
-            queries' top-10 against the plain path, row validity, and the
-            times.
+            query sets, recall@10 of the 256 queries against the exact fp32
+            top-10 (≥ 0.99), the text queries' top-10 against the plain path,
+            row validity, and the times;
+6. int8     the serving embed: ClipImpl(ViT-L-14, precision="int8",
+            batch_cap=256) with seeded random weights embeds 1,280 images in
+            five predict() calls of 256 (the first calibrates and is left
+            out of the rate) and 64 texts; embeddings finite and of unit
+            norm; the int8 tower against the bf16 tower on the same
+            dequantized weights (min cosine ≥ 0.999 over 64 images of a call
+            the calibration never saw, and over 64 of the calibrating
+            call); the image
+            embeddings, padded with seeded unit rows to 262,144 × 768, are
+            searched by the text embeddings through the int8 scan at D = 768
+            (kernel path equal to the plain path, tie-aware) and by L2
+            (recall@10 ≥ 0.99 against the exact L2 top-10); every kernel's
+            launch counter is above zero.
 
-Then a line with every kernel's record, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-without CUDA the script exits 1 before printing any result.
+Each main path runs with the launch counters set to zero just before it and
+read just after. Then a line with every kernel's record, the nvidia-smi
+line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
+exits non-zero; without CUDA the script exits 1 before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +63,31 @@ N_IMAGES, IMAGE_BATCH = 4096, 256
 N_ROWS, DIM = 1_048_576, 512
 N_TEXT, N_GAUSS, K, OVERSAMPLE = 64, 256, 10, 8
 EOT = 49407
+L14_BATCH, L14_CALLS, L14_ROWS = 256, 5, 262_144
+# Kernel checks of phase 3, at the shapes the main paths give each kernel.
+ATTN_CASES = {
+    # name: (b, n_q, n_kv, h, d, causal, masked)
+    "vit_b32_image": (256, 50, 50, 12, 64, False, False),
+    "clip_text_causal": (64, 77, 77, 8, 64, True, False),
+    "key_masked": (64, 77, 77, 8, 64, False, True),
+    "cross": (8, 64, 300, 8, 64, False, False),
+    "long_1500": (2, 1500, 1500, 8, 64, False, False),
+    "vit_l14_calibration": (256, 257, 257, 16, 64, False, False),
+    "head_dim_16": (4, 300, 300, 2, 16, False, False),
+}
+QKV_CASES = {
+    # name: (b, n, h, d, causal, int8 out)
+    "vit_l14_image_int8": (256, 257, 16, 64, False, True),
+    "vit_l14_image_bf16": (256, 257, 16, 64, False, False),
+    "vit_l14_text_int8": (64, 77, 12, 64, True, True),
+    "vit_h14_378_bf16": (8, 730, 16, 80, False, False),
+}
+LN_CASES = {"vit_l14_image": (256 * 257, 1024), "vit_l14_text": (64 * 77, 768),
+            "ragged": (1000, 1280)}
+INT_MM_SHAPE = (256 * 257, 1024, 3 * 1024)  # the ViT-L/14 qkv GEMM
+N_SCAN, Q_SCAN, PLANTED = 65_536, 64, (777, 20_000, 60_000)
+WORDS = ("a photo of the red blue green small large dog cat car tree house beach night "
+         "city street person two three on in at with near old new bright dark").split()
 
 
 def emit(obj) -> None:
@@ -76,6 +123,172 @@ def paired_ms(torch, kernel, plain, reps: int = 20) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def require_codes(torch, got, want, what: str) -> int:
+    """int8 outputs: at most one code apart, at most 0.5 % of codes apart.
+    Returns the largest code difference."""
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    worst, share = int(diff.max().item()), float((diff > 0).float().mean().item())
+    require(worst <= 1 and share <= 5e-3, f"{what}: max code diff {worst}, {share:.2e} differ")
+    return worst
+
+
+@contextlib.contextmanager
+def not_counted(counters):
+    """Launches inside (comparisons with a plain version, timing) leave the
+    main path's launch counts as they were."""
+    saved = [fn.launches for fn in counters]
+    try:
+        yield
+    finally:
+        for fn, n in zip(counters, saved):
+            fn.launches = n
+
+
+def int8_embed_path(torch, dev, smi, counters) -> dict:
+    """Phase 6: the ViT-L/14 static-int8 embed through ClipImpl.predict, its
+    image embeddings indexed and searched by its text embeddings."""
+    from panoptikon_tpu_torch.index import VectorIndex
+    from panoptikon_tpu_torch.index.device_index import DeviceIndex
+    from panoptikon_tpu_torch.models import clip
+    from panoptikon_tpu_torch.models.impls import ClipImpl, PredictionInput, npy
+    from panoptikon_tpu_torch.ops import codec, exact, int8_scan, scoring
+
+    t0 = time.perf_counter()
+    impl = ClipImpl(model_arch="ViT-L-14", precision="int8", batch_cap=L14_BATCH, device=dev)
+    impl.load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg = impl.cfg
+    size = cfg.image_size
+
+    # 1-3. Five predict() calls of 256 pre-decoded images; the first calibrates.
+    rng = np.random.default_rng(SEED + 10)
+    img_emb, batch_s, head_pixels = [], [], []
+    for _ in range(L14_CALLS):
+        pixels = rng.standard_normal((L14_BATCH, size, size, 3), dtype=np.float32)
+        inputs = [PredictionInput(data={"pixels": p}) for p in pixels]
+        t0 = time.perf_counter()
+        out = impl.predict(inputs)
+        batch_s.append(time.perf_counter() - t0)
+        img_emb.append(np.stack([npy.parse_npy(o) for o in out]))
+        head_pixels.append(pixels[:N_TEXT])
+    img_emb = np.concatenate(img_emb)
+    texts = [" ".join(rng.choice(WORDS, size=rng.integers(2, 12))) for _ in range(N_TEXT)]
+    text_inputs = [PredictionInput(data={"text": t}) for t in texts]
+    t0 = time.perf_counter()
+    out = impl.predict(text_inputs)
+    first_text_s = time.perf_counter() - t0
+    txt_emb = np.stack([npy.parse_npy(o) for o in out])
+
+    # 4. Finite, unit-norm embeddings of the right shape.
+    n_img = L14_CALLS * L14_BATCH
+    require(img_emb.shape == (n_img, cfg.embed_dim) and img_emb.dtype == np.float32,
+            "int8 image embeddings shape")
+    require(txt_emb.shape == (N_TEXT, cfg.embed_dim), "int8 text embeddings shape")
+    for name, emb in (("image", img_emb), ("text", txt_emb)):
+        require(bool(np.isfinite(emb).all()), f"int8 {name} embeddings finite")
+        require(bool((np.abs(np.linalg.norm(emb, axis=1) - 1) < 1e-3).all()),
+                f"int8 {name} embeddings unit norm")
+
+    # 5. The int8 tower against the bf16 tower on the same dequantized weights:
+    # 64 images of the second call, which the calibration never saw, and 64
+    # of the first, calibrating call beside them.
+    bf16_cfg = dataclasses.replace(cfg, matmul_precision="bf16")
+    cos = {}
+    with not_counted(counters):
+        for name, call in (("held_out", 1), ("calibration_batch", 0)):
+            want = clip.embed_images(impl.params, bf16_cfg,
+                                     torch.from_numpy(head_pixels[call]).to(dev)).cpu().numpy()
+            lo = call * L14_BATCH
+            cos[name] = float(cosines(img_emb[lo:lo + N_TEXT], want).min())
+        ids = torch.from_numpy(impl.token_ids(texts)).to(dev)
+        want_t = clip.embed_texts(impl.params, bf16_cfg, ids).cpu().numpy()[:N_TEXT]
+    require(min(cos.values()) >= 0.999, f"int8 vs bf16 tower: min cosine {cos} < 0.999")
+    cos_t = cosines(txt_emb, want_t)
+
+    # Steady-state times: one request at a time, as predict() serves them.
+    text_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        impl.predict(text_inputs)
+        text_s.append(time.perf_counter() - t0)
+    calib_images = torch.from_numpy(head_pixels[0]).to(dev).repeat(L14_BATCH // N_TEXT, 1, 1, 1)
+    torch.cuda.synchronize()
+    with not_counted(counters):
+        t0 = time.perf_counter()
+        clip.calibrate_image_scales(impl.params, cfg, calib_images)
+        torch.cuda.synchronize()
+        calibration_s = time.perf_counter() - t0
+    del calib_images
+
+    # 6. The image embeddings in an index padded with seeded unit rows.
+    t0 = time.perf_counter()
+    index = VectorIndex()
+    index.reserve("clip", L14_ROWS, cfg.embed_dim)
+    index.add("clip", np.arange(n_img), np.arange(n_img), img_emb)
+    fill_gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    fill = torch.randn((L14_ROWS - n_img, cfg.embed_dim), generator=fill_gen, device=dev)
+    fill = (fill / torch.linalg.norm(fill, dim=1, keepdim=True)).cpu().numpy()
+    index.add("clip", np.arange(n_img, L14_ROWS), np.arange(n_img, L14_ROWS), fill)
+    scale = index.build_quant("clip")
+    dindex = DeviceIndex(index, "clip", dev)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+
+    # 7. Text-to-image search through the scan at D = 768 against the plain path.
+    q_txt = torch.from_numpy(txt_emb).to(dev)
+    tv, ti, tok = dindex.search(q_txt, K, oversample=OVERSAMPLE)
+    args = (dindex.codes, dindex.sumsq, dindex.row_valid, codec.quantize_int8(q_txt, scale))
+    with not_counted(counters):
+        gv, gi, _ = int8_scan.int8_topk(*args, k=K * OVERSAMPLE)
+    pv, pi, _ = int8_scan.int8_topk_plain(*args, k=K * OVERSAMPLE)
+    torch.cuda.synchronize()
+    scan_err = (gv - pv).abs().max().item()
+    require(torch.equal(gi, pi) and scan_err <= 1e-6, "int8_topk at D=768: differs from plain")
+    rv, ri, _ = scoring.rescore_candidates(pv, pi, dindex.vectors, q_txt, k=K)
+    text_agree = exact.topk_agree(tv.cpu().numpy(), ti.cpu().numpy(), rv.cpu().numpy(),
+                                  ri.cpu().numpy(), atol=1e-6)
+    require(bool(tok.all().item()) and text_agree,
+            "int8 embed: text-to-image top-10 through the kernel differs from the plain path")
+
+    # 8. One L2 search (text and Gaussian unit queries) against the exact L2 top-10.
+    gq = torch.randn((N_TEXT, cfg.embed_dim), generator=torch.Generator(device=dev).manual_seed(SEED + 12),
+                     device=dev)
+    q_l2 = torch.cat([q_txt, gq / torch.linalg.norm(gq, dim=1, keepdim=True)])
+    _, li, lok = scoring.int8_topk_rescored(
+        dindex.codes, dindex.sumsq, dindex.row_valid, dindex.vectors,
+        codec.quantize_int8(q_l2, scale), q_l2, k=K, oversample=OVERSAMPLE, distance="l2",
+        scale=scale)
+    group_ids = torch.from_numpy(index.snapshot("clip").group_ids).to(dev)
+    _, ei, _ = exact.exact_search(dindex.vectors, dindex.row_valid, group_ids, q_l2,
+                                  num_groups=L14_ROWS, k=K, distance="l2")
+    got_ids, exact_ids = li.cpu().numpy(), ei.cpu().numpy()
+    recall_l2 = float(np.mean([len(set(got_ids[i]) & set(exact_ids[i])) / K
+                               for i in range(len(got_ids))]))
+    require(bool(lok.all().item()) and recall_l2 >= 0.99, f"L2 recall@10 {recall_l2} < 0.99")
+
+    steady = batch_s[1:]
+    return {
+        "card": smi, "config": "ViT-L-14 int8 static, seeded random weights, ClipImpl.predict",
+        "images": n_img, "texts": N_TEXT, "rows": L14_ROWS, "dim": cfg.embed_dim,
+        "img_per_s_batch_256": len(steady) * L14_BATCH / sum(steady),
+        "predict_s_per_batch_256": steady, "first_predict_s_with_calibration": batch_s[0],
+        "image_calibration_s_batch_256": calibration_s,
+        "text_ms_per_batch_of_64": 1e3 * sum(text_s) / len(text_s),
+        "first_text_predict_s_with_calibration": first_text_s,
+        "min_cos_int8_vs_bf16_images_held_out": cos["held_out"],
+        "min_cos_int8_vs_bf16_images_calibration_batch": cos["calibration_batch"],
+        "min_cos_int8_vs_bf16_texts": float(cos_t.min()),
+        "text_top10_equals_plain": text_agree, "int8_topk_max_abs_err": scan_err,
+        "l2_recall_at_10": recall_l2, "load_s": load_s, "index_build_and_upload_s": index_s,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+def cosines(a, b):
+    return np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
 def main() -> int:
     import torch
 
@@ -89,7 +302,7 @@ def main() -> int:
     from panoptikon_tpu_torch.index import VectorIndex
     from panoptikon_tpu_torch.index.device_index import DeviceIndex
     from panoptikon_tpu_torch.models import clip
-    from panoptikon_tpu_torch.ops import codec, exact, int8_scan, scoring, vit_attention
+    from panoptikon_tpu_torch.ops import codec, exact, int8_scan, ln_quant, scoring, vit_attention
 
     dev = device("cuda")
 
@@ -100,21 +313,30 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[-1]
+    try:
+        import triton
+
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = None
     emit({"phase": "env", "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "nvcc": nvcc, "device_name": torch.cuda.get_device_name(0),
+          "nvcc": nvcc, "triton": triton_version, "device_name": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count()})
 
-    # 2. Build.
-    build = {}
-    for name in ("int8_scan", "attention"):
+    # 2. Build: one nvcc per source, all started together.
+    def build_one(name):
         t0 = time.perf_counter()
         _build.build(name)
-        build[name] = {
+        return name, {
             "seconds": time.perf_counter() - t0,
             "ptxas": [ln.strip() for ln in _build.ptxas_report(name).splitlines()
                       if "registers" in ln or "spill" in ln],
         }
-    emit({"phase": "build", **build})
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        build = dict(pool.map(build_one, ("int8_scan", "attention", "ln_quant")))
+    emit({"phase": "build", "wall_seconds": time.perf_counter() - t0, **build})
 
     # 3. Kernels against their plain versions.
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -122,17 +344,9 @@ def main() -> int:
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    attn_cases = {
-        # name: (b, n_q, n_kv, h, d, causal, masked)
-        "vit_b32_image": (256, 50, 50, 12, 64, False, False),
-        "clip_text_causal": (64, 77, 77, 8, 64, True, False),
-        "key_masked": (64, 77, 77, 8, 64, False, True),
-        "cross": (8, 64, 300, 8, 64, False, False),
-        "long_1500": (2, 1500, 1500, 8, 64, False, False),
-    }
     attn_err = {}
     attn_inputs = {}
-    for name, (b, nq, nkv, h, d, causal, masked) in attn_cases.items():
+    for name, (b, nq, nkv, h, d, causal, masked) in ATTN_CASES.items():
         q, k, v = randn(b, nq, h, d), randn(b, nkv, h, d), randn(b, nkv, h, d)
         mask = None
         if masked:
@@ -146,10 +360,55 @@ def main() -> int:
         require(err <= 2e-2, f"mha {name}: max abs diff {err} > 2e-2")
         attn_err[name] = err
         attn_inputs[name] = (q, k, v, causal, mask)
+    # Below D = 32, p stays f32 in the kernel as in its plain version.
+    q, k, v, _, _ = attn_inputs["head_dim_16"]
+    d16_identical = float((vit_attention.mha(q, k, v) == vit_attention.mha_plain(q, k, v))
+                          .float().mean().item())
+    require(d16_identical >= 0.995, f"mha D=16: only {d16_identical} of outputs identical")
 
-    n_scan, q_scan, k_scan = 65_536, 64, OVERSAMPLE * K
+    # mha_qkv at the shapes of the int8 embed (and ViT-H-14-378's N = 730, D = 80).
+    qkv_err, qkv_inputs = {}, {}
+    for name, (b, n, h, d, causal, q8) in QKV_CASES.items():
+        qkv = randn(b, n, 3 * h * d)
+        scale_t = torch.tensor(3.0, device=dev) if q8 else None
+        got = vit_attention.mha_qkv(qkv, heads=h, causal=causal, out_scale=scale_t)
+        want = vit_attention.mha_qkv_plain(qkv, heads=h, causal=causal, out_scale=scale_t)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape == (b, n, h * d) and got.dtype == want.dtype,
+                f"mha_qkv {name}: shape or dtype")
+        if q8:
+            qkv_err[name] = require_codes(torch, got, want, f"mha_qkv {name}")
+        else:
+            err = (got.float() - want.float()).abs().max().item()
+            require(err <= 2e-2, f"mha_qkv {name}: max abs diff {err} > 2e-2")
+            qkv_err[name] = err
+        qkv_inputs[name] = (qkv, h, causal, scale_t)
+
+    # ln_quant at the embed's two widths and a ragged shape.
+    ln_err, ln_inputs = {}, {}
+    for name, (r, w) in LN_CASES.items():
+        x = randn(r, w) * 3
+        g, b_ = randn(w, dtype=torch.float32), randn(w, dtype=torch.float32)
+        s_t = torch.tensor(4.2, device=dev)
+        got = ln_quant.ln_quant_2d(x, g, b_, s_t)
+        want = ln_quant.ln_quant_plain(x, g, b_, s_t)
+        torch.cuda.synchronize()
+        ln_err[name] = require_codes(torch, got, want, f"ln_quant {name}")
+        ln_inputs[name] = (x, g, b_, s_t)
+
+    # The int8 GEMM of the embed (torch._int_mm) against an exact f64 GEMM.
+    m8, k8, n8 = INT_MM_SHAPE
+    a8 = torch.randint(-127, 128, (m8, k8), generator=gen, device=dev, dtype=torch.int8)
+    w8 = clip._quantize_weight(randn(k8, n8, dtype=torch.float32))["q"]
+    int_mm = clip._int_mm(a8, w8)
+    exact_mm = (a8.double() @ w8.double()).to(torch.int32)
+    torch.cuda.synchronize()
+    require(torch.equal(int_mm, exact_mm), "torch._int_mm differs from the exact GEMM")
+    del int_mm, exact_mm
+
+    n_scan, q_scan, k_scan = N_SCAN, Q_SCAN, OVERSAMPLE * K
     x = torch.randn((n_scan, DIM), generator=gen, device=dev)
-    x[[777, 20_000, 60_000]] = x[5].clone()  # planted equal rows, in different tiles
+    x[list(PLANTED)] = x[5].clone()  # planted equal rows, in different tiles
     x = x / torch.linalg.norm(x, dim=1, keepdim=True)
     qv = torch.randn((q_scan, DIM), generator=gen, device=dev)
     qv[0] = x[5]
@@ -158,7 +417,7 @@ def main() -> int:
     s_codes, s_q = codec.quantize_int8(x, scale), codec.quantize_int8(qv, scale)
     s_sumsq = scoring.row_sumsq(s_codes)
     s_valid = torch.rand(n_scan, generator=gen, device=dev) > 0.05
-    s_valid[[5, 777, 20_000, 60_000]] = True
+    s_valid[[5, *PLANTED]] = True
     scan_args = (s_codes, s_sumsq, s_valid, s_q)
     gv, gi, gok = int8_scan.int8_topk(*scan_args, k=k_scan)
     pv, pi, pok = int8_scan.int8_topk_plain(*scan_args, k=k_scan)
@@ -166,8 +425,15 @@ def main() -> int:
     scan_err = (gv - pv).abs().max().item()
     require(torch.equal(gi, pi) and torch.equal(gok, pok), "int8_topk: ids differ from plain")
     require(scan_err <= 1e-6, f"int8_topk: max abs dist diff {scan_err} > 1e-6")
-    require(gi[0, :4].tolist() == [5, 777, 20_000, 60_000], "int8_topk: planted tie order")
+    require(gi[0, :4].tolist() == [5, *PLANTED], "int8_topk: planted tie order")
     require(bool(s_valid[gi].all().item()), "int8_topk: an invalid row was returned")
+    gv, gi, gok = int8_scan.int8_topk(*scan_args, k=k_scan, distance="l2", scale=scale)
+    pv, pi, pok = int8_scan.int8_topk_plain(*scan_args, k=k_scan, distance="l2", scale=scale)
+    torch.cuda.synchronize()
+    scan_l2_err = (gv - pv).abs().max().item()
+    require(torch.equal(gi, pi) and torch.equal(gok, pok), "int8_topk l2: ids differ from plain")
+    require(scan_l2_err <= 1e-6, f"int8_topk l2: max abs dist diff {scan_l2_err} > 1e-6")
+    require(gi[0, :4].tolist() == [5, *PLANTED], "int8_topk l2: planted tie order")
 
     q, k, v, causal, mask = attn_inputs["vit_b32_image"]
     mha_ms, mha_plain_ms = paired_ms(
@@ -179,19 +445,60 @@ def main() -> int:
     scan_ms, scan_plain_ms = paired_ms(
         torch, lambda: int8_scan.int8_topk(*scan_args, k=k_scan),
         lambda: int8_scan.int8_topk_plain(*scan_args, k=k_scan), reps=10)
+    scan_l2_ms, scan_l2_plain_ms = paired_ms(
+        torch, lambda: int8_scan.int8_topk(*scan_args, k=k_scan, distance="l2", scale=scale),
+        lambda: int8_scan.int8_topk_plain(*scan_args, k=k_scan, distance="l2", scale=scale),
+        reps=10)
+    ql, kl, vl, _, _ = attn_inputs["vit_l14_calibration"]
+    l14_mha_ms, l14_mha_plain_ms = paired_ms(
+        torch, lambda: vit_attention.mha(ql, kl, vl), lambda: vit_attention.mha_plain(ql, kl, vl),
+        reps=5)
+    qkv_ms = {}
+    for name, (qkv, h, causal, scale_t) in qkv_inputs.items():
+        qkv_ms[name] = paired_ms(
+            torch, lambda: vit_attention.mha_qkv(qkv, heads=h, causal=causal, out_scale=scale_t),
+            lambda: vit_attention.mha_qkv_plain(qkv, heads=h, causal=causal, out_scale=scale_t),
+            reps=5)
+    ln_ms = {name: paired_ms(torch, lambda: ln_quant.ln_quant_2d(*args),
+                             lambda: ln_quant.ln_quant_plain(*args))
+             for name, args in ln_inputs.items()}
+    int_mm_ms, exact_mm_ms = paired_ms(
+        torch, lambda: clip._int_mm(a8, w8), lambda: (a8.double() @ w8.double()).to(torch.int32),
+        reps=5)
+    # The layout rule of clip._int_mm: the same codes with B row-major.
+    w8_rows = w8.contiguous()
+    require(torch.equal(torch._int_mm(a8, w8_rows), clip._int_mm(a8, w8)),
+            "torch._int_mm: row-major B differs from column-major B")
+    int_mm_ms_b_col, int_mm_ms_b_row = paired_ms(
+        torch, lambda: torch._int_mm(a8, w8), lambda: torch._int_mm(a8, w8_rows), reps=5)
     emit({"phase": "kernels", "card": smi, "mha_max_abs_err": attn_err,
-          "int8_topk_max_abs_err": scan_err,
+          "mha_head_dim_16_identical_share": d16_identical,
+          "mha_qkv_max_err": qkv_err, "ln_quant_max_code_diff": ln_err,
+          "int8_topk_max_abs_err": scan_err, "int8_topk_l2_max_abs_err": scan_l2_err,
           "mha_vit_b32_image_ms": mha_ms, "mha_vit_b32_image_plain_ms": mha_plain_ms,
           "mha_clip_text_ms": text_mha_ms, "mha_clip_text_plain_ms": text_mha_plain_ms,
+          "mha_vit_l14_calibration_ms": l14_mha_ms,
+          "mha_vit_l14_calibration_plain_ms": l14_mha_plain_ms,
+          "mha_qkv_ms": {n: t[0] for n, t in qkv_ms.items()},
+          "mha_qkv_plain_ms": {n: t[1] for n, t in qkv_ms.items()},
+          "ln_quant_ms": {n: t[0] for n, t in ln_ms.items()},
+          "ln_quant_plain_ms": {n: t[1] for n, t in ln_ms.items()},
+          "int_mm_shape": INT_MM_SHAPE, "int_mm_ms": int_mm_ms, "exact_f64_gemm_ms": exact_mm_ms,
+          "torch_int_mm_b_column_major_ms": int_mm_ms_b_col,
+          "torch_int_mm_b_row_major_ms": int_mm_ms_b_row,
           "int8_topk_65536x512_q64_k80_ms": scan_ms,
-          "int8_topk_65536x512_q64_k80_plain_ms": scan_plain_ms})
-    del x, qv, scan_args, s_codes, attn_inputs, q, k, v, qt, kt, vt
+          "int8_topk_65536x512_q64_k80_plain_ms": scan_plain_ms,
+          "int8_topk_l2_65536x512_q64_k80_ms": scan_l2_ms,
+          "int8_topk_l2_65536x512_q64_k80_plain_ms": scan_l2_plain_ms})
+    del x, qv, scan_args, s_codes, attn_inputs, q, k, v, qt, kt, vt, ql, kl, vl
+    del qkv_inputs, ln_inputs, a8, w8, w8_rows
 
-    # 4. The main path, ViT-B/32 at full width. Counters start at zero here.
+    # 4. The ViT-B/32 search slice. Counters start at zero here.
     cfg = clip.CONFIGS["ViT-B-32"]
     params = clip.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dtype=torch.bfloat16)
-    int8_scan.int8_topk.launches = 0
-    vit_attention.mha.launches = 0
+    counters = (int8_scan.int8_topk, vit_attention.mha, vit_attention.mha_qkv, ln_quant.ln_quant_2d)
+    for fn in counters:
+        fn.launches = 0
 
     img_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     embeds = []
@@ -247,7 +554,7 @@ def main() -> int:
     gq = gq / torch.linalg.norm(gq, dim=1, keepdim=True)
     sv, si, sok = dindex.search(gq, K, oversample=OVERSAMPLE)
     torch.cuda.synchronize()
-    launches = {"int8_topk": int8_scan.int8_topk.launches, "mha": vit_attention.mha.launches}
+    launches = {fn.__name__: fn.launches for fn in counters}
 
     # 5. Checks and times.
     require(launches["int8_topk"] > 0 and launches["mha"] > 0, f"kernel launches {launches}")
@@ -304,14 +611,34 @@ def main() -> int:
           "search_qps_q256_k10": N_GAUSS / (search_ms / 1e3), "search_ms_q256": search_ms,
           "int8_topk_1m_q256_k80_ms": scan_1m_ms, "int8_topk_1m_q256_k80_plain_ms": scan_1m_plain_ms,
           "host_index_build_s": host_build_s, "upload_s": upload_s})
+    del index, dindex, params, img_emb, embeds, codes_1m, group_ids, gq, txt_emb
+    torch.cuda.empty_cache()
 
+    # 6. The serving embed: ViT-L/14 static int8 through ClipImpl.predict.
+    for fn in counters:
+        fn.launches = 0
+    l14 = int8_embed_path(torch, dev, smi, counters)
+    l14_launches = {fn.__name__: fn.launches for fn in counters}
+    require(all(n > 0 for n in l14_launches.values()), f"int8 path kernel launches {l14_launches}")
+    emit({"phase": "int8", "launches": l14_launches, **l14})
+
+    total = {name: launches[name] + l14_launches[name] for name in launches}
     emit({"kernels": [
         {"name": "int8_topk", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
-         "replaces": "panoptikon_tpu/ops/pallas_scan.py:138", "launches": launches["int8_topk"],
-         "max_abs_err": max(scan_err, scan_1m_err), "ms": scan_ms, "plain_ms": scan_plain_ms},
+         "replaces": "panoptikon_tpu/ops/pallas_scan.py:138", "launches": total["int8_topk"],
+         "max_abs_err": max(scan_err, scan_l2_err, scan_1m_err, l14["int8_topk_max_abs_err"]),
+         "ms": scan_ms, "plain_ms": scan_plain_ms},
         {"name": "mha", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
-         "replaces": "panoptikon_tpu/ops/vit_attention.py:192", "launches": launches["mha"],
+         "replaces": "panoptikon_tpu/ops/vit_attention.py:192", "launches": total["mha"],
          "max_abs_err": max(attn_err.values()), "ms": mha_ms, "plain_ms": mha_plain_ms},
+        {"name": "mha_qkv", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
+         "replaces": "panoptikon_tpu/ops/vit_attention.py:296", "launches": total["mha_qkv"],
+         "max_abs_err": max(qkv_err.values()), "ms": qkv_ms["vit_l14_image_int8"][0],
+         "plain_ms": qkv_ms["vit_l14_image_int8"][1]},
+        {"name": "ln_quant", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/ln_quant.cu",
+         "replaces": "panoptikon_tpu/ops/ln_quant.py:60", "launches": total["ln_quant_2d"],
+         "max_abs_err": max(ln_err.values()), "ms": ln_ms["vit_l14_image"][0],
+         "plain_ms": ln_ms["vit_l14_image"][1]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

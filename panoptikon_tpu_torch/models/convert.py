@@ -16,8 +16,14 @@ import torch
 
 def params_from_jax(tree, device="cpu", dtype: torch.dtype | None = None):
     """Nested dicts/lists of arrays -> the same nesting of tensors on
-    ``device``. Floating arrays are cast to ``dtype`` when it is given."""
+    ``device``. Floating arrays are cast to ``dtype`` when it is given,
+    except inside a quantized weight (a ``{"q", "s"}`` dict from
+    ``quantize_block_weights``), whose int8 codes and f32 per-channel scales
+    keep their dtype. Calibrated activation scales are a separate array:
+    convert them without ``dtype``, as they are f32 in both packages."""
     if isinstance(tree, dict):
+        if set(tree) == {"q", "s"}:
+            dtype = None
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device, dtype) for v in tree]

@@ -7,6 +7,12 @@ before the cast (a float->int8 cast of NaN is undefined), and the clamp before
 the cast so the cast is exact. The division runs in f32 against an f32 scale,
 as NumPy's ``x / np.float32(scale)`` does.
 
+:func:`quantize_static` is the other int8 codec of the port: the static
+per-tensor activation quantization of the calibrated int8 CLIP block,
+``clip(round(x / max(s / 127, 1e-12)), -127, 127)``, which the JAX package
+writes out in ``models/clip.py::_linear``, ``ops/ln_quant.py`` and the
+epilogue of ``ops/vit_attention.py::mha_qkv``.
+
 The host codec (scale derivation, the scale artifact, NumPy quantization for
 index builds) is jax-free and re-exported from the JAX package unchanged.
 """
@@ -37,3 +43,18 @@ def quantize_int8(vectors: torch.Tensor, scale: float) -> torch.Tensor:
 
 def dequantize_int8(codes: torch.Tensor, scale: float) -> torch.Tensor:
     return codes.to(torch.float32) * torch.tensor(scale, dtype=torch.float32, device=codes.device)
+
+
+def static_step(act_scale, device) -> torch.Tensor:
+    """The quantization step of a calibrated absmax: ``max(s / 127, 1e-12)``,
+    an f32 scalar tensor on ``device`` (``act_scale`` may stay on the device:
+    nothing is read back)."""
+    s = torch.as_tensor(act_scale, dtype=torch.float32, device=device)
+    return torch.clamp(s / 127.0, min=1e-12)
+
+
+def quantize_static(x: torch.Tensor, act_scale) -> torch.Tensor:
+    """Activations -> int8 at a static per-tensor absmax: the f32 division is
+    correctly rounded and ``torch.round`` rounds half to even, as ``jnp.round``."""
+    sx = static_step(act_scale, x.device)
+    return torch.clamp(torch.round(x.to(torch.float32) / sx), -127.0, 127.0).to(torch.int8)

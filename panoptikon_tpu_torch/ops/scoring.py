@@ -40,7 +40,10 @@ def _chunk_dots(queries: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
 
 
 def _distance_epilogue(dots, chunk_sumsq, query_sumsq, distance: Distance, scale: float):
-    """Dot products -> distances on the true axis, all f32."""
+    """Dot products -> distances on the true axis, all f32, in the JAX
+    package's formula and roundings. The scan kernel's own roundings (the L2
+    sum in integers, correctly rounded roots) are ``int8_scan._distances``,
+    which the kernel's plain version uses."""
     dots = dots.to(torch.float32)
     xx = chunk_sumsq.to(torch.float32)[None, :]
     qq = query_sumsq.to(torch.float32)[:, None]
@@ -68,7 +71,12 @@ def streaming_topk(
 ):
     """Top-k rows per query, one corpus chunk at a time; ascending distance,
     lowest row first among ties. corpus (N, D) int8 codes or f32, N a
-    multiple of ``chunk_rows``; queries in the corpus's domain."""
+    multiple of ``chunk_rows``; queries in the corpus's domain.
+
+    Kept as the counterpart of the JAX package's streaming fallback, which
+    ``bench.py`` and the recall probes under ``tools/`` use as their oracle;
+    nothing in the port's serving path calls it (``int8_topk_rescored``
+    takes the scan, whose plain version serves CPU tensors)."""
     n = corpus.shape[0]
     if n % chunk_rows:
         raise ValueError(f"corpus rows {n} must be a multiple of chunk_rows {chunk_rows}")
@@ -118,20 +126,12 @@ def int8_topk_rescored(
 ):
     """The serving fast path: int8 candidates (k·oversample) + f32 rescore.
 
-    Cosine candidates come from the fused scan kernel on the card. L2 has no
-    kernel (the reference kernel is cosine-only): it raises on CUDA and runs
-    the streamed plain path on the CPU. Returns (dist (Q,k), row (Q,k),
-    valid (Q,k))."""
+    Candidates, cosine or L2 (code-space L2 × ``scale``), come from the
+    fused scan (``int8_scan.int8_topk``: the kernel on the card, its plain
+    version on the CPU). Returns (dist (Q,k), row (Q,k), valid (Q,k))."""
     kk = min(k * oversample, codes.shape[0])
-    if distance == "cosine":
-        cand_v, cand_i, _ = int8_scan.int8_topk(codes, sumsq, row_valid, q_codes, k=kk)
-    elif codes.device.type == "cuda":
-        raise NotImplementedError("int8_topk_rescored on CUDA supports distance='cosine' only")
-    else:
-        cand_v, cand_i, _ = streaming_topk(
-            codes, sumsq, row_valid, q_codes, k=kk, distance=distance, scale=scale,
-            chunk_rows=codes.shape[0],
-        )
+    cand_v, cand_i, _ = int8_scan.int8_topk(codes, sumsq, row_valid, q_codes, k=kk,
+                                            distance=distance, scale=scale)
     if not rescore:
         return cand_v[:, :k], cand_i[:, :k], torch.isfinite(cand_v[:, :k])
     return rescore_candidates(cand_v, cand_i, corpus_f32, q_f32, k=k, distance=distance)

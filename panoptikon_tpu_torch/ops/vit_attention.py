@@ -1,19 +1,25 @@
-"""Multi-head attention — kernel 2 of the port.
+"""Multi-head attention — kernels B3 and B4 of the port.
 
-Port of ``panoptikon_tpu/ops/vit_attention.py::mha`` (and ``attention``,
-its caller-facing name). Four modes through one kernel
-(``csrc/attention.cu``): self, causal, key-padding masked (additive −1e9,
-so a fully masked row gives uniform probabilities, never NaN) and cross
-(N_q ≠ N_kv). Softmax in f32; probabilities are rounded to V's dtype before
-the AV product, which accumulates in f32; the output is in q's dtype.
+Port of ``panoptikon_tpu/ops/vit_attention.py``: ``mha`` (and ``attention``,
+its caller-facing name) and ``mha_qkv``, both through one kernel
+(``csrc/attention.cu``).
 
-Layout: q (B, N_q, H, D), k and v (B, N_kv, H, D) — the (B, N, H·D)
-activations the towers produce, viewed per head.
+- :func:`mha` takes q (B, N_q, H, D) and k, v (B, N_kv, H, D): self, causal,
+  key-padding masked (additive −1e9, so a fully masked row gives uniform
+  probabilities, never NaN) and cross (N_q ≠ N_kv) attention.
+- :func:`mha_qkv` takes the unsplit (B, N, 3·H·D) output of the fused qkv
+  projection (q | k | v along the last axis), optionally causal, and returns
+  (B, N, H·D) in qkv's dtype or, with a static ``out_scale``, int8 quantized
+  from the f32 accumulator (the out-projection's input quant).
 
-:func:`mha` launches the kernel for CUDA tensors and takes
-:func:`mha_plain` for CPU tensors; any other device raises. Unlike the JAX
-``attention``, which picks by the default backend, the choice follows the
-tensor.
+Softmax in f32; probabilities are rounded to V's dtype before the AV
+product when D ≥ 32 and stay f32 below that (the reference computes head
+dims under 32 in f32); AV accumulates in f32.
+
+Each wrapper launches the kernel for CUDA tensors and takes its plain
+version (:func:`mha_plain`, :func:`mha_qkv_plain`) for CPU tensors; any
+other device raises. Unlike the JAX ``attention``, which picks by the
+default backend, the choice follows the tensor.
 """
 
 from __future__ import annotations
@@ -23,9 +29,11 @@ import ctypes
 import torch
 
 from panoptikon_tpu_torch import _build
+from panoptikon_tpu_torch.ops.codec import quantize_static
 
 _SIGNATURES = {
     "pk_mha": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    "pk_mha_qkv": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
 }
 MAX_HEAD_DIM = 128
 
@@ -49,9 +57,9 @@ def _check(q, k, v, causal, key_mask):
         raise ValueError(f"key_mask must be (B, N_kv) = {(b, n_kv)} on {q.device}")
 
 
-def mha_plain(q, k, v, *, causal: bool = False, key_mask=None):
-    """Plain PyTorch version of :func:`mha`, in the reference's arithmetic."""
-    _check(q, k, v, causal, key_mask)
+def _attend(q, k, v, causal, key_mask):
+    """The attention output in f32, before its final cast, in the reference's
+    arithmetic."""
     n_q, n_kv, d = q.shape[1], k.shape[1], q.shape[3]
     lt = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32)) * (float(d) ** -0.5)
     if causal:
@@ -61,9 +69,16 @@ def mha_plain(q, k, v, *, causal: bool = False, key_mask=None):
         valid = (key_mask.to(torch.float32) > 0)[:, None, None, :]
         lt = torch.where(valid, lt, lt - 1e9)
     e = torch.exp(lt - lt.amax(dim=-1, keepdim=True))
-    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.float32), v.to(torch.float32))
-    return out.to(q.dtype)
+    p = e / e.sum(dim=-1, keepdim=True)
+    if d >= 32:
+        p = p.to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(torch.float32), v.to(torch.float32))
+
+
+def mha_plain(q, k, v, *, causal: bool = False, key_mask=None):
+    """Plain PyTorch version of :func:`mha`, in the reference's arithmetic."""
+    _check(q, k, v, causal, key_mask)
+    return _attend(q, k, v, causal, key_mask).to(q.dtype)
 
 
 def mha(q, k, v, *, causal: bool = False, key_mask=None):
@@ -103,3 +118,74 @@ mha.launches = 0
 def attention(q, k, v, *, causal: bool = False):
     """The towers' attention: :func:`mha` without a key mask."""
     return mha(q, k, v, causal=causal)
+
+
+def qkv_fused_fits(head_dim: int) -> bool:
+    """Whether :func:`mha_qkv`'s kernel takes this head dim. It streams keys
+    through shared memory in 64-key chunks, so N and H are free (the JAX
+    rule of the same name, which also takes them, bounds VMEM); a lane
+    holds D/32 accumulators, so D ≤ 128, where the block's shared memory
+    (a 16-row q block and one K and one V chunk in f32) is 74 KB of the
+    H100's 227 KB. Every ``CONFIGS`` entry fits, ViT-H-14-378 (D = 80,
+    N = 730) included; the JAX package's VMEM rule rejects that one."""
+    return 1 <= head_dim <= MAX_HEAD_DIM
+
+
+def _check_qkv(qkv, heads):
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * heads):
+        raise ValueError(f"qkv must be (B, N, 3·H·D) with H = {heads}, got {tuple(qkv.shape)}")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"qkv must be f32 or bf16, got {qkv.dtype}")
+    if qkv.shape[1] < 1:
+        raise ValueError("attention needs at least one key")
+
+
+def mha_qkv_plain(qkv, *, heads: int, causal: bool = False, out_scale=None):
+    """Plain PyTorch version of :func:`mha_qkv`, in the arithmetic of the
+    reference's ``_attn_qkv_kernel``."""
+    _check_qkv(qkv, heads)
+    b, n, w3 = qkv.shape
+    w = w3 // 3
+    q, k, v = (t.reshape(b, n, heads, w // heads) for t in qkv.split(w, dim=-1))
+    out = _attend(q, k, v, causal, None).reshape(b, n, w)
+    if out_scale is None:
+        return out.to(qkv.dtype)
+    return quantize_static(out, out_scale)
+
+
+def mha_qkv(qkv, *, heads: int, causal: bool = False, out_scale=None):
+    """Attention over the unsplit qkv projection output.
+
+    qkv (B, N, 3·H·D), f32 or bf16, D ≤ 128 (:func:`qkv_fused_fits`).
+    Returns (B, N, H·D) in qkv's dtype, or int8 at the static calibrated
+    absmax ``out_scale`` (a scalar; a CUDA tensor stays on the device)."""
+    if qkv.device.type == "cpu":
+        return mha_qkv_plain(qkv, heads=heads, causal=causal, out_scale=out_scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"mha_qkv: unsupported device {qkv.device}")
+    _check_qkv(qkv, heads)
+    b, n, w3 = qkv.shape
+    w = w3 // 3
+    d = w // heads
+    if not qkv_fused_fits(d):
+        raise ValueError(f"mha_qkv kernel supports D <= {MAX_HEAD_DIM}, got {d}")
+    if not qkv.is_contiguous():
+        raise ValueError("mha_qkv kernel needs a contiguous qkv")
+    scale_t = None
+    if out_scale is not None:
+        scale_t = torch.as_tensor(out_scale, dtype=torch.float32, device=qkv.device).reshape(1)
+        out = torch.empty((b, n, w), dtype=torch.int8, device=qkv.device)
+    else:
+        out = torch.empty((b, n, w), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.load("attention", _SIGNATURES)
+    err = lib.pk_mha_qkv(
+        qkv.data_ptr(), out.data_ptr(), None if scale_t is None else scale_t.data_ptr(),
+        b, n, heads, d, int(causal), int(qkv.dtype == torch.bfloat16), float(d) ** -0.5,
+        torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    _build.check(err, "mha_qkv")
+    mha_qkv.launches += 1
+    return out
+
+
+mha_qkv.launches = 0

@@ -2,14 +2,18 @@
 
     python3 -m panoptikon_tpu_torch.profiling [--out DIR] [--reps N]
 
-Two operations, each called ``reps`` times back to back under
+Three operations, each called ``reps`` times back to back under
 ``torch.profiler`` (CPU and CUDA activity), after three warm-up calls:
 
 - ``search``: ``DeviceIndex.search`` at 1,048,576 × 512 (seeded unit rows
   in a host ``VectorIndex``, int8 arm built and uploaded), 256 Gaussian unit
   queries, k=10, oversample 8;
 - ``embed``: ``clip.embed_images`` of CLIP ViT-B/32, bf16, seeded random
-  weights, one batch of 256 images.
+  weights, one batch of 256 images;
+- ``embed_int8``: the serving embed, ``clip.embed_images_scaled`` of CLIP
+  ViT-L/14 with block weights quantized once and activation scales
+  calibrated on the batch itself (static int8, kernels ``mha_qkv`` and
+  ``ln_quant``), seeded random weights, one batch of 256 images.
 
 For each it prints one JSON line: device time per call (the sum of the
 CUDA kernels' self time, as the profiler's "Self CUDA time total"), wall
@@ -23,6 +27,7 @@ card's name and power limit (nvidia-smi) lead the output.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -70,6 +75,16 @@ def _embed_op(dev):
     images = torch.randn((IMAGE_BATCH, cfg.image_size, cfg.image_size, 3), generator=gen,
                          device=dev, dtype=torch.bfloat16)
     return lambda: clip.embed_images(params, cfg, images)
+
+
+def _embed_int8_op(dev):
+    cfg = dataclasses.replace(clip.CONFIGS["ViT-L-14"], matmul_precision="int8")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = clip.quantize_block_weights(clip.init_params(cfg, gen))
+    images = torch.randn((IMAGE_BATCH, cfg.image_size, cfg.image_size, 3), generator=gen,
+                         device=dev, dtype=torch.bfloat16)
+    scales = clip.calibrate_image_scales(params, cfg, images)
+    return lambda: clip.embed_images_scaled(params, cfg, images, scales)
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -122,7 +137,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    for name, make in (("search", _search_op), ("embed", _embed_op)):
+    ops = (("search", _search_op), ("embed", _embed_op), ("embed_int8", _embed_int8_op))
+    for name, make in ops:
         record = _profile(name, make(dev), args.reps, args.out)
         print(json.dumps({"card": smi, **record}), flush=True)
     return 0

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from panoptikon_tpu.ops import codec as host_codec
-from panoptikon_tpu_torch.ops import int8_scan, scoring, vit_attention
+from panoptikon_tpu_torch.ops import int8_scan, ln_quant, scoring, vit_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -57,8 +57,71 @@ def test_mha_kernel_matches_plain(cuda_device, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+def _codes_agree(got, want):
+    """int8 outputs: no code more than one apart, at most 0.5 % apart at all."""
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    return diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 5e-3
+
+
+def test_mha_head_dim_16_keeps_p_in_f32(cuda_device):
+    # Below D = 32 the kernel must not round p to bf16, as its plain version.
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((4, 300, 2, 16), generator=gen, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    got = vit_attention.mha(q, k, v)
+    want = vit_attention.mha_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert (got == want).float().mean().item() >= 0.995
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+QKV_SHAPES = {
+    # name: (b, n, h, d, causal)
+    "vit_l14_image": (2, 257, 16, 64, False),
+    "vit_l14_text": (3, 77, 12, 64, True),
+    "vit_h14_378": (1, 730, 16, 80, False),
+    "head_dim_16": (2, 40, 2, 16, True),
+}
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("shape", list(QKV_SHAPES))
+def test_mha_qkv_kernel_matches_plain(cuda_device, shape, out):
+    b, n, h, d, causal = QKV_SHAPES[shape]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    in_dt = torch.float32 if out == "float32" else torch.bfloat16
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=cuda_device).to(in_dt)
+    scale = torch.tensor(2.5, device=cuda_device) if out == "int8" else None
+    before = vit_attention.mha_qkv.launches
+    got = vit_attention.mha_qkv(qkv, heads=h, causal=causal, out_scale=scale)
+    want = vit_attention.mha_qkv_plain(qkv, heads=h, causal=causal, out_scale=scale)
+    torch.cuda.synchronize()
+    assert vit_attention.mha_qkv.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == (b, n, h * d)
+    if out == "int8":
+        assert _codes_agree(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[out], atol=TOL[out])
+
+
+@pytest.mark.parametrize("r,w", [(256 * 257, 1024), (1000, 1280), (77, 40), (3, 2048)])
+def test_ln_quant_kernel_matches_plain(cuda_device, r, w):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (torch.randn((r, w), generator=gen, device=cuda_device) * 3).to(torch.bfloat16)
+    g = torch.randn(w, generator=gen, device=cuda_device)
+    b = torch.randn(w, generator=gen, device=cuda_device)
+    s = torch.tensor(4.2, device=cuda_device)
+    before = ln_quant.ln_quant_2d.launches
+    got = ln_quant.ln_quant_2d(x, g, b, s)
+    want = ln_quant.ln_quant_plain(x, g, b, s)
+    torch.cuda.synchronize()
+    assert ln_quant.ln_quant_2d.launches == before + 1
+    assert got.dtype == torch.int8 and _codes_agree(got, want)
+
+
+@pytest.mark.parametrize("distance", ["cosine", "l2"])
 @pytest.mark.parametrize("n,d,q,k", [(5000, 128, 40, 80), (70_000, 512, 17, 10), (1100, 32, 3, 1)])
-def test_int8_topk_kernel_matches_plain(cuda_device, n, d, q, k):
+def test_int8_topk_kernel_matches_plain(cuda_device, n, d, q, k, distance):
     rng = np.random.default_rng(n)
     corpus = rng.normal(size=(n, d)).astype(np.float32)
     corpus[[n // 2, n - 1]] = corpus[3]  # equal rows in different tiles
@@ -71,8 +134,8 @@ def test_int8_topk_kernel_matches_plain(cuda_device, n, d, q, k):
     valid[[3, n // 2, n - 1]] = True
     args = (codes, scoring.row_sumsq(codes), valid, q_codes)
     before = int8_scan.int8_topk.launches
-    gv, gi, gok = int8_scan.int8_topk(*args, k=k)
-    pv, pi, pok = int8_scan.int8_topk_plain(*args, k=k)
+    gv, gi, gok = int8_scan.int8_topk(*args, k=k, distance=distance, scale=scale)
+    pv, pi, pok = int8_scan.int8_topk_plain(*args, k=k, distance=distance, scale=scale)
     torch.cuda.synchronize()
     assert int8_scan.int8_topk.launches == before + 1
     assert torch.equal(gi, pi) and torch.equal(gok, pok) and torch.equal(gv, pv)

@@ -116,3 +116,35 @@ def test_int8_topk_rescored_matches_jax(distance):
     assert exact.topk_agree(gv.numpy(), gi.numpy(), np.asarray(rv), np.asarray(ri), atol=1e-6)
     np.testing.assert_array_equal(gok.numpy(), np.asarray(rok))
 
+
+
+@pytest.mark.parametrize("k", [10, 40])
+def test_plain_l2_matches_jax_surface(k):
+    # The L2 epilogue: scale · sqrt(max(qq − 2·dot + xx, 0)), the JAX
+    # package's _distance_epilogue, through its identity surface and top-k.
+    _, _, codes, q_codes, sumsq, valid, scale = _corpus(seed=6)
+    n = codes.shape[0]
+    rd, rok, _ = ref_scoring.grouped_scores(codes, sumsq, valid, np.arange(n, dtype=np.int32),
+                                            q_codes, num_groups=n, distance="l2", scale=scale,
+                                            identity=True)
+    rv, ri, rvalid = ref_scoring.topk_of_scores(rd, rok, kk=k)
+    gv, gi, gok = int8_scan.int8_topk_plain(*_port(codes, sumsq, valid, q_codes), k=k,
+                                            distance="l2", scale=scale)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(gv.numpy(), np.asarray(rv), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(gok.numpy(), np.asarray(rvalid))
+    np.testing.assert_array_equal(gi.numpy()[1, :3], [5, 300, 700])  # exact ties, row order
+    assert (gv.numpy()[1, :3] == 0).all()
+
+
+def test_l2_wrapper_takes_plain_version_on_cpu():
+    _, _, codes, q_codes, sumsq, valid, scale = _corpus(seed=7)
+    args = _port(codes, sumsq, valid, q_codes)
+    before = int8_scan.int8_topk.launches
+    got = int8_scan.int8_topk(*args, k=12, distance="l2", scale=scale)
+    want = int8_scan.int8_topk_plain(*args, k=12, distance="l2", scale=scale)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int8_scan.int8_topk.launches == before
+    with pytest.raises(ValueError):
+        int8_scan.int8_topk(*args, k=12, distance="dot")

@@ -1,5 +1,6 @@
 """The port imports no JAX, and never falls back from CUDA to the CPU."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -20,7 +21,7 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not [m for m in leaked if sys.modules[m] is not None], leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -29,7 +30,27 @@ def test_every_port_module_imports_without_jax():
         [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 10  # every module of the port was imported
+    names = set(out.stdout.split())
+    # every module of the port was imported, the serving embed's included
+    assert len(names) >= 15
+    for name in ("ops.ln_quant", "ops.vit_attention", "ops.int8_scan", "models.clip",
+                 "models.impls", "models.convert", "profiling"):
+        assert f"panoptikon_tpu_torch.{name}" in names
+
+
+def test_chip_smoke_imports_only_the_port():
+    # chip_smoke.py drives the port: no import of jax or of the JAX package,
+    # not even of its jax-free modules (the port re-exports what it shares).
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    modules = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            modules.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            modules.add(node.module or "")
+    top = {m.split(".")[0] for m in modules}
+    assert "panoptikon_tpu_torch" in top
+    assert not top & {"jax", "jaxlib", "panoptikon_tpu"}, sorted(modules)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
