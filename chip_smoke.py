@@ -12,9 +12,13 @@ Phases, one JSON line each:
             the shapes the main paths give it, timed kernel/plain/plain/
             kernel: mha and mha_qkv bf16 ≤ 2e-2 max abs; int8 outputs
             (mha_qkv, ln_quant) at most one code apart and at most 0.5 % of
-            codes apart; the int8 scan, cosine and L2, with identical ids and
-            distances within 1e-6; torch._int_mm identical to an exact GEMM,
-            and timed with its B operand column-major and row-major;
+            codes apart; both int8 scans (B1 at Q = 64, B2 at Q = 1,024 and
+            on a ragged corpus with +inf sentinel rows), cosine and L2, with
+            identical ids and distances within 1e-6; torch._int_mm identical
+            to an exact GEMM, and timed with its B operand column-major and
+            row-major; F.scaled_dot_product_attention timed beside the bf16
+            attention kernels (the library yardstick, never called by the
+            port); each case's bound on the card (bytes or operations);
 4. main     the ViT-B/32 search slice with seeded random bf16 weights: embed
             4,096 images, index them with seeded unit vectors to
             1,048,576 × 512 in a host VectorIndex, build the int8 arm, upload
@@ -25,7 +29,15 @@ Phases, one JSON line each:
             query sets, recall@10 of the 256 queries against the exact fp32
             top-10 (≥ 0.99), the text queries' top-10 against the plain path,
             row validity, and the times;
-6. int8     the serving embed: ClipImpl(ViT-L-14, precision="int8",
+6. batch    the batched search on phase 4's index: 4,096 Gaussian unit
+            queries through DeviceIndex.search (k = 10, oversample 8, so B2
+            at k = 80, k_tile 8, tile_n 2048; B1 must not launch); B2's
+            candidates against its plain version on all 4,096 queries (in
+            chunks of 256), recall@10 of the first 256 against the exact
+            fp32 top-10 (≥ 0.99), row validity; QPS, B2's and B1's ms on the
+            same 4,096 query codes, the candidate overlap of B2 with B1's
+            exact 80, peak device memory;
+7. int8     the serving embed: ClipImpl(ViT-L-14, precision="int8",
             batch_cap=256) with seeded random weights embeds 1,280 images in
             five predict() calls of 256 (the first calibrates and is left
             out of the rate) and 64 texts; embeddings finite and of unit
@@ -36,12 +48,13 @@ Phases, one JSON line each:
             embeddings, padded with seeded unit rows to 262,144 × 768, are
             searched by the text embeddings through the int8 scan at D = 768
             (kernel path equal to the plain path, tie-aware) and by L2
-            (recall@10 ≥ 0.99 against the exact L2 top-10); every kernel's
-            launch counter is above zero.
+            (recall@10 ≥ 0.99 against the exact L2 top-10); the launch
+            counters of its four kernels are above zero.
 
-Each main path runs with the launch counters set to zero just before it and
-read just after. Then a line with every kernel's record, the nvidia-smi
-line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
+Each main path (phases 4-5, 6 and 7) runs with the launch counters set to
+zero just before it and read just after. Then a line with every kernel's
+record (launches, error, times, bound, library time), the nvidia-smi line,
+and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without CUDA the script exits 1 before printing any result.
 """
 
@@ -86,6 +99,15 @@ LN_CASES = {"vit_l14_image": (256 * 257, 1024), "vit_l14_text": (64 * 77, 768),
             "ragged": (1000, 1280)}
 INT_MM_SHAPE = (256 * 257, 1024, 3 * 1024)  # the ViT-L/14 qkv GEMM
 N_SCAN, Q_SCAN, PLANTED = 65_536, 64, (777, 20_000, 60_000)
+Q_SCAN_V2, N_RAGGED = 1024, 10_000  # B2's kernel checks: Q > 512; N not a multiple of 2,048
+N_BATCH, PLAIN_CHUNK = 4096, 256  # the batched search; the plain version's query chunk
+# Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): the least
+# time a kernel could take is the larger of its operations over the peak of
+# their type and its bytes (each input read once, each output written once)
+# over the memory rate.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+LN_OPS_PER_ELEMENT = 9  # two moments (4), normalize (2), affine (2), quantize (1)
 WORDS = ("a photo of the red blue green small large dog cat car tree house beach night "
          "city street person two three on in at with near old new bright dark").split()
 
@@ -132,6 +154,43 @@ def require_codes(torch, got, want, what: str) -> int:
     return worst
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def roofline(ops: float, kind: str, moved: int) -> dict:
+    """The bound of one call: operations over the peak of their type, or
+    bytes over the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / PEAK_OPS_PER_S[kind], moved / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def scan_roofline(args, k: int) -> dict:
+    """An int8 scan: 2·Q·N·D int8 operations; reads codes, sumsq, validity
+    and query codes, writes (Q, k) f32 distances, int64 rows and bools."""
+    codes, _, _, q_codes = args
+    q, (n, d) = q_codes.shape[0], codes.shape
+    return roofline(2 * q * n * d, "int8", nbytes(*args) + q * k * (4 + 8 + 1))
+
+
+def attention_roofline(q, k, v, out, causal=False, mask=None) -> dict:
+    """QKᵀ and PV: 4·B·H·N_q·N_kv·D operations (half the keys when causal)."""
+    b, nq, h, d = q.shape
+    ops = 4 * b * h * nq * k.shape[1] * d * ((nq + 1) / (2 * nq) if causal else 1)
+    return roofline(ops, "bf16", nbytes(q, k, v, mask, out))
+
+
+def sdpa(torch, q, k, v, causal=False):
+    """F.scaled_dot_product_attention on (B, N, H, D) views: the library
+    yardstick of the attention kernels, timed here, never called by the port."""
+    import torch.nn.functional as F
+
+    out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                         v.transpose(1, 2), is_causal=causal)
+    return out.transpose(1, 2)
+
+
 @contextlib.contextmanager
 def not_counted(counters):
     """Launches inside (comparisons with a plain version, timing) leave the
@@ -145,7 +204,7 @@ def not_counted(counters):
 
 
 def int8_embed_path(torch, dev, smi, counters) -> dict:
-    """Phase 6: the ViT-L/14 static-int8 embed through ClipImpl.predict, its
+    """Phase 7: the ViT-L/14 static-int8 embed through ClipImpl.predict, its
     image embeddings indexed and searched by its text embeddings."""
     from panoptikon_tpu_torch.index import VectorIndex
     from panoptikon_tpu_torch.index.device_index import DeviceIndex
@@ -282,6 +341,77 @@ def int8_embed_path(torch, dev, smi, counters) -> dict:
         "text_top10_equals_plain": text_agree, "int8_topk_max_abs_err": scan_err,
         "l2_recall_at_10": recall_l2, "load_s": load_s, "index_build_and_upload_s": index_s,
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+def batch_path(torch, dev, smi, dindex, group_ids, scale, counters) -> dict:
+    """Phase 6: 4,096 Gaussian unit queries through DeviceIndex.search, the
+    batch route of int8_topk_rescored (B2 above 512 queries)."""
+    from panoptikon_tpu_torch.ops import codec, exact, int8_scan
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bq = torch.randn((N_BATCH, DIM), generator=gen, device=dev)
+    bq = bq / torch.linalg.norm(bq, dim=1, keepdim=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    bv, bi, bok = dindex.search(bq, K, oversample=OVERSAMPLE)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    require(launches["int8_topk_v2"] > 0 and launches["int8_topk"] == 0,
+            f"batch: kernel launches {launches}")
+    require(tuple(bi.shape) == (N_BATCH, K) and bool(bok.all().item()), "batch: every top-10 valid")
+    require(bool(((bi >= 0) & (bi < dindex.size)).all().item()), "batch: rows in range")
+    require(bool(dindex.row_valid[bi].all().item()), "batch: rows are valid rows")
+
+    # B2's k·oversample candidates against its plain version on every query;
+    # the plain version runs 256 queries at a time (one (4,096 × N) f32
+    # surface would take 16 GiB), which gives the same rows: it is per query.
+    args = (dindex.codes, dindex.sumsq, dindex.row_valid, codec.quantize_int8(bq, scale))
+    kk = K * OVERSAMPLE
+    with not_counted(counters):
+        cv, ci, cok = int8_scan.int8_topk_v2(*args, k=kk)
+    err, same = 0.0, True
+    for lo in range(0, N_BATCH, PLAIN_CHUNK):
+        hi = lo + PLAIN_CHUNK
+        pv, pi, pok = int8_scan.int8_topk_v2_plain(*args[:3], args[3][lo:hi], k=kk)
+        same = same and torch.equal(ci[lo:hi], pi) and torch.equal(cok[lo:hi], pok)
+        err = max(err, (cv[lo:hi] - pv)[pok].abs().max().item())
+    del pv, pi, pok
+    require(same, "batch: int8_topk_v2 ids differ from its plain version")
+    require(err <= 1e-6, f"batch: int8_topk_v2 max abs dist diff {err} > 1e-6")
+
+    exact_ids = []
+    for lo in range(0, PLAIN_CHUNK, 64):
+        _, ei, _ = exact.exact_search(dindex.vectors, dindex.row_valid, group_ids, bq[lo:lo + 64],
+                                      num_groups=dindex.size, k=K)
+        exact_ids.append(ei)
+    exact_ids = torch.cat(exact_ids).cpu().numpy()
+    got_ids = bi[:PLAIN_CHUNK].cpu().numpy()
+    recall = float(np.mean([len(set(exact_ids[i]) & set(got_ids[i])) / K
+                            for i in range(PLAIN_CHUNK)]))
+    require(recall >= 0.99, f"batch: recall@10 {recall} < 0.99")
+
+    search_ms = cuda_ms(torch, lambda: dindex.search(bq, K, oversample=OVERSAMPLE), reps=3,
+                        warmup=1)
+    with not_counted(counters):
+        v2_ms = cuda_ms(torch, lambda: int8_scan.int8_topk_v2(*args, k=kk), reps=3, warmup=1)
+        _, b1_rows, _ = int8_scan.int8_topk(*args, k=kk)
+        v1_ms = cuda_ms(torch, lambda: int8_scan.int8_topk(*args, k=kk), reps=2, warmup=1)
+    plain_ms = cuda_ms(torch, lambda: int8_scan.int8_topk_v2_plain(*args[:3], args[3][:PLAIN_CHUNK],
+                                                                     k=kk), reps=2, warmup=1)
+    overlap = (ci[:, :, None] == b1_rows[:, None, :]).any(-1).float().mean().item()
+    return {
+        "card": smi, "queries": N_BATCH, "rows": dindex.size, "dim": DIM, "k": K,
+        "launches": launches, "recall_at_10_first_256": recall, "int8_topk_v2_max_abs_err": err,
+        "search_qps_q4096_k10": N_BATCH / (search_ms / 1e3), "search_ms_q4096": search_ms,
+        "int8_topk_v2_1m_q4096_k80_ms": v2_ms, "int8_topk_1m_q4096_k80_ms": v1_ms,
+        "int8_topk_v2_plain_ms_per_256_queries": plain_ms,
+        "candidate_overlap_v2_vs_exact_80": overlap, "peak_device_gib": peak_gib,
+        **{"int8_topk_v2_1m_q4096_" + key: value
+           for key, value in scan_roofline(args, kk).items()},
     }
 
 
@@ -434,6 +564,39 @@ def main() -> int:
     require(torch.equal(gi, pi) and torch.equal(gok, pok), "int8_topk l2: ids differ from plain")
     require(scan_l2_err <= 1e-6, f"int8_topk l2: max abs dist diff {scan_l2_err} > 1e-6")
     require(gi[0, :4].tolist() == [5, *PLANTED], "int8_topk l2: planted tie order")
+    scan_bound = scan_roofline(scan_args, k_scan)
+
+    # B2 at Q = 1,024 on the same corpus, cosine and L2, and on a ragged
+    # corpus (N_RAGGED rows, its second tile invalid, so that rounds at +inf
+    # give sentinel rows and k = 80 exceeds the 5 tiles' 40 candidates).
+    qv2 = torch.randn((Q_SCAN_V2, DIM), generator=gen, device=dev)
+    qv2[0] = x[5]
+    qv2 = qv2 / torch.linalg.norm(qv2, dim=1, keepdim=True)
+    v2_args = (s_codes, s_sumsq, s_valid, codec.quantize_int8(qv2, scale))
+    r_valid = s_valid[:N_RAGGED].clone()
+    r_valid[2048:4096] = False
+    v2_cases = {
+        "cosine": (v2_args, {}),
+        "l2": (v2_args, {"distance": "l2", "scale": scale}),
+        "ragged": ((s_codes[:N_RAGGED], s_sumsq[:N_RAGGED], r_valid, v2_args[3]), {}),
+    }
+    v2_err = {}
+    for name, (args, kw) in v2_cases.items():
+        gv, gi, gok = int8_scan.int8_topk_v2(*args, k=k_scan, **kw)
+        pv, pi, pok = int8_scan.int8_topk_v2_plain(*args, k=k_scan, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(gi, pi) and torch.equal(gok, pok), f"int8_topk_v2 {name}: ids differ")
+        v2_err[name] = (gv - pv)[gok].abs().max().item()
+        require(v2_err[name] <= 1e-6, f"int8_topk_v2 {name}: max abs dist diff {v2_err[name]}")
+        require(bool((gi[~gok] == int8_scan.SENTINEL_ROW).all().item()),
+                f"int8_topk_v2 {name}: a candidate at +inf without the sentinel row")
+        require(bool(args[2][gi[gok]].all().item()), f"int8_topk_v2 {name}: an invalid row won")
+        if name != "ragged":
+            require(gi[0, :4].tolist() == [5, *PLANTED], f"int8_topk_v2 {name}: planted tie order")
+        if name == "cosine":
+            v2_bound = scan_roofline(args, gi.shape[1])
+    require(gi.shape[1] == 40 and int((~gok).sum().item()) == 8 * Q_SCAN_V2,
+            "int8_topk_v2 ragged: 40 candidates, the invalid tile's 8 at +inf")
 
     q, k, v, causal, mask = attn_inputs["vit_b32_image"]
     mha_ms, mha_plain_ms = paired_ms(
@@ -449,6 +612,9 @@ def main() -> int:
         torch, lambda: int8_scan.int8_topk(*scan_args, k=k_scan, distance="l2", scale=scale),
         lambda: int8_scan.int8_topk_plain(*scan_args, k=k_scan, distance="l2", scale=scale),
         reps=10)
+    v2_ms = {name: paired_ms(torch, lambda: int8_scan.int8_topk_v2(*args, k=k_scan, **kw),
+                             lambda: int8_scan.int8_topk_v2_plain(*args, k=k_scan, **kw), reps=5)
+             for name, (args, kw) in v2_cases.items() if name != "ragged"}
     ql, kl, vl, _, _ = attn_inputs["vit_l14_calibration"]
     l14_mha_ms, l14_mha_plain_ms = paired_ms(
         torch, lambda: vit_attention.mha(ql, kl, vl), lambda: vit_attention.mha_plain(ql, kl, vl),
@@ -471,6 +637,31 @@ def main() -> int:
             "torch._int_mm: row-major B differs from column-major B")
     int_mm_ms_b_col, int_mm_ms_b_row = paired_ms(
         torch, lambda: torch._int_mm(a8, w8), lambda: torch._int_mm(a8, w8_rows), reps=5)
+
+    # The library yardstick and the bound of each timed attention case: the
+    # bf16 cases of mha and of mha_qkv (q, k, v as views of the unsplit qkv).
+    attn_timed = {name: attn_inputs[name] for name in
+                  ("vit_b32_image", "clip_text_causal", "vit_l14_calibration")}
+    for name, (qkv, h, causal, scale_t) in qkv_inputs.items():
+        b, n = qkv.shape[:2]
+        parts = qkv.view(b, n, 3, h, -1).unbind(2)
+        attn_timed["qkv_" + name] = (*parts, causal, None, scale_t)
+    library_ms, sdpa_err, bounds = {}, {}, {}
+    for name, (q, k, v, causal, mask, *q8) in attn_timed.items():
+        int8_out = bool(q8 and q8[0] is not None)
+        out = torch.empty((*q.shape[:3], v.shape[3]), device=dev,
+                          dtype=torch.int8 if int8_out else q.dtype)
+        bounds[name] = attention_roofline(q, k, v, out, causal, mask)
+        if not int8_out:  # no single library call quantizes the output
+            want = vit_attention.mha_plain(q, k, v, causal=causal)
+            sdpa_err[name] = (sdpa(torch, q, k, v, causal).float() - want.float()).abs().max().item()
+            library_ms[name] = cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal), reps=5)
+    for name, (x_ln, g, b_, s_t) in ln_inputs.items():
+        r, w = x_ln.shape
+        bounds["ln_" + name] = roofline(LN_OPS_PER_ELEMENT * r * w, "f32",
+                                        nbytes(x_ln, g, b_, s_t) + r * w)
+    bounds["int8_topk_cosine"] = scan_bound
+    bounds["int8_topk_v2_cosine"] = v2_bound
     emit({"phase": "kernels", "card": smi, "mha_max_abs_err": attn_err,
           "mha_head_dim_16_identical_share": d16_identical,
           "mha_qkv_max_err": qkv_err, "ln_quant_max_code_diff": ln_err,
@@ -489,14 +680,19 @@ def main() -> int:
           "int8_topk_65536x512_q64_k80_ms": scan_ms,
           "int8_topk_65536x512_q64_k80_plain_ms": scan_plain_ms,
           "int8_topk_l2_65536x512_q64_k80_ms": scan_l2_ms,
-          "int8_topk_l2_65536x512_q64_k80_plain_ms": scan_l2_plain_ms})
-    del x, qv, scan_args, s_codes, attn_inputs, q, k, v, qt, kt, vt, ql, kl, vl
-    del qkv_inputs, ln_inputs, a8, w8, w8_rows
+          "int8_topk_l2_65536x512_q64_k80_plain_ms": scan_l2_plain_ms,
+          "int8_topk_v2_max_abs_err": v2_err,
+          "int8_topk_v2_65536x512_q1024_k80_ms": {n: t[0] for n, t in v2_ms.items()},
+          "int8_topk_v2_65536x512_q1024_k80_plain_ms": {n: t[1] for n, t in v2_ms.items()},
+          "sdpa_library_ms": library_ms, "sdpa_max_abs_vs_plain": sdpa_err, "bounds": bounds})
+    del x, qv, qv2, scan_args, v2_args, v2_cases, s_codes, attn_inputs, attn_timed
+    del q, k, v, qt, kt, vt, ql, kl, vl, qkv_inputs, ln_inputs, a8, w8, w8_rows
 
     # 4. The ViT-B/32 search slice. Counters start at zero here.
     cfg = clip.CONFIGS["ViT-B-32"]
     params = clip.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dtype=torch.bfloat16)
-    counters = (int8_scan.int8_topk, vit_attention.mha, vit_attention.mha_qkv, ln_quant.ln_quant_2d)
+    counters = (int8_scan.int8_topk, int8_scan.int8_topk_v2, vit_attention.mha,
+                vit_attention.mha_qkv, ln_quant.ln_quant_2d)
     for fn in counters:
         fn.launches = 0
 
@@ -557,7 +753,8 @@ def main() -> int:
     launches = {fn.__name__: fn.launches for fn in counters}
 
     # 5. Checks and times.
-    require(launches["int8_topk"] > 0 and launches["mha"] > 0, f"kernel launches {launches}")
+    require(launches["int8_topk"] > 0 and launches["mha"] > 0 and launches["int8_topk_v2"] == 0,
+            f"kernel launches {launches}")
     for name, (rows, ok) in {"text": (ti, tok), "gaussian": (si, sok)}.items():
         require(bool(ok.all().item()), f"{name}: every top-{K} entry valid")
         require(bool(((rows >= 0) & (rows < dindex.size)).all().item()), f"{name}: rows in range")
@@ -610,35 +807,51 @@ def main() -> int:
           "image_embed_img_per_s": img_per_s, "text_embed_ms_per_batch_of_64": text_ms,
           "search_qps_q256_k10": N_GAUSS / (search_ms / 1e3), "search_ms_q256": search_ms,
           "int8_topk_1m_q256_k80_ms": scan_1m_ms, "int8_topk_1m_q256_k80_plain_ms": scan_1m_plain_ms,
+          **{"int8_topk_1m_q256_k80_" + key: value
+             for key, value in scan_roofline(codes_1m, K * OVERSAMPLE).items()},
           "host_index_build_s": host_build_s, "upload_s": upload_s})
-    del index, dindex, params, img_emb, embeds, codes_1m, group_ids, gq, txt_emb
+    del params, img_emb, embeds, codes_1m, txt_emb
+
+    # 6. The batched search on the same index. Counters start at zero here.
+    batch = batch_path(torch, dev, smi, dindex, group_ids, scale, counters)
+    batch_launches = batch.pop("launches")
+    emit({"phase": "batch", "launches": batch_launches, **batch})
+    del index, dindex, group_ids, gq
     torch.cuda.empty_cache()
 
-    # 6. The serving embed: ViT-L/14 static int8 through ClipImpl.predict.
+    # 7. The serving embed: ViT-L/14 static int8 through ClipImpl.predict.
     for fn in counters:
         fn.launches = 0
     l14 = int8_embed_path(torch, dev, smi, counters)
     l14_launches = {fn.__name__: fn.launches for fn in counters}
-    require(all(n > 0 for n in l14_launches.values()), f"int8 path kernel launches {l14_launches}")
+    require(all(l14_launches[name] > 0 for name in ("int8_topk", "mha", "mha_qkv", "ln_quant_2d")),
+            f"int8 path kernel launches {l14_launches}")
     emit({"phase": "int8", "launches": l14_launches, **l14})
 
-    total = {name: launches[name] + l14_launches[name] for name in launches}
+    total = {name: launches[name] + batch_launches[name] + l14_launches[name] for name in launches}
     emit({"kernels": [
         {"name": "int8_topk", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:138", "launches": total["int8_topk"],
          "max_abs_err": max(scan_err, scan_l2_err, scan_1m_err, l14["int8_topk_max_abs_err"]),
-         "ms": scan_ms, "plain_ms": scan_plain_ms},
+         "ms": scan_ms, "plain_ms": scan_plain_ms, **scan_bound, "library_ms": None},
+        {"name": "int8_topk_v2", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
+         "replaces": "panoptikon_tpu/ops/pallas_scan.py:321", "launches": total["int8_topk_v2"],
+         "max_abs_err": max(*v2_err.values(), batch["int8_topk_v2_max_abs_err"]),
+         "ms": v2_ms["cosine"][0], "plain_ms": v2_ms["cosine"][1], **v2_bound,
+         "library_ms": None},
         {"name": "mha", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:192", "launches": total["mha"],
-         "max_abs_err": max(attn_err.values()), "ms": mha_ms, "plain_ms": mha_plain_ms},
+         "max_abs_err": max(attn_err.values()), "ms": mha_ms, "plain_ms": mha_plain_ms,
+         **bounds["vit_b32_image"], "library_ms": library_ms["vit_b32_image"]},
         {"name": "mha_qkv", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:296", "launches": total["mha_qkv"],
          "max_abs_err": max(qkv_err.values()), "ms": qkv_ms["vit_l14_image_int8"][0],
-         "plain_ms": qkv_ms["vit_l14_image_int8"][1]},
+         "plain_ms": qkv_ms["vit_l14_image_int8"][1], **bounds["qkv_vit_l14_image_int8"],
+         "library_ms": None},
         {"name": "ln_quant", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/ln_quant.cu",
          "replaces": "panoptikon_tpu/ops/ln_quant.py:60", "launches": total["ln_quant_2d"],
          "max_abs_err": max(ln_err.values()), "ms": ln_ms["vit_l14_image"][0],
-         "plain_ms": ln_ms["vit_l14_image"][1]},
+         "plain_ms": ln_ms["vit_l14_image"][1], **bounds["ln_vit_l14_image"], "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,8 @@ quant-ready ``SpaceSnapshot`` goes up once — int8 codes, their int32 row sums
 of squares (computed on the device from the uploaded codes, so the corpus
 crosses the bus once), the row validity, and the f32 rows the rescore reads.
 :meth:`DeviceIndex.search` quantizes f32 queries under the snapshot's frozen
-scale and runs ``scoring.int8_topk_rescored`` (the fused int8 scan, then the
-exact f32 rescore).
+scale and runs ``scoring.int8_topk_rescored`` (a fused int8 scan — B1 up to
+512 queries, B2 above — then the exact f32 rescore).
 
 The host index stays the source of truth; this is a rebuildable projection
 of one snapshot generation.
@@ -51,7 +51,8 @@ class DeviceIndex:
 
     def item_ids(self, rows: torch.Tensor, valid: torch.Tensor) -> np.ndarray:
         """Result rows -> DB item ids through the rows' group slots (-1 where
-        not valid)."""
-        rows_np = rows.cpu().numpy()
-        slots = np.where(valid.cpu().numpy(), self._group_ids[rows_np], -1)
+        not valid; a result that is not valid may carry a sentinel row)."""
+        ok = valid.cpu().numpy()
+        rows_np = np.where(ok, rows.cpu().numpy(), 0)
+        slots = np.where(ok, self._group_ids[rows_np], -1)
         return self.index.item_id_of_groups(self.space, slots)

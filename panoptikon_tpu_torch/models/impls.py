@@ -13,11 +13,11 @@ in :meth:`ClipImpl.load`, the first real image batch and the first real
 text batch each calibrate the static activation scales (one bf16 pass), and
 every batch then runs the static-int8 block (``clip._block_int8_static``).
 
-The host modules are the JAX package's own, which import no JAX
-(``models.base``, ``models.batching``, ``utils.npy``); callers of the port
-take ``PredictionInput`` and ``npy`` from here. The JAX ``impls`` module
-imports JAX, so the tokenizer and image decode are re-declared here;
-``tokenizers`` and ``PIL`` import lazily, as there.
+The host modules are the port's own copies of the JAX package's
+(``models.base``, ``models.batching``, ``utils.npy``); ``PredictionInput``
+and ``npy`` stay importable from here. The tokenizer and image decode are
+re-declared here; ``tokenizers`` and ``PIL`` import lazily, as in the JAX
+``impls`` module.
 """
 
 from __future__ import annotations
@@ -30,11 +30,10 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from panoptikon_tpu.models import batching
-from panoptikon_tpu.models.base import InferenceModel, PredictionInput, SlotError
-from panoptikon_tpu.utils import npy
 from panoptikon_tpu_torch.device import device as select_device
-from panoptikon_tpu_torch.models import clip
+from panoptikon_tpu_torch.models import batching, clip
+from panoptikon_tpu_torch.models.base import InferenceModel, PredictionInput, SlotError
+from panoptikon_tpu_torch.utils import npy
 
 __all__ = ["ClipImpl", "HashTokenizer", "PredictionInput", "decode_image", "load_tokenizer", "npy"]
 

@@ -1,11 +1,17 @@
 """Scoring surface on tensors — the port of ``panoptikon_tpu/ops/scoring.py``.
 
 The serving fast path, :func:`int8_topk_rescored`, takes its oversampled
-candidates from the fused int8 scan (``ops.int8_scan.int8_topk``) and
-re-ranks them exactly against the f32 rows in plain PyTorch, as the JAX
-version left its rescore to XLA. The JAX version takes its candidates from
-``lax.approx_min_k``, which has no PyTorch counterpart; the scan computes
-the same candidate stage exactly (off the TPU ``approx_min_k`` is exact too).
+candidates from a fused int8 scan and re-ranks them exactly against the f32
+rows in plain PyTorch, as the JAX version left its rescore to XLA. The JAX
+version takes its candidates from ``lax.approx_min_k`` at every Q, which
+has no PyTorch counterpart; the port maps that stage onto the JAX package's
+two scan kernels by the query limit the JAX package gives the first
+(``int8_scan.V1_MAX_QUERIES``): up to 512 queries the exact scan
+(``int8_scan.int8_topk``, B1), above it the lane-bucket scan
+(``int8_scan.int8_topk_v2``, B2), whose contract is ``approx_min_k``'s —
+within one (2048-row tile, lane) only the best row survives, and the ×8
+oversampled rescore absorbs the loss. On the CPU both routes take the plain
+versions.
 
 Distances over int8 codes follow the reference's quant arm: cosine on codes
 equals cosine on the dequantized vectors (the scale cancels); L2 on codes is
@@ -18,6 +24,7 @@ ported; the segmented aggregation path is still to come.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from panoptikon_tpu_torch.ops import int8_scan
 from panoptikon_tpu_torch.ops.exact import INF, Distance, int8_dots, row_sumsq, smallest_k
@@ -126,14 +133,24 @@ def int8_topk_rescored(
 ):
     """The serving fast path: int8 candidates (k·oversample) + f32 rescore.
 
-    Candidates, cosine or L2 (code-space L2 × ``scale``), come from the
-    fused scan (``int8_scan.int8_topk``: the kernel on the card, its plain
-    version on the CPU). Returns (dist (Q,k), row (Q,k), valid (Q,k))."""
+    Candidates, cosine or L2 (code-space L2 × ``scale``), come from B1
+    (``int8_scan.int8_topk``, exact) for at most ``V1_MAX_QUERIES`` queries
+    and from B2 (``int8_scan.int8_topk_v2``, the ``approx_min_k`` contract)
+    above: the kernels on the card, their plain versions on the CPU.
+    Returns (dist (Q,k), row (Q,k), valid (Q,k))."""
     kk = min(k * oversample, codes.shape[0])
-    cand_v, cand_i, _ = int8_scan.int8_topk(codes, sumsq, row_valid, q_codes, k=kk,
-                                            distance=distance, scale=scale)
+    batched = q_codes.shape[0] > int8_scan.V1_MAX_QUERIES
+    scan = int8_scan.int8_topk_v2 if batched else int8_scan.int8_topk
+    cand_v, cand_i, _ = scan(codes, sumsq, row_valid, q_codes, k=kk, distance=distance, scale=scale)
     if not rescore:
         return cand_v[:, :k], cand_i[:, :k], torch.isfinite(cand_v[:, :k])
+    # B2 gives at most tiles·8 candidates, and a candidate at +inf the
+    # sentinel row past the corpus: such candidates stay at +inf through the
+    # rescore, so they gather row 0 instead, and the list pads to k.
+    if cand_v.shape[1] < k:
+        cand_v = F.pad(cand_v, (0, k - cand_v.shape[1]), value=INF)
+        cand_i = F.pad(cand_i, (0, k - cand_i.shape[1]))
+    cand_i = torch.where(torch.isfinite(cand_v), cand_i, 0)
     return rescore_candidates(cand_v, cand_i, corpus_f32, q_f32, k=k, distance=distance)
 
 

@@ -2,12 +2,14 @@
 
     python3 -m panoptikon_tpu_torch.profiling [--out DIR] [--reps N]
 
-Three operations, each called ``reps`` times back to back under
+Four operations, each called ``reps`` times back to back under
 ``torch.profiler`` (CPU and CUDA activity), after three warm-up calls:
 
 - ``search``: ``DeviceIndex.search`` at 1,048,576 × 512 (seeded unit rows
   in a host ``VectorIndex``, int8 arm built and uploaded), 256 Gaussian unit
-  queries, k=10, oversample 8;
+  queries, k=10, oversample 8 (candidates from kernel B1);
+- ``search_batch``: the same index searched by 4,096 Gaussian unit queries
+  (candidates from kernel B2);
 - ``embed``: ``clip.embed_images`` of CLIP ViT-B/32, bf16, seeded random
   weights, one batch of 256 images;
 - ``embed_int8``: the serving embed, ``clip.embed_images_scaled`` of CLIP
@@ -45,7 +47,7 @@ from panoptikon_tpu_torch.index.device_index import DeviceIndex
 from panoptikon_tpu_torch.models import clip
 
 SEED = 0
-N_ROWS, DIM, N_QUERIES, K, OVERSAMPLE = 1_048_576, 512, 256, 10, 8
+N_ROWS, DIM, N_QUERIES, N_BATCH, K, OVERSAMPLE = 1_048_576, 512, 256, 4096, 10, 8
 IMAGE_BATCH = 256
 
 
@@ -54,7 +56,7 @@ def _unit_rows(n: int, dim: int, gen: torch.Generator, dev) -> torch.Tensor:
     return rows / torch.linalg.norm(rows, dim=1, keepdim=True)
 
 
-def _search_op(dev):
+def _search_ops(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     index = VectorIndex()
     index.reserve("clip", N_ROWS, DIM)
@@ -65,7 +67,9 @@ def _search_op(dev):
     index.build_quant("clip")
     dindex = DeviceIndex(index, "clip", dev)
     queries = _unit_rows(N_QUERIES, DIM, gen, dev)
-    return lambda: dindex.search(queries, K, oversample=OVERSAMPLE)
+    batch = _unit_rows(N_BATCH, DIM, gen, dev)
+    return {"search": lambda: dindex.search(queries, K, oversample=OVERSAMPLE),
+            "search_batch": lambda: dindex.search(batch, K, oversample=OVERSAMPLE)}
 
 
 def _embed_op(dev):
@@ -137,10 +141,12 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    ops = (("search", _search_op), ("embed", _embed_op), ("embed_int8", _embed_int8_op))
-    for name, make in ops:
-        record = _profile(name, make(dev), args.reps, args.out)
-        print(json.dumps({"card": smi, **record}), flush=True)
+    makers = (_search_ops, lambda d: {"embed": _embed_op(d)},
+              lambda d: {"embed_int8": _embed_int8_op(d)})
+    for make in makers:
+        for name, fn in make(dev).items():
+            record = _profile(name, fn, args.reps, args.out)
+            print(json.dumps({"card": smi, **record}), flush=True)
     return 0
 
 

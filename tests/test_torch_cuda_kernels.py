@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU and
-skip without one. This file imports no JAX (the machine with the card has
-none); run it there without the repo's conftest, which imports JAX:
+skip without one. This file imports no JAX and nothing of the JAX package
+(the machine with the card has no JAX); run it there without the repo's conftest, which imports JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from panoptikon_tpu.ops import codec as host_codec
+from panoptikon_tpu_torch.ops import codec as host_codec
 from panoptikon_tpu_torch.ops import int8_scan, ln_quant, scoring, vit_attention
 
 pytestmark = pytest.mark.cuda
@@ -128,8 +128,8 @@ def test_int8_topk_kernel_matches_plain(cuda_device, n, d, q, k, distance):
     queries = rng.normal(size=(q, d)).astype(np.float32)
     queries[0] = corpus[3]
     scale = host_codec.scale_from_absmax(host_codec.corpus_absmax(corpus))
-    codes = torch.from_numpy(host_codec.quantize_int8(corpus, scale)).to(cuda_device)
-    q_codes = torch.from_numpy(host_codec.quantize_int8(queries, scale)).to(cuda_device)
+    codes = torch.from_numpy(host_codec.quantize_int8_host(corpus, scale)).to(cuda_device)
+    q_codes = torch.from_numpy(host_codec.quantize_int8_host(queries, scale)).to(cuda_device)
     valid = torch.from_numpy(rng.random(n) > 0.1).to(cuda_device)
     valid[[3, n // 2, n - 1]] = True
     args = (codes, scoring.row_sumsq(codes), valid, q_codes)
@@ -140,3 +140,30 @@ def test_int8_topk_kernel_matches_plain(cuda_device, n, d, q, k, distance):
     assert int8_scan.int8_topk.launches == before + 1
     assert torch.equal(gi, pi) and torch.equal(gok, pok) and torch.equal(gv, pv)
     assert gi[0, :min(k, 3)].tolist() == [3, n // 2, n - 1][:k]
+
+
+@pytest.mark.parametrize("distance", ["cosine", "l2"])
+@pytest.mark.parametrize("n,d,q,k", [(5000, 128, 40, 80), (70_000, 512, 600, 80), (1100, 32, 3, 8)])
+def test_int8_topk_v2_kernel_matches_plain(cuda_device, n, d, q, k, distance):
+    rng = np.random.default_rng(n + 1)
+    corpus = rng.normal(size=(n, d)).astype(np.float32)
+    corpus[[5, 130, n - 1]] = corpus[3]  # equal rows: lane order, row order and tiles disagree
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    queries[0] = corpus[3]
+    scale = host_codec.scale_from_absmax(host_codec.corpus_absmax(corpus))
+    codes = torch.from_numpy(host_codec.quantize_int8_host(corpus, scale)).to(cuda_device)
+    q_codes = torch.from_numpy(host_codec.quantize_int8_host(queries, scale)).to(cuda_device)
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(cuda_device)
+    valid[[3, 5, 130, n - 1]] = True
+    valid[2048:4096] = False  # a whole tile invalid: +inf rounds, sentinel rows
+    args = (codes, scoring.row_sumsq(codes), valid, q_codes)
+    before = int8_scan.int8_topk_v2.launches
+    gv, gi, gok = int8_scan.int8_topk_v2(*args, k=k, distance=distance, scale=scale)
+    pv, pi, pok = int8_scan.int8_topk_v2_plain(*args, k=k, distance=distance, scale=scale)
+    torch.cuda.synchronize()
+    assert int8_scan.int8_topk_v2.launches == before + 1
+    assert torch.equal(gi, pi) and torch.equal(gok, pok)
+    assert (gv - pv).abs().nan_to_num(0.0).max().item() <= 1e-6
+    # Lanes 2, 3, 5 of tile 0, then the last tile.
+    assert gi[0, :4].tolist() == [130, 3, 5, n - 1]
+    assert (gi[~gok] == int8_scan.SENTINEL_ROW).all()

@@ -1,4 +1,5 @@
-"""The port imports no JAX, and never falls back from CUDA to the CPU."""
+"""The port imports no JAX and nothing of the JAX package, and never falls
+back from CUDA to the CPU."""
 
 import ast
 import subprocess
@@ -15,12 +16,15 @@ REPO = Path(__file__).resolve().parent.parent
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
+sys.modules["panoptikon_tpu"] = None  # and so does any import of the JAX package
 import panoptikon_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(panoptikon_tpu_torch.__path__, "panoptikon_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not [m for m in leaked if sys.modules[m] is not None], leaked
+reference = sorted(m for m in sys.modules if m.startswith("panoptikon_tpu."))
+assert sys.modules["panoptikon_tpu"] is None and not reference, reference
 print(" ".join(names))
 """
 
@@ -31,23 +35,42 @@ def test_every_port_module_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    # every module of the port was imported, the serving embed's included
-    assert len(names) >= 15
+    # every module of the port was imported, the serving embed's and the
+    # host copies included
+    assert len(names) >= 20
     for name in ("ops.ln_quant", "ops.vit_attention", "ops.int8_scan", "models.clip",
-                 "models.impls", "models.convert", "profiling"):
+                 "models.impls", "models.convert", "profiling", "index.vector_index",
+                 "models.base", "models.batching", "utils.npy"):
         assert f"panoptikon_tpu_torch.{name}" in names
 
 
-def test_chip_smoke_imports_only_the_port():
-    # chip_smoke.py drives the port: no import of jax or of the JAX package,
-    # not even of its jax-free modules (the port re-exports what it shares).
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+def _imported_modules(tree):
     modules = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             modules.update(alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom):
-            modules.add(node.module or "")
+            modules.add("." * node.level + (node.module or ""))
+    return modules
+
+
+def test_no_port_source_imports_the_jax_package():
+    # Statically, lazy imports inside functions included: every source of the
+    # port imports only the port, the standard library and third parties
+    # other than JAX.
+    sources = sorted((REPO / "panoptikon_tpu_torch").rglob("*.py"))
+    assert len(sources) >= 20
+    for path in sources:
+        modules = _imported_modules(ast.parse(path.read_text()))
+        top = {m.split(".")[0] for m in modules}
+        assert not top & {"jax", "jaxlib", "panoptikon_tpu"}, (path, sorted(modules))
+        assert not any(m.startswith(".") for m in modules), (path, "relative import")
+
+
+def test_chip_smoke_imports_only_the_port():
+    # chip_smoke.py drives the port: no import of jax or of the JAX package,
+    # not even of its jax-free modules (the port has its own copies).
+    modules = _imported_modules(ast.parse((REPO / "chip_smoke.py").read_text()))
     top = {m.split(".")[0] for m in modules}
     assert "panoptikon_tpu_torch" in top
     assert not top & {"jax", "jaxlib", "panoptikon_tpu"}, sorted(modules)
