@@ -10,7 +10,11 @@ Phases, one JSON line each:
             each, all started together (ptxas registers and spills);
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes the main paths give it, timed kernel/plain/plain/
-            kernel: mha and mha_qkv bf16 ≤ 2e-2 max abs; int8 outputs
+            kernel: mha and mha_qkv bf16 ≤ 2e-2 max abs, every attention
+            case timed and the route each takes (tensor cores for bf16 at
+            32 ≤ D ≤ 128, D % 16 = 0, else CUDA cores); the tensor-core
+            attention's division bit for bit a correctly rounded one over
+            every float in [0, 1]; int8 outputs
             (mha_qkv, ln_quant) at most one code apart and at most 0.5 % of
             codes apart; both int8 scans (B1 at Q = 64, B2 at Q = 1,024 and
             on a ragged corpus with +inf sentinel rows), cosine and L2, with
@@ -24,7 +28,8 @@ Phases, one JSON line each:
             1,048,576 × 512 in a host VectorIndex, build the int8 arm, upload
             it (DeviceIndex), embed 64 text queries and search them top-10,
             and search 256 Gaussian unit queries;
-5. check    launch counters of that path, the scan kernel's k·oversample
+5. check    launch counters of that path (every attention launch on the
+            tensor cores), the scan kernel's k·oversample
             candidates at 1,048,576 rows against its plain version for both
             query sets, recall@10 of the 256 queries against the exact fp32
             top-10 (≥ 0.99), the text queries' top-10 against the plain path,
@@ -49,11 +54,14 @@ Phases, one JSON line each:
             searched by the text embeddings through the int8 scan at D = 768
             (kernel path equal to the plain path, tie-aware) and by L2
             (recall@10 ≥ 0.99 against the exact L2 top-10); the launch
-            counters of its four kernels are above zero.
+            counters of its four kernels are above zero, and every
+            attention launch took the tensor-core route.
 
-Each main path (phases 4-5, 6 and 7) runs with the launch counters set to
-zero just before it and read just after. Then a line with every kernel's
-record (launches, error, times, bound, library time), the nvidia-smi line,
+Each main path (phases 4-5, 6 and 7) runs with the launch counters (and
+the attention wrappers' counts by route) set to zero just before it and
+read just after. Then a line with every kernel's record (launches, the
+attention kernels' launches by route, error, times, bound, library time),
+the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without CUDA the script exits 1 before printing any result.
 """
@@ -181,26 +189,51 @@ def attention_roofline(q, k, v, out, causal=False, mask=None) -> dict:
     return roofline(ops, "bf16", nbytes(q, k, v, mask, out))
 
 
-def sdpa(torch, q, k, v, causal=False):
+def sdpa(torch, q, k, v, causal=False, mask=None):
     """F.scaled_dot_product_attention on (B, N, H, D) views: the library
-    yardstick of the attention kernels, timed here, never called by the port."""
+    yardstick of the attention kernels, timed here, never called by the port.
+    A key mask becomes the additive −1e9 bias of the kernels."""
     import torch.nn.functional as F
 
+    bias = None
+    if mask is not None:
+        bias = torch.where(mask, 0.0, -1e9).to(q.dtype)[:, None, None, :]
     out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                         v.transpose(1, 2), is_causal=causal)
+                                         v.transpose(1, 2), attn_mask=bias, is_causal=causal)
     return out.transpose(1, 2)
+
+
+def reset_counts(counters) -> None:
+    """Launch counts (and the attention wrappers' counts by route) to zero."""
+    for fn in counters:
+        fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes = dict.fromkeys(fn.routes, 0)
+
+
+def read_routes(counters) -> dict:
+    return {fn.__name__: dict(fn.routes) for fn in counters if hasattr(fn, "routes")}
+
+
+def require_tensor_cores(launches, routes, names, what: str) -> None:
+    """Every attention launch of a main path took the tensor-core route."""
+    for name in names:
+        require(routes[name]["cuda_core"] == 0 and routes[name]["tensor_core"] == launches[name],
+                f"{what}: {name} launches {launches[name]} by route {routes[name]}")
 
 
 @contextlib.contextmanager
 def not_counted(counters):
     """Launches inside (comparisons with a plain version, timing) leave the
-    main path's launch counts as they were."""
-    saved = [fn.launches for fn in counters]
+    main path's launch counts, and counts by route, as they were."""
+    saved = [(fn.launches, dict(getattr(fn, "routes", {}))) for fn in counters]
     try:
         yield
     finally:
-        for fn, n in zip(counters, saved):
+        for fn, (n, routes) in zip(counters, saved):
             fn.launches = n
+            if hasattr(fn, "routes"):
+                fn.routes = routes
 
 
 def int8_embed_path(torch, dev, smi, counters) -> dict:
@@ -354,8 +387,7 @@ def batch_path(torch, dev, smi, dindex, group_ids, scale, counters) -> dict:
     bq = bq / torch.linalg.norm(bq, dim=1, keepdim=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters:
-        fn.launches = 0
+    reset_counts(counters)
     bv, bi, bok = dindex.search(bq, K, oversample=OVERSAMPLE)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
@@ -490,6 +522,16 @@ def main() -> int:
         require(err <= 2e-2, f"mha {name}: max abs diff {err} > 2e-2")
         attn_err[name] = err
         attn_inputs[name] = (q, k, v, causal, mask)
+    # The tensor-core kernel's p = e / s (one correction of e·(1/s)) against a
+    # correctly rounded division, for every float e in [0, 1], at row sums
+    # 1 to 4,096: powers of two, the floats under them, seeded values.
+    rng = np.random.default_rng(SEED + 5)
+    under = np.nextafter(np.float32(2.0) ** np.arange(1, 13, dtype=np.float32), np.float32(0))
+    divisors = np.concatenate([[1.0, 3.0, 257.0, 1500.0], 2.0 ** np.arange(1, 13), under,
+                               np.exp(rng.uniform(0, np.log(4096), 32))])
+    div_counts = vit_attention.check_div_rn(torch.from_numpy(divisors.astype(np.float32)).to(dev))
+    div_mismatches = int(div_counts.sum().item())
+    require(div_mismatches == 0, f"div_rn differs from a correctly rounded division: {div_counts}")
     # Below D = 32, p stays f32 in the kernel as in its plain version.
     q, k, v, _, _ = attn_inputs["head_dim_16"]
     d16_identical = float((vit_attention.mha(q, k, v) == vit_attention.mha_plain(q, k, v))
@@ -598,13 +640,12 @@ def main() -> int:
     require(gi.shape[1] == 40 and int((~gok).sum().item()) == 8 * Q_SCAN_V2,
             "int8_topk_v2 ragged: 40 candidates, the invalid tile's 8 at +inf")
 
-    q, k, v, causal, mask = attn_inputs["vit_b32_image"]
-    mha_ms, mha_plain_ms = paired_ms(
-        torch, lambda: vit_attention.mha(q, k, v), lambda: vit_attention.mha_plain(q, k, v))
-    qt, kt, vt, _, _ = attn_inputs["clip_text_causal"]
-    text_mha_ms, text_mha_plain_ms = paired_ms(
-        torch, lambda: vit_attention.mha(qt, kt, vt, causal=True),
-        lambda: vit_attention.mha_plain(qt, kt, vt, causal=True))
+    attn_ms = {}
+    for name, (q, k, v, causal, mask) in attn_inputs.items():
+        attn_ms[name] = paired_ms(
+            torch, lambda: vit_attention.mha(q, k, v, causal=causal, key_mask=mask),
+            lambda: vit_attention.mha_plain(q, k, v, causal=causal, key_mask=mask),
+            reps=5 if q.shape[0] * q.shape[1] * k.shape[1] > 2**22 else 20)
     scan_ms, scan_plain_ms = paired_ms(
         torch, lambda: int8_scan.int8_topk(*scan_args, k=k_scan),
         lambda: int8_scan.int8_topk_plain(*scan_args, k=k_scan), reps=10)
@@ -615,10 +656,6 @@ def main() -> int:
     v2_ms = {name: paired_ms(torch, lambda: int8_scan.int8_topk_v2(*args, k=k_scan, **kw),
                              lambda: int8_scan.int8_topk_v2_plain(*args, k=k_scan, **kw), reps=5)
              for name, (args, kw) in v2_cases.items() if name != "ragged"}
-    ql, kl, vl, _, _ = attn_inputs["vit_l14_calibration"]
-    l14_mha_ms, l14_mha_plain_ms = paired_ms(
-        torch, lambda: vit_attention.mha(ql, kl, vl), lambda: vit_attention.mha_plain(ql, kl, vl),
-        reps=5)
     qkv_ms = {}
     for name, (qkv, h, causal, scale_t) in qkv_inputs.items():
         qkv_ms[name] = paired_ms(
@@ -638,24 +675,25 @@ def main() -> int:
     int_mm_ms_b_col, int_mm_ms_b_row = paired_ms(
         torch, lambda: torch._int_mm(a8, w8), lambda: torch._int_mm(a8, w8_rows), reps=5)
 
-    # The library yardstick and the bound of each timed attention case: the
-    # bf16 cases of mha and of mha_qkv (q, k, v as views of the unsplit qkv).
-    attn_timed = {name: attn_inputs[name] for name in
-                  ("vit_b32_image", "clip_text_causal", "vit_l14_calibration")}
+    # The library yardstick and the bound of every attention case: mha's,
+    # and mha_qkv's with q, k, v as views of the unsplit qkv.
+    attn_timed = dict(attn_inputs)
     for name, (qkv, h, causal, scale_t) in qkv_inputs.items():
         b, n = qkv.shape[:2]
         parts = qkv.view(b, n, 3, h, -1).unbind(2)
         attn_timed["qkv_" + name] = (*parts, causal, None, scale_t)
-    library_ms, sdpa_err, bounds = {}, {}, {}
+    library_ms, sdpa_err, bounds, attn_routes = {}, {}, {}, {}
     for name, (q, k, v, causal, mask, *q8) in attn_timed.items():
         int8_out = bool(q8 and q8[0] is not None)
         out = torch.empty((*q.shape[:3], v.shape[3]), device=dev,
                           dtype=torch.int8 if int8_out else q.dtype)
         bounds[name] = attention_roofline(q, k, v, out, causal, mask)
+        attn_routes[name] = vit_attention.route(q.dtype, q.shape[3])
         if not int8_out:  # no single library call quantizes the output
-            want = vit_attention.mha_plain(q, k, v, causal=causal)
-            sdpa_err[name] = (sdpa(torch, q, k, v, causal).float() - want.float()).abs().max().item()
-            library_ms[name] = cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal), reps=5)
+            want = vit_attention.mha_plain(q, k, v, causal=causal, key_mask=mask)
+            got = sdpa(torch, q, k, v, causal, mask)
+            sdpa_err[name] = (got.float() - want.float()).abs().max().item()
+            library_ms[name] = cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal, mask), reps=5)
     for name, (x_ln, g, b_, s_t) in ln_inputs.items():
         r, w = x_ln.shape
         bounds["ln_" + name] = roofline(LN_OPS_PER_ELEMENT * r * w, "f32",
@@ -664,12 +702,12 @@ def main() -> int:
     bounds["int8_topk_v2_cosine"] = v2_bound
     emit({"phase": "kernels", "card": smi, "mha_max_abs_err": attn_err,
           "mha_head_dim_16_identical_share": d16_identical,
+          "div_rn_divisors": len(divisors), "div_rn_mismatches_in_0_1": div_mismatches,
           "mha_qkv_max_err": qkv_err, "ln_quant_max_code_diff": ln_err,
           "int8_topk_max_abs_err": scan_err, "int8_topk_l2_max_abs_err": scan_l2_err,
-          "mha_vit_b32_image_ms": mha_ms, "mha_vit_b32_image_plain_ms": mha_plain_ms,
-          "mha_clip_text_ms": text_mha_ms, "mha_clip_text_plain_ms": text_mha_plain_ms,
-          "mha_vit_l14_calibration_ms": l14_mha_ms,
-          "mha_vit_l14_calibration_plain_ms": l14_mha_plain_ms,
+          "attention_routes": attn_routes, "attention_tc_query_rows": vit_attention.TC_QUERY_ROWS,
+          "mha_ms": {n: t[0] for n, t in attn_ms.items()},
+          "mha_plain_ms": {n: t[1] for n, t in attn_ms.items()},
           "mha_qkv_ms": {n: t[0] for n, t in qkv_ms.items()},
           "mha_qkv_plain_ms": {n: t[1] for n, t in qkv_ms.items()},
           "ln_quant_ms": {n: t[0] for n, t in ln_ms.items()},
@@ -686,15 +724,14 @@ def main() -> int:
           "int8_topk_v2_65536x512_q1024_k80_plain_ms": {n: t[1] for n, t in v2_ms.items()},
           "sdpa_library_ms": library_ms, "sdpa_max_abs_vs_plain": sdpa_err, "bounds": bounds})
     del x, qv, qv2, scan_args, v2_args, v2_cases, s_codes, attn_inputs, attn_timed
-    del q, k, v, qt, kt, vt, ql, kl, vl, qkv_inputs, ln_inputs, a8, w8, w8_rows
+    del q, k, v, qkv_inputs, ln_inputs, a8, w8, w8_rows
 
     # 4. The ViT-B/32 search slice. Counters start at zero here.
     cfg = clip.CONFIGS["ViT-B-32"]
     params = clip.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dtype=torch.bfloat16)
     counters = (int8_scan.int8_topk, int8_scan.int8_topk_v2, vit_attention.mha,
                 vit_attention.mha_qkv, ln_quant.ln_quant_2d)
-    for fn in counters:
-        fn.launches = 0
+    reset_counts(counters)
 
     img_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     embeds = []
@@ -751,10 +788,12 @@ def main() -> int:
     sv, si, sok = dindex.search(gq, K, oversample=OVERSAMPLE)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
+    routes = read_routes(counters)
 
     # 5. Checks and times.
     require(launches["int8_topk"] > 0 and launches["mha"] > 0 and launches["int8_topk_v2"] == 0,
             f"kernel launches {launches}")
+    require_tensor_cores(launches, routes, ("mha", "mha_qkv"), "search slice")
     for name, (rows, ok) in {"text": (ti, tok), "gaussian": (si, sok)}.items():
         require(bool(ok.all().item()), f"{name}: every top-{K} entry valid")
         require(bool(((rows >= 0) & (rows < dindex.size)).all().item()), f"{name}: rows in range")
@@ -802,6 +841,7 @@ def main() -> int:
         lambda: int8_scan.int8_topk_plain(*codes_1m, k=K * OVERSAMPLE), reps=5)
     emit({"phase": "main", "card": smi, "config": "ViT-B-32 bf16, seeded random weights",
           "images": N_IMAGES, "rows": N_ROWS, "dim": DIM, "launches": launches,
+          "attention_routes": routes,
           "recall_at_10": recall, "text_top10_equals_plain": text_agree,
           "int8_topk_1m_max_abs_err": scan_1m_err,
           "image_embed_img_per_s": img_per_s, "text_embed_ms_per_batch_of_64": text_ms,
@@ -815,20 +855,25 @@ def main() -> int:
     # 6. The batched search on the same index. Counters start at zero here.
     batch = batch_path(torch, dev, smi, dindex, group_ids, scale, counters)
     batch_launches = batch.pop("launches")
+    batch_routes = read_routes(counters)
     emit({"phase": "batch", "launches": batch_launches, **batch})
     del index, dindex, group_ids, gq
     torch.cuda.empty_cache()
 
     # 7. The serving embed: ViT-L/14 static int8 through ClipImpl.predict.
-    for fn in counters:
-        fn.launches = 0
+    reset_counts(counters)
     l14 = int8_embed_path(torch, dev, smi, counters)
     l14_launches = {fn.__name__: fn.launches for fn in counters}
+    l14_routes = read_routes(counters)
     require(all(l14_launches[name] > 0 for name in ("int8_topk", "mha", "mha_qkv", "ln_quant_2d")),
             f"int8 path kernel launches {l14_launches}")
-    emit({"phase": "int8", "launches": l14_launches, **l14})
+    require_tensor_cores(l14_launches, l14_routes, ("mha", "mha_qkv"), "int8 embed")
+    emit({"phase": "int8", "launches": l14_launches, "attention_routes": l14_routes, **l14})
 
     total = {name: launches[name] + batch_launches[name] + l14_launches[name] for name in launches}
+    total_routes = {name: {path: routes[name][path] + batch_routes[name][path]
+                           + l14_routes[name][path] for path in routes[name]}
+                    for name in routes}
     emit({"kernels": [
         {"name": "int8_topk", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:138", "launches": total["int8_topk"],
@@ -841,10 +886,13 @@ def main() -> int:
          "library_ms": None},
         {"name": "mha", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:192", "launches": total["mha"],
-         "max_abs_err": max(attn_err.values()), "ms": mha_ms, "plain_ms": mha_plain_ms,
+         "routes": total_routes["mha"],
+         "max_abs_err": max(attn_err.values()), "ms": attn_ms["vit_b32_image"][0],
+         "plain_ms": attn_ms["vit_b32_image"][1],
          **bounds["vit_b32_image"], "library_ms": library_ms["vit_b32_image"]},
         {"name": "mha_qkv", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:296", "launches": total["mha_qkv"],
+         "routes": total_routes["mha_qkv"],
          "max_abs_err": max(qkv_err.values()), "ms": qkv_ms["vit_l14_image_int8"][0],
          "plain_ms": qkv_ms["vit_l14_image_int8"][1], **bounds["qkv_vit_l14_image_int8"],
          "library_ms": None},

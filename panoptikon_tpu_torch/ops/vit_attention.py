@@ -16,10 +16,23 @@ Softmax in f32; probabilities are rounded to V's dtype before the AV
 product when D ≥ 32 and stay f32 below that (the reference computes head
 dims under 32 in f32); AV accumulates in f32.
 
-Each wrapper launches the kernel for CUDA tensors and takes its plain
+Each wrapper launches a kernel for CUDA tensors and takes its plain
 version (:func:`mha_plain`, :func:`mha_qkv_plain`) for CPU tensors; any
 other device raises. Unlike the JAX ``attention``, which picks by the
-default backend, the choice follows the tensor.
+default backend, the choice follows the tensor. On CUDA, :func:`route`
+picks one of two kernels from the dtype and head dim, before the launch:
+
+- ``"tensor_core"`` (``pk_mha_tc``): bf16 with 32 ≤ D ≤ 128 and D a
+  multiple of 16 — every CLIP tower. ``mma.sync`` bf16 tiles; p is rounded
+  to bf16 after the normalisation, as the reference rounds it, so the row
+  max and sum come first: from logits kept in shared memory up to
+  ``TC_LOGITS_MAX_KEYS`` keys, else from a first pass over the keys whose
+  logits the second pass recomputes. Needs 16-byte aligned operands.
+- ``"cuda_core"`` (``pk_mha``, ``pk_mha_qkv``): f32 (held to 2e-5, which
+  TF32 would break) and the other head dims (below 32 p stays f32).
+
+Each wrapper counts its launches (``.launches``) and its launches by route
+(``.routes``).
 """
 
 from __future__ import annotations
@@ -34,8 +47,62 @@ from panoptikon_tpu_torch.ops.codec import quantize_static
 _SIGNATURES = {
     "pk_mha": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
     "pk_mha_qkv": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+    "pk_mha_tc": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "pk_check_div_rn": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 }
 MAX_HEAD_DIM = 128
+ROUTES = ("tensor_core", "cuda_core")
+# The tensor-core kernel's variants, each the faster at the towers' shapes
+# in ``python3 -m panoptikon_tpu_torch.profiling --attention``: query rows a
+# block (64 or 128), and the longest key axis whose logits it keeps in
+# shared memory (longer ones take the two-pass form; 0 for two passes
+# always). 64 rows × 320 keys of f32 logits, with the bf16 q, K and V
+# tiles, take at most 132 KB of a block's 227 KB, at D = 128.
+TC_QUERY_ROWS = 64
+TC_LOGITS_MAX_KEYS = 320
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call of :func:`mha` or :func:`mha_qkv` launches:
+    ``"tensor_core"`` for bf16 with 32 ≤ D ≤ 128 and D % 16 == 0, else
+    ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and 32 <= head_dim <= MAX_HEAD_DIM and head_dim % 16 == 0:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _tensor_core(q_ptr, k_ptr, v_ptr, mask, out, scale_t, ld, b, n_q, n_kv, h, d, causal,
+                 device):
+    """Launch ``pk_mha_tc`` on bf16 operands given by base pointer and row
+    stride ``ld`` (elements)."""
+    if any(ptr % 16 for ptr in (q_ptr, k_ptr, v_ptr)):
+        raise ValueError("the tensor-core attention kernel needs 16-byte aligned q, k, v")
+    lib = _build.load("attention", _SIGNATURES)
+    return lib.pk_mha_tc(
+        q_ptr, k_ptr, v_ptr, None if mask is None else mask.data_ptr(), out.data_ptr(),
+        None if scale_t is None else scale_t.data_ptr(), ld, b, n_q, n_kv, h, d, int(causal),
+        float(d) ** -0.5, TC_QUERY_ROWS, int(n_kv <= TC_LOGITS_MAX_KEYS),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+
+
+def check_div_rn(divisors: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel forms p = e / s as one correction of e·(1/s)
+    (``div_rn`` in csrc/attention.cu). For each divisor (f32 ≥ 1, on the
+    card) returns how many floats in [0, 1] — every one — it rounds
+    otherwise than a correctly rounded division (int64; all 0 is right)."""
+    if divisors.device.type != "cuda" or divisors.dtype != torch.float32:
+        raise ValueError("check_div_rn takes f32 divisors on a CUDA device")
+    b = divisors.contiguous()
+    if not bool((b >= 1).all()):
+        raise ValueError("check_div_rn takes divisors >= 1, as a row sum of the softmax is")
+    counts = torch.zeros(b.numel(), dtype=torch.int64, device=b.device)
+    lib = _build.load("attention", _SIGNATURES)
+    err = lib.pk_check_div_rn(b.data_ptr(), b.numel(), counts.data_ptr(),
+                              torch.cuda.current_stream(b.device).cuda_stream)
+    _build.check(err, "check_div_rn")
+    return counts
 
 
 def _check(q, k, v, causal, key_mask):
@@ -100,19 +167,26 @@ def mha(q, k, v, *, causal: bool = False, key_mask=None):
     if key_mask is not None:
         mask = (key_mask.to(torch.float32) > 0).to(torch.uint8).contiguous()
     out = torch.empty_like(q)
-    lib = _build.load("attention", _SIGNATURES)
-    err = lib.pk_mha(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        b, n_q, n_kv, h, d, int(causal), int(q.dtype == torch.bfloat16),
-        float(d) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    path = route(q.dtype, d)
+    if path == "tensor_core":
+        err = _tensor_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask, out, None, h * d,
+                           b, n_q, n_kv, h, d, causal, q.device)
+    else:
+        lib = _build.load("attention", _SIGNATURES)
+        err = lib.pk_mha(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            b, n_q, n_kv, h, d, int(causal), int(q.dtype == torch.bfloat16),
+            float(d) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(err, "mha")
     mha.launches += 1
+    mha.routes[path] += 1
     return out
 
 
 mha.launches = 0
+mha.routes = dict.fromkeys(ROUTES, 0)
 
 
 def attention(q, k, v, *, causal: bool = False):
@@ -121,13 +195,16 @@ def attention(q, k, v, *, causal: bool = False):
 
 
 def qkv_fused_fits(head_dim: int) -> bool:
-    """Whether :func:`mha_qkv`'s kernel takes this head dim. It streams keys
-    through shared memory in 64-key chunks, so N and H are free (the JAX
-    rule of the same name, which also takes them, bounds VMEM); a lane
-    holds D/32 accumulators, so D ≤ 128, where the block's shared memory
-    (a 16-row q block and one K and one V chunk in f32) is 74 KB of the
-    H100's 227 KB. Every ``CONFIGS`` entry fits, ViT-H-14-378 (D = 80,
-    N = 730) included; the JAX package's VMEM rule rejects that one."""
+    """Whether :func:`mha_qkv`'s kernels take this head dim. Both stream keys
+    through shared memory in 64-key tiles, so N and H are free (the JAX
+    rule of the same name, which also takes them, bounds VMEM). D ≤ 128:
+    a CUDA-core lane holds D/32 accumulators (a 16-row q block and one K
+    and one V chunk in f32 are 74 KB of shared memory), and a tensor-core
+    warp holds D/2 f32 accumulators and D/4 registers of q per lane (a
+    block's 64 query rows, K and V tiles in bf16 and up to 80 KB of logits
+    are at most 132 KB of the H100's 227 KB). Every ``CONFIGS`` entry fits,
+    ViT-H-14-378 (D = 80, N = 730) included; the JAX package's VMEM rule
+    rejects that one."""
     return 1 <= head_dim <= MAX_HEAD_DIM
 
 
@@ -177,15 +254,23 @@ def mha_qkv(qkv, *, heads: int, causal: bool = False, out_scale=None):
         out = torch.empty((b, n, w), dtype=torch.int8, device=qkv.device)
     else:
         out = torch.empty((b, n, w), dtype=qkv.dtype, device=qkv.device)
-    lib = _build.load("attention", _SIGNATURES)
-    err = lib.pk_mha_qkv(
-        qkv.data_ptr(), out.data_ptr(), None if scale_t is None else scale_t.data_ptr(),
-        b, n, heads, d, int(causal), int(qkv.dtype == torch.bfloat16), float(d) ** -0.5,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
+    path = route(qkv.dtype, d)
+    if path == "tensor_core":
+        base, part = qkv.data_ptr(), w * qkv.element_size()  # q | k | v, no split copies
+        err = _tensor_core(base, base + part, base + 2 * part, None, out, scale_t, w3, b, n, n,
+                           heads, d, causal, qkv.device)
+    else:
+        lib = _build.load("attention", _SIGNATURES)
+        err = lib.pk_mha_qkv(
+            qkv.data_ptr(), out.data_ptr(), None if scale_t is None else scale_t.data_ptr(),
+            b, n, heads, d, int(causal), int(qkv.dtype == torch.bfloat16), float(d) ** -0.5,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
     _build.check(err, "mha_qkv")
     mha_qkv.launches += 1
+    mha_qkv.routes[path] += 1
     return out
 
 
 mha_qkv.launches = 0
+mha_qkv.routes = dict.fromkeys(ROUTES, 0)

@@ -1,6 +1,6 @@
 """Where the device time goes on the port's main path, on one NVIDIA GPU.
 
-    python3 -m panoptikon_tpu_torch.profiling [--out DIR] [--reps N]
+    python3 -m panoptikon_tpu_torch.profiling [--out DIR] [--reps N] [--attention]
 
 Four operations, each called ``reps`` times back to back under
 ``torch.profiler`` (CPU and CUDA activity), after three warm-up calls:
@@ -24,11 +24,24 @@ every call (one request at a time, as a server sees it), the device's idle
 share of that wall time, and the kernels that take the most device time.
 The full ``key_averages()`` tables go to ``DIR/profile_<name>.txt``. The
 card's name and power limit (nvidia-smi) lead the output.
+
+``--attention`` is the attention probe instead: the tensor-core attention
+kernel's variants (64 and 128 query rows a block; logits kept in shared
+memory, or recomputed by a second pass) timed in turns with CUDA events
+beside ``F.scaled_dot_product_attention`` at the towers' four shapes
+(ViT-L/14 ``mha_qkv`` with int8 and with bf16 out, ViT-B/32
+and CLIP text causal ``mha``), one JSON line each; then an ablation of its
+exact softmax (``ABLATIONS``: timing-only edits of ``csrc/attention.cu``
+built beside the kernels, never used by the port) at the serving shapes,
+with each edit's division held against ``__fdiv_rn`` over every float in
+[0, 1]; then the ``embed`` and ``embed_int8`` profiles. Every profile line
+carries attention's share of the device time.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -49,6 +62,30 @@ from panoptikon_tpu_torch.models import clip
 SEED = 0
 N_ROWS, DIM, N_QUERIES, N_BATCH, K, OVERSAMPLE = 1_048_576, 512, 256, 4096, 10, 8
 IMAGE_BATCH = 256
+ATTN_SHAPES = {
+    # name: (b, n, h, d, causal, out); out "int8" or "bf16" is mha_qkv, None mha
+    "vit_l14_image_int8": (256, 257, 16, 64, False, "int8"),
+    "vit_l14_image_bf16": (256, 257, 16, 64, False, "bf16"),
+    "vit_b32_image": (256, 50, 12, 64, False, None),
+    "clip_text_causal": (64, 77, 8, 64, True, None),
+}
+# (query rows a block, TC_LOGITS_MAX_KEYS): shared-memory logits, two passes.
+VARIANTS = ((64, 320), (128, 320), (64, 0), (128, 0))
+# Edits of csrc/attention.cu that price a part of the exact softmax: the
+# division as __fdiv_rn, the division without its guard for numerators
+# under 2^-80 (wrong there), and __expf for expf (less accurate). Each is
+# built for D = 64 only.
+_DIV_BODY = "  const float q = __fmul_rn(a, y);\n  return __fmaf_rn(__fmaf_rn(-b, q, a), y, q);"
+ABLATIONS = {
+    "as_built": [],
+    "fdiv_rn": [(_DIV_BODY, "  return __fdiv_rn(a, b);")],
+    "unguarded_div": [
+        ("return a > 0.0f && a < kDivRnMin ? __fdiv_rn(a, b) : div_rn(a, b, y);",
+         "return div_rn(a, b, y);"),
+        ("if (!__any_sync(0xffffffffu, tiny)) {", "if (true) {")],
+    "fast_exp": [("expf(", "__expf(")],
+}
+_OTHER_DIMS = [f"    PK_TC_CASE({d})\n" for d in (32, 48, 80, 96, 112, 128)]
 
 
 def _unit_rows(n: int, dim: int, gen: torch.Generator, dev) -> torch.Tensor:
@@ -101,6 +138,126 @@ def _wall_ms(fn, reps: int) -> float:
     return total / reps * 1e3
 
 
+def _cuda_ms(fn, reps: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _attention_variants(dev, smi: str) -> None:
+    """Time the tensor-core kernel's ``VARIANTS`` in turns (in order, then
+    reversed) beside SDPA, at each of ``ATTN_SHAPES``."""
+    import torch.nn.functional as F
+
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name, (b, n, h, d, causal, out) in ATTN_SHAPES.items():
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, d).unbind(2))
+        if out is None:
+            call = lambda: vit_attention.mha(q, k, v, causal=causal)
+        else:
+            scale = torch.tensor(3.0, device=dev) if out == "int8" else None
+            call = lambda: vit_attention.mha_qkv(qkv, heads=h, causal=causal, out_scale=scale)
+        saved = vit_attention.TC_QUERY_ROWS, vit_attention.TC_LOGITS_MAX_KEYS
+        times, outs = {var: [] for var in VARIANTS}, {}
+        try:
+            for var in (*VARIANTS, *reversed(VARIANTS)):
+                vit_attention.TC_QUERY_ROWS, vit_attention.TC_LOGITS_MAX_KEYS = var
+                times[var].append(_cuda_ms(call))
+                outs[var] = call()
+        finally:
+            vit_attention.TC_QUERY_ROWS, vit_attention.TC_LOGITS_MAX_KEYS = saved
+        sdpa_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal))
+        names = {var: f"rows_{var[0]}_{'smem_logits' if var[1] else 'two_pass'}"
+                 for var in VARIANTS}
+        ms = {names[var]: sum(t) / len(t) for var, t in times.items()}
+        by_form = {form: [o for var, o in outs.items() if var[1] == form] for _, form in VARIANTS}
+        print(json.dumps({
+            "card": smi, "probe": "attention", "shape": name, "b": b, "n": n, "h": h, "d": d,
+            "causal": causal, "out": out or "bf16 (mha)", "ms": ms,
+            "fastest": min(ms, key=ms.get), "sdpa_ms": sdpa_ms,
+            # Rows a block do not change a row's arithmetic; the two forms
+            # differ only in the order of the row sum.
+            "rows_variants_identical": all(torch.equal(o[0], o[1]) for o in by_form.values()),
+            "forms_max_diff": max(
+                (a.float() - b.float()).abs().max().item() for a in outs.values()
+                for b in outs.values()),
+        }), flush=True)
+
+
+def _ablation_lib(name: str, edits) -> ctypes.CDLL:
+    from panoptikon_tpu_torch import _build
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    text = (_build.CSRC / "attention.cu").read_text()
+    for old, new in [*edits, *((case, "") for case in _OTHER_DIMS)]:
+        if old not in text:
+            raise RuntimeError(f"ablation {name}: csrc/attention.cu no longer has {old!r}")
+        text = text.replace(old, new)
+    build = _build.BUILD_DIR / "ablation"
+    build.mkdir(parents=True, exist_ok=True)
+    (build / f"{name}.cu").write_text(text)
+    so = build / f"{name}.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+                           str(build / f"{name}.cu")], capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for ablation {name}:\n{proc.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in vit_attention._SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _attention_ablation(dev, smi: str) -> None:
+    """Each of ``ABLATIONS`` timed in turns at ViT-L/14's serving shape
+    (``mha_qkv``, int8 out) and ViT-B/32's (``mha``), in both softmax forms,
+    and its division checked over every float in [0, 1]."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(ABLATIONS)) as pool:
+        libs = dict(zip(ABLATIONS, pool.map(lambda kv: _ablation_lib(*kv), ABLATIONS.items())))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    divisors = torch.exp(torch.rand(64, generator=gen, device=dev) * np.log(4096.0))
+    divisors = torch.cat([divisors, 2.0 ** torch.arange(13, device=dev)])
+    for shape, (b, n, h, d, out) in {"vit_l14_image_int8": (256, 257, 16, 64, True),
+                                     "vit_b32_image": (256, 50, 12, 64, False)}.items():
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+        o = torch.empty((b, n, h * d), device=dev, dtype=torch.int8 if out else torch.bfloat16)
+        scale = torch.tensor([3.0], device=dev) if out else None
+        base, part = qkv.data_ptr(), h * d * qkv.element_size()
+        times = {}
+        for logits in (1, 0):
+            for name in (*ABLATIONS, *reversed(ABLATIONS)):
+                lib = libs[name]
+                times.setdefault(f"{name}_{'smem_logits' if logits else 'two_pass'}", []).append(
+                    _cuda_ms(lambda: lib.pk_mha_tc(
+                        base, base + part, base + 2 * part, None, o.data_ptr(),
+                        None if scale is None else scale.data_ptr(), 3 * h * d, b, n, n, h, d,
+                        0, float(d) ** -0.5, 64, logits, stream)))
+        print(json.dumps({"card": smi, "probe": "attention_ablation", "shape": shape,
+                          "ms": {k: sum(v) / len(v) for k, v in times.items()}}), flush=True)
+    for name, lib in libs.items():
+        counts = torch.zeros(divisors.numel(), dtype=torch.int64, device=dev)
+        lib.pk_check_div_rn(divisors.data_ptr(), divisors.numel(), counts.data_ptr(), stream)
+        torch.cuda.synchronize()
+        print(json.dumps({"card": smi, "probe": "attention_ablation_division", "variant": name,
+                          "divisors": divisors.numel(),
+                          "floats_in_0_1_off_fdiv_rn": int(counts.sum().item()),
+                          "divisors_with_any": int((counts > 0).sum().item())}), flush=True)
+
+
 def _profile(name: str, fn, reps: int, out: Path) -> dict:
     for _ in range(3):
         fn()
@@ -118,9 +275,12 @@ def _profile(name: str, fn, reps: int, out: Path) -> dict:
     device_us = sum(e.self_device_time_total for e in kernels)
     device_ms = device_us / reps / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    attention_us = sum(e.self_device_time_total for e in kernels if "mha_" in e.key)
     return {
         "op": name, "reps": reps, "device_ms_per_call": device_ms, "wall_ms_per_call": wall_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "attention_ms_per_call": attention_us / reps / 1e3,
+        "attention_share": attention_us / device_us,
         "top_kernels": [
             {"name": e.key[:90], "ms_per_call": e.self_device_time_total / reps / 1e3,
              "share": e.self_device_time_total / device_us, "launches_per_call": e.count / reps}
@@ -133,6 +293,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=Path("chiprun_out"))
     parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--attention", action="store_true",
+                        help="the attention probe and the two embed profiles")
     args = parser.parse_args(argv)
     dev = device("cuda")
     args.out.mkdir(parents=True, exist_ok=True)
@@ -143,6 +305,10 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     makers = (_search_ops, lambda d: {"embed": _embed_op(d)},
               lambda d: {"embed_int8": _embed_int8_op(d)})
+    if args.attention:
+        _attention_variants(dev, smi)
+        _attention_ablation(dev, smi)
+        makers = makers[1:]
     for make in makers:
         for name, fn in make(dev).items():
             record = _profile(name, fn, args.reps, args.out)

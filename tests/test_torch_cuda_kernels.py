@@ -21,12 +21,26 @@ ATTN_SHAPES = {
     "vit_b32_image": (4, 50, 50, 12, 64, False, False),
     "clip_text": (4, 77, 77, 8, 64, True, False),
     "masked": (3, 40, 40, 4, 64, False, True),
+    "masked_tiles": (2, 200, 200, 4, 64, False, True),
+    "causal_tiles": (2, 300, 300, 2, 64, True, False),
     "cross": (2, 64, 300, 8, 64, False, False),
     "long": (1, 1500, 1500, 2, 64, False, False),
+    "n_1": (3, 1, 1, 4, 64, False, False),
+    "vit_l14": (2, 257, 257, 16, 64, False, False),
+    "cross_ragged": (2, 70, 130, 4, 32, False, False),
     "head_dim_80": (2, 33, 33, 2, 80, False, False),
+    "head_dim_128": (2, 100, 100, 2, 128, True, False),
     "head_dim_16": (2, 9, 9, 2, 16, True, False),
+    "head_dim_40": (2, 50, 50, 2, 40, False, False),
 }
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _expected_route(dtype, d):
+    """bf16 at D in 32..128, a multiple of 16, takes the tensor cores; f32
+    and the other head dims take the CUDA-core kernel."""
+    return "tensor_core" if dtype == torch.bfloat16 and d in (32, 48, 64, 80, 96, 112, 128) \
+        else "cuda_core"
 
 
 @pytest.fixture
@@ -36,9 +50,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(params=["auto", "two_pass"])
+def tc_form(request, monkeypatch):
+    """The tensor-core kernel as the wrapper sets it up, and with its
+    two-pass form forced at every N_kv (0 keys of logits in shared memory)."""
+    if request.param == "two_pass":
+        monkeypatch.setattr(vit_attention, "TC_LOGITS_MAX_KEYS", 0)
+    return request.param
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", list(ATTN_SHAPES))
-def test_mha_kernel_matches_plain(cuda_device, shape, dtype):
+def test_mha_kernel_matches_plain(cuda_device, tc_form, shape, dtype):
     b, nq, nkv, h, d, causal, masked = ATTN_SHAPES[shape]
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     tdt = getattr(torch, dtype)
@@ -48,12 +71,14 @@ def test_mha_kernel_matches_plain(cuda_device, shape, dtype):
     if masked:
         mask = torch.rand((b, nkv), generator=gen, device=cuda_device) < 0.7
         mask[-1] = False  # a fully masked row
-    before = vit_attention.mha.launches
+    before, routes = vit_attention.mha.launches, dict(vit_attention.mha.routes)
     got = vit_attention.mha(q, k, v, causal=causal, key_mask=mask)
     want = vit_attention.mha_plain(q, k, v, causal=causal, key_mask=mask)
     torch.cuda.synchronize()
     assert vit_attention.mha.launches == before + 1
-    assert got.dtype == tdt
+    path = _expected_route(tdt, d)
+    assert vit_attention.mha.routes == {**routes, path: routes[path] + 1}
+    assert got.dtype == tdt and torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
@@ -68,11 +93,43 @@ def test_mha_head_dim_16_keeps_p_in_f32(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn((4, 300, 2, 16), generator=gen, device=cuda_device).to(torch.bfloat16)
                for _ in range(3))
+    routes = dict(vit_attention.mha.routes)
     got = vit_attention.mha(q, k, v)
     want = vit_attention.mha_plain(q, k, v)
     torch.cuda.synchronize()
+    assert vit_attention.mha.routes == {**routes, "cuda_core": routes["cuda_core"] + 1}
     assert (got == want).float().mean().item() >= 0.995
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_mha_tensor_core_route_rejects_misaligned_operands(cuda_device):
+    b, n, h, d = 2, 50, 4, 64
+    flat = torch.zeros(b * n * h * d + 1, device=cuda_device, dtype=torch.bfloat16)
+    q = flat[1:].view(b, n, h, d)  # contiguous, 2 bytes past a 16-byte boundary
+    k = v = torch.zeros((b, n, h, d), device=cuda_device, dtype=torch.bfloat16)
+    before = vit_attention.mha.launches
+    with pytest.raises(ValueError, match="aligned"):
+        vit_attention.mha(q, k, v)
+    assert vit_attention.mha.launches == before
+
+
+def div_rn_divisors(device):
+    """Row sums the softmax can give (f32 ≥ 1): 1 and its neighbour, powers
+    of two and the floats just under them, and 64 seeded log-uniform values
+    up to 4,096."""
+    rng = np.random.default_rng(5)
+    under = np.nextafter(np.float32(2.0) ** np.arange(1, 13, dtype=np.float32), np.float32(0))
+    values = np.concatenate([
+        [1.0, np.nextafter(np.float32(1), np.float32(2)), 3.0, 257.0, 1500.0],
+        2.0 ** np.arange(1, 13), under, np.exp(rng.uniform(0, np.log(4096), 64))])
+    return torch.from_numpy(values.astype(np.float32)).to(device)
+
+
+def test_kernel_division_is_correctly_rounded(cuda_device):
+    # p = e / s by one correction of e·(1/s), bit for bit __fdiv_rn's, for
+    # every float e in [0, 1].
+    counts = vit_attention.check_div_rn(div_rn_divisors(cuda_device))
+    assert counts.sum().item() == 0, counts.tolist()
 
 
 QKV_SHAPES = {
@@ -80,23 +137,27 @@ QKV_SHAPES = {
     "vit_l14_image": (2, 257, 16, 64, False),
     "vit_l14_text": (3, 77, 12, 64, True),
     "vit_h14_378": (1, 730, 16, 80, False),
+    "head_dim_128": (2, 65, 2, 128, True),
+    "n_1": (2, 1, 3, 64, False),
     "head_dim_16": (2, 40, 2, 16, True),
 }
 
 
 @pytest.mark.parametrize("out", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("shape", list(QKV_SHAPES))
-def test_mha_qkv_kernel_matches_plain(cuda_device, shape, out):
+def test_mha_qkv_kernel_matches_plain(cuda_device, tc_form, shape, out):
     b, n, h, d, causal = QKV_SHAPES[shape]
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     in_dt = torch.float32 if out == "float32" else torch.bfloat16
     qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=cuda_device).to(in_dt)
     scale = torch.tensor(2.5, device=cuda_device) if out == "int8" else None
-    before = vit_attention.mha_qkv.launches
+    before, routes = vit_attention.mha_qkv.launches, dict(vit_attention.mha_qkv.routes)
     got = vit_attention.mha_qkv(qkv, heads=h, causal=causal, out_scale=scale)
     want = vit_attention.mha_qkv_plain(qkv, heads=h, causal=causal, out_scale=scale)
     torch.cuda.synchronize()
     assert vit_attention.mha_qkv.launches == before + 1
+    path = _expected_route(in_dt, d)
+    assert vit_attention.mha_qkv.routes == {**routes, path: routes[path] + 1}
     assert got.dtype == want.dtype and got.shape == (b, n, h * d)
     if out == "int8":
         assert _codes_agree(got, want)

@@ -1,8 +1,11 @@
-"""Kernel 2 of the port (ops/vit_attention.py) against the JAX Pallas kernel
-``mha`` in interpret mode, in all four modes. Tolerances are those of
-test_vit_attention.py: 2e-5 in f32; 2e-2 in bf16, where the two frameworks
-round to bf16 at different points. test_torch_cuda_kernels.py holds the
-CUDA kernel against the plain version."""
+"""Kernels B3 and B4 of the port (ops/vit_attention.py) against the JAX
+Pallas kernels ``mha`` and ``mha_qkv`` in interpret mode, in all four modes.
+Tolerances are those of test_vit_attention.py: 2e-5 in f32; 2e-2 in bf16,
+where the two frameworks round to bf16 at different points. The
+tensor-core kernel's order of arithmetic, emulated in PyTorch, is held
+against the plain version at ViT-L/14's head shape within the card's int8
+limits. test_torch_cuda_kernels.py holds the CUDA kernels against the plain
+version."""
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -12,6 +15,7 @@ import torch
 
 from panoptikon_tpu.ops import vit_attention as ref
 from panoptikon_tpu_torch.ops import vit_attention
+from panoptikon_tpu_torch.ops.codec import quantize_static
 
 MODES = {
     # name: (b, n_q, n_kv, h, d, causal, masked)
@@ -149,6 +153,152 @@ def test_mha_qkv_wrapper_takes_plain_version_on_cpu():
         vit_attention.mha_qkv(t[..., :-1], heads=h)
     with pytest.raises(ValueError):  # neither CPU nor CUDA: no silent fallback
         vit_attention.mha_qkv(t.to("meta"), heads=h)
+
+
+def _kernel_order_attention(q, k, v, causal=False, key_mask=None, smem_logits=True, tile=64):
+    """The tensor-core kernel's order of arithmetic (csrc/attention.cu,
+    ``mha_tc_kernel``) in PyTorch, in f32 with p rounded to bf16.
+
+    Logits l = (q·k)·D^-0.5 (causal −inf, then the additive −1e9 key mask;
+    padded keys −inf) by 64-key tiles. Lane t of a row's four owns columns
+    8n + 2t and 8n + 2t + 1 (n = 0..7) of every tile and sums its
+    exponentials in that order; the four sums are added (s0 + s1) + (s2 +
+    s3). With ``smem_logits`` the row max m comes first and each lane sums
+    exp(l − m); in the two-pass form m grows tile by tile (the four lanes
+    agree on it) and a lane's sum is rescaled by exp(m_old − m_new) when it
+    does. Then p = exp(l − m) / s rounded to bf16, and p·V accumulated in
+    f32. The products' own summation order (the tensor cores') is not
+    emulated."""
+    b, n_q, h, d = q.shape
+    n_kv = k.shape[1]
+    lt = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (float(d) ** -0.5)
+    if causal:
+        keep = torch.arange(n_kv)[None, :] <= torch.arange(n_q)[:, None]
+        lt = torch.where(keep, lt, -torch.inf)
+    if key_mask is not None:
+        lt = torch.where(key_mask[:, None, None, :], lt, lt - 1e9)
+    n_pad = -(-n_kv // tile) * tile
+    lt = torch.nn.functional.pad(lt, (0, n_pad - n_kv), value=-torch.inf)
+    m = lt.amax(-1) if smem_logits else torch.full((b, h, n_q), -torch.inf)
+    s = torch.zeros((4, b, h, n_q))
+    for j0 in range(0, n_pad, tile):
+        lj = lt[..., j0:j0 + tile]
+        mn = m if smem_logits else torch.maximum(m, lj.amax(-1))
+        live = mn > -torch.inf
+        alpha = torch.where(live, torch.exp(m - mn), 0.0)
+        for t in range(4):
+            ts = torch.zeros_like(m)
+            for c in (8 * nt + 2 * t + e for nt in range(tile // 8) for e in range(2)):
+                ts = ts + torch.where(live, torch.exp(lj[..., c] - mn), 0.0)
+            s[t] = torch.where(live, s[t] * alpha + ts, s[t])
+        m = mn
+    total = (s[0] + s[1]) + (s[2] + s[3])
+    p = (torch.exp(lt - m[..., None]) / total[..., None]).to(torch.bfloat16).float()
+    return torch.einsum("bhqk,bkhd->bqhd", p[..., :n_kv], v.float())
+
+
+def _split_qkv(qkv, heads):
+    b, n, w3 = qkv.shape
+    return tuple(t.reshape(b, n, heads, w3 // 3 // heads) for t in qkv.split(w3 // 3, dim=-1))
+
+
+@pytest.mark.parametrize("smem_logits", [True, False])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_order_matches_plain_at_vit_l14_head_shape(causal, smem_logits):
+    # The tensor-core kernel normalises before it rounds p, as the
+    # reference; its int8 codes stay within the card's limits of the plain
+    # version at ViT-L/14's head shape (N = 257, H = 16, D = 64).
+    rng = np.random.default_rng(21)
+    qkv = torch.from_numpy(rng.normal(size=(2, 257, 3 * 16 * 64)).astype(np.float32))
+    qkv = qkv.to(torch.bfloat16)
+    scale = torch.tensor(3.0)
+    got = _kernel_order_attention(*_split_qkv(qkv, 16), causal=causal, smem_logits=smem_logits)
+    codes = quantize_static(got.reshape(2, 257, -1), scale)
+    want = vit_attention.mha_qkv_plain(qkv, heads=16, causal=causal, out_scale=scale)
+    diff = (codes.to(torch.int32) - want.to(torch.int32)).abs()
+    assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 5e-3
+    want_bf16 = vit_attention.mha_qkv_plain(qkv, heads=16, causal=causal)
+    torch.testing.assert_close(got.reshape(2, 257, -1).to(torch.bfloat16).float(),
+                               want_bf16.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_one_pass_rounding_would_break_the_int8_limit():
+    # FlashAttention-2's usual form rounds the unnormalised exp(l − m) to
+    # bf16 and divides by the sum at the end. At ViT-L/14's head shape that
+    # moves more of mha_qkv's int8 codes than the card's checks allow
+    # (0.5 %), which is why the kernel finds the row's max and sum first.
+    rng = np.random.default_rng(21)
+    qkv = torch.from_numpy(rng.normal(size=(2, 257, 3 * 16 * 64)).astype(np.float32))
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = (t.float() for t in _split_qkv(qkv, 16))
+    lt = torch.einsum("bqhd,bkhd->bhqk", q, k) * 64 ** -0.5
+    e = torch.exp(lt - lt.amax(-1, keepdim=True))
+    out = torch.einsum("bhqk,bkhd->bqhd", e.to(torch.bfloat16).float(), v)
+    out = out / e.sum(-1).permute(0, 2, 1)[..., None]
+    scale = torch.tensor(3.0)
+    codes = quantize_static(out.reshape(2, 257, -1), scale)
+    want = vit_attention.mha_qkv_plain(qkv, heads=16, out_scale=scale)
+    assert (codes != want).float().mean().item() > 5e-3
+
+
+def test_attention_ablation_edits_apply_to_the_kernel_source():
+    # The probe's timing-only edits of csrc/attention.cu must each find its
+    # text, or the ablation stops at build time on the card.
+    from panoptikon_tpu_torch import _build, profiling
+
+    text = (_build.CSRC / "attention.cu").read_text()
+    for name, edits in profiling.ABLATIONS.items():
+        for old, _ in [*edits, *((case, "") for case in profiling._OTHER_DIMS)]:
+            assert old in text, (name, old)
+
+
+@pytest.mark.parametrize("smem_logits", [True, False])
+@pytest.mark.parametrize("case", ["image", "text_causal"])
+def test_kernel_order_matches_pallas_kernel(case, smem_logits):
+    qkv, h, causal = _qkv(case, seed=3)
+    qkv_bf16 = qkv.astype(ml_dtypes.bfloat16)
+    got = _kernel_order_attention(
+        *_split_qkv(torch.from_numpy(qkv).to(torch.bfloat16), h), causal=causal,
+        smem_logits=smem_logits)
+    b, n, _ = qkv.shape
+    want = np.asarray(ref.mha_qkv(jnp.asarray(qkv_bf16), heads=h, causal=causal, interpret=True),
+                      np.float32)
+    np.testing.assert_allclose(got.reshape(b, n, -1).to(torch.bfloat16).float().numpy(), want,
+                               rtol=2e-2, atol=2e-2)
+    codes = np.asarray(ref.mha_qkv(jnp.asarray(qkv_bf16), heads=h, causal=causal,
+                                   out_scale=2.5, interpret=True))
+    mine = quantize_static(got.reshape(b, n, -1), torch.tensor(2.5)).numpy()
+    assert np.abs(mine.astype(np.int32) - codes.astype(np.int32)).max() <= 1
+
+
+@pytest.mark.parametrize("smem_logits", [True, False])
+def test_kernel_order_key_mask_with_a_fully_masked_row(smem_logits):
+    q, k, v, _, mask = _inputs("masked", seed=4)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = _kernel_order_attention(tq, tk, tv, key_mask=torch.from_numpy(mask),
+                                  smem_logits=smem_logits)
+    want = vit_attention.mha_plain(tq, tk, tv, key_mask=torch.from_numpy(mask))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.to(torch.bfloat16).float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_route_follows_dtype_and_head_dim():
+    # Decided before a launch, from the dtype and D alone: bf16 with D a
+    # multiple of 16 in [32, 128] on the tensor cores; f32 (held to 2e-5)
+    # and the other head dims (p in f32 below 32) on the CUDA cores.
+    for d in (32, 48, 64, 80, 96, 112, 128):
+        assert vit_attention.route(torch.bfloat16, d) == "tensor_core"
+        assert vit_attention.route(torch.float32, d) == "cuda_core"
+    for d in (1, 8, 16, 24, 40, 72, 100):
+        assert vit_attention.route(torch.bfloat16, d) == "cuda_core"
+    from panoptikon_tpu_torch.models import clip
+
+    for cfg in clip.CONFIGS.values():
+        if cfg.vision_width >= 32 * cfg.vision_heads:  # every CLIP tower but test-tiny's
+            assert vit_attention.route(torch.bfloat16, cfg.vision_width // cfg.vision_heads) \
+                == "tensor_core"
+    assert set(vit_attention.mha.routes) == set(vit_attention.mha_qkv.routes) == \
+        set(vit_attention.ROUTES)
 
 
 def test_qkv_fused_fits_is_the_kernels_limit():
