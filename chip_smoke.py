@@ -7,14 +7,20 @@ Phases, one JSON line each:
 1. env      the card (nvidia-smi name and power limit), torch, CUDA, nvcc,
             Triton;
 2. build    the three kernel sources of panoptikon_tpu_torch/csrc/, one nvcc
-            each, all started together (ptxas registers and spills);
+            each, all started together (ptxas registers and spills); the
+            tensor-core instructions (IMMA for mma.sync, IGMMA for wgmma)
+            that cuobjdump -sass finds in each form of int8_topk_v2_kernel,
+            which must hold some: B2's dots run on the tensor cores;
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes the main paths give it, timed kernel/plain/plain/
             kernel: mha and mha_qkv bf16 ≤ 2e-2 max abs, every attention
             case timed and the route each takes (tensor cores for bf16 at
             32 ≤ D ≤ 128, D % 16 = 0, else CUDA cores); the tensor-core
             attention's division bit for bit a correctly rounded one over
-            every float in [0, 1]; int8 outputs
+            every float in [0, 1], ln_quant's int8 code of every float
+            equal to a correctly rounded division's, and B2's reciprocal
+            square root equal to __frsqrt_rn's at every positive normal
+            float; int8 outputs
             (mha_qkv, ln_quant) at most one code apart and at most 0.5 % of
             codes apart; both int8 scans (B1 at Q = 64, B2 at Q = 1,024 and
             on a ragged corpus with +inf sentinel rows), cosine and L2, with
@@ -40,7 +46,8 @@ Phases, one JSON line each:
             candidates against its plain version on all 4,096 queries (in
             chunks of 256), recall@10 of the first 256 against the exact
             fp32 top-10 (≥ 0.99), row validity; QPS, B2's and B1's ms on the
-            same 4,096 query codes, the candidate overlap of B2 with B1's
+            same 4,096 query codes, B2's ms on the first 256 of them (beside
+            B1's phase-5 time at Q = 256), the candidate overlap of B2 with B1's
             exact 80, peak device memory;
 7. int8     the serving embed: ClipImpl(ViT-L-14, precision="int8",
             batch_cap=256) with seeded random weights embeds 1,280 images in
@@ -71,6 +78,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -432,6 +440,9 @@ def batch_path(torch, dev, smi, dindex, group_ids, scale, counters) -> dict:
         v2_ms = cuda_ms(torch, lambda: int8_scan.int8_topk_v2(*args, k=kk), reps=3, warmup=1)
         _, b1_rows, _ = int8_scan.int8_topk(*args, k=kk)
         v1_ms = cuda_ms(torch, lambda: int8_scan.int8_topk(*args, k=kk), reps=2, warmup=1)
+        # B2 at the serving path's Q = 256 (B1's there): the B1/B2 crossover.
+        v2_q256_ms = cuda_ms(torch, lambda: int8_scan.int8_topk_v2(*args[:3], args[3][:PLAIN_CHUNK],
+                                                                  k=kk), reps=5)
     plain_ms = cuda_ms(torch, lambda: int8_scan.int8_topk_v2_plain(*args[:3], args[3][:PLAIN_CHUNK],
                                                                      k=kk), reps=2, warmup=1)
     overlap = (ci[:, :, None] == b1_rows[:, None, :]).any(-1).float().mean().item()
@@ -440,6 +451,7 @@ def batch_path(torch, dev, smi, dindex, group_ids, scale, counters) -> dict:
         "launches": launches, "recall_at_10_first_256": recall, "int8_topk_v2_max_abs_err": err,
         "search_qps_q4096_k10": N_BATCH / (search_ms / 1e3), "search_ms_q4096": search_ms,
         "int8_topk_v2_1m_q4096_k80_ms": v2_ms, "int8_topk_1m_q4096_k80_ms": v1_ms,
+        "int8_topk_v2_1m_q256_k80_ms": v2_q256_ms,
         "int8_topk_v2_plain_ms_per_256_queries": plain_ms,
         "candidate_overlap_v2_vs_exact_80": overlap, "peak_device_gib": peak_gib,
         **{"int8_topk_v2_1m_q4096_" + key: value
@@ -498,7 +510,19 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=3) as pool:
         build = dict(pool.map(build_one, ("int8_scan", "attention", "ln_quant")))
-    emit({"phase": "build", "wall_seconds": time.perf_counter() - t0, **build})
+    build_s = time.perf_counter() - t0
+    # B2's dots on the tensor cores: each form of its kernel holds IMMA
+    # (mma.sync) or IGMMA (wgmma) instructions.
+    b2_tensor_ops = {}
+    for function in _build.sass("int8_scan").split("Function : ")[1:]:
+        name = function.split(None, 1)[0]
+        if "int8_topk_v2_kernel" in name:
+            form = "l2" if "ILb1E" in name else "cosine"
+            b2_tensor_ops[form] = len(re.findall(r"\bIG?MMA\.", function))
+    require(set(b2_tensor_ops) == {"cosine", "l2"} and min(b2_tensor_ops.values()) > 0,
+            f"int8_topk_v2_kernel: tensor-core instructions by form {b2_tensor_ops}")
+    emit({"phase": "build", "wall_seconds": build_s,
+          "int8_topk_v2_kernel_tensor_core_instructions": b2_tensor_ops, **build})
 
     # 3. Kernels against their plain versions.
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -532,6 +556,17 @@ def main() -> int:
     div_counts = vit_attention.check_div_rn(torch.from_numpy(divisors.astype(np.float32)).to(dev))
     div_mismatches = int(div_counts.sum().item())
     require(div_mismatches == 0, f"div_rn differs from a correctly rounded division: {div_counts}")
+    # ln_quant's code y / sx by one correction of y·(1/sx), against a correctly
+    # rounded division, for every float y, at the phase's absmax and others.
+    absmax = np.concatenate([[4.2, 15.875, 1.0, 127.0, 1e-12], np.exp(rng.uniform(-7, 7, 8))])
+    quant_counts = ln_quant.check_quant_code(torch.from_numpy(absmax.astype(np.float32)).to(dev))
+    quant_mismatches = int(quant_counts.sum().item())
+    require(quant_mismatches == 0, f"ln_quant codes differ from a correctly rounded division: "
+                                   f"{quant_counts}")
+    # B2's branch-free reciprocal square root against __frsqrt_rn (B1's), for
+    # every positive normal float.
+    rsqrt_mismatches = int8_scan.check_rsqrt_rn(dev)
+    require(rsqrt_mismatches == 0, f"B2's rsqrt_rn differs from __frsqrt_rn at {rsqrt_mismatches}")
     # Below D = 32, p stays f32 in the kernel as in its plain version.
     q, k, v, _, _ = attn_inputs["head_dim_16"]
     d16_identical = float((vit_attention.mha(q, k, v) == vit_attention.mha_plain(q, k, v))
@@ -703,6 +738,9 @@ def main() -> int:
     emit({"phase": "kernels", "card": smi, "mha_max_abs_err": attn_err,
           "mha_head_dim_16_identical_share": d16_identical,
           "div_rn_divisors": len(divisors), "div_rn_mismatches_in_0_1": div_mismatches,
+          "ln_quant_code_absmax_values": len(absmax),
+          "ln_quant_code_mismatches_all_floats": quant_mismatches,
+          "int8_topk_v2_rsqrt_mismatches_all_normal_floats": rsqrt_mismatches,
           "mha_qkv_max_err": qkv_err, "ln_quant_max_code_diff": ln_err,
           "int8_topk_max_abs_err": scan_err, "int8_topk_l2_max_abs_err": scan_l2_err,
           "attention_routes": attn_routes, "attention_tc_query_rows": vit_attention.TC_QUERY_ROWS,

@@ -12,6 +12,7 @@ seconds, where ``torch.utils.cpp_extension.load`` takes minutes and needs
 ``ninja``. ``ptxas``'s per-kernel register and shared-memory report is kept
 beside the library as ``<name>-<hash>.log``.
 
+Headers shared by the sources (``csrc/*.cuh``) enter every library's hash.
 Every C entry point returns the ``cudaError_t`` of its launch; callers raise
 on a non-zero value through :func:`check`.
 """
@@ -92,6 +93,14 @@ def ptxas_report(name: str) -> str:
     """The ``ptxas -v`` lines of the current build of ``name`` ('' if unbuilt)."""
     log = _library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the current build of ``name`` (built if needed):
+    the instructions the card runs, by kernel."""
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(build(name))], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
 
 
 def check(err: int, what: str) -> None:

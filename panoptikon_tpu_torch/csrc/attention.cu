@@ -75,6 +75,8 @@
 
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kQBlock = 16;
@@ -282,40 +284,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kTile = 64;  // keys per shared-memory tile
 constexpr int kPad = 8;    // bf16 of padding per shared-memory row (16 bytes)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 fills the 16 bytes with zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
 // c (16 x 8, f32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16, col-major).
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -324,26 +292,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// a / b correctly rounded, for 2^-80 <= a <= 1 <= b (and a = 0), given y =
-// __frcp_rn(b): q = a * y is within an ulp of a / b, its remainder a - b * q
-// is exact in one FMA, and one correction q + r * y rounds to the quotient
-// (Markstein's theorem for a correctly rounded reciprocal). Three
-// arithmetic instructions where __fdiv_rn takes a reciprocal of b and a
-// range check each time. Below 2^-80 the remainder can underflow, so
-// callers redo such numerators with __fdiv_rn (div_rn_exact);
-// pk_check_div_rn holds the two equal bit for bit over every float in
-// [0, 1].
-constexpr float kDivRnMin = 0x1p-80f;
-
-__device__ __forceinline__ float div_rn(float a, float b, float y) {
-  const float q = __fmul_rn(a, y);
-  return __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
-}
-
-__device__ __forceinline__ float div_rn_exact(float a, float b, float y) {
-  return a > 0.0f && a < kDivRnMin ? __fdiv_rn(a, b) : div_rn(a, b, y);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -13,20 +13,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from panoptikon_tpu_torch.device import device as resolve_device
 
-def params_from_jax(tree, device="cpu", dtype: torch.dtype | None = None):
+
+def params_from_jax(tree, device="cuda", dtype: torch.dtype | None = None):
     """Nested dicts/lists of arrays -> the same nesting of tensors on
-    ``device``. Floating arrays are cast to ``dtype`` when it is given,
+    ``device``, the card unless the caller names the CPU (resolved by
+    ``panoptikon_tpu_torch.device.device``, which raises without CUDA).
+    Floating arrays are cast to ``dtype`` when it is given,
     except inside a quantized weight (a ``{"q", "s"}`` dict from
     ``quantize_block_weights``), whose int8 codes and f32 per-channel scales
     keep their dtype. Calibrated activation scales are a separate array:
     convert them without ``dtype``, as they are f32 in both packages."""
+    return _convert(tree, resolve_device(str(device)), dtype)
+
+
+def _convert(tree, device: torch.device, dtype: torch.dtype | None):
     if isinstance(tree, dict):
         if set(tree) == {"q", "s"}:
             dtype = None
-        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [params_from_jax(v, device, dtype) for v in tree]
+        return [_convert(v, device, dtype) for v in tree]
     arr = np.array(tree, copy=True)
     if arr.dtype.kind not in "biuf":
         # ml_dtypes' bfloat16 (what a bf16 JAX array becomes) has no torch

@@ -15,7 +15,9 @@ device memory.
   ``tile_n`` rows) one survivor per 128-row-strided lane bucket, then
   ``k_tile`` extract-min rounds over the 128 lanes, merged by one top-k
   over (Q, tiles·k_tile) candidates keyed by (distance, candidate
-  position) — the approximation contract of ``lax.approx_min_k``.
+  position) — the approximation contract of ``lax.approx_min_k``. Its dots
+  run on the int8 tensor cores (``mma.sync`` s8 × s8 → s32), B1's on the
+  CUDA cores (``__dp4a``).
 
 :data:`V1_MAX_QUERIES` splits the serving path's candidate stage between
 them (``scoring.int8_topk_rescored``).
@@ -43,6 +45,7 @@ _SIGNATURES = {
     "pk_int8_topk": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
     "pk_int8_topk_tile_rows": [],
     "pk_int8_topk_v2": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+    "pk_check_rsqrt_rn": [ctypes.c_void_p, ctypes.c_void_p],
 }
 MAX_K = 1024
 
@@ -55,6 +58,9 @@ V1_MAX_QUERIES = 512
 # B2's row for a round that found only +inf (pallas_scan.py:244).
 SENTINEL_ROW = 2**30
 LANES = 128
+# B2's kernel keeps a block's 128 query codes in shared memory for a whole
+# tile: D up to 1,024, every CONFIGS embed dim.
+V2_MAX_DIM = 1024
 
 
 def _check_inputs(codes, sumsq, row_valid, q_codes, distance):
@@ -215,9 +221,10 @@ def int8_topk_v2(codes, sumsq, row_valid, q_codes, *, k: int = 80, k_tile: int =
     n, d = codes.shape
     q = q_codes.shape[0]
     tiles = -(-n // tile_n)
-    if d % 16 or n + tile_n >= 2**31 or tiles > 65535:
-        raise ValueError(f"int8_topk_v2 kernel needs D % 16 == 0, N + tile_n < 2**31 and at most "
-                         f"65535 tiles, got N={n} D={d} tile_n={tile_n}")
+    if d % 16 or d > V2_MAX_DIM or n + tile_n >= 2**31 or tiles > 65535:
+        raise ValueError(f"int8_topk_v2 kernel needs D % 16 == 0, D <= {V2_MAX_DIM}, "
+                         f"N + tile_n < 2**31 and at most 65535 tiles, "
+                         f"got N={n} D={d} tile_n={tile_n}")
     if not all(t.is_contiguous() for t in (codes, sumsq, row_valid, q_codes)):
         raise ValueError("int8_topk_v2 kernel needs contiguous inputs")
     qq = row_sumsq(q_codes)
@@ -238,3 +245,18 @@ def int8_topk_v2(codes, sumsq, row_valid, q_codes, *, k: int = 80, k_tile: int =
 
 
 int8_topk_v2.launches = 0
+
+
+def check_rsqrt_rn(dev) -> int:
+    """B2's cosine epilogue takes a branch-free correctly rounded reciprocal
+    square root (``rsqrt_rn`` in csrc/int8_scan.cu) where B1 takes
+    ``__frsqrt_rn``. Returns how many positive normal floats — every one —
+    the two round differently on the card ``dev`` (0 is right)."""
+    if torch.device(dev).type != "cuda":
+        raise ValueError("check_rsqrt_rn runs on a CUDA device")
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    lib = _build.load("int8_scan", _SIGNATURES)
+    _build.check(lib.pk_check_rsqrt_rn(count.data_ptr(),
+                                       torch.cuda.current_stream(count.device).cuda_stream),
+                 "check_rsqrt_rn")
+    return int(count.item())

@@ -89,7 +89,7 @@ def _tensor_core(q_ptr, k_ptr, v_ptr, mask, out, scale_t, ld, b, n_q, n_kv, h, d
 
 def check_div_rn(divisors: torch.Tensor) -> torch.Tensor:
     """The tensor-core kernel forms p = e / s as one correction of e·(1/s)
-    (``div_rn`` in csrc/attention.cu). For each divisor (f32 ≥ 1, on the
+    (``div_rn`` in csrc/common.cuh). For each divisor (f32 ≥ 1, on the
     card) returns how many floats in [0, 1] — every one — it rounds
     otherwise than a correctly rounded division (int64; all 0 is right)."""
     if divisors.device.type != "cuda" or divisors.dtype != torch.float32:

@@ -1,6 +1,7 @@
 """Where the device time goes on the port's main path, on one NVIDIA GPU.
 
-    python3 -m panoptikon_tpu_torch.profiling [--out DIR] [--reps N] [--attention]
+    python3 -m panoptikon_tpu_torch.profiling [--out DIR] [--reps N]
+                                              [--attention | --scan | --ln]
 
 Four operations, each called ``reps`` times back to back under
 ``torch.profiler`` (CPU and CUDA activity), after three warm-up calls:
@@ -36,11 +37,27 @@ built beside the kernels, never used by the port) at the serving shapes,
 with each edit's division held against ``__fdiv_rn`` over every float in
 [0, 1]; then the ``embed`` and ``embed_int8`` profiles. Every profile line
 carries attention's share of the device time.
+
+``--scan`` is the int8 GEMM probe (the port of
+``tools/pallas_int8_gemm_probe.py``): at its shape, Q 4,096 × D 512 ×
+C 32,768 int8 codes, the T(op)/s of ``torch._int_mm`` with B column-major
+(the library yardstick, which the port never calls), of kernel B2's dot
+stage alone (``SCAN_ABLATIONS``: an edit of ``csrc/int8_scan.cu`` whose fold
+keeps every dot live by an xor, built beside the kernels) and of B2 as
+built; the two B2 builds again at the batched search's 1,048,576 rows.
+
+``--ln`` is the fused-LayerNorm probe (the port of
+``tools/ln_fused_probe.py``): the ``embed_int8`` profile of three programs,
+with device ms and img/s each: as built (kernel B5); B5 replaced by the
+unfused ``ln_quant_plain``, the probe's baseline; and the probe's GEMM-chain
+floor, LayerNorm scale-only (``x·γ + β``, then the static quantize) and the
+attention core passed through (``v`` quantized in place of ``mha_qkv``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -48,6 +65,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -86,6 +104,16 @@ ABLATIONS = {
     "fast_exp": [("expf(", "__expf(")],
 }
 _OTHER_DIMS = [f"    PK_TC_CASE({d})\n" for d in (32, 48, 80, 96, 112, 128)]
+SCAN_PROBE = (4096, 512, 32_768)  # Q, D, C of tools/pallas_int8_gemm_probe.py
+# B2's fold as built, and in its place a sum that keeps every dot live.
+_FOLD_BODY = """  const float d = scan_distance<true>(dot, xx, qq, kL2, scale);
+  const bool better = ok && d < best;  // a row that is not valid scores +inf: never better
+  best = better ? d : best;
+  buckets = better ? (buckets & ~(0xffu << shift)) | (b << shift) : buckets;"""
+SCAN_ABLATIONS = {
+    "as_built": [],
+    "dots_only": [(_FOLD_BODY, "  best = __int_as_float(__float_as_int(best) ^ dot);")],
+}
 
 
 def _unit_rows(n: int, dim: int, gen: torch.Generator, dev) -> torch.Tensor:
@@ -195,25 +223,31 @@ def _attention_variants(dev, smi: str) -> None:
         }), flush=True)
 
 
-def _ablation_lib(name: str, edits) -> ctypes.CDLL:
+def _ablation_lib(source: str, name: str, edits, signatures) -> ctypes.CDLL:
+    """``csrc/<source>.cu`` and the headers under ``csrc/`` with each
+    ``(old, new)`` edit applied wherever ``old`` occurs, built apart from
+    the kernels into ``build/torch_kernels/ablation/<source>_<name>/``."""
     from panoptikon_tpu_torch import _build
-    from panoptikon_tpu_torch.ops import vit_attention
 
-    text = (_build.CSRC / "attention.cu").read_text()
-    for old, new in [*edits, *((case, "") for case in _OTHER_DIMS)]:
-        if old not in text:
-            raise RuntimeError(f"ablation {name}: csrc/attention.cu no longer has {old!r}")
-        text = text.replace(old, new)
-    build = _build.BUILD_DIR / "ablation"
+    files = {path.name: path.read_text()
+             for path in (_build.CSRC / f"{source}.cu", *sorted(_build.CSRC.glob("*.cuh")))}
+    for old, new in edits:
+        hits = [f for f, text in files.items() if old in text]
+        if not hits:
+            raise RuntimeError(f"ablation {name}: no source of {source}.cu has {old!r}")
+        for f in hits:
+            files[f] = files[f].replace(old, new)
+    build = _build.BUILD_DIR / "ablation" / f"{source}_{name}"
     build.mkdir(parents=True, exist_ok=True)
-    (build / f"{name}.cu").write_text(text)
-    so = build / f"{name}.so"
+    for f, text in files.items():
+        (build / f).write_text(text)
+    so = build / f"{source}.so"
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
-                           str(build / f"{name}.cu")], capture_output=True, text=True, timeout=600)
+                           str(build / f"{source}.cu")], capture_output=True, text=True, timeout=600)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for ablation {name}:\n{proc.stderr[-4000:]}")
     lib = ctypes.CDLL(str(so))
-    for fn, argtypes in vit_attention._SIGNATURES.items():
+    for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -225,8 +259,15 @@ def _attention_ablation(dev, smi: str) -> None:
     and its division checked over every float in [0, 1]."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    def build(item):
+        name, edits = item
+        return _ablation_lib("attention", name, [*edits, *((case, "") for case in _OTHER_DIMS)],
+                             vit_attention._SIGNATURES)
+
     with ThreadPoolExecutor(len(ABLATIONS)) as pool:
-        libs = dict(zip(ABLATIONS, pool.map(lambda kv: _ablation_lib(*kv), ABLATIONS.items())))
+        libs = dict(zip(ABLATIONS, pool.map(build, ABLATIONS.items())))
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     stream = torch.cuda.current_stream(dev).cuda_stream
     divisors = torch.exp(torch.rand(64, generator=gen, device=dev) * np.log(4096.0))
@@ -258,6 +299,88 @@ def _attention_ablation(dev, smi: str) -> None:
                           "divisors_with_any": int((counts > 0).sum().item())}), flush=True)
 
 
+def _scan_probe(dev, smi: str) -> None:
+    """B2 as built and its dot stage alone (``SCAN_ABLATIONS``), timed in
+    turns, and ``torch._int_mm`` at ``SCAN_PROBE``; one JSON line a shape."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from panoptikon_tpu_torch import _build
+    from panoptikon_tpu_torch.ops import int8_scan, scoring
+
+    with ThreadPoolExecutor(len(SCAN_ABLATIONS)) as pool:
+        libs = dict(zip(SCAN_ABLATIONS, pool.map(
+            lambda kv: _ablation_lib("int8_scan", *kv, int8_scan._SIGNATURES),
+            SCAN_ABLATIONS.items())))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q_n, d, c = SCAN_PROBE
+    tile_n, k_tile, k = 2048, 8, K * OVERSAMPLE
+    q = torch.randint(-127, 128, (q_n, d), generator=gen, device=dev, dtype=torch.int8)
+    qq = scoring.row_sumsq(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for shape, n in {"gemm_probe": c, "batched_search_1m": N_ROWS}.items():
+        codes = torch.randint(-127, 128, (n, d), generator=gen, device=dev, dtype=torch.int8)
+        sumsq = scoring.row_sumsq(codes)
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        tiles = -(-n // tile_n)
+        keys = torch.empty((q_n, tiles * k_tile), dtype=torch.int64, device=dev)
+        rows = torch.empty((q_n, tiles * k_tile), dtype=torch.int32, device=dev)
+
+        def launch(lib):
+            return lambda: _build.check(lib.pk_int8_topk_v2(
+                codes.data_ptr(), sumsq.data_ptr(), valid.data_ptr(), q.data_ptr(), qq.data_ptr(),
+                keys.data_ptr(), rows.data_ptr(), n, d, q_n, tile_n, k_tile, 0, 1.0, stream),
+                "int8_topk_v2 ablation")
+
+        times = {}
+        for name in (*libs, *reversed(libs)):
+            times.setdefault(name, []).append(_cuda_ms(launch(libs[name]), reps=10))
+        ms = {f"b2_{name}": sum(t) / len(t) for name, t in times.items()}
+        ms["b2_wrapper_with_merge"] = _cuda_ms(
+            lambda: int8_scan.int8_topk_v2(codes, sumsq, valid, q, k=k, k_tile=k_tile,
+                                           tile_n=tile_n), reps=10)
+        if n == c:
+            # B column-major: the (C, D) codes transposed, as clip._int_mm stores weights.
+            ms["torch_int_mm_b_column_major"] = _cuda_ms(lambda: torch._int_mm(q, codes.t()),
+                                                         reps=10)
+        ops = 2 * q_n * n * d
+        print(json.dumps({"card": smi, "probe": "scan", "shape": shape, "q": q_n, "d": d,
+                          "rows": n, "int8_ops": ops, "ms": ms,
+                          "tops": {name: ops / (t * 1e-3) / 1e12 for name, t in ms.items()},
+                          "epilogue_and_fold_ms": ms["b2_as_built"] - ms["b2_dots_only"]}),
+              flush=True)
+        del codes, sumsq, valid, keys, rows
+
+
+def _ln_probe(dev, smi: str, reps: int, out: Path) -> None:
+    """The ``embed_int8`` profile of the three programs of
+    ``tools/ln_fused_probe.py``: as built, B5 replaced by ``ln_quant_plain``,
+    and the GEMM-chain floor; the first again last, for the spread."""
+    from panoptikon_tpu_torch.ops import codec, ln_quant, vit_attention
+
+    def ln_scale_only(x, p, act_scale):
+        y = x.to(torch.float32) * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+        return codec.quantize_static(y, act_scale)
+
+    def attention_passthrough(qkv, heads, causal=False, out_scale=None):
+        return codec.quantize_static(qkv[..., 2 * qkv.shape[-1] // 3:], out_scale)
+
+    programs = {
+        "as_built": {},
+        "plain_ln_quant": {(ln_quant, "ln_quant_2d"): ln_quant.ln_quant_plain},
+        "gemm_chain_floor": {(ln_quant, "ln_quant"): ln_scale_only,
+                             (vit_attention, "mha_qkv"): attention_passthrough},
+    }
+    fn = _embed_int8_op(dev)
+    for name in (*programs, "as_built"):
+        with contextlib.ExitStack() as patches:
+            for (module, attr), value in programs[name].items():
+                patches.enter_context(mock.patch.object(module, attr, value))
+            record = _profile(f"embed_int8_{name}", fn, reps, out)
+        print(json.dumps({"card": smi, "probe": "ln", "program": name,
+                          "img_per_s": IMAGE_BATCH / (record["wall_ms_per_call"] / 1e3),
+                          **record}), flush=True)
+
+
 def _profile(name: str, fn, reps: int, out: Path) -> dict:
     for _ in range(3):
         fn()
@@ -276,11 +399,13 @@ def _profile(name: str, fn, reps: int, out: Path) -> dict:
     device_ms = device_us / reps / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     attention_us = sum(e.self_device_time_total for e in kernels if "mha_" in e.key)
+    ln_quant_us = sum(e.self_device_time_total for e in kernels if "ln_quant_kernel" in e.key)
     return {
         "op": name, "reps": reps, "device_ms_per_call": device_ms, "wall_ms_per_call": wall_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "attention_ms_per_call": attention_us / reps / 1e3,
         "attention_share": attention_us / device_us,
+        "ln_quant_ms_per_call": ln_quant_us / reps / 1e3,
         "top_kernels": [
             {"name": e.key[:90], "ms_per_call": e.self_device_time_total / reps / 1e3,
              "share": e.self_device_time_total / device_us, "launches_per_call": e.count / reps}
@@ -293,8 +418,13 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=Path("chiprun_out"))
     parser.add_argument("--reps", type=int, default=5)
-    parser.add_argument("--attention", action="store_true",
+    probes = parser.add_mutually_exclusive_group()
+    probes.add_argument("--attention", action="store_true",
                         help="the attention probe and the two embed profiles")
+    probes.add_argument("--scan", action="store_true",
+                        help="the int8 GEMM probe: B2's dot stage, B2 and torch._int_mm")
+    probes.add_argument("--ln", action="store_true",
+                        help="the fused-LayerNorm probe: three programs of the int8 embed")
     args = parser.parse_args(argv)
     dev = device("cuda")
     args.out.mkdir(parents=True, exist_ok=True)
@@ -305,6 +435,12 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     makers = (_search_ops, lambda d: {"embed": _embed_op(d)},
               lambda d: {"embed_int8": _embed_int8_op(d)})
+    if args.scan:
+        _scan_probe(dev, smi)
+        return 0
+    if args.ln:
+        _ln_probe(dev, smi, args.reps, args.out)
+        return 0
     if args.attention:
         _attention_variants(dev, smi)
         _attention_ablation(dev, smi)

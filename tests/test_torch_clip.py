@@ -33,7 +33,7 @@ def tokens(rng, b, ctx, vocab):
 def tiny():
     cfg = clip.CONFIGS["test-tiny"]
     jparams = ref.init_params(jax.random.key(0), ref.CONFIGS["test-tiny"])
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return cfg, jparams, tparams
 
 

@@ -31,7 +31,7 @@ INT8 = dataclasses.replace(CFG, matmul_precision="int8")
 
 
 def _t(tree):
-    return convert.params_from_jax(jax.tree.map(np.asarray, tree))
+    return convert.params_from_jax(jax.tree.map(np.asarray, tree), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +60,8 @@ def _text_gate(got, want):
 
 def test_convert_keeps_quantized_leaves(tiny):
     # A bf16 carry-over must not round the int8 codes' per-channel scales.
-    tree = convert.params_from_jax(jax.tree.map(np.asarray, tiny["jq"]), dtype=torch.bfloat16)
+    tree = convert.params_from_jax(jax.tree.map(np.asarray, tiny["jq"]), device="cpu",
+                                   dtype=torch.bfloat16)
     qkv = tree["visual"]["blocks"][0]["attn"]["qkv_w"]
     want = tiny["jq"]["visual"]["blocks"][0]["attn"]["qkv_w"]
     assert qkv["q"].dtype == torch.int8 and qkv["s"].dtype == torch.float32

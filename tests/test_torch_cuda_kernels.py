@@ -180,6 +180,52 @@ def test_ln_quant_kernel_matches_plain(cuda_device, r, w):
     assert got.dtype == torch.int8 and _codes_agree(got, want)
 
 
+def planted_betas(sx: float) -> np.ndarray:
+    """β values whose quotient by the step sx lands on every half-integer
+    k + 0.5 in [-128.5, 127.5] and one ulp either side of it, and on and
+    past the ±127 clamp: with γ = 0 they are the LN output y exactly."""
+    half = (np.arange(-129, 128, dtype=np.float64) + 0.5) * sx
+    exact = half.astype(np.float32)
+    clamp = np.array([126.5, 127, 127.49, 127.5, 128, 1000, 1e30], np.float64) * sx
+    values = np.concatenate([exact, np.nextafter(exact, np.float32(np.inf)),
+                             np.nextafter(exact, np.float32(-np.inf)),
+                             clamp.astype(np.float32), -clamp.astype(np.float32)])
+    return values.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [15.875, 4.2])
+def test_ln_quant_kernel_planted_half_integers(cuda_device, s, dtype):
+    # s = 15.875 makes the step sx = 1/8 exactly, so β / sx is k + 0.5 to
+    # the bit; at s = 4.2 the same β land within an ulp or two of it. Every
+    # code must equal the plain version's (a correctly rounded division, half
+    # to even).
+    sx = np.float32(max(np.float32(s) / np.float32(127), np.float32(1e-12)))
+    beta = planted_betas(float(sx))
+    w = -(-beta.size // 8) * 8
+    b = torch.zeros(w, device=cuda_device)
+    b[:beta.size] = torch.from_numpy(beta).to(cuda_device)
+    g = torch.zeros(w, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((33, w), generator=gen, device=cuda_device).to(getattr(torch, dtype))
+    scale = torch.tensor(s, device=cuda_device)
+    got = ln_quant.ln_quant_2d(x, g, b, scale)
+    want = ln_quant.ln_quant_plain(x, g, b, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.abs().max().item() == 127
+
+
+def test_quant_code_matches_correctly_rounded_division(cuda_device):
+    # Every float y (all 2^32 bit patterns) at calibrated absmax values from
+    # the floor of the step (1e-12) up to 1e30, and +inf.
+    rng = np.random.default_rng(4)
+    s = np.concatenate([[15.875, 4.2, 1.0, 127.0, 1e-12, 1e-10, 3e30, np.inf],
+                        np.exp(rng.uniform(np.log(1e-3), np.log(1e3), 8))]).astype(np.float32)
+    counts = ln_quant.check_quant_code(torch.from_numpy(s).to(cuda_device))
+    assert counts.sum().item() == 0, counts.tolist()
+
+
 @pytest.mark.parametrize("distance", ["cosine", "l2"])
 @pytest.mark.parametrize("n,d,q,k", [(5000, 128, 40, 80), (70_000, 512, 17, 10), (1100, 32, 3, 1)])
 def test_int8_topk_kernel_matches_plain(cuda_device, n, d, q, k, distance):
@@ -228,3 +274,86 @@ def test_int8_topk_v2_kernel_matches_plain(cuda_device, n, d, q, k, distance):
     # Lanes 2, 3, 5 of tile 0, then the last tile.
     assert gi[0, :4].tolist() == [130, 3, 5, n - 1]
     assert (gi[~gok] == int8_scan.SENTINEL_ROW).all()
+
+
+def test_b2_rsqrt_is_correctly_rounded(cuda_device):
+    # B2's branch-free reciprocal square root against __frsqrt_rn, over
+    # every positive normal float.
+    assert int8_scan.check_rsqrt_rn(cuda_device) == 0
+
+
+def _v2_corpus(n, d, q, seed):
+    """Seeded codes with planted exact ties to row 3: rows 131 and 259 (lane
+    3 of later buckets), 5 and 130 (other lanes of tile 0), n - 1; query 0
+    is row 3. About 10 % of rows invalid, the planted ones valid."""
+    rng = np.random.default_rng(seed)
+    corpus = rng.normal(size=(n, d)).astype(np.float32)
+    planted = [r for r in (131, 259, 5, 130, n - 1) if r < n]
+    corpus[planted] = corpus[3]
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    queries[0] = corpus[3]
+    scale = host_codec.scale_from_absmax(host_codec.corpus_absmax(corpus))
+    codes = torch.from_numpy(host_codec.quantize_int8_host(corpus, scale))
+    q_codes = torch.from_numpy(host_codec.quantize_int8_host(queries, scale))
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    valid[[3, *planted]] = True
+    return codes, q_codes, valid, scale
+
+
+V2_CASES = {
+    # name: (n, d, q, tile_n, k_tile, k); q is never a multiple of 128 here
+    "d48_k_tail": (9000, 48, 300, 2048, 8, 80),
+    "d768": (20_000, 768, 257, 2048, 8, 80),
+    "d1024": (20_000, 1024, 129, 2048, 8, 80),
+    "d32": (4100, 32, 5, 2048, 8, 16),
+    "tile_128_k_tile_1": (5000, 512, 130, 128, 1, 40),
+    "tile_32768_k_tile_128": (70_000, 512, 70, 32768, 128, 300),
+    "k_tile_128": (5000, 256, 300, 2048, 128, 300),
+}
+
+
+@pytest.mark.parametrize("distance", ["cosine", "l2"])
+@pytest.mark.parametrize("case", list(V2_CASES))
+def test_int8_topk_v2_kernel_shapes(cuda_device, case, distance):
+    n, d, q, tile_n, k_tile, k = V2_CASES[case]
+    codes, q_codes, valid, scale = (t.to(cuda_device) if torch.is_tensor(t) else t
+                                    for t in _v2_corpus(n, d, q, seed=n + d))
+    args = (codes, scoring.row_sumsq(codes), valid, q_codes)
+    kw = dict(k=k, k_tile=k_tile, tile_n=tile_n, distance=distance, scale=scale)
+    before = int8_scan.int8_topk_v2.launches
+    gv, gi, gok = int8_scan.int8_topk_v2(*args, **kw)
+    pv, pi, pok = int8_scan.int8_topk_v2_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert int8_scan.int8_topk_v2.launches == before + 1
+    assert torch.equal(gi, pi) and torch.equal(gok, pok)
+    assert (gv - pv)[gok].abs().max().item() <= 1e-6
+    assert (gi[~gok] == int8_scan.SENTINEL_ROW).all()
+
+
+@pytest.mark.parametrize("distance", ["cosine", "l2"])
+def test_int8_topk_v2_kernel_planted_ties(cuda_device, distance):
+    # Rows 3, 131 and 259 share lane 3 of tile 0 (buckets 0, 1, 2): only
+    # the lowest bucket survives. Rows 130, 3 and 5 are lanes 2, 3, 5 of the
+    # tile: the rounds take them lowest lane first; then the last tile's copy.
+    n, d = 10_000, 512
+    codes, q_codes, valid, scale = (t.to(cuda_device) if torch.is_tensor(t) else t
+                                    for t in _v2_corpus(n, d, 200, seed=7))
+    args = (codes, scoring.row_sumsq(codes), valid, q_codes)
+    got = int8_scan.int8_topk_v2(*args, k=80, distance=distance, scale=scale)
+    want = int8_scan.int8_topk_v2_plain(*args, k=80, distance=distance, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert (got[0] - want[0])[got[2]].abs().max().item() <= 1e-6
+    assert got[1][0, :4].tolist() == [130, 3, 5, n - 1]
+    assert not set(got[1][0].tolist()) & {131, 259}
+
+
+def test_int8_topk_v2_kernel_rejects_d_past_its_limit(cuda_device):
+    d = int8_scan.V2_MAX_DIM + 16
+    codes = torch.zeros((300, d), dtype=torch.int8, device=cuda_device)
+    q_codes = torch.zeros((2, d), dtype=torch.int8, device=cuda_device)
+    valid = torch.ones(300, dtype=torch.bool, device=cuda_device)
+    before = int8_scan.int8_topk_v2.launches
+    with pytest.raises(ValueError, match="D <="):
+        int8_scan.int8_topk_v2(codes, scoring.row_sumsq(codes), valid, q_codes)
+    assert int8_scan.int8_topk_v2.launches == before

@@ -43,7 +43,7 @@ def pair(request):
     jimpl = ref.ClipImpl(**kwargs)
     jimpl.load()
     timpl = impls.ClipImpl(**kwargs, device="cpu")
-    timpl.params = convert.params_from_jax(jax.tree.map(np.asarray, jimpl.params))
+    timpl.params = convert.params_from_jax(jax.tree.map(np.asarray, jimpl.params), device="cpu")
     return request.param, jimpl, timpl
 
 

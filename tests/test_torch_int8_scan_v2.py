@@ -226,3 +226,14 @@ def test_int8_topk_rescored_v2_with_fewer_candidates_than_k():
     assert gv.shape == (520, 10)
     assert gok[:, :8].all() and not gok[:, 8:].any()
     assert bool(torch.from_numpy(valid)[gi[:, :8]].all())
+
+
+def test_scan_ablation_edits_apply_to_the_kernel_source():
+    # profiling --scan's dot-stage build replaces B2's fold in
+    # csrc/int8_scan.cu: the text it replaces must be there, once.
+    from panoptikon_tpu_torch import _build, profiling
+
+    text = (_build.CSRC / "int8_scan.cu").read_text()
+    for name, edits in profiling.SCAN_ABLATIONS.items():
+        for old, _ in edits:
+            assert text.count(old) == 1, (name, old)

@@ -54,6 +54,37 @@ def test_saturation_and_tiny_scale():
         assert _code_diff(got, want)[0] <= 1
 
 
+def _planted_betas(sx):
+    """β whose quotient by the step sx lands on every half-integer k + 0.5
+    in [-128.5, 127.5] and one ulp either side, and on and past the ±127
+    clamp (the card test plants the same)."""
+    exact = ((np.arange(-129, 128, dtype=np.float64) + 0.5) * sx).astype(np.float32)
+    clamp = (np.array([126.5, 127, 127.49, 127.5, 128, 1000, 1e30]) * sx).astype(np.float32)
+    return np.concatenate([exact, np.nextafter(exact, np.float32(np.inf)),
+                           np.nextafter(exact, np.float32(-np.inf)), clamp, -clamp])
+
+
+@pytest.mark.parametrize("s", [15.875, 4.2])
+def test_planted_half_integers_match_the_reference(s):
+    # With γ = 0 the LN output is β exactly, so y / sx sits on (s = 15.875:
+    # sx = 1/8) or within an ulp of (s = 4.2) every rounding boundary: the
+    # plain version's codes, which the kernel must keep, equal the JAX
+    # reference's, half to even.
+    sx = np.maximum(np.float32(s) / np.float32(127), np.float32(1e-12))
+    beta = _planted_betas(float(sx))
+    w = beta.size
+    x, _, _, _ = _inputs(16, w, seed=4)
+    g = np.zeros(w, np.float32)
+    got = ln_quant.ln_quant_plain(*_torch(x, g, beta), float(s)).numpy()
+    want = np.asarray(ref._ln_quant_ref(jnp.asarray(x), jnp.asarray(g), jnp.asarray(beta),
+                                        np.float32(s)))
+    assert np.array_equal(got, want)
+    half = np.rint(np.arange(-129, 128) + 0.5)  # half to even, before the clamp
+    if s == 15.875:
+        assert np.array_equal(got[0, :257], np.clip(half, -127, 127).astype(np.int8))
+    assert np.abs(got).max() == 127
+
+
 def test_nd_wrapper_and_cpu_dispatch():
     x, g, b, s = _inputs(2 * 7, 128, seed=2)
     tx, tg, tb = _torch(x, g, b)

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -83,6 +84,22 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         device("cuda:0")
     assert device("cpu") == torch.device("cpu")
+
+
+def test_params_from_jax_defaults_to_the_card(monkeypatch):
+    # Weights carried over from the JAX package land on the card unless the
+    # caller names the CPU; without CUDA the default raises rather than
+    # running the tower on the CPU through the kernels' plain versions.
+    from panoptikon_tpu_torch.models import convert
+
+    tree = {"w": np.ones((2, 3), np.float32), "blocks": [{"b": np.zeros(3, np.float32)}]}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.params_from_jax(tree)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.params_from_jax(tree, dtype=torch.bfloat16)
+    out = convert.params_from_jax(tree, device="cpu")
+    assert out["w"].device.type == "cpu" and out["blocks"][0]["b"].device.type == "cpu"
 
 
 def test_missing_cuda_ordinal_raises(monkeypatch):

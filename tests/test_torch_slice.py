@@ -82,7 +82,7 @@ def test_slice_matches_reference(slice_inputs):
     )
 
     # Port: torch towers -> VectorIndex -> DeviceIndex on the CPU.
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     t_img = clip.embed_images(tparams, cfg, torch.from_numpy(images)).numpy()
     t_txt = clip.embed_texts(tparams, cfg, torch.from_numpy(ids))
     index = _build(t_img, fill)

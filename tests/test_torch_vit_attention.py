@@ -242,11 +242,13 @@ def test_one_pass_rounding_would_break_the_int8_limit():
 
 
 def test_attention_ablation_edits_apply_to_the_kernel_source():
-    # The probe's timing-only edits of csrc/attention.cu must each find its
+    # The probe's timing-only edits of csrc/attention.cu and the headers it
+    # includes (which the probe copies and edits with it) must each find its
     # text, or the ablation stops at build time on the card.
     from panoptikon_tpu_torch import _build, profiling
 
-    text = (_build.CSRC / "attention.cu").read_text()
+    text = "".join(path.read_text() for path in (_build.CSRC / "attention.cu",
+                                                 *sorted(_build.CSRC.glob("*.cuh"))))
     for name, edits in profiling.ABLATIONS.items():
         for old, _ in [*edits, *((case, "") for case in profiling._OTHER_DIMS)]:
             assert old in text, (name, old)
