@@ -9,8 +9,9 @@ Phases, one JSON line each:
 2. build    the three kernel sources of panoptikon_tpu_torch/csrc/, one nvcc
             each, all started together (ptxas registers and spills); the
             tensor-core instructions (IMMA for mma.sync, IGMMA for wgmma)
-            that cuobjdump -sass finds in each form of int8_topk_v2_kernel,
-            which must hold some: B2's dots run on the tensor cores;
+            that cuobjdump -sass finds in each form of int8_topk_kernel and
+            int8_topk_v2_kernel, which must hold some and no IDP4A: both
+            scans' dots run on the tensor cores;
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes the main paths give it, timed kernel/plain/plain/
             kernel: mha and mha_qkv bf16 ≤ 2e-2 max abs, every attention
@@ -22,13 +23,15 @@ Phases, one JSON line each:
             square root equal to __frsqrt_rn's at every positive normal
             float; int8 outputs
             (mha_qkv, ln_quant) at most one code apart and at most 0.5 % of
-            codes apart; both int8 scans (B1 at Q = 64, B2 at Q = 1,024 and
-            on a ragged corpus with +inf sentinel rows), cosine and L2, with
+            codes apart; both int8 scans (B1 at Q = 64 with k = 80 and
+            k = 1,024 and at Q = 1, B2 at Q = 1,024 and on a ragged corpus
+            with +inf sentinel rows), cosine and L2, with
             identical ids and distances within 1e-6; torch._int_mm identical
             to an exact GEMM, and timed with its B operand column-major and
             row-major; F.scaled_dot_product_attention timed beside the bf16
             attention kernels (the library yardstick, never called by the
-            port); each case's bound on the card (bytes or operations);
+            port), and torch._int_mm of B1's shapes (the GEMM alone, its
+            yardstick); each case's bound on the card (bytes or operations);
 4. main     the ViT-B/32 search slice with seeded random bf16 weights: embed
             4,096 images, index them with seeded unit vectors to
             1,048,576 × 512 in a host VectorIndex, build the int8 arm, upload
@@ -39,16 +42,22 @@ Phases, one JSON line each:
             candidates at 1,048,576 rows against its plain version for both
             query sets, recall@10 of the 256 queries against the exact fp32
             top-10 (≥ 0.99), the text queries' top-10 against the plain path,
-            row validity, and the times;
+            row validity, and the times, at Q = 256 and at Q = 1;
 6. batch    the batched search on phase 4's index: 4,096 Gaussian unit
             queries through DeviceIndex.search (k = 10, oversample 8, so B2
             at k = 80, k_tile 8, tile_n 2048; B1 must not launch); B2's
             candidates against its plain version on all 4,096 queries (in
             chunks of 256), recall@10 of the first 256 against the exact
             fp32 top-10 (≥ 0.99), row validity; QPS, B2's and B1's ms on the
-            same 4,096 query codes, B2's ms on the first 256 of them (beside
-            B1's phase-5 time at Q = 256), the candidate overlap of B2 with B1's
-            exact 80, peak device memory;
+            same 4,096 query codes and on the first 256, 512 and 1,024 of
+            them (the B1/B2 crossover, each with its bound and the GEMM
+            alone), the candidate overlap of B2 with B1's exact 80, peak
+            device memory;
+6b. composed  B1 against B2 at the composed two-space bench's shape (256
+            seeded unit queries, k = 1,024, at 500,000 × 512 and
+            250,000 × 768; not a main path): B1 equal to its plain version on
+            the first 32 queries, both timed beside the bound and the GEMM
+            alone;
 7. int8     the serving embed: ClipImpl(ViT-L-14, precision="int8",
             batch_cap=256) with seeded random weights embeds 1,280 images in
             five predict() calls of 256 (the first calibrates and is left
@@ -64,7 +73,7 @@ Phases, one JSON line each:
             counters of its four kernels are above zero, and every
             attention launch took the tensor-core route.
 
-Each main path (phases 4-5, 6 and 7) runs with the launch counters (and
+Each main path (phases 4-5, 6 and 7; 6b is none) runs with the launch counters (and
 the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
@@ -117,6 +126,11 @@ INT_MM_SHAPE = (256 * 257, 1024, 3 * 1024)  # the ViT-L/14 qkv GEMM
 N_SCAN, Q_SCAN, PLANTED = 65_536, 64, (777, 20_000, 60_000)
 Q_SCAN_V2, N_RAGGED = 1024, 10_000  # B2's kernel checks: Q > 512; N not a multiple of 2,048
 N_BATCH, PLAIN_CHUNK = 4096, 256  # the batched search; the plain version's query chunk
+CROSSOVER_Q = (256, 512, 1024, 4096)  # B1 and B2 timed on the 1M index
+# The composed two-space bench (ROADMAP A.5): (rows, dim) of each space, its
+# queries and k, and the queries held against B1's plain version.
+COMPOSED_SPACES, COMPOSED_Q, COMPOSED_K, COMPOSED_CHECKED = (
+    ((500_000, 512), (250_000, 768)), 256, 1024, 32)
 # Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): the least
 # time a kernel could take is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
@@ -188,6 +202,25 @@ def scan_roofline(args, k: int) -> dict:
     codes, _, _, q_codes = args
     q, (n, d) = q_codes.shape[0], codes.shape
     return roofline(2 * q * n * d, "int8", nbytes(*args) + q * k * (4 + 8 + 1))
+
+
+def gemm_only_ms(torch, args, reps: int = 5) -> float:
+    """The yardstick of a scan: torch._int_mm of its query codes by its
+    corpus codes (B column-major), int32 out, with no epilogue and no
+    selection; timed here, never called by the scans."""
+    from panoptikon_tpu_torch.ops import exact
+
+    codes, q_codes = args[0], args[3]
+    return cuda_ms(torch, lambda: exact.int_mm(q_codes, codes.t()), reps=reps, warmup=1)
+
+
+def unit_rows(torch, n: int, dim: int, gen, dev):
+    """n seeded unit rows, made 131,072 at a time."""
+    parts = []
+    for lo in range(0, n, 131_072):
+        x = torch.randn((min(131_072, n - lo), dim), generator=gen, device=dev)
+        parts.append(x / torch.linalg.norm(x, dim=1, keepdim=True))
+    return torch.cat(parts)
 
 
 def attention_roofline(q, k, v, out, causal=False, mask=None) -> dict:
@@ -437,12 +470,18 @@ def batch_path(torch, dev, smi, dindex, group_ids, scale, counters) -> dict:
     search_ms = cuda_ms(torch, lambda: dindex.search(bq, K, oversample=OVERSAMPLE), reps=3,
                         warmup=1)
     with not_counted(counters):
-        v2_ms = cuda_ms(torch, lambda: int8_scan.int8_topk_v2(*args, k=kk), reps=3, warmup=1)
         _, b1_rows, _ = int8_scan.int8_topk(*args, k=kk)
-        v1_ms = cuda_ms(torch, lambda: int8_scan.int8_topk(*args, k=kk), reps=2, warmup=1)
-        # B2 at the serving path's Q = 256 (B1's there): the B1/B2 crossover.
-        v2_q256_ms = cuda_ms(torch, lambda: int8_scan.int8_topk_v2(*args[:3], args[3][:PLAIN_CHUNK],
-                                                                  k=kk), reps=5)
+        # The B1/B2 crossover: both on the first Q of the 4,096 query codes,
+        # in turns (B1, B2, B2, B1), beside the bound and the GEMM alone.
+        crossover = {}
+        for q in CROSSOVER_Q:
+            part = (*args[:3], args[3][:q])
+            v1, v2 = paired_ms(torch, lambda: int8_scan.int8_topk(*part, k=kk),
+                               lambda: int8_scan.int8_topk_v2(*part, k=kk), reps=3)
+            crossover[q] = {"b1_ms": v1, "b2_ms": v2, **scan_roofline(part, kk),
+                            "gemm_only_ms": gemm_only_ms(torch, part, reps=3)}
+        torch.cuda.empty_cache()
+    v2_ms, v1_ms = crossover[N_BATCH]["b2_ms"], crossover[N_BATCH]["b1_ms"]
     plain_ms = cuda_ms(torch, lambda: int8_scan.int8_topk_v2_plain(*args[:3], args[3][:PLAIN_CHUNK],
                                                                      k=kk), reps=2, warmup=1)
     overlap = (ci[:, :, None] == b1_rows[:, None, :]).any(-1).float().mean().item()
@@ -451,12 +490,51 @@ def batch_path(torch, dev, smi, dindex, group_ids, scale, counters) -> dict:
         "launches": launches, "recall_at_10_first_256": recall, "int8_topk_v2_max_abs_err": err,
         "search_qps_q4096_k10": N_BATCH / (search_ms / 1e3), "search_ms_q4096": search_ms,
         "int8_topk_v2_1m_q4096_k80_ms": v2_ms, "int8_topk_1m_q4096_k80_ms": v1_ms,
-        "int8_topk_v2_1m_q256_k80_ms": v2_q256_ms,
+        "crossover_1m_k80": crossover,
         "int8_topk_v2_plain_ms_per_256_queries": plain_ms,
         "candidate_overlap_v2_vs_exact_80": overlap, "peak_device_gib": peak_gib,
         **{"int8_topk_v2_1m_q4096_" + key: value
            for key, value in scan_roofline(args, kk).items()},
     }
+
+
+def composed_path(torch, dev, smi, counters) -> dict:
+    """B1 against B2 at the composed two-space bench's candidate shape
+    (ROADMAP A.5): in each space COMPOSED_Q seeded unit queries at k = 1,024
+    over seeded unit rows; B1's result against its plain version on the
+    first COMPOSED_CHECKED queries. Not a main path: its launches are not
+    counted."""
+    from panoptikon_tpu_torch.ops import codec, int8_scan, scoring
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    spaces, err = {}, 0.0
+    with not_counted(counters):
+        for rows, dim in COMPOSED_SPACES:
+            x = unit_rows(torch, rows, dim, gen, dev)
+            scale = codec.scale_from_absmax(x.abs().max().item())
+            codes = codec.quantize_int8(x, scale)
+            del x
+            args = (codes, scoring.row_sumsq_chunked(codes), torch.ones(rows, dtype=torch.bool, device=dev),
+                    codec.quantize_int8(unit_rows(torch, COMPOSED_Q, dim, gen, dev), scale))
+            gv, gi, gok = int8_scan.int8_topk(*args, k=COMPOSED_K)
+            pv, pi, pok = int8_scan.int8_topk_plain(*args[:3], args[3][:COMPOSED_CHECKED], k=COMPOSED_K)
+            torch.cuda.synchronize()
+            n_ok = COMPOSED_CHECKED
+            require(torch.equal(gi[:n_ok], pi) and torch.equal(gok[:n_ok], pok),
+                    f"int8_topk at {rows} x {dim}, k {COMPOSED_K}: ids differ from plain")
+            space_err = (gv[:n_ok] - pv).abs().max().item()
+            require(space_err <= 1e-6, f"int8_topk at {rows} x {dim}: max abs dist diff {space_err}")
+            err = max(err, space_err)
+            b1_ms, b2_ms = paired_ms(torch, lambda: int8_scan.int8_topk(*args, k=COMPOSED_K),
+                                     lambda: int8_scan.int8_topk_v2(*args, k=COMPOSED_K), reps=5)
+            spaces[f"{rows}x{dim}"] = {
+                "int8_topk_ms": b1_ms, "int8_topk_v2_ms": b2_ms,
+                **scan_roofline(args, COMPOSED_K), "gemm_only_ms": gemm_only_ms(torch, args),
+                "int8_topk_max_abs_err": space_err}
+            del codes, args, gv, gi, gok, pv, pi, pok
+            torch.cuda.empty_cache()
+    return {"card": smi, "queries": COMPOSED_Q, "k": COMPOSED_K, "spaces": spaces,
+            "int8_topk_max_abs_err": err}
 
 
 def cosines(a, b):
@@ -511,18 +589,26 @@ def main() -> int:
     with ThreadPoolExecutor(max_workers=3) as pool:
         build = dict(pool.map(build_one, ("int8_scan", "attention", "ln_quant")))
     build_s = time.perf_counter() - t0
-    # B2's dots on the tensor cores: each form of its kernel holds IMMA
-    # (mma.sync) or IGMMA (wgmma) instructions.
-    b2_tensor_ops = {}
+    # Both scans' dots on the tensor cores: each form of B1's and B2's
+    # kernels holds IMMA (mma.sync) or IGMMA (wgmma) instructions, and none
+    # holds IDP4A (the CUDA cores' four-way int8 dot).
+    scan_ops = {}
     for function in _build.sass("int8_scan").split("Function : ")[1:]:
         name = function.split(None, 1)[0]
-        if "int8_topk_v2_kernel" in name:
-            form = "l2" if "ILb1E" in name else "cosine"
-            b2_tensor_ops[form] = len(re.findall(r"\bIG?MMA\.", function))
-    require(set(b2_tensor_ops) == {"cosine", "l2"} and min(b2_tensor_ops.values()) > 0,
-            f"int8_topk_v2_kernel: tensor-core instructions by form {b2_tensor_ops}")
-    emit({"phase": "build", "wall_seconds": build_s,
-          "int8_topk_v2_kernel_tensor_core_instructions": b2_tensor_ops, **build})
+        for kernel in ("int8_topk_kernel", "int8_topk_v2_kernel"):
+            if kernel + "I" in name:
+                form = name[name.index(kernel) + len(kernel):].split("EEv")[0]
+                scan_ops.setdefault(kernel, {})[form] = {
+                    "tensor_core": len(re.findall(r"\bIG?MMA\.", function)),
+                    "idp4a": len(re.findall(r"\bIDP4A\b", function))}
+    for kernel, forms in scan_ops.items():
+        require(any(f.startswith("ILb0") for f in forms) and any(f.startswith("ILb1") for f in forms),
+                f"{kernel}: a cosine and an L2 form, found {sorted(forms)}")
+        require(all(ops["tensor_core"] > 0 and ops["idp4a"] == 0 for ops in forms.values()),
+                f"{kernel}: tensor-core and IDP4A instructions by form {forms}")
+    require(set(scan_ops) == {"int8_topk_kernel", "int8_topk_v2_kernel"},
+            f"scan kernels found in the build: {sorted(scan_ops)}")
+    emit({"phase": "build", "wall_seconds": build_s, "scan_kernel_instructions": scan_ops, **build})
 
     # 3. Kernels against their plain versions.
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -642,6 +728,22 @@ def main() -> int:
     require(scan_l2_err <= 1e-6, f"int8_topk l2: max abs dist diff {scan_l2_err} > 1e-6")
     require(gi[0, :4].tolist() == [5, *PLANTED], "int8_topk l2: planted tie order")
     scan_bound = scan_roofline(scan_args, k_scan)
+    # B1 at k = 1,024 (16 queries a block, lists of 1,024 keys), cosine and
+    # L2, and at Q = 1 (one query block: the strips alone fill the card).
+    b1_cases = {
+        "k1024_cosine": (scan_args, {"k": int8_scan.MAX_K}),
+        "k1024_l2": (scan_args, {"k": int8_scan.MAX_K, "distance": "l2", "scale": scale}),
+        "q1_k80": ((s_codes, s_sumsq, s_valid, s_q[:1]), {"k": k_scan}),
+    }
+    b1_err = {}
+    for name, (args, kw) in b1_cases.items():
+        gv, gi, gok = int8_scan.int8_topk(*args, **kw)
+        pv, pi, pok = int8_scan.int8_topk_plain(*args, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(gi, pi) and torch.equal(gok, pok), f"int8_topk {name}: ids differ")
+        b1_err[name] = (gv - pv).abs().max().item()
+        require(b1_err[name] <= 1e-6, f"int8_topk {name}: max abs dist diff {b1_err[name]}")
+        require(gi[0, :4].tolist() == [5, *PLANTED], f"int8_topk {name}: planted tie order")
 
     # B2 at Q = 1,024 on the same corpus, cosine and L2, and on a ragged
     # corpus (N_RAGGED rows, its second tile invalid, so that rounds at +inf
@@ -688,6 +790,11 @@ def main() -> int:
         torch, lambda: int8_scan.int8_topk(*scan_args, k=k_scan, distance="l2", scale=scale),
         lambda: int8_scan.int8_topk_plain(*scan_args, k=k_scan, distance="l2", scale=scale),
         reps=10)
+    b1_ms = {name: paired_ms(torch, lambda: int8_scan.int8_topk(*args, **kw),
+                             lambda: int8_scan.int8_topk_plain(*args, **kw), reps=10)
+             for name, (args, kw) in b1_cases.items()}
+    b1_bounds = {name: scan_roofline(args, kw["k"]) for name, (args, kw) in b1_cases.items()}
+    b1_gemm_ms = {"q64": gemm_only_ms(torch, scan_args), "q1": gemm_only_ms(torch, b1_cases["q1_k80"][0])}
     v2_ms = {name: paired_ms(torch, lambda: int8_scan.int8_topk_v2(*args, k=k_scan, **kw),
                              lambda: int8_scan.int8_topk_v2_plain(*args, k=k_scan, **kw), reps=5)
              for name, (args, kw) in v2_cases.items() if name != "ragged"}
@@ -757,11 +864,16 @@ def main() -> int:
           "int8_topk_65536x512_q64_k80_plain_ms": scan_plain_ms,
           "int8_topk_l2_65536x512_q64_k80_ms": scan_l2_ms,
           "int8_topk_l2_65536x512_q64_k80_plain_ms": scan_l2_plain_ms,
+          "int8_topk_65536x512_max_abs_err": b1_err,
+          "int8_topk_65536x512_ms": {n: t[0] for n, t in b1_ms.items()},
+          "int8_topk_65536x512_plain_ms": {n: t[1] for n, t in b1_ms.items()},
+          "int8_topk_65536x512_bounds": b1_bounds,
+          "int8_topk_65536x512_gemm_only_ms": b1_gemm_ms,
           "int8_topk_v2_max_abs_err": v2_err,
           "int8_topk_v2_65536x512_q1024_k80_ms": {n: t[0] for n, t in v2_ms.items()},
           "int8_topk_v2_65536x512_q1024_k80_plain_ms": {n: t[1] for n, t in v2_ms.items()},
           "sdpa_library_ms": library_ms, "sdpa_max_abs_vs_plain": sdpa_err, "bounds": bounds})
-    del x, qv, qv2, scan_args, v2_args, v2_cases, s_codes, attn_inputs, attn_timed
+    del x, qv, qv2, scan_args, v2_args, v2_cases, b1_cases, s_codes, attn_inputs, attn_timed
     del q, k, v, qkv_inputs, ln_inputs, a8, w8, w8_rows
 
     # 4. The ViT-B/32 search slice. Counters start at zero here.
@@ -839,10 +951,11 @@ def main() -> int:
     require(len(dindex.item_ids(ti, tok)) == N_TEXT, "item ids of text results")
 
     # The scan kernel against its plain version at the main path's shapes:
-    # all k·oversample candidates, for both query sets.
+    # all k·oversample candidates, for both query sets and for one query
+    # (the interactive search: one query block, 132 strips).
     plain_cand = {}
     scan_1m_err = 0.0
-    for name, q_f32 in {"text": txt_emb, "gaussian": gq}.items():
+    for name, q_f32 in {"text": txt_emb, "gaussian": gq, "gaussian_q1": gq[:1]}.items():
         args = (dindex.codes, dindex.sumsq, dindex.row_valid, codec.quantize_int8(q_f32, scale))
         gv, gi, gok = int8_scan.int8_topk(*args, k=K * OVERSAMPLE)
         pv, pi, pok = int8_scan.int8_topk_plain(*args, k=K * OVERSAMPLE)
@@ -877,6 +990,12 @@ def main() -> int:
     scan_1m_ms, scan_1m_plain_ms = paired_ms(
         torch, lambda: int8_scan.int8_topk(*codes_1m, k=K * OVERSAMPLE),
         lambda: int8_scan.int8_topk_plain(*codes_1m, k=K * OVERSAMPLE), reps=5)
+    # One query at a time, the interactive search.
+    search_q1_ms = cuda_ms(torch, lambda: dindex.search(gq[:1], K, oversample=OVERSAMPLE), reps=20)
+    codes_1m_q1 = (*codes_1m[:3], codes_1m[3][:1])
+    scan_1m_q1_ms, scan_1m_q1_plain_ms = paired_ms(
+        torch, lambda: int8_scan.int8_topk(*codes_1m_q1, k=K * OVERSAMPLE),
+        lambda: int8_scan.int8_topk_plain(*codes_1m_q1, k=K * OVERSAMPLE), reps=20)
     emit({"phase": "main", "card": smi, "config": "ViT-B-32 bf16, seeded random weights",
           "images": N_IMAGES, "rows": N_ROWS, "dim": DIM, "launches": launches,
           "attention_routes": routes,
@@ -887,8 +1006,14 @@ def main() -> int:
           "int8_topk_1m_q256_k80_ms": scan_1m_ms, "int8_topk_1m_q256_k80_plain_ms": scan_1m_plain_ms,
           **{"int8_topk_1m_q256_k80_" + key: value
              for key, value in scan_roofline(codes_1m, K * OVERSAMPLE).items()},
+          "int8_topk_1m_q256_gemm_only_ms": gemm_only_ms(torch, codes_1m),
+          "search_qps_q1_k10": 1 / (search_q1_ms / 1e3), "search_ms_q1": search_q1_ms,
+          "int8_topk_1m_q1_k80_ms": scan_1m_q1_ms, "int8_topk_1m_q1_k80_plain_ms": scan_1m_q1_plain_ms,
+          **{"int8_topk_1m_q1_k80_" + key: value
+             for key, value in scan_roofline(codes_1m_q1, K * OVERSAMPLE).items()},
+          "int8_topk_1m_q1_gemm_only_ms": gemm_only_ms(torch, codes_1m_q1, reps=20),
           "host_index_build_s": host_build_s, "upload_s": upload_s})
-    del params, img_emb, embeds, codes_1m, txt_emb
+    del params, img_emb, embeds, codes_1m, codes_1m_q1, txt_emb
 
     # 6. The batched search on the same index. Counters start at zero here.
     batch = batch_path(torch, dev, smi, dindex, group_ids, scale, counters)
@@ -897,6 +1022,10 @@ def main() -> int:
     emit({"phase": "batch", "launches": batch_launches, **batch})
     del index, dindex, group_ids, gq
     torch.cuda.empty_cache()
+
+    # B1 and B2 at the composed bench's shape, k = 1,024.
+    composed = composed_path(torch, dev, smi, counters)
+    emit({"phase": "composed", **composed})
 
     # 7. The serving embed: ViT-L/14 static int8 through ClipImpl.predict.
     reset_counts(counters)
@@ -915,7 +1044,8 @@ def main() -> int:
     emit({"kernels": [
         {"name": "int8_topk", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:138", "launches": total["int8_topk"],
-         "max_abs_err": max(scan_err, scan_l2_err, scan_1m_err, l14["int8_topk_max_abs_err"]),
+         "max_abs_err": max(scan_err, scan_l2_err, *b1_err.values(), scan_1m_err,
+                            composed["int8_topk_max_abs_err"], l14["int8_topk_max_abs_err"]),
          "ms": scan_ms, "plain_ms": scan_plain_ms, **scan_bound, "library_ms": None},
         {"name": "int8_topk_v2", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:321", "launches": total["int8_topk_v2"],

@@ -5,8 +5,9 @@ quant-ready ``SpaceSnapshot`` goes up once — int8 codes, their int32 row sums
 of squares (computed on the device from the uploaded codes, so the corpus
 crosses the bus once), the row validity, and the f32 rows the rescore reads.
 :meth:`DeviceIndex.search` quantizes f32 queries under the snapshot's frozen
-scale and runs ``scoring.int8_topk_rescored`` (a fused int8 scan — B1 up to
-512 queries, B2 above — then the exact f32 rescore).
+scale and runs ``scoring.int8_topk_rescored`` (candidates from the stage
+``scoring.candidate_route`` picks by shape — kernel B1 up to 512 queries,
+B2 above — then the exact f32 rescore).
 
 The host index stays the source of truth; this is a rebuildable projection
 of one snapshot generation.

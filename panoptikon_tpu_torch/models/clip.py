@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from panoptikon_tpu_torch.ops import ln_quant, vit_attention
 from panoptikon_tpu_torch.ops.codec import quantize_static, static_step
+from panoptikon_tpu_torch.ops.exact import int_mm as _int_mm
 
 Params = dict[str, Any]
 
@@ -172,27 +173,6 @@ def _layernorm(x, p):
     var = x32.var(dim=-1, keepdim=True, correction=0)
     y = (x32 - mean) * torch.rsqrt(var + 1e-5)
     return (y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)).to(x.dtype)
-
-
-def _int_mm(a, b):
-    """(M, K) int8 × (K, N) int8 -> (M, N) int32, exact, through
-    ``torch._int_mm``. Its CUDA path (cuBLASLt) takes M > 16 and K and N
-    multiples of 8, and runs fastest with B column-major (``chip_smoke.py``
-    times both layouts at the ViT-L/14 qkv GEMM). The rule is applied on
-    every device: short or ragged operands are zero-padded (which adds
-    nothing to a dot), the result is cut back, and a row-major B is copied
-    to column-major (:func:`_quantize_weight` stores weights that way, so
-    the block's GEMMs copy nothing)."""
-    m, k = a.shape
-    n = b.shape[1]
-    pad_m, pad_k, pad_n = max(17 - m, 0), -k % 8, -n % 8
-    if pad_m or pad_k:
-        a = F.pad(a, (0, pad_k, 0, pad_m))
-    if pad_k or pad_n:
-        b = F.pad(b, (0, pad_n, 0, pad_k))
-    if not b.t().is_contiguous():
-        b = b.t().contiguous().t()
-    return torch._int_mm(a.contiguous(), b)[:m, :n]
 
 
 def _int8_matmul(xq, wq):

@@ -22,6 +22,7 @@ from typing import Literal
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 Distance = Literal["l2", "cosine"]
 Aggregation = Literal["min", "max", "avg"]
@@ -52,13 +53,35 @@ def unpack_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def int8_dots(queries: torch.Tensor, codes: torch.Tensor, chunk_rows: int = 131072) -> torch.Tensor:
     """Exact int8 dot products (Q, D) x (N, D)^T -> (Q, N) int32.
 
-    Through f64, which holds every such dot exactly for any D (the card has
-    no integer GEMM in PyTorch); ``chunk_rows`` bounds the f64 copy."""
+    Through f64, which holds every such dot exactly for any D, on any
+    device (:func:`int_mm` is the card's integer GEMM); ``chunk_rows``
+    bounds the f64 copy."""
     qd = queries.to(torch.float64)
     return torch.cat([
         (qd @ codes[i:i + chunk_rows].to(torch.float64).T).to(torch.int32)
         for i in range(0, codes.shape[0], chunk_rows)
     ], dim=1)
+
+
+def int_mm(a, b):
+    """(M, K) int8 × (K, N) int8 -> (M, N) int32, exact, through
+    ``torch._int_mm``. Its CUDA path (cuBLASLt) takes M > 16 and K and N
+    multiples of 8, and runs fastest with B column-major (``chip_smoke.py``
+    times both layouts at the ViT-L/14 qkv GEMM). The rule is applied on
+    every device: short or ragged operands are zero-padded (which adds
+    nothing to a dot), the result is cut back, and a row-major B is copied
+    to column-major (``clip._quantize_weight`` stores weights that way, so
+    the block's GEMMs copy nothing)."""
+    m, k = a.shape
+    n = b.shape[1]
+    pad_m, pad_k, pad_n = max(17 - m, 0), -k % 8, -n % 8
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        b = F.pad(b, (0, pad_n, 0, pad_k))
+    if not b.t().is_contiguous():
+        b = b.t().contiguous().t()
+    return torch._int_mm(a.contiguous(), b)[:m, :n]
 
 
 def row_sumsq(corpus: torch.Tensor) -> torch.Tensor:

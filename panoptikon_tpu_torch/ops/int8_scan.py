@@ -8,19 +8,21 @@ epilogue ``1 − dot·rsqrt(max(xx·qq, 1e-30))`` or the L2 epilogue
 integers), in one shared device function; the (Q, N) distances never reach
 device memory.
 
-- :func:`int8_topk` (B1, ``pallas_int8_topk``): each 1024-row corpus tile's
-  k best rows as packed (distance, row) keys, merged by one ``torch.topk``
-  over unique keys — the exact top-k, lowest row first among ties.
+- :func:`int8_topk` (B1, ``pallas_int8_topk``): each strip of consecutive
+  corpus rows (:func:`b1_layout`) gives a list of packed (distance, row)
+  keys that starts with its k best, merged by one ``torch.topk`` over
+  unique keys — the exact top-k, lowest row first among ties.
 - :func:`int8_topk_v2` (B2, ``pallas_int8_topk_v2``): per (query, tile of
   ``tile_n`` rows) one survivor per 128-row-strided lane bucket, then
   ``k_tile`` extract-min rounds over the 128 lanes, merged by one top-k
   over (Q, tiles·k_tile) candidates keyed by (distance, candidate
-  position) — the approximation contract of ``lax.approx_min_k``. Its dots
-  run on the int8 tensor cores (``mma.sync`` s8 × s8 → s32), B1's on the
-  CUDA cores (``__dp4a``).
+  position) — the approximation contract of ``lax.approx_min_k``.
+
+Both run their dots on the int8 tensor cores (``mma.sync`` s8 × s8 → s32)
+through one dot stage.
 
 :data:`V1_MAX_QUERIES` splits the serving path's candidate stage between
-them (``scoring.int8_topk_rescored``).
+them (``scoring.candidate_route``).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version for CPU tensors; any other device raises. The plain versions
@@ -42,8 +44,7 @@ from panoptikon_tpu_torch.ops.exact import (
 )
 
 _SIGNATURES = {
-    "pk_int8_topk": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
-    "pk_int8_topk_tile_rows": [],
+    "pk_int8_topk": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
     "pk_int8_topk_v2": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
     "pk_check_rsqrt_rn": [ctypes.c_void_p, ctypes.c_void_p],
 }
@@ -58,9 +59,43 @@ V1_MAX_QUERIES = 512
 # B2's row for a round that found only +inf (pallas_scan.py:244).
 SENTINEL_ROW = 2**30
 LANES = 128
-# B2's kernel keeps a block's 128 query codes in shared memory for a whole
-# tile: D up to 1,024, every CONFIGS embed dim.
+# B2's tile and survivors a tile unless the caller names others (the JAX
+# package's defaults).
+V2_TILE_N, V2_K_TILE = 2048, 8
+# Both kernels keep a block's query codes in shared memory for a whole strip
+# or tile: D up to 1,024, every CONFIGS embed dim.
 V2_MAX_DIM = 1024
+
+# B1's selection (csrc/int8_scan.cu): corpus rows a block multiplies at a
+# time; a query's list and pending slots in the narrow form (k <= 128, the
+# list in device memory) and the pending slots of the wide form (k > 128,
+# lists of the next power of two >= k keys in shared memory). A bucket's
+# end folds a query's pending keys once three quarters of its slots hold
+# keys (kFoldAt; a full buffer folds at once).
+BUCKET = 128
+NARROW_LIST, NARROW_PENDING, WIDE_PENDING = 128, 64, 128
+
+
+def b1_layout(q: int, n: int, d: int, k: int, sms: int) -> tuple[int, int, int]:
+    """B1's grid for Q queries, N rows of D codes and k on a card of ``sms``
+    SMs: (queries a block, rows a strip, the length of a query's list).
+
+    k ≤ 128 takes the narrow form: 64 queries a block, lists of 128 keys in
+    device memory. k > 128 takes the wide form: lists of the next power of
+    two ≥ k keys in shared memory, 32 queries a block up to 256 keys and 16
+    above. Strips of whole 128-row buckets, as many as give one block an SM
+    with the query blocks (a block's shared memory leaves one resident an
+    SM, and a strip's first k keys all pass its tau, so fewer and longer
+    strips admit fewer keys), at least one and at most one a bucket."""
+    if k <= NARROW_LIST:
+        length, q_block = NARROW_LIST, 64
+    else:
+        length = 1 << (k - 1).bit_length()
+        q_block = 32 if length <= 256 else 16
+    q_blocks = -(-q // q_block)
+    strips = max(1, min(sms // q_blocks, -(-n // BUCKET)))
+    strip_rows = -(-n // strips)
+    return q_block, -(-strip_rows // BUCKET) * BUCKET, length
 
 
 def _check_inputs(codes, sumsq, row_valid, q_codes, distance):
@@ -118,8 +153,8 @@ def int8_topk(codes, sumsq, row_valid, q_codes, *, k: int = 10,
     """Top-k of int8 query codes against int8 corpus codes, by cosine
     distance or by L2 distance on the true axis (code-space L2 × ``scale``).
 
-    codes (N, D) int8 with D % 16 == 0; sumsq (N,) int32 (``row_sumsq``);
-    row_valid (N,) bool; q_codes (Q, D) int8. Invalid rows score +inf and
+    codes (N, D) int8 with D % 16 == 0 (and D ≤ 1,024 on the card); sumsq
+    (N,) int32 (``row_sumsq``); row_valid (N,) bool; q_codes (Q, D) int8. Invalid rows score +inf and
     come back with ``valid`` False only when fewer than k rows are valid.
     Returns (dist (Q, k) f32, row (Q, k) int64, valid (Q, k) bool), ascending,
     lowest row first among equal distances."""
@@ -131,22 +166,27 @@ def int8_topk(codes, sumsq, row_valid, q_codes, *, k: int = 10,
     _check(codes, sumsq, row_valid, q_codes, k, distance)
     n, d = codes.shape
     q = q_codes.shape[0]
-    if d % 16 or n >= 2**31:
-        raise ValueError(f"int8_topk kernel needs D % 16 == 0 and N < 2**31, got N={n} D={d}")
+    if d % 16 or d > V2_MAX_DIM or n >= 2**30:
+        raise ValueError(f"int8_topk kernel needs D % 16 == 0, D <= {V2_MAX_DIM} and N < 2**30, "
+                         f"got N={n} D={d}")
     if not all(t.is_contiguous() for t in (codes, sumsq, row_valid, q_codes)):
         raise ValueError("int8_topk kernel needs contiguous inputs")
     qq = row_sumsq(q_codes)
     lib = _build.load("int8_scan", _SIGNATURES)
-    tiles = -(-n // lib.pk_int8_topk_tile_rows())
-    keys = torch.empty((q, tiles, k), dtype=torch.int64, device=codes.device)
+    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
+    q_block, strip_rows, length = b1_layout(q, n, d, k, sms)
+    strips = -(-n // strip_rows)
+    keys = torch.empty((q, strips * length), dtype=torch.int64, device=codes.device)
     err = lib.pk_int8_topk(
         codes.data_ptr(), sumsq.data_ptr(), row_valid.data_ptr(), q_codes.data_ptr(),
-        qq.data_ptr(), keys.data_ptr(), n, d, q, k, int(distance == "l2"), float(scale),
-        torch.cuda.current_stream(codes.device).cuda_stream,
+        qq.data_ptr(), keys.data_ptr(), n, d, q, k, q_block, strip_rows, int(distance == "l2"),
+        float(scale), torch.cuda.current_stream(codes.device).cuda_stream,
     )
     _build.check(err, "int8_topk")
     int8_topk.launches += 1
-    top = torch.topk(keys.view(q, tiles * k), k, dim=-1, largest=False, sorted=True).values
+    # Each strip's list holds its k smallest keys first; the rest are keys of
+    # the strip too (or LLONG_MAX), so the k smallest of all lists are exact.
+    top = torch.topk(keys, k, dim=-1, largest=False, sorted=True).values
     top_v, rows = unpack_keys(top)
     return top_v, rows, torch.isfinite(top_v)
 
@@ -163,8 +203,8 @@ def _check_v2(codes, sumsq, row_valid, q_codes, k, k_tile, tile_n, distance):
                          f"in [{LANES}, {256 * LANES}]")
 
 
-def int8_topk_v2_plain(codes, sumsq, row_valid, q_codes, *, k: int = 80, k_tile: int = 8,
-                       tile_n: int = 2048, distance: str = "cosine", scale: float = 1.0):
+def int8_topk_v2_plain(codes, sumsq, row_valid, q_codes, *, k: int = 80, k_tile: int = V2_K_TILE,
+                       tile_n: int = V2_TILE_N, distance: str = "cosine", scale: float = 1.0):
     """Plain PyTorch version of :func:`int8_topk_v2` (same results, bit for
     bit). Per query; a batch split by queries gives the same rows.
     Returns (dist (Q, kk) f32, row (Q, kk) int64, valid (Q, kk) bool),
@@ -198,8 +238,8 @@ def int8_topk_v2_plain(codes, sumsq, row_valid, q_codes, *, k: int = 80, k_tile:
     return top_v, rows, torch.isfinite(top_v)
 
 
-def int8_topk_v2(codes, sumsq, row_valid, q_codes, *, k: int = 80, k_tile: int = 8,
-                 tile_n: int = 2048, distance: str = "cosine", scale: float = 1.0):
+def int8_topk_v2(codes, sumsq, row_valid, q_codes, *, k: int = 80, k_tile: int = V2_K_TILE,
+                 tile_n: int = V2_TILE_N, distance: str = "cosine", scale: float = 1.0):
     """Approximate top-k candidates of int8 query codes against int8 corpus
     codes, any Q: the ``lax.approx_min_k`` contract of the JAX package's
     ``pallas_int8_topk_v2``, cosine or L2 (code-space L2 × ``scale``).
@@ -248,10 +288,10 @@ int8_topk_v2.launches = 0
 
 
 def check_rsqrt_rn(dev) -> int:
-    """B2's cosine epilogue takes a branch-free correctly rounded reciprocal
-    square root (``rsqrt_rn`` in csrc/int8_scan.cu) where B1 takes
-    ``__frsqrt_rn``. Returns how many positive normal floats — every one —
-    the two round differently on the card ``dev`` (0 is right)."""
+    """Both scans' cosine epilogue takes a branch-free correctly rounded
+    reciprocal square root (``rsqrt_rn`` in csrc/int8_scan.cu). Returns how
+    many positive normal floats — every one — it and ``__frsqrt_rn`` round
+    differently on the card ``dev`` (0 is right)."""
     if torch.device(dev).type != "cuda":
         raise ValueError("check_rsqrt_rn runs on a CUDA device")
     count = torch.zeros(1, dtype=torch.int64, device=dev)

@@ -3,15 +3,17 @@
 The serving fast path, :func:`int8_topk_rescored`, takes its oversampled
 candidates from a fused int8 scan and re-ranks them exactly against the f32
 rows in plain PyTorch, as the JAX version left its rescore to XLA. The JAX
-version takes its candidates from ``lax.approx_min_k`` at every Q, which
-has no PyTorch counterpart; the port maps that stage onto the JAX package's
-two scan kernels by the query limit the JAX package gives the first
-(``int8_scan.V1_MAX_QUERIES``): up to 512 queries the exact scan
-(``int8_scan.int8_topk``, B1), above it the lane-bucket scan
-(``int8_scan.int8_topk_v2``, B2), whose contract is ``approx_min_k``'s —
-within one (2048-row tile, lane) only the best row survives, and the ×8
-oversampled rescore absorbs the loss. On the CPU both routes take the plain
-versions.
+version takes its k·oversample candidates from ``lax.approx_min_k`` at every
+Q and k, which has no PyTorch counterpart; :func:`candidate_route` maps that
+stage by shape onto the JAX package's two scan kernels and one plain
+product: up to 512 queries (``int8_scan.V1_MAX_QUERIES``, the JAX package's
+split) the exact scan (``int8_scan.int8_topk``, B1); above it the
+lane-bucket scan (``int8_scan.int8_topk_v2``, B2), whose contract is
+``approx_min_k``'s — within one (2048-row tile, lane) only the best row
+survives, and the ×8 oversampled rescore absorbs the loss — where its tiles
+give k·oversample candidates, else B1; and where B1's k limit
+(``int8_scan.MAX_K``) and B2's tiles both fall short, the exact surface
+(:func:`surface_topk`). On the CPU every route takes plain PyTorch.
 
 Distances over int8 codes follow the reference's quant arm: cosine on codes
 equals cosine on the dequantized vectors (the scale cancels); L2 on codes is
@@ -27,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from panoptikon_tpu_torch.ops import int8_scan
-from panoptikon_tpu_torch.ops.exact import INF, Distance, int8_dots, row_sumsq, smallest_k
+from panoptikon_tpu_torch.ops.exact import INF, Distance, int8_dots, int_mm, row_sumsq, smallest_k
 
 
 def row_sumsq_chunked(corpus: torch.Tensor, chunk_rows: int = 250_000) -> torch.Tensor:
@@ -107,6 +109,58 @@ def streaming_topk(
     return top_v, top_i, torch.isfinite(top_v)
 
 
+# The exact surface's queries a pass: its (Q_chunk, N) f32 distances stay
+# within this many bytes (the epilogue's f64 and int64 temporaries take up
+# to three times more while a pass runs).
+SURFACE_BYTES = 512 * 2**20
+
+
+def candidate_route(q: int, n: int, kk: int) -> str:
+    """Which stage gives ``int8_topk_rescored`` its kk candidates for Q
+    queries over N rows: ``"b1"`` (exact) where kk ≤ ``MAX_K`` and either
+    Q ≤ ``V1_MAX_QUERIES`` or B2's tiles give fewer than kk; else ``"b2"``
+    (the ``approx_min_k`` contract) where they give kk; else ``"surface"``
+    (exact, no k limit). Every route gives kk candidates."""
+    b2_candidates = -(-n // int8_scan.V2_TILE_N) * int8_scan.V2_K_TILE
+    if kk <= int8_scan.MAX_K and (q <= int8_scan.V1_MAX_QUERIES or b2_candidates < kk):
+        return "b1"
+    return "b2" if b2_candidates >= kk else "surface"
+
+
+def surface_topk(codes, sumsq, row_valid, q_codes, *, k: int, distance: Distance = "cosine",
+                 scale: float = 1.0):
+    """The exact k smallest (distance, row) of int8 query codes against int8
+    corpus codes at any k ≤ N: the int8 dots as a plain product (on the card
+    ``torch._int_mm`` through ``exact.int_mm``, on the CPU
+    ``exact.int8_dots``), B1's epilogue (``int8_scan._distances``, so the
+    distances are B1's bit for bit), invalid rows at +inf, then
+    ``smallest_k``, lowest row first among equal distances. A pass takes as
+    many queries as keep its f32 surface within ``SURFACE_BYTES``.
+    Returns (dist (Q, k) f32, row (Q, k) int64, valid (Q, k) bool)."""
+    n = codes.shape[0]
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} must be in [1, N={n}]")
+    on_card = codes.device.type == "cuda"
+    qq = row_sumsq(q_codes)
+    step = max(1, SURFACE_BYTES // (4 * n))
+    out_v, out_i = [], []
+    for lo in range(0, q_codes.shape[0], step):
+        part = q_codes[lo:lo + step]
+        dots = int_mm(part, codes.t()) if on_card else int8_dots(part, codes)
+        dist = int8_scan._distances(dots, sumsq, qq[lo:lo + step], distance, scale)
+        del dots
+        top_v, rows = smallest_k(torch.where(row_valid[None, :], dist, INF), k)
+        out_v.append(top_v)
+        out_i.append(rows)
+    if on_card:
+        surface_topk.launches += 1
+    top_v = torch.cat(out_v)
+    return top_v, torch.cat(out_i), torch.isfinite(top_v)
+
+
+surface_topk.launches = 0
+
+
 def rescore_candidates(cand_v, cand_i, corpus_f32, q_f32, *, k: int, distance: Distance = "cosine"):
     """Exact f32 re-rank of (Q, kk) candidates, lowest candidate position
     first among equal distances. Candidates at +inf stay at +inf."""
@@ -133,20 +187,23 @@ def int8_topk_rescored(
 ):
     """The serving fast path: int8 candidates (k·oversample) + f32 rescore.
 
-    Candidates, cosine or L2 (code-space L2 × ``scale``), come from B1
-    (``int8_scan.int8_topk``, exact) for at most ``V1_MAX_QUERIES`` queries
-    and from B2 (``int8_scan.int8_topk_v2``, the ``approx_min_k`` contract)
-    above: the kernels on the card, their plain versions on the CPU.
+    Candidates, cosine or L2 (code-space L2 × ``scale``), come from the
+    stage :func:`candidate_route` names — B1 (``int8_scan.int8_topk``,
+    exact), B2 (``int8_scan.int8_topk_v2``, the ``approx_min_k`` contract)
+    or the exact surface (:func:`surface_topk`) — each on the card for CUDA
+    tensors and in plain PyTorch for CPU ones; every route gives
+    min(k·oversample, N) candidates.
     Returns (dist (Q,k), row (Q,k), valid (Q,k))."""
     kk = min(k * oversample, codes.shape[0])
-    batched = q_codes.shape[0] > int8_scan.V1_MAX_QUERIES
-    scan = int8_scan.int8_topk_v2 if batched else int8_scan.int8_topk
+    route = candidate_route(q_codes.shape[0], codes.shape[0], kk)
+    scan = {"b1": int8_scan.int8_topk, "b2": int8_scan.int8_topk_v2, "surface": surface_topk}[route]
     cand_v, cand_i, _ = scan(codes, sumsq, row_valid, q_codes, k=kk, distance=distance, scale=scale)
     if not rescore:
         return cand_v[:, :k], cand_i[:, :k], torch.isfinite(cand_v[:, :k])
-    # B2 gives at most tiles·8 candidates, and a candidate at +inf the
-    # sentinel row past the corpus: such candidates stay at +inf through the
-    # rescore, so they gather row 0 instead, and the list pads to k.
+    # A corpus of fewer than k rows gives fewer than k candidates: the list
+    # pads to k at +inf. A candidate at +inf (past the valid rows; B2's carries
+    # the sentinel row past the corpus) stays at +inf through the rescore and
+    # gathers row 0 instead.
     if cand_v.shape[1] < k:
         cand_v = F.pad(cand_v, (0, k - cand_v.shape[1]), value=INF)
         cand_i = F.pad(cand_i, (0, k - cand_i.shape[1]))

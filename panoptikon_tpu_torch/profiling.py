@@ -1,7 +1,7 @@
 """Where the device time goes on the port's main path, on one NVIDIA GPU.
 
     python3 -m panoptikon_tpu_torch.profiling [--out DIR] [--reps N]
-                                              [--attention | --scan | --ln]
+                                              [--attention | --scan [--b1-before DIR] | --ln]
 
 Four operations, each called ``reps`` times back to back under
 ``torch.profiler`` (CPU and CUDA activity), after three warm-up calls:
@@ -39,12 +39,21 @@ with each edit's division held against ``__fdiv_rn`` over every float in
 carries attention's share of the device time.
 
 ``--scan`` is the int8 GEMM probe (the port of
-``tools/pallas_int8_gemm_probe.py``): at its shape, Q 4,096 × D 512 ×
-C 32,768 int8 codes, the T(op)/s of ``torch._int_mm`` with B column-major
-(the library yardstick, which the port never calls), of kernel B2's dot
-stage alone (``SCAN_ABLATIONS``: an edit of ``csrc/int8_scan.cu`` whose fold
-keeps every dot live by an xor, built beside the kernels) and of B2 as
-built; the two B2 builds again at the batched search's 1,048,576 rows.
+``tools/pallas_int8_gemm_probe.py``): first kernel B1 as built, its dot
+stage alone (``SCAN_ABLATIONS["b1_dots_only"]``: an edit of
+``csrc/int8_scan.cu`` whose test against tau admits no key and keeps every
+dot live, built beside the kernels), its selection without the mma and its
+ring alone, timed in turns at ``B1_SCAN_SHAPES`` beside B1's wrapper (the
+kernel and its merge) and the ``torch._int_mm`` GEMM alone; with
+``--b1-before DIR``, also B1 before its redesign (``__dp4a`` dots, 1,024-row
+tiles, k rounds of extract-min: ``csrc/int8_scan.cu`` of a checkout of
+commit 63654cc at DIR, built apart) in the same turns, its merge after it,
+and its top-k checked equal to the new one's; then, at the
+probe's shape, Q 4,096 × D 512 × C 32,768 int8 codes, the T(op)/s of
+``torch._int_mm`` with B column-major (the library yardstick, which the
+port never calls), of kernel B2's dot stage alone (``"dots_only"``: its
+fold keeps every dot live by an xor) and of B2 as built; the two B2 builds
+again at the batched search's 1,048,576 rows.
 
 ``--ln`` is the fused-LayerNorm probe (the port of
 ``tools/ln_fused_probe.py``): the ``embed_int8`` profile of three programs,
@@ -106,13 +115,47 @@ ABLATIONS = {
 _OTHER_DIMS = [f"    PK_TC_CASE({d})\n" for d in (32, 48, 80, 96, 112, 128)]
 SCAN_PROBE = (4096, 512, 32_768)  # Q, D, C of tools/pallas_int8_gemm_probe.py
 # B2's fold as built, and in its place a sum that keeps every dot live.
-_FOLD_BODY = """  const float d = scan_distance<true>(dot, xx, qq, kL2, scale);
+_FOLD_BODY = """  const float d = scan_distance(dot, xx, qq, kL2, scale);
   const bool better = ok && d < best;  // a row that is not valid scores +inf: never better
   best = better ? d : best;
   buckets = better ? (buckets & ~(0xffu << shift)) | (b << shift) : buckets;"""
+# B1's key of a (query, row) as built, and in its place a key no tau admits
+# (no dot is INT_MAX: |dot| <= D * 127^2), which keeps every dot live and
+# offers no key.
+_OFFER_BODY = """  const float dist = ok ? scan_distance(dot, xx, qq, kL2, scale) : CUDART_INF_F;
+  return pack(dist, row);"""
+# B1's mma as built, and in its place none (the dots stay zero): with
+# b1_dots_only, the ring and the barriers alone.
+_B1_MMA = ("        for (int kk = 0; kk < kChunk / 32; ++kk) mma_kstep(acc, qa, ldq, st, kk, tiles, "
+           "[](int) {});")
+_B1_NO_MMA = "        if (qa == nullptr) mma_kstep(acc, qa, ldq, st, 0, tiles, [](int) {});"
+_B1_NO_KEY = (_OFFER_BODY, "  return dot == INT_MAX ? 0 : LLONG_MAX;")
 SCAN_ABLATIONS = {
     "as_built": [],
     "dots_only": [(_FOLD_BODY, "  best = __int_as_float(__float_as_int(best) ^ dot);")],
+    "b1_dots_only": [_B1_NO_KEY],
+    "b1_no_mma": [(_B1_MMA, _B1_NO_MMA)],
+    "b1_loads_only": [_B1_NO_KEY, (_B1_MMA, _B1_NO_MMA)],
+}
+# B1's shapes in --scan: (Q, N, D, k, distance) of the search at Q = 256,
+# 64 and 1, of chip_smoke.py's check at 65,536 rows, of the ViT-L/14 int8
+# path's text (cosine) and L2 searches, and of the composed two-space
+# bench's two spaces at k = 1,024 (ROADMAP A.5).
+B1_SCAN_SHAPES = {
+    "search_q256_k80": (256, N_ROWS, 512, 80, "cosine"),
+    "search_q64_k80": (64, N_ROWS, 512, 80, "cosine"),
+    "search_q1_k80": (1, N_ROWS, 512, 80, "cosine"),
+    "check_q64_k80": (64, 65_536, 512, 80, "cosine"),
+    "check_q64_k80_l2": (64, 65_536, 512, 80, "l2"),
+    "int8_path_q64_k80": (64, 262_144, 768, 80, "cosine"),
+    "int8_path_q128_k80_l2": (128, 262_144, 768, 80, "l2"),
+    "composed_k1024": (256, 500_000, 512, 1024, "cosine"),
+    "composed_k1024_d768": (256, 250_000, 768, 1024, "cosine"),
+}
+# The entry points of B1 before its redesign.
+B1_BEFORE_SIGNATURES = {
+    "pk_int8_topk": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    "pk_int8_topk_tile_rows": [],
 }
 
 
@@ -223,14 +266,16 @@ def _attention_variants(dev, smi: str) -> None:
         }), flush=True)
 
 
-def _ablation_lib(source: str, name: str, edits, signatures) -> ctypes.CDLL:
-    """``csrc/<source>.cu`` and the headers under ``csrc/`` with each
-    ``(old, new)`` edit applied wherever ``old`` occurs, built apart from
-    the kernels into ``build/torch_kernels/ablation/<source>_<name>/``."""
+def _ablation_lib(source: str, name: str, edits, signatures, csrc: Path | None = None) -> ctypes.CDLL:
+    """``<source>.cu`` and the headers of ``csrc`` (default: the package's
+    ``csrc/``) with each ``(old, new)`` edit applied wherever ``old``
+    occurs, built apart from the kernels into
+    ``build/torch_kernels/ablation/<source>_<name>/``."""
     from panoptikon_tpu_torch import _build
 
+    csrc = csrc or _build.CSRC
     files = {path.name: path.read_text()
-             for path in (_build.CSRC / f"{source}.cu", *sorted(_build.CSRC.glob("*.cuh")))}
+             for path in (csrc / f"{source}.cu", *sorted(csrc.glob("*.cuh")))}
     for old, new in edits:
         hits = [f for f, text in files.items() if old in text]
         if not hits:
@@ -299,18 +344,25 @@ def _attention_ablation(dev, smi: str) -> None:
                           "divisors_with_any": int((counts > 0).sum().item())}), flush=True)
 
 
-def _scan_probe(dev, smi: str) -> None:
-    """B2 as built and its dot stage alone (``SCAN_ABLATIONS``), timed in
-    turns, and ``torch._int_mm`` at ``SCAN_PROBE``; one JSON line a shape."""
+def _scan_probe(dev, smi: str, b1_before: Path | None) -> None:
+    """B1 (``_b1_scan``), then B2 as built and its dot stage alone
+    (``SCAN_ABLATIONS``), timed in turns, and ``torch._int_mm`` at
+    ``SCAN_PROBE``; one JSON line a shape."""
     from concurrent.futures import ThreadPoolExecutor
 
     from panoptikon_tpu_torch import _build
     from panoptikon_tpu_torch.ops import int8_scan, scoring
 
-    with ThreadPoolExecutor(len(SCAN_ABLATIONS)) as pool:
-        libs = dict(zip(SCAN_ABLATIONS, pool.map(
-            lambda kv: _ablation_lib("int8_scan", *kv, int8_scan._SIGNATURES),
-            SCAN_ABLATIONS.items())))
+    builds = {name: ("int8_scan", name, edits, int8_scan._SIGNATURES)
+              for name, edits in SCAN_ABLATIONS.items()}
+    if b1_before is not None:
+        builds["b1_before"] = ("int8_scan", "before", [], B1_BEFORE_SIGNATURES,
+                               b1_before / "panoptikon_tpu_torch" / "csrc")
+    with ThreadPoolExecutor(len(builds)) as pool:
+        all_libs = dict(zip(builds, pool.map(lambda args: _ablation_lib(*args), builds.values())))
+    libs = {name: all_libs[name] for name in ("as_built", "dots_only")}
+    _b1_scan(dev, smi, {name: lib for name, lib in all_libs.items()
+                        if name == "as_built" or name.startswith("b1_")})
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q_n, d, c = SCAN_PROBE
     tile_n, k_tile, k = 2048, 8, K * OVERSAMPLE
@@ -349,6 +401,76 @@ def _scan_probe(dev, smi: str) -> None:
                           "epilogue_and_fold_ms": ms["b2_as_built"] - ms["b2_dots_only"]}),
               flush=True)
         del codes, sumsq, valid, keys, rows
+
+
+def _b1_scan(dev, smi: str, libs) -> None:
+    """B1 as built, its dot stage alone, its selection on zero dots (no mma),
+    its ring alone (neither) and, where ``libs`` has it, B1 before its
+    redesign, timed in turns at ``B1_SCAN_SHAPES`` (seeded random codes,
+    every row valid) beside B1's wrapper and the GEMM alone."""
+    from panoptikon_tpu_torch import _build
+    from panoptikon_tpu_torch.ops import exact, int8_scan, scoring
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    before = libs.get("b1_before")
+    for shape, (q_n, n, d, k, distance) in B1_SCAN_SHAPES.items():
+        l2 = int(distance == "l2")
+        codes = torch.randint(-127, 128, (n, d), generator=gen, device=dev, dtype=torch.int8)
+        q = torch.randint(-127, 128, (q_n, d), generator=gen, device=dev, dtype=torch.int8)
+        sumsq, qq = scoring.row_sumsq_chunked(codes), scoring.row_sumsq(q)
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        q_block, strip_rows, length = int8_scan.b1_layout(q_n, n, d, k, sms)
+        keys = torch.empty((q_n, -(-n // strip_rows) * length), dtype=torch.int64, device=dev)
+
+        def launch(lib):
+            return lambda: _build.check(lib.pk_int8_topk(
+                codes.data_ptr(), sumsq.data_ptr(), valid.data_ptr(), q.data_ptr(), qq.data_ptr(),
+                keys.data_ptr(), n, d, q_n, k, q_block, strip_rows, l2, 1.0, stream),
+                "int8_topk ablation")
+
+        calls = {name: launch(lib) for name, lib in libs.items() if name != "b1_before"}
+        if before is not None:
+            tiles = -(-n // before.pk_int8_topk_tile_rows())
+            old_keys = torch.empty((q_n, tiles * k), dtype=torch.int64, device=dev)
+
+            def old_kernel():
+                _build.check(before.pk_int8_topk(
+                    codes.data_ptr(), sumsq.data_ptr(), valid.data_ptr(), q.data_ptr(),
+                    qq.data_ptr(), old_keys.data_ptr(), n, d, q_n, k, l2, 1.0, stream),
+                    "int8_topk before")
+
+            def old_wrapper():
+                old_kernel()
+                return torch.topk(old_keys, k, dim=-1, largest=False, sorted=True).values
+
+            calls["b1_before"], calls["b1_before_with_merge"] = old_kernel, old_wrapper
+
+        def new_wrapper():
+            return int8_scan.int8_topk(codes, sumsq, valid, q, k=k, distance=distance)
+
+        calls["b1_wrapper_with_merge"] = new_wrapper
+        times = {}
+        for name in (*calls, *reversed(calls)):
+            times.setdefault(name, []).append(_cuda_ms(calls[name], reps=10))
+        ms = {name if name.startswith("b1_") else f"b1_{name}": sum(t) / len(t)
+              for name, t in times.items()}
+        ms["gemm_only"] = _cuda_ms(lambda: exact.int_mm(q, codes.t()), reps=10)
+        record = {"card": smi, "probe": "scan_b1", "shape": shape, "q": q_n, "d": d, "rows": n,
+                  "k": k, "distance": distance, "q_block": q_block, "strip_rows": strip_rows,
+                  "int8_ops": 2 * q_n * n * d, "ms": ms, "turns_ms": times,
+                  "tops": {name: 2 * q_n * n * d / (t * 1e-3) / 1e12 for name, t in ms.items()},
+                  "selection_ms": ms["b1_as_built"] - ms["b1_dots_only"]}
+        if before is not None:
+            new_dist, new_rows, _ = new_wrapper()
+            old_dist, old_rows = exact.unpack_keys(old_wrapper())
+            record["equal_to_before"] = bool(torch.equal(new_rows, old_rows)
+                                             and torch.equal(new_dist, old_dist))
+            del old_keys
+        print(json.dumps(record), flush=True)
+        del codes, q, sumsq, valid, keys
+        torch.cuda.empty_cache()
 
 
 def _ln_probe(dev, smi: str, reps: int, out: Path) -> None:
@@ -422,7 +544,10 @@ def main(argv=None) -> int:
     probes.add_argument("--attention", action="store_true",
                         help="the attention probe and the two embed profiles")
     probes.add_argument("--scan", action="store_true",
-                        help="the int8 GEMM probe: B2's dot stage, B2 and torch._int_mm")
+                        help="the int8 GEMM probe: B1's and B2's dot stages, B1, B2 and torch._int_mm")
+    parser.add_argument("--b1-before", type=Path, default=None, metavar="DIR",
+                        help="with --scan, also time B1 of the checkout at DIR "
+                             "(commit 63654cc, before B1's redesign)")
     probes.add_argument("--ln", action="store_true",
                         help="the fused-LayerNorm probe: three programs of the int8 embed")
     args = parser.parse_args(argv)
@@ -436,7 +561,7 @@ def main(argv=None) -> int:
     makers = (_search_ops, lambda d: {"embed": _embed_op(d)},
               lambda d: {"embed_int8": _embed_int8_op(d)})
     if args.scan:
-        _scan_probe(dev, smi)
+        _scan_probe(dev, smi, args.b1_before)
         return 0
     if args.ln:
         _ln_probe(dev, smi, args.reps, args.out)

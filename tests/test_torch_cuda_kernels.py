@@ -226,19 +226,44 @@ def test_quant_code_matches_correctly_rounded_division(cuda_device):
     assert counts.sum().item() == 0, counts.tolist()
 
 
-@pytest.mark.parametrize("distance", ["cosine", "l2"])
-@pytest.mark.parametrize("n,d,q,k", [(5000, 128, 40, 80), (70_000, 512, 17, 10), (1100, 32, 3, 1)])
-def test_int8_topk_kernel_matches_plain(cuda_device, n, d, q, k, distance):
-    rng = np.random.default_rng(n)
+B1_CASES = {
+    # name: (n, d, q, k)
+    "k80": (5000, 128, 40, 80),
+    "k10_70k": (70_000, 512, 17, 10),
+    "k1": (1100, 32, 3, 1),
+    "k1024_5k": (5000, 64, 20, 1024),
+    "k1024_70k": (70_000, 512, 40, 1024),
+    "k_equals_n": (1000, 32, 5, 1000),
+    "q1": (70_000, 512, 1, 80),
+    "q600": (20_000, 128, 600, 80),
+    "d48": (9000, 48, 33, 80),
+    "d768": (20_000, 768, 70, 80),
+    "k200_q_block_32": (30_000, 256, 45, 200),
+    "k300_q_block_16": (30_000, 256, 45, 300),
+}
+
+
+def _b1_inputs(device, n, d, q):
+    """Seeded codes with row 3 planted at n // 2 and n - 1 (equal rows in
+    different strips); query 0 is row 3; about 10 % of rows invalid."""
+    rng = np.random.default_rng(n + d + q)
     corpus = rng.normal(size=(n, d)).astype(np.float32)
-    corpus[[n // 2, n - 1]] = corpus[3]  # equal rows in different tiles
+    corpus[[n // 2, n - 1]] = corpus[3]
     queries = rng.normal(size=(q, d)).astype(np.float32)
     queries[0] = corpus[3]
     scale = host_codec.scale_from_absmax(host_codec.corpus_absmax(corpus))
-    codes = torch.from_numpy(host_codec.quantize_int8_host(corpus, scale)).to(cuda_device)
-    q_codes = torch.from_numpy(host_codec.quantize_int8_host(queries, scale)).to(cuda_device)
-    valid = torch.from_numpy(rng.random(n) > 0.1).to(cuda_device)
+    codes = torch.from_numpy(host_codec.quantize_int8_host(corpus, scale)).to(device)
+    q_codes = torch.from_numpy(host_codec.quantize_int8_host(queries, scale)).to(device)
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(device)
     valid[[3, n // 2, n - 1]] = True
+    return codes, q_codes, valid, scale
+
+
+@pytest.mark.parametrize("distance", ["cosine", "l2"])
+@pytest.mark.parametrize("case", list(B1_CASES))
+def test_int8_topk_kernel_matches_plain(cuda_device, case, distance):
+    n, d, q, k = B1_CASES[case]
+    codes, q_codes, valid, scale = _b1_inputs(cuda_device, n, d, q)
     args = (codes, scoring.row_sumsq(codes), valid, q_codes)
     before = int8_scan.int8_topk.launches
     gv, gi, gok = int8_scan.int8_topk(*args, k=k, distance=distance, scale=scale)
@@ -247,6 +272,39 @@ def test_int8_topk_kernel_matches_plain(cuda_device, n, d, q, k, distance):
     assert int8_scan.int8_topk.launches == before + 1
     assert torch.equal(gi, pi) and torch.equal(gok, pok) and torch.equal(gv, pv)
     assert gi[0, :min(k, 3)].tolist() == [3, n // 2, n - 1][:k]
+
+
+@pytest.mark.parametrize("distance", ["cosine", "l2"])
+@pytest.mark.parametrize("k", [2, 80, 1024])
+def test_int8_topk_kernel_all_rows_invalid_but_three(cuda_device, k, distance):
+    # Fewer valid rows than k: the rest come back at +inf, lowest row first.
+    codes, q_codes, valid, scale = _b1_inputs(cuda_device, 30_000, 128, 9)
+    valid[:] = False
+    valid[[17, 12_345, 29_999]] = True
+    args = (codes, scoring.row_sumsq(codes), valid, q_codes)
+    gv, gi, gok = int8_scan.int8_topk(*args, k=k, distance=distance, scale=scale)
+    pv, pi, pok = int8_scan.int8_topk_plain(*args, k=k, distance=distance, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, pi) and torch.equal(gok, pok) and torch.equal(gv, pv)
+    assert int(gok.sum().item()) == 9 * min(k, 3)
+
+
+@pytest.mark.parametrize("distance", ["cosine", "l2"])
+def test_surface_topk_matches_plain(cuda_device, distance):
+    # The exact surface on the card (torch._int_mm) against B1's plain
+    # version at k <= 1,024, and against its own CPU form past it.
+    codes, q_codes, valid, scale = _b1_inputs(cuda_device, 5000, 96, 70)
+    args = (codes, scoring.row_sumsq(codes), valid, q_codes)
+    before = scoring.surface_topk.launches
+    got = scoring.surface_topk(*args, k=1000, distance=distance, scale=scale)
+    want = int8_scan.int8_topk_plain(*args, k=1000, distance=distance, scale=scale)
+    assert scoring.surface_topk.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got = scoring.surface_topk(*args, k=1600, distance=distance, scale=scale)
+    want = scoring.surface_topk(*(t.cpu() for t in args), k=1600, distance=distance, scale=scale)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("distance", ["cosine", "l2"])

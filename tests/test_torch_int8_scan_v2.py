@@ -216,16 +216,86 @@ def test_int8_topk_rescored_takes_v2_above_512_queries(monkeypatch, distance):
     assert calls == ["int8_topk_v2", "int8_topk"]
 
 
-def test_int8_topk_rescored_v2_with_fewer_candidates_than_k():
-    # One tile gives at most k_tile = 8 candidates: the rescore pads to k.
-    codes, q_codes, valid = _codes(seed=7, n=600, d=32, q=520)
-    corpus = codes.astype(np.float32)
-    queries = q_codes.astype(np.float32)
+def _unit_inputs(seed, n, d, q, invalid=0.1):
+    """Seeded unit rows and queries, their int8 codes under the corpus
+    scale, row sums and validity, as the JAX package builds them."""
+    rng = np.random.default_rng(seed)
+    corpus = rng.normal(size=(n, d)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    scale = ref_codec.scale_from_absmax(ref_codec.corpus_absmax(corpus))
+    codes = ref_codec.quantize_int8(corpus, scale)
+    q_codes = ref_codec.quantize_int8(queries, scale)
+    valid = rng.random(n) > invalid
+    return corpus, queries, codes, q_codes, _sumsq(codes), valid, scale
+
+
+def _held_to_jax(n, q, k, oversample, seed):
+    """int8_topk_rescored of the port and of the JAX package on the same
+    inputs: k valid rows a query, in agreement up to ties."""
+    corpus, queries, codes, q_codes, sumsq, valid, scale = _unit_inputs(seed, n, 32, q)
     gv, gi, gok = scoring.int8_topk_rescored(
-        *_port(codes, _sumsq(codes), valid, corpus, q_codes, queries), k=10)
-    assert gv.shape == (520, 10)
-    assert gok[:, :8].all() and not gok[:, 8:].any()
-    assert bool(torch.from_numpy(valid)[gi[:, :8]].all())
+        *_port(codes, sumsq, valid, corpus, q_codes, queries), k=k, oversample=oversample,
+        scale=scale)
+    rv, ri, rok = ref_scoring.int8_topk_rescored(codes, sumsq, valid, corpus, q_codes, queries,
+                                                 k=k, oversample=oversample, scale=scale)
+    assert gv.shape == (q, k) and bool(gok.all())
+    np.testing.assert_array_equal(gok.numpy(), np.asarray(rok))
+    assert exact.topk_agree(gv.numpy(), gi.numpy(), np.asarray(rv), np.asarray(ri), atol=ATOL)
+    assert bool(torch.from_numpy(valid)[gi].all())
+
+
+@pytest.mark.parametrize("n,q,k,oversample", [(600, 520, 10, 8), (6000, 520, 10, 8),
+                                              (16_384, 513, 80, 4)])
+def test_int8_topk_rescored_above_512_queries_gives_k_rows(n, q, k, oversample):
+    # Above 512 queries B2's tiles give ceil(N / 2,048) * 8 candidates; where
+    # that is fewer than k * oversample the exact B1 serves, so every query
+    # gets k valid rows, as from the JAX function.
+    assert scoring.candidate_route(q, n, min(k * oversample, n)) == "b1"
+    _held_to_jax(n, q, k, oversample, seed=n + q)
+
+
+def test_int8_topk_rescored_past_the_scan_k_limit():
+    # k * oversample = 1,600 > MAX_K and B2's 24 candidates: the exact surface.
+    assert scoring.candidate_route(64, 5000, 1600) == "surface"
+    _held_to_jax(5000, 64, 100, 16, seed=8)
+
+
+def _logged(monkeypatch):
+    calls = []
+    for module, name in ((int8_scan, "int8_topk"), (int8_scan, "int8_topk_v2"),
+                         (scoring, "surface_topk")):
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _fn=fn, _name=name, **kw:
+                            calls.append(_name) or _fn(*a, **kw))
+    return calls
+
+
+@pytest.mark.parametrize("q,n,k,oversample,route", [
+    (512, 20_480, 10, 8, "b1"), (513, 20_480, 10, 8, "b2"),   # the query split
+    (513, 4096, 2, 8, "b2"), (513, 4096, 17, 1, "b1"),        # kk = tiles * 8, + 1
+    (513, 20_480, 128, 8, "b1"), (513, 20_480, 205, 5, "surface"),  # kk = 1,024, 1,025
+])
+def test_candidate_route_boundaries(monkeypatch, q, n, k, oversample, route):
+    corpus, queries, codes, q_codes, sumsq, valid, scale = _unit_inputs(q + n + k, n, 16, q)
+    kk = min(k * oversample, n)
+    assert scoring.candidate_route(q, n, kk) == route
+    calls = _logged(monkeypatch)
+    gv, gi, gok = scoring.int8_topk_rescored(*_port(codes, sumsq, valid, corpus, q_codes, queries),
+                                             k=k, oversample=oversample, scale=scale,
+                                             rescore=False)
+    assert calls == [{"b1": "int8_topk", "b2": "int8_topk_v2", "surface": "surface_topk"}[route]]
+    assert gv.shape == (q, k) and bool(gok.all())
+
+
+def test_candidate_route_on_a_large_corpus():
+    # At most 512 queries and kk past MAX_K, B2 where its tiles give kk.
+    n = 1_048_576
+    assert scoring.candidate_route(512, n, 1024) == "b1"
+    assert scoring.candidate_route(512, n, 1025) == "b2"
+    assert scoring.candidate_route(512, n, 4096) == "b2"
+    assert scoring.candidate_route(512, n, 4097) == "surface"
 
 
 def test_scan_ablation_edits_apply_to_the_kernel_source():
@@ -237,3 +307,4 @@ def test_scan_ablation_edits_apply_to_the_kernel_source():
     for name, edits in profiling.SCAN_ABLATIONS.items():
         for old, _ in edits:
             assert text.count(old) == 1, (name, old)
+    assert {"dots_only", "b1_dots_only"} <= set(profiling.SCAN_ABLATIONS)
