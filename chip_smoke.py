@@ -5,7 +5,7 @@
 Phases, one JSON line each:
 
 1. env      the card (nvidia-smi name and power limit), torch, CUDA, nvcc,
-            Triton;
+            Triton, SQLite and whether it has FTS5;
 2. build    the three kernel sources of panoptikon_tpu_torch/csrc/, one nvcc
             each, all started together (ptxas registers and spills); the
             tensor-core instructions (IMMA for mma.sync, IGMMA for wgmma)
@@ -53,11 +53,6 @@ Phases, one JSON line each:
             them (the B1/B2 crossover, each with its bound and the GEMM
             alone), the candidate overlap of B2 with B1's exact 80, peak
             device memory;
-6b. composed  B1 against B2 at the composed two-space bench's shape (256
-            seeded unit queries, k = 1,024, at 500,000 × 512 and
-            250,000 × 768; not a main path): B1 equal to its plain version on
-            the first 32 queries, both timed beside the bound and the GEMM
-            alone;
 7. int8     the serving embed: ClipImpl(ViT-L-14, precision="int8",
             batch_cap=256) with seeded random weights embeds 1,280 images in
             five predict() calls of 256 (the first calibrates and is left
@@ -71,9 +66,34 @@ Phases, one JSON line each:
             (kernel path equal to the plain path, tie-aware) and by L2
             (recall@10 ≥ 0.99 against the exact L2 top-10); the launch
             counters of its four kernels are above zero, and every
-            attention launch took the tensor-core route.
+            attention launch took the tensor-core route;
+8. composed the composed two-space RRF of bench.py:214-261 (run after phase
+            6): 256 seeded unit queries in each of 500,000 × 512 and
+            250,000 × 768, int8_topk_rescored at k = 256 and oversample 4
+            (B1 at k·oversample = 1,024), the two candidate lists joined by
+            fusion.rrf_fuse_candidates into a top-10; B1 equal to its plain
+            version on the first 32 queries of each space, recall@10 of the
+            rescored candidates ≥ 0.99 against the exact f32 top-10, the page
+            equal to the CPU fusion of the same ids (totals bit for bit); the
+            batch's ms and QPS, the fusion's ms, B1 against B2 at k = 1,024
+            with the bound and the GEMM alone;
+9. pql      a PQL page through the port's Executor.execute: (a) BASELINE #5
+            (tools/or3_bench.py): an OR of three RRF leaves over 4M × 512,
+            2M × 768 and 1M × 1,024 int8 codes made on the device, with
+            recall@10 ≥ 0.99 in each space, the fused path never falling
+            back, fused pages equal to the full readback's on 4 queries,
+            p50/p95 over 24 sequential queries, the device's idle share
+            over them (torch.profiler), 128 queries in 16 threads (QPS, the
+            coalescer's batches, each page equal to its solo run), peak
+            device memory; (b) one leaf a text embedded by
+            ClipImpl("ViT-B-32") through a model-manager stand-in, its vector
+            equal to ClipImpl.predict's and every attention launch on the
+            tensor cores; (c) a DB of 2,000 items seeded through the port's
+            db/store.py and db/writer.py (FTS5 required), 13 PQL shapes
+            through an Executor on the card and one on the CPU, with equal
+            pages.
 
-Each main path (phases 4-5, 6 and 7; 6b is none) runs with the launch counters (and
+Each main path (phases 4-5, 6, 8, 7 and 9) runs with the launch counters (and
 the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
@@ -88,6 +108,7 @@ import contextlib
 import dataclasses
 import json
 import re
+import sqlite3
 import subprocess
 import sys
 import time
@@ -131,6 +152,15 @@ CROSSOVER_Q = (256, 512, 1024, 4096)  # B1 and B2 timed on the 1M index
 # queries and k, and the queries held against B1's plain version.
 COMPOSED_SPACES, COMPOSED_Q, COMPOSED_K, COMPOSED_CHECKED = (
     ((500_000, 512), (250_000, 768)), 256, 1024, 32)
+COMPOSED_TOPK, COMPOSED_OVERSAMPLE, COMPOSED_PAGE = 256, 4, 10  # bench.py:214-261
+# BASELINE #5 (tools/or3_bench.py's defaults): (space, rows, dim, RRF weight)
+# of the three spaces, the sequential and concurrent passes, the recall
+# queries, and the queries held fused against full.
+OR3_SPACES = (("clip/or3", 4_000_000, 512, 1.0), ("tags/or3", 2_000_000, 768, 0.8),
+              ("st/or3", 1_000_000, 1024, 0.6))
+OR3_SEQ, OR3_THREADS, OR3_CONCURRENT, OR3_RECALL_Q, OR3_PARITY_Q = 24, 16, 128, 32, 4
+OR3_CACHE_BUDGET = 16 << 30
+PQL_DB_ITEMS = 2000  # phase 9(c)'s seeded DB
 # Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): the least
 # time a kernel could take is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
@@ -499,23 +529,56 @@ def batch_path(torch, dev, smi, dindex, group_ids, scale, counters) -> dict:
 
 
 def composed_path(torch, dev, smi, counters) -> dict:
-    """B1 against B2 at the composed two-space bench's candidate shape
-    (ROADMAP A.5): in each space COMPOSED_Q seeded unit queries at k = 1,024
-    over seeded unit rows; B1's result against its plain version on the
-    first COMPOSED_CHECKED queries. Not a main path: its launches are not
-    counted."""
-    from panoptikon_tpu_torch.ops import codec, int8_scan, scoring
+    """Phase 8: the composed two-space RRF of bench.py on the port. In each
+    space COMPOSED_Q seeded unit queries take int8_topk_rescored's k = 256
+    at oversample 4 (B1 at k·oversample = 1,024) over seeded unit rows; the
+    two candidate lists join by fusion.rrf_fuse_candidates into a top-10.
+    The counts read after the one composed batch are the phase's launches."""
+    from panoptikon_tpu_torch.ops import codec, exact, fusion, int8_scan, scoring
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
-    spaces, err = {}, 0.0
+    spaces = []
+    for rows, dim in COMPOSED_SPACES:
+        x = unit_rows(torch, rows, dim, gen, dev)
+        scale = codec.scale_from_absmax(x.abs().max().item())
+        codes = codec.quantize_int8(x, scale)
+        q = unit_rows(torch, COMPOSED_Q, dim, gen, dev)
+        spaces.append({"x": x, "q": q, "scale": scale, "codes": codes,
+                       "sumsq": scoring.row_sumsq_chunked(codes),
+                       "valid": torch.ones(rows, dtype=torch.bool, device=dev),
+                       "q_codes": codec.quantize_int8(q, scale)})
+        kk = COMPOSED_TOPK * COMPOSED_OVERSAMPLE
+        require(scoring.candidate_route(COMPOSED_Q, rows, kk) == "b1",
+                f"composed: the candidate route at {rows} rows is not B1")
+    (n1, _), (n2, _) = COMPOSED_SPACES
+    ones = torch.ones(2, dtype=torch.float32, device=dev)
+
+    def composed():
+        ranked = [scoring.int8_topk_rescored(
+            s["codes"], s["sumsq"], s["valid"], s["x"], s["q_codes"], s["q"], k=COMPOSED_TOPK,
+            oversample=COMPOSED_OVERSAMPLE, distance="cosine", scale=s["scale"]) for s in spaces]
+        cand = torch.stack([ranked[0][1], ranked[1][1] * (n1 // n2)]).to(torch.int32)
+        return ranked, cand, fusion.rrf_fuse_candidates(cand, ones, k=COMPOSED_PAGE)
+
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    ranked, cand, (totals, ids) = composed()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    require(launches["int8_topk"] > 0 and launches["int8_topk_v2"] == 0,
+            f"composed: kernel launches {launches}")
+    require(tuple(ids.shape) == (COMPOSED_Q, COMPOSED_PAGE) and bool(torch.isfinite(totals).all().item()),
+            "composed: a finite top-10 for every query")
+
+    out, err = {}, 0.0
     with not_counted(counters):
-        for rows, dim in COMPOSED_SPACES:
-            x = unit_rows(torch, rows, dim, gen, dev)
-            scale = codec.scale_from_absmax(x.abs().max().item())
-            codes = codec.quantize_int8(x, scale)
-            del x
-            args = (codes, scoring.row_sumsq_chunked(codes), torch.ones(rows, dtype=torch.bool, device=dev),
-                    codec.quantize_int8(unit_rows(torch, COMPOSED_Q, dim, gen, dev), scale))
+        # The page off the card against the port's fusion on the CPU from the
+        # same candidate ids: ids equal, totals bit for bit.
+        cpu_totals, cpu_ids = fusion.rrf_fuse_candidates(cand.cpu(), ones.cpu(), k=COMPOSED_PAGE)
+        page_equal = torch.equal(ids.cpu(), cpu_ids) and torch.equal(totals.cpu(), cpu_totals)
+        require(page_equal, "composed: the fused page differs from the CPU fusion of the same ids")
+        for s, (rv, ri, rok), (rows, dim) in zip(spaces, ranked, COMPOSED_SPACES):
+            args = (s["codes"], s["sumsq"], s["valid"], s["q_codes"])
             gv, gi, gok = int8_scan.int8_topk(*args, k=COMPOSED_K)
             pv, pi, pok = int8_scan.int8_topk_plain(*args[:3], args[3][:COMPOSED_CHECKED], k=COMPOSED_K)
             torch.cuda.synchronize()
@@ -525,16 +588,551 @@ def composed_path(torch, dev, smi, counters) -> dict:
             space_err = (gv[:n_ok] - pv).abs().max().item()
             require(space_err <= 1e-6, f"int8_topk at {rows} x {dim}: max abs dist diff {space_err}")
             err = max(err, space_err)
+            # recall@10 of the rescored candidates against the exact f32 top-10.
+            _, ei, _ = exact.topk_ascending(exact.pairwise_distance(s["x"], s["q"]), s["valid"], K)
+            got, want = ri[:, :K].cpu().numpy(), ei.cpu().numpy()
+            recall = float(np.mean([len(set(got[i]) & set(want[i])) / K for i in range(COMPOSED_Q)]))
+            require(bool(rok.all().item()) and recall >= 0.99,
+                    f"composed: recall@10 {recall} < 0.99 at {rows} x {dim}")
             b1_ms, b2_ms = paired_ms(torch, lambda: int8_scan.int8_topk(*args, k=COMPOSED_K),
                                      lambda: int8_scan.int8_topk_v2(*args, k=COMPOSED_K), reps=5)
-            spaces[f"{rows}x{dim}"] = {
+            out[f"{rows}x{dim}"] = {
                 "int8_topk_ms": b1_ms, "int8_topk_v2_ms": b2_ms,
                 **scan_roofline(args, COMPOSED_K), "gemm_only_ms": gemm_only_ms(torch, args),
-                "int8_topk_max_abs_err": space_err}
-            del codes, args, gv, gi, gok, pv, pi, pok
-            torch.cuda.empty_cache()
-    return {"card": smi, "queries": COMPOSED_Q, "k": COMPOSED_K, "spaces": spaces,
+                "int8_topk_max_abs_err": space_err, "recall_at_10": recall}
+        composed_ms = cuda_ms(torch, composed, reps=5, warmup=1)
+        fusion_ms = cuda_ms(torch, lambda: fusion.rrf_fuse_candidates(cand, ones, k=COMPOSED_PAGE),
+                            reps=20)
+    del spaces, ranked
+    torch.cuda.empty_cache()
+    return {"card": smi, "queries": COMPOSED_Q, "k": COMPOSED_TOPK, "oversample": COMPOSED_OVERSAMPLE,
+            "page": COMPOSED_PAGE, "launches": launches, "spaces": out,
+            "page_equals_cpu_fusion": page_equal, "composed_ms": composed_ms,
+            "composed_qps": COMPOSED_Q / (composed_ms / 1e3), "rrf_fuse_candidates_ms": fusion_ms,
             "int8_topk_max_abs_err": err}
+
+
+class _Snap:
+    """A space snapshot stand-in (tools/or3_bench.py): metadata on the host,
+    the codes already on the device in the executor's cache."""
+
+    def __init__(self, n, dim, scale, generation=1):
+        self.generation, self.dim, self.scale = generation, dim, scale
+        self.size = self.capacity = self.num_groups = n
+        self.group_ids = np.arange(n, dtype=np.int32)
+        self.row_valid = np.ones(n, dtype=bool)
+        self.weights = np.ones(n, dtype=np.float32)
+        self.row_ids = np.arange(1, n + 1, dtype=np.int64)
+        self.quant_ready = True
+        self.codes = self.vectors = None
+
+
+class _Index:
+    """The index stand-in: snapshots by space, slot i holds item i + 1."""
+
+    def __init__(self):
+        self.snaps = {}
+
+    def snapshot(self, space):
+        return self.snaps[space]
+
+    def item_id_of_groups(self, space, slots):
+        return np.asarray(slots, dtype=np.int64) + 1
+
+
+def _or3_base(n):
+    """A synthetic file-entity BaseSnapshot of n files, one per item."""
+    from panoptikon_tpu_torch.db.epochs import EPOCHS
+    from panoptikon_tpu_torch.pql.executor import BaseSnapshot
+
+    cols = {
+        "file_id": np.arange(1, n + 1, dtype=np.int64),
+        "item_id": np.arange(1, n + 1, dtype=np.int64),
+        "sha256": np.full(n, "00" * 32, dtype=object),
+        "path": np.full(n, "/m/x.png", dtype=object),
+        "filename": np.full(n, "x.png", dtype=object),
+        "last_modified": np.full(n, "2026-01-01T00:00:00", dtype=object),
+        "md5": np.full(n, "0" * 32, dtype=object),
+        "type": np.full(n, "image/png", dtype=object),
+        "size": np.full(n, 1000.0), "width": np.full(n, 640.0), "height": np.full(n, 480.0),
+        "duration": np.full(n, np.nan), "audio_tracks": np.zeros(n), "video_tracks": np.zeros(n),
+        "subtitle_tracks": np.zeros(n), "blurhash": np.full(n, "", dtype=object),
+        "time_added": np.full(n, "2026-01-01T00:00:00", dtype=object),
+    }
+    return BaseSnapshot(entity="file", epoch=EPOCHS.index_epoch("or3"), columns=cols, n=n)
+
+
+def _or3_space(torch, dev, n, dim, seed, counters):
+    """One space's int8 codes made on the device from seeded unit rows, and
+    recall@10 against the exact f32 top-10 while the f32 rows are still
+    there: of the int8 top-10 itself (k 10, oversample 4, no rescore, as
+    or3_bench measures it; its TPU run recorded 0.9625-0.975, BENCH_r05.json)
+    and of the serving path's, the same candidates rescored in f32; and B1's
+    time at that candidate shape (k 40), beside its bound. Returns (codes,
+    sumsq, scale, {"int8": recall, "rescored": recall, "b1_k40_ms": ms,
+    "b1_k40_bound_ms": ms, "b1_k40_bound_by": ...})."""
+    from panoptikon_tpu_torch.ops import codec, exact, int8_scan, scoring
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = unit_rows(torch, n, dim, gen, dev)
+    scale = codec.scale_from_absmax(x.abs().max().item())
+    codes = torch.cat([codec.quantize_int8(x[lo:lo + 524_288], scale) for lo in range(0, n, 524_288)])
+    sumsq = scoring.row_sumsq_chunked(codes)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    q = unit_rows(torch, OR3_RECALL_Q, dim, gen, dev)
+    qc = codec.quantize_int8(q, scale)
+    _, want, _ = exact.topk_ascending(exact.pairwise_distance(x, q), valid, K)
+    want = want.cpu().numpy()
+    recall = {}
+    for name, args, rescore in (("int8", (codes, qc, qc), False), ("rescored", (x, qc, q), True)):
+        _, got, _ = scoring.int8_topk_rescored(codes, sumsq, valid, *args, k=K, oversample=4,
+                                               distance="cosine", scale=scale, rescore=rescore)
+        got = got.cpu().numpy()
+        recall[name] = float(np.mean([len(set(got[i]) & set(want[i])) / K
+                                      for i in range(OR3_RECALL_Q)]))
+    del x
+    with not_counted(counters):
+        args = (codes, sumsq, valid, qc)
+        recall["b1_k40_ms"] = cuda_ms(torch, lambda: int8_scan.int8_topk(*args, k=4 * K), reps=5)
+        recall.update({"b1_k40_" + key: value for key, value in scan_roofline(args, 4 * K).items()})
+    return codes, sumsq, scale, recall
+
+
+def _b64(vec) -> str:
+    import base64
+
+    from panoptikon_tpu_torch.utils import npy
+
+    return base64.standard_b64encode(npy.serialize_npy(np.asarray(vec, np.float32))).decode()
+
+
+def _pages(results) -> list:
+    return [r["file_id"] for r in results]
+
+
+def busy_share(torch, fn) -> tuple[float, float]:
+    """Run ``fn`` under the profiler: (wall seconds, the share of that wall
+    in which at least one kernel or copy ran on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -np.inf
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    require(spans, "pql: the profiler saw no device activity")
+    return wall, busy / 1e6 / wall
+
+
+def or3_path(torch, dev, smi, counters):
+    """Phase 9(a): BASELINE #5 (tools/or3_bench.py) through the port's
+    Executor.execute: an OR of three image_embeddings leaves with rrf
+    {k 60, weight 1.0 / 0.8 / 0.6} over 4M × 512, 2M × 768 and 1M × 1,024
+    int8 codes made on the device, the executor's device cache filled with
+    them, page size 10. Returns (the phase's record, the executor)."""
+    import threading
+    import types
+
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql.executor import Executor
+
+    index = _Index()
+    ex = Executor(types.SimpleNamespace(name="or3"), index, manager=None, device=str(dev))
+    ex.device_cache_budget = OR3_CACHE_BUDGET
+    torch.cuda.reset_peak_memory_stats()
+    recalls, t0 = {}, time.perf_counter()
+    for seed, (space, n, dim, _) in enumerate(OR3_SPACES, start=SEED + 30):
+        codes, sumsq, scale, recalls[space] = _or3_space(torch, dev, n, dim, seed, counters)
+        snap = _Snap(n, dim, scale)
+        index.snaps[space] = snap
+        key = (space, snap.generation, True)
+        with ex._cache_lock:
+            ex._device_cache[key] = {
+                "corpus": codes, "sumsq": sumsq,
+                "group_ids": torch.arange(n, dtype=torch.int32, device=dev),
+                "weights": torch.ones(n, dtype=torch.float32, device=dev),
+                "row_valid": torch.ones(n, dtype=torch.bool, device=dev)}
+            ex._device_cache_bytes[key] = codes.numel()
+        torch.cuda.empty_cache()
+    require(min(r["rescored"] for r in recalls.values()) >= 0.99,
+            f"or3: recall@10 of the rescored int8 candidates against f32 {recalls}")
+    build_s = time.perf_counter() - t0
+    n1 = OR3_SPACES[0][1]
+    ex._base_cache["file"] = _or3_base(n1)
+
+    def fail_materialize(*a, **k):
+        raise RuntimeError("the fused three-space OR fell back to the full readback")
+
+    ex._materialize_deferred = fail_materialize
+    rng = np.random.default_rng(SEED + 11)
+
+    def payload():
+        leaves = []
+        for space, _, dim, weight in OR3_SPACES:
+            v = rng.standard_normal(dim).astype(np.float32)
+            leaves.append({"image_embeddings": {"query": _b64(v / np.linalg.norm(v)), "model": space,
+                                                "embed": None, "index": "quant"},
+                           "row_n": True, "priority": 5, "rrf": {"k": 60, "weight": weight}})
+        return {"query": {"or_": leaves}, "page_size": 10}
+
+    def run(p):
+        return ex.execute(pql.PqlQuery.from_json(p))
+
+    t0 = time.perf_counter()
+    r = run(payload())
+    warm_s = time.perf_counter() - t0
+    require(r.count == n1 and len(r.results) == 10 and r.metrics.path == "fused",
+            f"or3: count {r.count}, {len(r.results)} results, path {r.metrics.path}")
+
+    # Fused against the full readback on OR3_PARITY_Q queries.
+    parity = [payload() for _ in range(OR3_PARITY_Q)]
+    fused = [_pages(run(p).results) for p in parity]
+    ex._materialize_deferred = type(ex)._materialize_deferred.__get__(ex)
+    ex.enable_fused = False
+    t0 = time.perf_counter()
+    full = [_pages(run(p).results) for p in parity]
+    full_s = (time.perf_counter() - t0) / OR3_PARITY_Q
+    ex.enable_fused = True
+    ex._materialize_deferred = fail_materialize
+    require(fused == full, f"or3: fused pages differ from the full readback: {fused} vs {full}")
+
+    # Sequential latency, then the same pass under the profiler.
+    lats = []
+    for _ in range(OR3_SEQ):
+        p = payload()
+        t0 = time.perf_counter()
+        run(p)
+        lats.append(time.perf_counter() - t0)
+    lats.sort()
+    seq = [payload() for _ in range(OR3_SEQ)]
+    prof_wall, busy = busy_share(torch, lambda: [run(p) for p in seq])
+
+    # Concurrent: two warm rounds, then OR3_CONCURRENT queries in OR3_THREADS threads.
+    def threaded(batch):
+        out, errs = [None] * len(batch), []
+
+        def drive(idx):
+            try:
+                for i in idx:
+                    out[i] = _pages(run(batch[i]).results)
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                errs.append(exc)
+
+        ts = [threading.Thread(target=drive, args=(range(t, len(batch), OR3_THREADS),))
+              for t in range(OR3_THREADS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        if errs:
+            raise errs[0]
+        return out
+
+    for _ in range(2):
+        threaded([payload() for _ in range(OR3_THREADS)])
+    batch = [payload() for _ in range(OR3_CONCURRENT)]
+    co0 = ex._scan_coalescer.stats()
+    t0 = time.perf_counter()
+    concurrent = threaded(batch)
+    wall = time.perf_counter() - t0
+    co1 = ex._scan_coalescer.stats()
+    solo = [_pages(run(p).results) for p in batch]
+    require(concurrent == solo, "or3: a coalesced page differs from its solo run")
+    # Where a solo query's host time goes: the executor's phase timers.
+    ex.debug_timing = True
+    phases = {}
+    for _ in range(OR3_SEQ):
+        for name, sec in run(payload()).metrics.phases.items():
+            phases[name] = phases.get(name, 0.0) + 1e3 * sec / OR3_SEQ
+    ex.debug_timing = False
+    dispatches, queries = co1["dispatches"] - co0["dispatches"], co1["queries"] - co0["queries"]
+    disp_ms = co1["dispatch_ms_total"] - co0["dispatch_ms_total"]
+    coll_ms = co1["collect_ms_total"] - co0["collect_ms_total"]
+    return {
+        "card": smi, "spaces": {s: {"rows": n, "dim": d, "rrf_weight": w} for s, n, d, w in OR3_SPACES},
+        "codes_gib": sum(n * d for _, n, d, _ in OR3_SPACES) / 2**30,
+        "per_space_recall_at_10_and_b1": recalls, "build_s": build_s, "warm_s": warm_s,
+        "parity_queries": OR3_PARITY_Q, "fused_equals_full": True, "full_path_s_per_query": full_s,
+        "p50_ms": 1e3 * lats[len(lats) // 2],
+        "p95_ms": 1e3 * lats[min(len(lats) - 1, int(len(lats) * 0.95))],
+        "sequential_ms": [1e3 * t for t in lats],
+        "profiled_sequential_s": prof_wall, "device_busy_share": busy, "device_idle_share": 1 - busy,
+        "concurrent_qps": OR3_CONCURRENT / wall, "concurrent_wall_s": wall,
+        "coalesced_equals_solo": True,
+        "coalescer": {"dispatches": dispatches, "queries": queries, "max_batch": co1["max_batch"],
+                      "mean_batch": queries / dispatches if dispatches else 0.0},
+        "breakdown_ms": {"wall_total": 1e3 * wall, "dispatch_total": disp_ms, "collect_total": coll_ms,
+                         "host_and_wait_total": max(0.0, 1e3 * wall - disp_ms - coll_ms)},
+        "executor_phase_ms": phases, "rank_join_ms": rank_join_ms(torch, dev, ex),
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }, ex
+
+
+def rank_join_ms(torch, dev, ex) -> dict:
+    """The device work of phase 9(a)'s query, op by op, at one query and at
+    a coalesced batch of OR3_THREADS: each space's surface
+    (scoring.grouped_scores on the cached codes), and at the 4M space the
+    rank join's plain torch ops — the two stable argsorts, the slot→item
+    min-scatter (the path a non-contiguous map takes; or3's map is
+    contiguous, a copy), the (B, n_items) top-kk on packed keys at the
+    fused path's first kk — then the whole join of the three spaces."""
+    from panoptikon_tpu_torch.ops import codec, fusion, scoring
+    from panoptikon_tpu_torch.pql import fused
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    n_items = fused._round_pow2(OR3_SPACES[0][1] + 1)
+    out = {}
+    for b in (1, OR3_THREADS):
+        surfs, ms = [], {}
+        for space, n, dim, _ in OR3_SPACES:
+            arrays = ex._device_cache[(space, 1, True)]
+            q = codec.quantize_int8(unit_rows(torch, b, dim, gen, dev), ex.index.snapshot(space).scale)
+
+            def surface():
+                return scoring.grouped_scores(
+                    arrays["corpus"], arrays["sumsq"], arrays["row_valid"], arrays["group_ids"], q,
+                    num_groups=n, scale=ex.index.snapshot(space).scale, chunk_rows=32768,
+                    identity=True)[:2]
+
+            ms[f"surface_{space}"] = cuda_ms(torch, surface, reps=5, warmup=1)
+            surfs.append(surface())
+        key, valid = surfs[0]
+        key = torch.where(valid, key, torch.inf)
+        order = torch.argsort(key, dim=-1, stable=True)
+        rank = fusion._ranks(key, valid)
+        items = torch.arange(1, key.shape[1] + 1, dtype=torch.int32, device=dev)
+        total = torch.rand((b, n_items), generator=gen, device=dev)
+        ms["argsort_keys_4m"] = cuda_ms(torch, lambda: torch.argsort(key, dim=-1, stable=True), reps=5)
+        ms["argsort_order_4m"] = cuda_ms(torch, lambda: torch.argsort(order, dim=-1, stable=True), reps=5)
+        ms["scatter_min_4m"] = cuda_ms(torch, lambda: fusion._item_ranks(rank, items, n_items, None), reps=5)
+        ms["contiguous_copy_4m"] = cuda_ms(torch, lambda: fusion._item_ranks(rank, items, n_items, 1), reps=5)
+        ms["topk_kk128_n_items"] = cuda_ms(torch, lambda: fusion._largest_k(total, fused.SHALLOW_KK), reps=5)
+        weights = torch.tensor([[w for *_, w in OR3_SPACES]] * b, device=dev)
+        ks = torch.full((b, len(OR3_SPACES)), 60.0, device=dev)
+        maps = [torch.arange(1, n + 1, dtype=torch.int32, device=dev) for _, n, _, _ in OR3_SPACES]
+        ms["rank_join_3_spaces"] = cuda_ms(torch, lambda: fusion.rank_join_topk_batch(
+            tuple(s[0] for s in surfs), tuple(s[1] for s in surfs), tuple(maps), weights, ks,
+            kk=fused.SHALLOW_KK, n_items=n_items, contig_offsets=(1, 1, 1)), reps=5)
+        out[f"b{b}"] = ms
+        del surfs, key, valid, order, rank, total
+        torch.cuda.empty_cache()
+    return out
+
+
+class ClipManager:
+    """A model-manager stand-in: ``predict(model, inputs, **kw)`` runs one
+    ClipImpl for the space it names."""
+
+    def __init__(self, impl, space):
+        self.impl, self.space = impl, space
+
+    def predict(self, model, inputs, **kw):
+        require(model == self.space, f"manager asked for {model!r}")
+        return self.impl.predict(inputs)
+
+
+def text_leaf_path(torch, dev, smi, ex, counters) -> dict:
+    """Phase 9(b): phase 9(a)'s query with its clip leaf a text, embedded by
+    ClipImpl("ViT-B-32", precision="bf16") through the model manager on the
+    way in (pql/preprocess.py), the text tower's attention on kernel B3."""
+    from panoptikon_tpu_torch.models.impls import ClipImpl, PredictionInput, npy
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql import preprocess
+
+    space = OR3_SPACES[0][0]
+    impl = ClipImpl(model_arch="ViT-B-32", precision="bf16", device=str(dev))
+    ex.manager = ClipManager(impl, space)
+    preprocess.EMBED_CACHE.clear()
+    text = "a photo of a red car near the beach at night"
+    rng = np.random.default_rng(SEED + 12)
+    leaves = [{"image_embeddings": {"query": text, "model": space, "embed": {"cache_key": "smoke"},
+                                    "index": "quant"},
+               "row_n": True, "priority": 5, "rrf": {"k": 60, "weight": OR3_SPACES[0][3]}}]
+    for other, _, dim, weight in OR3_SPACES[1:]:
+        v = rng.standard_normal(dim).astype(np.float32)
+        leaves.append({"image_embeddings": {"query": _b64(v / np.linalg.norm(v)), "model": other,
+                                            "embed": None, "index": "quant"},
+                       "row_n": True, "priority": 5, "rrf": {"k": 60, "weight": weight}})
+    query = pql.PqlQuery.from_json({"query": {"or_": leaves}, "page_size": 10})
+    t0 = time.perf_counter()
+    res = ex.execute(query)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    require(len(res.results) == 10 and res.metrics.path == "fused", "text leaf: a fused page of 10")
+    vec = query.query.or_[0].image_embeddings._embedding
+    with not_counted(counters):
+        want = npy.parse_npy(impl.predict([PredictionInput(data={"text": text})])[0])
+    require(vec.shape == (512,) and np.array_equal(vec, want),
+            "text leaf: the leaf's vector differs from ClipImpl.predict's")
+    t0 = time.perf_counter()
+    ex.execute(pql.PqlQuery.from_json({"query": {"or_": leaves}, "page_size": 10}))
+    cached_s = time.perf_counter() - t0
+    ex.manager = None
+    return {"card": smi, "text": text, "first_query_s_with_embed": first_s,
+            "query_s_embedding_cached": cached_s, "embed_cache": preprocess.EMBED_CACHE.stats()}
+
+
+def seed_pql_db(root, n_items: int, seed: int):
+    """A small DB seeded through the port's db/store.py and db/writer.py as
+    tools/pql_equivalence.py seeds its own: every item a file and a 512-d
+    clip row; every other item one to three OCR text rows (FTS), each with
+    a row in two text-embedding spaces (384-d and 768-d); every third item
+    tags. Returns (db, writer, index) with the index's int8 arms built."""
+    from panoptikon_tpu_torch.db import store
+    from panoptikon_tpu_torch.db.connection import Database
+    from panoptikon_tpu_torch.db.writer import IndexWriter
+    from panoptikon_tpu_torch.index import VectorIndex
+
+    rng = np.random.default_rng(seed)
+    db = Database(root, "smoke")
+    writer = IndexWriter(db)
+    dims = {"clip/smoke": 512, "st/smoke": 384, "mpnet/smoke": 768}
+    spaces = {name: ([], [], []) for name in dims}
+    mimes = ("image/png", "image/jpeg", "video/mp4", "application/pdf")
+    words = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta")
+
+    def unit(conn):
+        sid = {name: store.upsert_setter(conn, name)
+               for name in ("clip/smoke", "ocr/smoke", "tags/smoke", "st/smoke", "mpnet/smoke")}
+
+        def embed(item, space, source_id=None, idx=0):
+            v = rng.normal(size=dims[space]).astype(np.float32)
+            v /= np.linalg.norm(v)
+            did = store.insert_item_data(conn, item, sid[space], "clip" if space == "clip/smoke"
+                                         else "text-embedding", idx=idx, source_id=source_id)
+            store.insert_embedding(conn, did, v)
+            for part, value in zip(spaces[space], (item, did, v)):
+                part.append(value)
+
+        for i in range(n_items):
+            sha = f"{i:08x}" * 8
+            item = store.upsert_item(conn, sha, f"{i:08x}" * 4, mimes[i % 4],
+                                     size=int(rng.integers(100, 10_000)),
+                                     width=int(rng.integers(10, 4000)), height=int(rng.integers(10, 4000)))
+            store.upsert_file(conn, item, sha, f"/corpus/d{i % 7}/f{i:05d}.bin",
+                              f"2026-{1 + i % 12:02d}-{1 + i % 28:02d}T00:00:00")
+            embed(item, "clip/smoke")
+            if i % 2 == 0:
+                for ci in range(1 + i % 3):
+                    tdid = store.insert_item_data(conn, item, sid["ocr/smoke"], "text", idx=ci)
+                    text = " ".join(rng.choice(words, size=int(rng.integers(3, 8)))) + f" token{i}c{ci}"
+                    store.insert_extracted_text(conn, tdid, text, language="en",
+                                                confidence=float(rng.uniform(0.3, 1.0)),
+                                                language_confidence=float(rng.uniform(0.5, 1.0)))
+                    embed(item, "st/smoke", source_id=tdid, idx=ci)
+                    embed(item, "mpnet/smoke", source_id=tdid, idx=ci)
+            if i % 3 == 0:
+                gdid = store.insert_item_data(conn, item, sid["tags/smoke"], "tags")
+                for tag in rng.choice(("cat", "dog", "tree", "car", "sky"), size=int(rng.integers(1, 4)),
+                                      replace=False):
+                    store.tag_item(conn, gdid, item, store.upsert_tag(conn, "general", str(tag)),
+                                   float(rng.uniform(0.2, 1.0)))
+
+    writer.call(unit)
+    index = VectorIndex(chunk_rows=1024)
+    for name, (items, dids, vecs) in spaces.items():
+        index.add(name, np.array(items), np.array(dids), np.stack(vecs))
+        index.build_quant(name)
+    return db, writer, index
+
+
+def pql_db_shapes(index) -> dict:
+    """Phase 9(c)'s PQL shapes over seed_pql_db's DB: name → payload."""
+    def leaf(field, space, row, *, arm="quant", **extra):
+        v = index.snapshot(space).vectors[row]
+        return {field: {"query": _b64(v + 0.01), "model": space, "embed": None, "index": arm, **extra}}
+
+    rrf = {"row_n": True, "priority": 5}
+    return {
+        "metadata": {"query": {"match": {"gt": {"size": 5000}}},
+                     "order_by": [{"order_by": "size", "order": "desc"}], "page_size": 50},
+        "fts": {"query": {"match_text": {"match": '"gamma"'}}, "page_size": 100},
+        "tags": {"query": {"match_tags": {"tags": ["cat", "dog"], "match_any": True}}, "page_size": 100},
+        "semantic": {"query": leaf("image_embeddings", "clip/smoke", 7), "page_size": 20},
+        "semantic_exact": {"query": leaf("image_embeddings", "clip/smoke", 8, arm="exact"),
+                           "page_size": 20},
+        "scoped_semantic": {"query": {"and_": [{"match": {"eq": {"type": "image/png"}}},
+                                               leaf("image_embeddings", "clip/smoke", 9)]},
+                            "page_size": 20},
+        "and_rrf": {"query": {"and_": [
+            {**leaf("text_embeddings", "st/smoke", 3), **rrf, "rrf": {"k": 60, "weight": 1.0}},
+            {**leaf("text_embeddings", "mpnet/smoke", 5), **rrf, "rrf": {"k": 30, "weight": 0.5}}]},
+            "page_size": 20},
+        "or_rrf": {"query": {"or_": [
+            {**leaf("image_embeddings", "clip/smoke", 11), **rrf, "rrf": {"k": 60, "weight": 1.0}},
+            {**leaf("text_embeddings", "st/smoke", 4), **rrf, "rrf": {"k": 60, "weight": 0.8}}]},
+            "page_size": 20},
+        **{f"text_{agg.lower()}": {"query": leaf("text_embeddings", "st/smoke", 6,
+                                                 distance_aggregation=agg), "page_size": 30}
+           for agg in ("MIN", "MAX", "AVG")},
+        "similar_to": {"query": {"similar_to": {"target": f"{4:08x}" * 8, "model": "st/smoke",
+                                                "distance_aggregation": "AVG", "index": "quant"}},
+                       "page_size": 20},
+        "partition_by": {"query": leaf("image_embeddings", "clip/smoke", 12), "partition_by": ["type"],
+                         "page_size": 10},
+    }
+
+
+def same_pages(got, want, atol: float = 1e-6) -> bool:
+    """Equal pages: counts, ids and order equal, every field equal but the
+    float values of ``extra`` (selected scores), which agree within
+    ``atol``."""
+    if got.count != want.count or len(got.results) != len(want.results):
+        return False
+    for g, w in zip(got.results, want.results):
+        if {k: v for k, v in g.items() if k != "extra"} != {k: v for k, v in w.items() if k != "extra"}:
+            return False
+        ge, we = g.get("extra") or {}, w.get("extra") or {}
+        if ge.keys() != we.keys():
+            return False
+        for key, value in ge.items():
+            if isinstance(value, float) and isinstance(we[key], float):
+                if value != we[key] and not abs(value - we[key]) <= atol:
+                    return False
+            elif value != we[key]:
+                return False
+    return True
+
+
+def db_path(torch, dev, smi) -> dict:
+    """Phase 9(c): seed_pql_db's DB through an Executor on the card and one
+    on the CPU over the same files: equal pages on every shape."""
+    import tempfile
+
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql.executor import Executor
+
+    fts5 = "ENABLE_FTS5" in {row[0] for row in sqlite3.connect(":memory:").execute(
+        "PRAGMA compile_options")}
+    require(fts5, f"db: SQLite {sqlite3.sqlite_version} has no FTS5, which the schema needs")
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as root:
+        t0 = time.perf_counter()
+        db, writer, index = seed_pql_db(root, PQL_DB_ITEMS, SEED + 40)
+        seed_s = time.perf_counter() - t0
+        try:
+            card, cpu = Executor(db, index, device=str(dev)), Executor(db, index, device="cpu")
+            shapes, times = pql_db_shapes(index), {}
+            for name, payload in shapes.items():
+                t0 = time.perf_counter()
+                got = card.execute(pql.PqlQuery.from_json(json.loads(json.dumps(payload))))
+                times[name] = 1e3 * (time.perf_counter() - t0)
+                want = cpu.execute(pql.PqlQuery.from_json(json.loads(json.dumps(payload))))
+                require(len(got.results) > 0, f"db: {name} returned no rows")
+                require(same_pages(got, want), f"db: {name} differs between the card and the CPU")
+        finally:
+            writer.close()
+    return {"card": smi, "items": PQL_DB_ITEMS, "seed_s": seed_s, "shapes": len(shapes),
+            "card_equals_cpu": True, "card_ms_first_run": times}
 
 
 def cosines(a, b):
@@ -571,9 +1169,13 @@ def main() -> int:
         triton_version = triton.__version__
     except ImportError:
         triton_version = None
+    # The DB of phase 9(c) needs SQLite's FTS5: reported here, required there.
+    fts5 = "ENABLE_FTS5" in {row[0] for row in sqlite3.connect(":memory:").execute(
+        "PRAGMA compile_options")}
     emit({"phase": "env", "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc, "triton": triton_version, "device_name": torch.cuda.get_device_name(0),
-          "device_count": torch.cuda.device_count()})
+          "device_count": torch.cuda.device_count(), "sqlite": sqlite3.sqlite_version,
+          "sqlite_fts5": fts5})
 
     # 2. Build: one nvcc per source, all started together.
     def build_one(name):
@@ -1023,9 +1625,12 @@ def main() -> int:
     del index, dindex, group_ids, gq
     torch.cuda.empty_cache()
 
-    # B1 and B2 at the composed bench's shape, k = 1,024.
+    # 8. The composed two-space RRF (bench.py): B1 at k·oversample = 1,024,
+    # then the fusion. Counters start at zero inside.
     composed = composed_path(torch, dev, smi, counters)
-    emit({"phase": "composed", **composed})
+    composed_launches = composed.pop("launches")
+    composed_routes = read_routes(counters)
+    emit({"phase": "composed", "launches": composed_launches, **composed})
 
     # 7. The serving embed: ViT-L/14 static int8 through ClipImpl.predict.
     reset_counts(counters)
@@ -1036,16 +1641,39 @@ def main() -> int:
             f"int8 path kernel launches {l14_launches}")
     require_tensor_cores(l14_launches, l14_routes, ("mha", "mha_qkv"), "int8 embed")
     emit({"phase": "int8", "launches": l14_launches, "attention_routes": l14_routes, **l14})
+    l14_scan_err = l14["int8_topk_max_abs_err"]
 
-    total = {name: launches[name] + batch_launches[name] + l14_launches[name] for name in launches}
-    total_routes = {name: {path: routes[name][path] + batch_routes[name][path]
-                           + l14_routes[name][path] for path in routes[name]}
+    del l14
+    torch.cuda.empty_cache()
+
+    # 9. A PQL page through the port's Executor.execute: (a) BASELINE #5's
+    # three-space OR of RRF leaves, (b) one leaf a text embedded through the
+    # model manager, (c) a small DB on the card and on the CPU. Counters
+    # start at zero here.
+    reset_counts(counters)
+    or3, or3_ex = or3_path(torch, dev, smi, counters)
+    text_leaf = text_leaf_path(torch, dev, smi, or3_ex, counters)
+    del or3_ex
+    torch.cuda.empty_cache()
+    db_run = db_path(torch, dev, smi)
+    pql_launches = {fn.__name__: fn.launches for fn in counters}
+    pql_routes = read_routes(counters)
+    require(pql_launches["int8_topk"] > 0 and pql_launches["mha"] > 0,
+            f"pql path kernel launches {pql_launches}")
+    require_tensor_cores(pql_launches, pql_routes, ("mha",), "pql text leaf")
+    emit({"phase": "pql", "launches": pql_launches, "attention_routes": pql_routes,
+          "or3": or3, "text_leaf": text_leaf, "db": db_run})
+
+    runs = ((launches, routes), (batch_launches, batch_routes), (composed_launches, composed_routes),
+            (l14_launches, l14_routes), (pql_launches, pql_routes))
+    total = {name: sum(run[0][name] for run in runs) for name in launches}
+    total_routes = {name: {path: sum(run[1][name][path] for run in runs) for path in routes[name]}
                     for name in routes}
     emit({"kernels": [
         {"name": "int8_topk", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:138", "launches": total["int8_topk"],
          "max_abs_err": max(scan_err, scan_l2_err, *b1_err.values(), scan_1m_err,
-                            composed["int8_topk_max_abs_err"], l14["int8_topk_max_abs_err"]),
+                            composed["int8_topk_max_abs_err"], l14_scan_err),
          "ms": scan_ms, "plain_ms": scan_plain_ms, **scan_bound, "library_ms": None},
         {"name": "int8_topk_v2", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:321", "launches": total["int8_topk_v2"],

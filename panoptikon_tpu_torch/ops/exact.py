@@ -86,12 +86,17 @@ def int_mm(a, b):
 
 def row_sumsq(corpus: torch.Tensor) -> torch.Tensor:
     """Per-row sum of squares: int8 codes -> int32 (exact up to
-    D = 131072), anything else -> f32."""
+    D = 131072), anything else -> f32, summed in f64 from the f32 values
+    and rounded once, so that it is the same on every device and equals
+    the f32 self-dot of ``scoring._chunk_dots``."""
     if corpus.dtype == torch.int8:
         wide = corpus.to(torch.int32)
         return torch.sum(wide * wide, dim=-1, dtype=torch.int32)
-    corpus = corpus.to(torch.float32)
-    return torch.sum(corpus * corpus, dim=-1)
+    step = 131072  # rows widened to f64 at a time
+    return torch.cat([
+        torch.sum(torch.square(corpus[i:i + step].to(torch.float32).to(torch.float64)), dim=-1)
+        for i in range(0, max(corpus.shape[0], 1), step)
+    ]).to(torch.float32)
 
 
 def smallest_k(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -19,8 +19,12 @@ Distances over int8 codes follow the reference's quant arm: cosine on codes
 equals cosine on the dequantized vectors (the scale cancels); L2 on codes is
 the true distance ÷ scale, rescaled here by the frozen scale.
 
-Only the one-row-per-group (``identity``) path of :func:`grouped_scores` is
-ported; the segmented aggregation path is still to come.
+The executor's surfaces come from :func:`grouped_scores`, whose dots on the
+card are ``torch._int_mm`` (``exact.int_mm``), as the JAX package takes them
+from XLA's integer product outside any Pallas kernel; its top-k, masked
+top-k and gathers follow (:func:`topk_of_scores`,
+:func:`masked_topk_of_scores`, :func:`gather_of_scores`,
+:func:`gather_rows_of_scores`).
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from panoptikon_tpu_torch.ops import int8_scan
-from panoptikon_tpu_torch.ops.exact import INF, Distance, int8_dots, int_mm, row_sumsq, smallest_k
+from panoptikon_tpu_torch.ops.exact import (
+    INF, Aggregation, Distance, int8_dots, int_mm, row_sumsq, smallest_k, topk_ascending,
+)
 
 
 def row_sumsq_chunked(corpus: torch.Tensor, chunk_rows: int = 250_000) -> torch.Tensor:
@@ -41,26 +47,61 @@ def row_sumsq_chunked(corpus: torch.Tensor, chunk_rows: int = 250_000) -> torch.
     return torch.cat([row_sumsq(corpus[i:i + chunk_rows]) for i in range(0, n, chunk_rows)])
 
 
+# Rows a pass of the f32 dots converts to f64 (512 MB at D = 512).
+F64_CHUNK_ROWS = 131072
+
+
 def _chunk_dots(queries: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
-    """(Q, D) × (C, D)ᵀ. int8 inputs give exact int32 dots; others f32."""
-    if chunk.dtype == torch.int8:
+    """(Q, D) × (C, D)ᵀ. int8 inputs give exact int32 dots; others f32
+    dots of the f32 values, accumulated in f64 and rounded once (as
+    ``row_sumsq`` sums squares), so that they are the same on the card and
+    on the CPU and a row's dot with itself is its sum of squares.
+
+    On the card the int8 product is ``torch._int_mm`` (``exact.int_mm``) over
+    the rows up to the last multiple of 8, so that the corpus is read in place
+    (a ragged row count would make ``int_mm`` pad, that is copy, the corpus);
+    the last rows, and a width not a multiple of 8, go through
+    ``exact.int8_dots``. Both are exact, so the dots are the same on any
+    device."""
+    if chunk.dtype != torch.int8:
+        qd = queries.to(torch.float32).to(torch.float64)
+        return torch.cat([
+            (qd @ chunk[i:i + F64_CHUNK_ROWS].to(torch.float64).T).to(torch.float32)
+            for i in range(0, chunk.shape[0], F64_CHUNK_ROWS)
+        ], dim=1)
+    queries = queries.to(torch.int8)
+    if chunk.device.type != "cuda" or chunk.shape[1] % 8:
         return int8_dots(queries, chunk)
-    return queries.to(torch.float32) @ chunk.to(torch.float32).T
+    n8 = chunk.shape[0] - chunk.shape[0] % 8
+    dots = int_mm(queries, chunk[:n8].t())
+    if n8 == chunk.shape[0]:
+        return dots
+    return torch.cat([dots, int8_dots(queries, chunk[n8:])], dim=1)
 
 
 def _distance_epilogue(dots, chunk_sumsq, query_sumsq, distance: Distance, scale: float):
     """Dot products -> distances on the true axis, all f32, in the JAX
-    package's formula and roundings. The scan kernel's own roundings (the L2
-    sum in integers, correctly rounded roots) are ``int8_scan._distances``,
-    which the kernel's plain version uses."""
+    package's formula, every step correctly rounded: the square root is
+    taken in f64 and rounded once (PyTorch's vectorised f32 ``sqrt`` on the
+    CPU is not always correctly rounded), so the values are the same on the
+    card and on the CPU. The scan kernel's own roundings (the L2 sum in
+    integers, correctly rounded roots) are ``int8_scan._distances``, which
+    the kernel's plain version uses."""
     dots = dots.to(torch.float32)
     xx = chunk_sumsq.to(torch.float32)[None, :]
     qq = query_sumsq.to(torch.float32)[:, None]
     if distance == "cosine":
-        return 1.0 - dots / torch.sqrt(torch.clamp(xx * qq, min=1e-30))
+        return 1.0 - dots / _sqrt_rn(torch.clamp(xx * qq, min=1e-30))
     if distance == "l2":
-        return float(scale) * torch.sqrt(torch.clamp(qq - 2.0 * dots + xx, min=0.0))
+        root = _sqrt_rn(torch.clamp(qq - 2.0 * dots + xx, min=0.0))
+        return torch.tensor(scale, dtype=torch.float32, device=root.device) * root
     raise ValueError(f"Unknown distance {distance!r}")
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root (the f64 root of an f32 rounds
+    to f32 without a double-rounding error)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def exact_oneshot(corpus, row_valid, queries, *, k: int, distance: Distance = "cosine"):
@@ -212,22 +253,77 @@ def int8_topk_rescored(
 
 
 def grouped_scores(
-    corpus, sumsq, row_valid, queries, *, num_groups: int,
-    distance: Distance = "cosine", scale: float = 1.0, identity: bool = False,
+    corpus, sumsq, row_valid, group_ids, queries, *, num_groups: int,
+    distance: Distance = "cosine", aggregation: Aggregation = "min", scale: float = 1.0,
+    chunk_rows: int = 32768, weighted: bool = False, weights=None, identity: bool = False,
 ):
-    """Per-group score surface (Q, num_groups): distances, validity, counts.
+    """Full per-group score surfaces: (Q, num_groups) distances, validity and
+    contributing row counts (weight sums when ``weighted``).
 
-    Only the one-row-per-group layout (``identity=True``) is ported: row i
-    is group slot i, so the surface is the per-row epilogue and the
-    reference's ``group_ids``, aggregation and weights have nothing to do.
-    They join the signature with the segmented path."""
-    if not identity:
-        raise NotImplementedError("grouped_scores: only identity=True is ported")
-    dots = _chunk_dots(queries, corpus)
-    dist = _distance_epilogue(dots, sumsq, row_sumsq(queries), distance, scale)
-    dist = torch.where(row_valid[None, :], dist, INF)[:, :num_groups]
-    group_valid = row_valid[None, :num_groups].expand(dist.shape)
-    return dist, group_valid, group_valid.to(torch.float32)
+    Rows stream ``chunk_rows`` at a time into per-group MIN, MAX or AVG, or
+    the weighted average ``SUM(d·w)/SUM(w)`` when ``weighted``; invalid rows
+    go to a scrap group ``num_groups``, as do group ids outside
+    [0, num_groups), which the JAX segment reductions drop. MIN, MAX and the
+    counts are exact reductions, so they equal the JAX function's bit for
+    bit wherever its per-row distances are this epilogue's (the L2 one; XLA
+    turns cosine's d / sqrt(x) into d · rsqrt(x), ulps away); AVG and the
+    weighted average are f32 sums in another order. ``identity`` (row i is
+    group slot i, ``num_groups`` ≤ N) skips the segments: the surface is the
+    per-row epilogue."""
+    n = corpus.shape[0]
+    query_sumsq = row_sumsq(queries)
+    if identity and not weighted:
+        dots = _chunk_dots(queries, corpus)
+        dist = _distance_epilogue(dots, sumsq, query_sumsq, distance, scale)
+        dist = torch.where(row_valid[None, :], dist, INF)[:, :num_groups]
+        group_valid = row_valid[None, :num_groups].expand(dist.shape)
+        return dist, group_valid, group_valid.to(torch.float32)
+    if n % chunk_rows:
+        raise ValueError(f"corpus rows {n} must be a multiple of chunk_rows {chunk_rows}")
+    q, m, dev = queries.shape[0], num_groups, corpus.device
+    if weights is None:
+        weights = torch.ones(n, dtype=torch.float32, device=dev)
+    # Accumulators carry the scrap group as their last column.
+    if weighted or aggregation == "avg":
+        acc = torch.zeros((q, m + 1), dtype=torch.float32, device=dev)
+        reduce = "sum"
+    elif aggregation in ("min", "max"):
+        fill = INF if aggregation == "min" else -INF
+        acc = torch.full((q, m + 1), fill, dtype=torch.float32, device=dev)
+        reduce = "amin" if aggregation == "min" else "amax"
+    else:
+        raise ValueError(f"Unknown aggregation {aggregation!r}")
+    count = torch.zeros((q, m + 1), dtype=torch.float32, device=dev)
+    for lo in range(0, n, chunk_rows):
+        hi = lo + chunk_rows
+        dist = _distance_epilogue(
+            _chunk_dots(queries, corpus[lo:hi]), sumsq[lo:hi], query_sumsq, distance, scale
+        )
+        valid = row_valid[lo:hi]
+        # Invalid rows, and ids outside [0, m) (which the JAX segment
+        # reductions drop), go to the scrap group.
+        gids = group_ids[lo:hi].to(torch.int64)
+        index = torch.where(valid & (gids >= 0) & (gids < m), gids, m).expand(q, -1)
+        if weighted:
+            w = torch.where(valid, weights[lo:hi].to(torch.float32), 0.0)
+            acc.scatter_add_(1, index, dist * w[None, :])
+            count.scatter_add_(1, index, w.expand(q, -1))
+            continue
+        if reduce == "sum":
+            acc.scatter_add_(1, index, torch.where(valid[None, :], dist, 0.0))
+        else:
+            acc.scatter_reduce_(1, index, torch.where(valid[None, :], dist, fill), reduce,
+                                include_self=True)
+        count.scatter_add_(1, index, valid.to(torch.float32).expand(q, -1))
+    acc, count = acc[:, :m], count[:, :m]
+    group_valid = count > 0
+    if weighted:
+        group_dist = acc / torch.clamp(count, min=1e-30)
+    elif aggregation == "avg":
+        group_dist = acc / torch.clamp(count, min=1.0)
+    else:
+        group_dist = acc
+    return torch.where(group_valid, group_dist, INF), group_valid, count
 
 
 def topk_of_scores(dist, valid, *, kk: int, largest: bool = False):
@@ -239,3 +335,43 @@ def topk_of_scores(dist, valid, *, kk: int, largest: bool = False):
     else:
         top_v, idx = smallest_k(torch.where(valid, dist, INF), kk)
     return top_v, idx, torch.isfinite(top_v)
+
+
+def masked_topk_of_scores(dist, valid, mask, *, kk: int, largest: bool = False):
+    """:func:`topk_of_scores` restricted to a (Q, M) or (1, M) bool mask of
+    groups in scope."""
+    return topk_of_scores(dist, valid & mask, kk=kk, largest=largest)
+
+
+def gather_of_scores(dist, valid, idx):
+    """The scores of given slots off a (Q, M) surface: ``idx`` (S,) slot
+    numbers, −1 for padding. Returns ((Q, S) values, +inf where not valid;
+    (Q, S) validity)."""
+    idx = idx.to(torch.int64)
+    safe = torch.clamp(idx, 0, dist.shape[1] - 1)
+    ok = (idx >= 0)[None, :] & valid[:, safe]
+    return torch.where(ok, dist[:, safe], INF), ok
+
+
+def gather_rows_of_scores(dist, valid, idx):
+    """:func:`gather_of_scores` with each of the Q rows gathering its own
+    slots: ``idx`` (Q, S), −1 for padding."""
+    idx = idx.to(torch.int64)
+    safe = torch.clamp(idx, 0, dist.shape[1] - 1)
+    ok = (idx >= 0) & torch.gather(valid, 1, safe)
+    return torch.where(ok, torch.gather(dist, 1, safe), INF), ok
+
+
+def streaming_grouped_topk(
+    corpus, sumsq, row_valid, group_ids, queries, *, num_groups: int, k: int,
+    distance: Distance = "cosine", aggregation: Aggregation = "min", scale: float = 1.0,
+    chunk_rows: int = 32768, weighted: bool = False, weights=None,
+):
+    """Top-k groups per query: :func:`grouped_scores`, then the k smallest,
+    lowest group first among ties. Returns (dist, group, valid), each (Q, k)."""
+    group_dist, group_valid, _ = grouped_scores(
+        corpus, sumsq, row_valid, group_ids, queries, num_groups=num_groups,
+        distance=distance, aggregation=aggregation, scale=scale, chunk_rows=chunk_rows,
+        weighted=weighted, weights=weights,
+    )
+    return topk_ascending(group_dist, group_valid, k)

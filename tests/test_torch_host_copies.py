@@ -3,6 +3,11 @@ originals, on the same seeded inputs: the host codec, ``VectorIndex``,
 ``utils.npy``, ``models.batching`` and ``models.base``. The port imports
 nothing of ``panoptikon_tpu``; only this test imports both."""
 
+import ast
+import json
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -229,3 +234,219 @@ def test_error_slots_match():
     assert not base.is_error_slot(b"npy") and not base.is_error_slot({"x": 1})
     inp = base.PredictionInput(data={"text": "a"})
     assert (inp.data, inp.file) == (ref_base.PredictionInput(data={"text": "a"}).data, None)
+
+
+# ---------------------------------------------------------------------------
+# The executor slice's host copies: pql/{executor,fused,model,preprocess}.py,
+# db/{schema,connection,epochs,store,writer}.py and utils/splitmix.py.
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent.parent
+
+# Functions and methods of the copies that touch the device: ported, not
+# copied. ``ported`` are the reference's units the port rewrote or left out
+# (the sharded program waits for multi-GPU); ``added`` the port's own.
+DEVICE_UNITS = {
+    "pql/executor.py": {
+        "ported": {
+            "_prefetch_host", "_invert_packed", "Executor.__init__", "Executor._device_arrays",
+            "Executor._sharded_space", "Executor._deferred_surface",
+            "Executor._deferred_candidates", "Executor._scan_surface_batched",
+            "Executor._coalesced_candidates", "Executor._deferred_gather",
+            "Executor._coalesced_gather", "Executor._rrf_item_index",
+            "Executor._rrf_join_candidates", "Executor._coalesced_rrf_join",
+            "Executor._space_scores",
+        },
+        "added": {"_HostCopy.<body>", "_collect_host", "_host_get", "Executor._upload"},
+    },
+    "pql/fused.py": {"ported": {"_rrf_device_eligible"}, "added": set()},
+}
+HOST_COPIES = ("pql/executor.py", "pql/fused.py", "pql/model.py", "pql/preprocess.py",
+               "db/schema.py", "db/connection.py", "db/epochs.py", "db/store.py", "db/writer.py",
+               "utils/splitmix.py")
+
+
+def _units(source: str) -> dict:
+    """ast.dump of every function and method, of every class body's other
+    statements, and of every module-level statement but imports and the
+    docstring, by name."""
+    units = {}
+    for node in ast.parse(source).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            units[node.name] = ast.dump(node)
+        elif isinstance(node, ast.ClassDef):
+            rest = []
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    units[f"{node.name}.{sub.name}"] = ast.dump(sub)
+                else:
+                    rest.append(ast.dump(sub))
+            units[f"{node.name}.<body>"] = "\n".join(rest + [ast.dump(d) for d in node.decorator_list])
+        elif not isinstance(node, (ast.Import, ast.ImportFrom)) and not (
+                isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)):
+            units[f"<{ast.dump(node)[:80]}>"] = ast.dump(node)
+    return units
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_code_is_the_reference_s(rel):
+    # Every host function, method and module statement of a copy equals the
+    # reference's once `panoptikon_tpu.` reads `panoptikon_tpu_torch.`; only
+    # the device units listed above differ. A later edit to either side
+    # shows here instead of drifting.
+    ref_src = (REPO / "panoptikon_tpu" / rel).read_text()
+    want = _units(re.sub(r"\bpanoptikon_tpu\.", "panoptikon_tpu_torch.", ref_src))
+    got = _units((REPO / "panoptikon_tpu_torch" / rel).read_text())
+    device = DEVICE_UNITS.get(rel, {"ported": set(), "added": set()})
+    assert device["ported"] <= want.keys() and not device["added"] & want.keys()
+    assert set(want) - device["ported"] == set(got) - device["added"] - device["ported"]
+    for name in set(want) - device["ported"]:
+        assert got[name] == want[name], f"{rel}: {name} differs from the reference"
+
+
+def test_port_executor_and_fused_touch_no_jax_or_mesh():
+    for rel in ("pql/executor.py", "pql/fused.py"):
+        src = (REPO / "panoptikon_tpu_torch" / rel).read_text()
+        assert "jax" not in src and "_sharded_space" not in src and "device_count" not in src
+
+
+def test_splitmix_matches():
+    from panoptikon_tpu.utils import splitmix as ref_mix
+    from panoptikon_tpu_torch.utils import splitmix
+
+    rng = np.random.default_rng(12)
+    ids = np.concatenate([rng.integers(0, 2**40, size=500), [0, 1, 2**63 - 1]]).astype(np.int64)
+    for seed in (0, 1, 424242, 2**40 + 3, -5):
+        np.testing.assert_array_equal(splitmix.pk_mix_array(ids, seed),
+                                      ref_mix.pk_mix_array(ids, seed))
+        assert [splitmix.pk_mix(int(i), seed) for i in ids[:20]] == \
+            [ref_mix.pk_mix(int(i), seed) for i in ids[:20]]
+    assert splitmix.mix64(2**64 - 1) == ref_mix.mix64(2**64 - 1)
+
+
+def _schema_dump(conn):
+    return conn.execute("SELECT type, name, tbl_name, sql FROM sqlite_master ORDER BY name").fetchall()
+
+
+def test_schema_of_fresh_databases_matches(tmp_path):
+    from panoptikon_tpu.db.connection import Database as RefDatabase
+    from panoptikon_tpu_torch.db.connection import Database
+
+    ref_db, db = RefDatabase(tmp_path / "ref", "x"), Database(tmp_path / "port", "x")
+    for user_data in (False, True):
+        assert _schema_dump(db.reader(user_data)) == _schema_dump(ref_db.reader(user_data))
+    assert len(_schema_dump(db.reader(False))) > 20
+
+
+def _seed(store, database_cls, writer_cls, root, monkeypatch):
+    """The same writes through one package's store and writer: items,
+    files, setters, text with FTS, embeddings, tags, errors, config."""
+    monkeypatch.setattr(store, "now_iso", lambda: "2026-01-01T00:00:00+00:00")
+    db = database_cls(root, "seed")
+    writer = writer_cls(db)
+    rng = np.random.default_rng(13)
+
+    def unit(conn):
+        clip, ocr, tagger = (store.upsert_setter(conn, n) for n in ("clip/x", "ocr/x", "tags/x"))
+        for i in range(40):
+            sha = f"{i:04x}" * 16
+            item = store.upsert_item(conn, sha, f"{i:04x}" * 8, "image/png", size=100 + i,
+                                     width=10 + i, height=20 + i)
+            store.upsert_file(conn, item, sha, f"/c/d{i % 3}/f{i}.png", f"2026-01-{1 + i % 28:02d}")
+            did = store.insert_item_data(conn, item, clip, "clip")
+            store.insert_embedding(conn, did, rng.normal(size=8).astype(np.float32))
+            tdid = store.insert_item_data(conn, item, ocr, "text", idx=0)
+            store.insert_extracted_text(conn, tdid, f"word{i % 5} token{i}", language="en",
+                                        confidence=0.5 + i / 100, language_confidence=0.9)
+            if i % 3 == 0:
+                gdid = store.insert_item_data(conn, item, tagger, "tags")
+                store.tag_item(conn, gdid, item, store.upsert_tag(conn, "general", f"t{i % 4}"),
+                               0.5)
+        store.record_extraction_error(conn, 3, "clip/x", stage="inference", error_class="input",
+                                      message="m")
+        store.set_config(conn, "k", {"a": 1})
+        store.recount_tags(conn)
+        return store.count_unprocessed(conn, "ocr/x", ["image/png"]) \
+            if hasattr(store, "count_unprocessed") else None
+
+    try:
+        writer.call(unit)
+    finally:
+        writer.close()
+    conn = db.reader()
+    tables = [r[0] for r in conn.execute(
+        "SELECT name FROM sqlite_master WHERE type='table' AND name NOT LIKE '%fts%' ORDER BY name")]
+    dump = {t: conn.execute(f"SELECT * FROM {t}").fetchall() for t in tables}
+    dump["fts"] = conn.execute(
+        "SELECT rowid FROM extracted_text_fts WHERE extracted_text_fts MATCH 'word3' ORDER BY rowid"
+    ).fetchall()
+    return dump
+
+
+def test_store_and_writer_give_equal_tables(tmp_path, monkeypatch):
+    from panoptikon_tpu.db import store as ref_store
+    from panoptikon_tpu.db.connection import Database as RefDatabase
+    from panoptikon_tpu.db.writer import IndexWriter as RefWriter
+    from panoptikon_tpu_torch.db import store
+    from panoptikon_tpu_torch.db.connection import Database
+    from panoptikon_tpu_torch.db.writer import IndexWriter
+
+    got = _seed(store, Database, IndexWriter, tmp_path / "port", monkeypatch)
+    want = _seed(ref_store, RefDatabase, RefWriter, tmp_path / "ref", monkeypatch)
+    assert got.keys() == want.keys() and got == want
+    assert len(got["fts"]) == 8 and len(got["items"]) == 40
+
+
+@pytest.mark.parametrize("payload", [
+    {"page_size": 3},
+    {"query": {"and_": [{"match": {"gt": {"size": 5}}}, {"not_": {"match_tags": {"tags": ["a"]}}}]},
+     "order_by": [{"order_by": "size", "order": "desc"}], "page": 2, "count": False},
+    {"query": {"or_": [
+        {"image_embeddings": {"query": "x", "model": "clip/x", "index": "quant"},
+         "row_n": True, "priority": 5, "rrf": {"k": 60, "weight": 0.8}},
+        {"text_embeddings": {"query": "y", "model": "st/x", "distance_aggregation": "AVG"},
+         "select_as": "d"}]}, "partition_by": ["item_id"], "seed": 7},
+    {"query": {"similar_to": {"target": "ab" * 32, "model": "clip/x",
+                              "distance_function": "L2"}}, "entity": "text"},
+])
+def test_pql_model_parses_like_the_reference(payload):
+    from panoptikon_tpu.pql import model as ref_pql
+    from panoptikon_tpu_torch.pql import model as pql
+
+    got, want = pql.PqlQuery.from_json(payload), ref_pql.PqlQuery.from_json(payload)
+    assert repr(got) == repr(want)
+    assert got.resolve_seed() == want.resolve_seed() or payload.get("seed") is None
+
+
+def test_preprocess_resolves_vectors_like_the_reference():
+    import base64
+
+    from panoptikon_tpu.index.vector_index import VectorIndex as RefIndex
+    from panoptikon_tpu.pql import model as ref_pql
+    from panoptikon_tpu.pql import preprocess as ref_prep
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql import preprocess as prep
+
+    rng = np.random.default_rng(14)
+    vecs = rng.normal(size=(50, 16)).astype(np.float32)
+    blob = base64.standard_b64encode(npy.serialize_npy(rng.normal(size=16).astype(np.float32)))
+    leaf = {"query": blob.decode(), "model": "clip/x", "embed": None}
+    payload = {"query": {"and_": [{"image_embeddings": {**leaf, "index": "quant"}},
+                                  {"text_embeddings": {**leaf, "index": "exact"}}]}}
+    resolved = []
+    for index_cls, model, pre in ((VectorIndex, pql, prep), (RefIndex, ref_pql, ref_prep)):
+        index = index_cls(chunk_rows=64)
+        index.add("clip/x", np.arange(50), np.arange(50), vecs)
+        index.build_quant("clip/x")
+        query = model.PqlQuery.from_json(json.loads(json.dumps(payload)))
+        pre.preprocess_query(query, manager=None, index=index)
+        a, b = query.query.and_
+        resolved.append([(x._embedding, x._quant, x._distance_func_override)
+                         for x in (a.image_embeddings, b.text_embeddings)])
+    for (ge, gq, gd), (we, wq, wd) in zip(*resolved):
+        np.testing.assert_array_equal(ge, we)
+        assert gd == wd and (gq is None) == (wq is None)
+        if gq is not None:
+            assert gq.scale == wq.scale
+            np.testing.assert_array_equal(gq.query_quant, wq.query_quant)
+    assert resolved[0][0][1] is not None and resolved[0][1][1] is None

@@ -41,7 +41,9 @@ def test_every_port_module_imports_without_jax():
     assert len(names) >= 20
     for name in ("ops.ln_quant", "ops.vit_attention", "ops.int8_scan", "models.clip",
                  "models.impls", "models.convert", "profiling", "index.vector_index",
-                 "models.base", "models.batching", "utils.npy"):
+                 "models.base", "models.batching", "utils.npy", "ops.fusion", "pql.executor",
+                 "pql.fused", "pql.model", "pql.preprocess", "db.store", "db.writer",
+                 "utils.splitmix"):
         assert f"panoptikon_tpu_torch.{name}" in names
 
 
