@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's search core and serving embed once on one NVIDIA GPU.
+"""Drive the PyTorch port's search core, serving embed, PQL pages and text search
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,7 +17,11 @@ Phases, one JSON line each:
             the shapes the main paths give it, timed kernel/plain/plain/
             kernel: mha and mha_qkv bf16 ≤ 2e-2 max abs, every attention
             case timed and the route each takes (tensor cores for bf16 at
-            32 ≤ D ≤ 128, D % 16 = 0, else CUDA cores); the tensor-core
+            32 ≤ D ≤ 128, D % 16 = 0, else CUDA cores); B3 also at the
+            text encoders' shapes (minilm-l6 B 64 × N 128 × H 12 × D 32,
+            mpnet-base B 64 × N 512 and B 128 × N 256 × H 12 × D 64),
+            key-masked with seeded ragged lengths, q, k, v read in place
+            from one fused qkv, on the tensor cores; the tensor-core
             attention's division bit for bit a correctly rounded one over
             every float in [0, 1], ln_quant's int8 code of every float
             equal to a correctly rounded division's, and B2's reciprocal
@@ -86,14 +91,40 @@ Phases, one JSON line each:
             over them (torch.profiler), 128 queries in 16 threads (QPS, the
             coalescer's batches, each page equal to its solo run), peak
             device memory; (b) one leaf a text embedded by
-            ClipImpl("ViT-B-32") through a model-manager stand-in, its vector
-            equal to ClipImpl.predict's and every attention launch on the
-            tensor cores; (c) a DB of 2,000 items seeded through the port's
-            db/store.py and db/writer.py (FTS5 required), 13 PQL shapes
-            through an Executor on the card and one on the CPU, with equal
-            pages.
+            ClipImpl("ViT-B-32") through the port's model manager (the
+            built-in registry plus that space as a ViT-B-32 clip id), its
+            vector equal to ClipImpl.predict's and every attention launch on
+            the tensor cores; (c) a DB of 2,000 items seeded through the
+            port's db/store.py and db/writer.py (FTS5 required), 13 PQL
+            shapes through an Executor on the card and one on the CPU, with
+            equal pages;
+10. text    text search: (a) the model manager over the built-in registry
+            loads textembed/minilm-l6 and textembed/mpnet-base with prewarm
+            and embeds 8,192 seeded texts (log-uniform 4-2,048 words, every
+            length bucket 32-512, windows past the batch cap) through
+            manager.predict in windows of 64: every text's rows (its chunks,
+            plus the combined row at four or more), finite, and on 256
+            chunks over every length bucket B3 against mha_plain in its
+            place (min cosine ≥ 0.999); chunks/s, valid tokens/s, ms per
+            window and per full slice of each length bucket; (b) BASELINE
+            #4 (tools/e2e_server_bench.py's hybrid_payload) through
+            Executor.execute over 1,000,000 text chunks seeded under
+            bulk_ingest with live FTS5 and a 1,000,000 × 768 mpnet-base
+            space (int8 codes made on the device, recall@10 of the rescored
+            candidates ≥ 0.99): an AND of match_text on a "tokNNNN" term and
+            text_embeddings whose query is a text embedded through the
+            manager; the fused path never falling back, fused = full on 4
+            queries, p50/p95 over 24 sequential queries (every embed
+            computed), the embed's and the executor phases' ms, the device
+            idle share, 128 queries in 16 threads (QPS, the coalescer's
+            batches, coalesced = solo), peak device memory; (c) phase 9(c)'s
+            DB recipe with its two text spaces filled by the manager's real
+            embeddings of its own texts (some long enough to chunk), 9 PQL
+            shapes whose text leaves are embedded once on the card, their
+            vectors then handed to an Executor on the card and one on the
+            CPU, with equal pages.
 
-Each main path (phases 4-5, 6, 8, 7 and 9) runs with the launch counters (and
+Each main path (phases 4-5, 6, 8, 7, 9 and 10) runs with the launch counters (and
 the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
@@ -161,6 +192,26 @@ OR3_SPACES = (("clip/or3", 4_000_000, 512, 1.0), ("tags/or3", 2_000_000, 768, 0.
 OR3_SEQ, OR3_THREADS, OR3_CONCURRENT, OR3_RECALL_Q, OR3_PARITY_Q = 24, 16, 128, 32, 4
 OR3_CACHE_BUDGET = 16 << 30
 PQL_DB_ITEMS = 2000  # phase 9(c)'s seeded DB
+# Phase 3's B3 cases at the text encoders' shapes (models/text_embed.py): q,
+# k, v the views of one fused qkv, a key mask of seeded ragged lengths.
+TEXT_ATTN_CASES = {
+    # name: (b, n, h, d)
+    "minilm_l6_text": (64, 128, 12, 32),
+    "mpnet_base_ctx512": (64, 512, 12, 64),
+    "mpnet_base_n256": (128, 256, 12, 64),  # tools/text_embed_kernel_probe.py's shape
+}
+# Phase 10 (text search): the registry's two text encoders, the texts they
+# embed through the model manager (word counts log-uniform in TEXT_WORDS) in
+# windows of the registry's default_batch_size, the chunks held against
+# mha_plain; BASELINE #4's hybrid page over HYBRID_ROWS text chunks
+# (tools/e2e_server_bench.py's recipe) in the mpnet-base space; the DB of
+# 10(c) (seed_pql_db's recipe with real embeddings).
+TEXT_MODELS = ("textembed/minilm-l6", "textembed/mpnet-base")
+TEXT_CACHE_KEY = "smoke"
+TEXT_N, TEXT_WINDOW, TEXT_WORDS, TEXT_CHECKED = 8192, 64, (4, 2048), 256
+HYBRID_SPACE, HYBRID_ROWS, HYBRID_DIM = "textembed/mpnet-base", 1_000_000, 768
+HYBRID_SEQ, HYBRID_THREADS, HYBRID_CONCURRENT, HYBRID_PARITY_Q = 24, 16, 128, 4
+TEXT_DB_ITEMS, TEXT_DB_LONG_WORDS = 2000, 2200
 # Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): the least
 # time a kernel could take is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
@@ -170,6 +221,14 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 LN_OPS_PER_ELEMENT = 9  # two moments (4), normalize (2), affine (2), quantize (1)
 WORDS = ("a photo of the red blue green small large dog cat car tree house beach night "
          "city street person two three on in at with near old new bright dark").split()
+
+
+def scratch_dir() -> Path:
+    """build/ beside this script (git-ignored): where the phases' temporary
+    DBs and registry files go."""
+    path = Path(__file__).resolve().parent / "build"
+    path.mkdir(exist_ok=True)
+    return path
 
 
 def emit(obj) -> None:
@@ -667,10 +726,13 @@ def _or3_space(torch, dev, n, dim, seed, counters):
     recall@10 against the exact f32 top-10 while the f32 rows are still
     there: of the int8 top-10 itself (k 10, oversample 4, no rescore, as
     or3_bench measures it; its TPU run recorded 0.9625-0.975, BENCH_r05.json)
-    and of the serving path's, the same candidates rescored in f32; and B1's
-    time at that candidate shape (k 40), beside its bound. Returns (codes,
-    sumsq, scale, {"int8": recall, "rescored": recall, "b1_k40_ms": ms,
-    "b1_k40_bound_ms": ms, "b1_k40_bound_by": ...})."""
+    and of the serving path's, the same candidates rescored in f32; and B1 at
+    that candidate shape (k 40) held to its plain version on the same inputs
+    (ids equal, distances within 1e-6), its time and the plain version's,
+    beside its bound and the GEMM alone (torch._int_mm, its library
+    yardstick). Returns (codes, sumsq, scale, {"int8": recall, "rescored":
+    recall, "b1_k40_max_abs_err": err, "b1_k40_ms": ms, "b1_k40_plain_ms": ms,
+    "b1_k40_bound_ms": ms, "b1_k40_bound_by": ..., "b1_k40_gemm_only_ms": ms})."""
     from panoptikon_tpu_torch.ops import codec, exact, int8_scan, scoring
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -693,8 +755,19 @@ def _or3_space(torch, dev, n, dim, seed, counters):
     del x
     with not_counted(counters):
         args = (codes, sumsq, valid, qc)
-        recall["b1_k40_ms"] = cuda_ms(torch, lambda: int8_scan.int8_topk(*args, k=4 * K), reps=5)
+        gv, gi, gok = int8_scan.int8_topk(*args, k=4 * K)
+        pv, pi, pok = int8_scan.int8_topk_plain(*args, k=4 * K)
+        torch.cuda.synchronize()
+        require(torch.equal(gi, pi) and torch.equal(gok, pok),
+                f"int8_topk at {n} x {dim}, k {4 * K}: ids differ from plain")
+        recall["b1_k40_max_abs_err"] = (gv - pv).abs().max().item()
+        require(recall["b1_k40_max_abs_err"] <= 1e-6,
+                f"int8_topk at {n} x {dim}: max abs dist diff {recall['b1_k40_max_abs_err']}")
+        recall["b1_k40_ms"], recall["b1_k40_plain_ms"] = paired_ms(
+            torch, lambda: int8_scan.int8_topk(*args, k=4 * K),
+            lambda: int8_scan.int8_topk_plain(*args, k=4 * K), reps=5)
         recall.update({"b1_k40_" + key: value for key, value in scan_roofline(args, 4 * K).items()})
+        recall["b1_k40_gemm_only_ms"] = gemm_only_ms(torch, args)
     return codes, sumsq, scale, recall
 
 
@@ -927,29 +1000,31 @@ def rank_join_ms(torch, dev, ex) -> dict:
     return out
 
 
-class ClipManager:
-    """A model-manager stand-in: ``predict(model, inputs, **kw)`` runs one
-    ClipImpl for the space it names."""
-
-    def __init__(self, impl, space):
-        self.impl, self.space = impl, space
-
-    def predict(self, model, inputs, **kw):
-        require(model == self.space, f"manager asked for {model!r}")
-        return self.impl.predict(inputs)
-
-
 def text_leaf_path(torch, dev, smi, ex, counters) -> dict:
     """Phase 9(b): phase 9(a)'s query with its clip leaf a text, embedded by
     ClipImpl("ViT-B-32", precision="bf16") through the model manager on the
-    way in (pql/preprocess.py), the text tower's attention on kernel B3."""
-    from panoptikon_tpu_torch.models.impls import ClipImpl, PredictionInput, npy
+    way in (pql/preprocess.py), the text tower's attention on kernel B3. The
+    manager's registry is the built-in one with the leaf's space added as a
+    ViT-B-32 id of its clip group."""
+    import tempfile
+
+    space = OR3_SPACES[0][0]
+    group, _, name = space.partition("/")
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
+        ex.manager = text_manager(f'[group.{group}.inference_ids.{name}]\n'
+                                  'config.model_arch = "ViT-B-32"\nconfig.precision = "bf16"\n', root)
+        try:
+            return _text_leaf(torch, ex, smi, counters, space)
+        finally:
+            ex.manager.shutdown()
+            ex.manager = None
+
+
+def _text_leaf(torch, ex, smi, counters, space) -> dict:
+    from panoptikon_tpu_torch.models.impls import PredictionInput, npy
     from panoptikon_tpu_torch.pql import model as pql
     from panoptikon_tpu_torch.pql import preprocess
 
-    space = OR3_SPACES[0][0]
-    impl = ClipImpl(model_arch="ViT-B-32", precision="bf16", device=str(dev))
-    ex.manager = ClipManager(impl, space)
     preprocess.EMBED_CACHE.clear()
     text = "a photo of a red car near the beach at night"
     rng = np.random.default_rng(SEED + 12)
@@ -967,6 +1042,9 @@ def text_leaf_path(torch, dev, smi, ex, counters) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     require(len(res.results) == 10 and res.metrics.path == "fused", "text leaf: a fused page of 10")
+    impl = ex.manager._models[space].model
+    require(type(impl).__name__ == "ClipImpl" and impl.arch == "ViT-B-32",
+            f"text leaf: the manager loaded {impl!r}")
     vec = query.query.or_[0].image_embeddings._embedding
     with not_counted(counters):
         want = npy.parse_npy(impl.predict([PredictionInput(data={"text": text})])[0])
@@ -975,17 +1053,24 @@ def text_leaf_path(torch, dev, smi, ex, counters) -> dict:
     t0 = time.perf_counter()
     ex.execute(pql.PqlQuery.from_json({"query": {"or_": leaves}, "page_size": 10}))
     cached_s = time.perf_counter() - t0
-    ex.manager = None
-    return {"card": smi, "text": text, "first_query_s_with_embed": first_s,
+    return {"card": smi, "text": text, "manager_loaded": ex.manager.loaded_models(),
+            "first_query_s_with_load_and_embed": first_s,
             "query_s_embedding_cached": cached_s, "embed_cache": preprocess.EMBED_CACHE.stats()}
 
 
-def seed_pql_db(root, n_items: int, seed: int):
+def seed_pql_db(root, n_items: int, seed: int, manager=None):
     """A small DB seeded through the port's db/store.py and db/writer.py as
     tools/pql_equivalence.py seeds its own: every item a file and a 512-d
     clip row; every other item one to three OCR text rows (FTS), each with
     a row in two text-embedding spaces (384-d and 768-d); every third item
-    tags. Returns (db, writer, index) with the index's int8 arms built."""
+    tags. Returns (db, writer, index) with the index's int8 arms built.
+
+    With a model ``manager`` the two text spaces are TEXT_MODELS, filled by
+    the manager's embeddings of the DB's own texts (every 25th text long
+    enough to chunk, up to TEXT_DB_LONG_WORDS words); each row a text's
+    embedding gives is an item_data of its own, the text row its source,
+    as jobs/extraction.py stores them. Without one they hold seeded unit
+    rows (phase 9(c))."""
     from panoptikon_tpu_torch.db import store
     from panoptikon_tpu_torch.db.connection import Database
     from panoptikon_tpu_torch.db.writer import IndexWriter
@@ -994,14 +1079,16 @@ def seed_pql_db(root, n_items: int, seed: int):
     rng = np.random.default_rng(seed)
     db = Database(root, "smoke")
     writer = IndexWriter(db)
-    dims = {"clip/smoke": 512, "st/smoke": 384, "mpnet/smoke": 768}
+    text_spaces = ("st/smoke", "mpnet/smoke") if manager is None else TEXT_MODELS
+    dims = {"clip/smoke": 512, text_spaces[0]: 384, text_spaces[1]: 768}
     spaces = {name: ([], [], []) for name in dims}
     mimes = ("image/png", "image/jpeg", "video/mp4", "application/pdf")
     words = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta")
+    texts = []  # (item, text row id, text), embedded after the unit
 
     def unit(conn):
         sid = {name: store.upsert_setter(conn, name)
-               for name in ("clip/smoke", "ocr/smoke", "tags/smoke", "st/smoke", "mpnet/smoke")}
+               for name in ("clip/smoke", "ocr/smoke", "tags/smoke", *text_spaces)}
 
         def embed(item, space, source_id=None, idx=0):
             v = rng.normal(size=dims[space]).astype(np.float32)
@@ -1024,19 +1111,49 @@ def seed_pql_db(root, n_items: int, seed: int):
                 for ci in range(1 + i % 3):
                     tdid = store.insert_item_data(conn, item, sid["ocr/smoke"], "text", idx=ci)
                     text = " ".join(rng.choice(words, size=int(rng.integers(3, 8)))) + f" token{i}c{ci}"
+                    if manager is not None and len(texts) % 25 == 0:
+                        n_long = int(rng.integers(600, TEXT_DB_LONG_WORDS))
+                        text += " " + " ".join(rng.choice(words, size=n_long))
                     store.insert_extracted_text(conn, tdid, text, language="en",
                                                 confidence=float(rng.uniform(0.3, 1.0)),
                                                 language_confidence=float(rng.uniform(0.5, 1.0)))
-                    embed(item, "st/smoke", source_id=tdid, idx=ci)
-                    embed(item, "mpnet/smoke", source_id=tdid, idx=ci)
+                    if manager is None:
+                        embed(item, "st/smoke", source_id=tdid, idx=ci)
+                        embed(item, "mpnet/smoke", source_id=tdid, idx=ci)
+                    else:
+                        texts.append((item, tdid, text))
             if i % 3 == 0:
                 gdid = store.insert_item_data(conn, item, sid["tags/smoke"], "tags")
                 for tag in rng.choice(("cat", "dog", "tree", "car", "sky"), size=int(rng.integers(1, 4)),
                                       replace=False):
                     store.tag_item(conn, gdid, item, store.upsert_tag(conn, "general", str(tag)),
                                    float(rng.uniform(0.2, 1.0)))
+        return sid
 
-    writer.call(unit)
+    sid = writer.call(unit)
+    if manager is not None:
+        from panoptikon_tpu_torch.models.impls import PredictionInput, npy
+
+        rows = {}
+        for model in TEXT_MODELS:
+            rows[model] = []
+            for lo in range(0, len(texts), TEXT_WINDOW):
+                out = manager.predict(model, [PredictionInput(data={"text": t})
+                                              for _, _, t in texts[lo:lo + TEXT_WINDOW]],
+                                      cache_key=TEXT_CACHE_KEY, lru_size=len(TEXT_MODELS))
+                rows[model].extend(npy.parse_npy_matrix(o) for o in out)
+
+        def embed_rows(conn):
+            for model in TEXT_MODELS:
+                for (item, tdid, _), matrix in zip(texts, rows[model]):
+                    for r, v in enumerate(matrix):
+                        did = store.insert_item_data(conn, item, sid[model], "text-embedding",
+                                                     idx=r, source_id=tdid)
+                        store.insert_embedding(conn, did, v)
+                        for part, value in zip(spaces[model], (item, did, v)):
+                            part.append(value)
+
+        writer.call(embed_rows)
     index = VectorIndex(chunk_rows=1024)
     for name, (items, dids, vecs) in spaces.items():
         index.add(name, np.array(items), np.array(dids), np.stack(vecs))
@@ -1113,9 +1230,7 @@ def db_path(torch, dev, smi) -> dict:
     fts5 = "ENABLE_FTS5" in {row[0] for row in sqlite3.connect(":memory:").execute(
         "PRAGMA compile_options")}
     require(fts5, f"db: SQLite {sqlite3.sqlite_version} has no FTS5, which the schema needs")
-    scratch = Path(__file__).resolve().parent / "build"
-    scratch.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as root:
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
         t0 = time.perf_counter()
         db, writer, index = seed_pql_db(root, PQL_DB_ITEMS, SEED + 40)
         seed_s = time.perf_counter() - t0
@@ -1133,6 +1248,424 @@ def db_path(torch, dev, smi) -> dict:
             writer.close()
     return {"card": smi, "items": PQL_DB_ITEMS, "seed_s": seed_s, "shapes": len(shapes),
             "card_equals_cpu": True, "card_ms_first_run": times}
+
+
+def seeded_texts(n: int, seed: int) -> list:
+    """n texts of distinct seeded words, their word counts log-uniform in
+    TEXT_WORDS (both ends included): with the hash tokenizer a word is one
+    token, so every length bucket 32-512 occurs, and the longest texts
+    chunk five times."""
+    rng = np.random.default_rng(seed)
+    lo, hi = TEXT_WORDS
+    counts = np.exp(rng.uniform(np.log(lo), np.log(hi + 1), size=n)).astype(int)
+    counts[:2] = TEXT_WORDS
+    vocab = np.array([f"w{j}" for j in range(30_000)])
+    return [" ".join(vocab[rng.integers(0, len(vocab), size=int(m))]) for m in counts]
+
+
+def text_manager(user_toml: str | None = None, root=None):
+    """The port's model manager over its built-in registry (plus a user
+    registry file written under ``root``) and IMPL_INDEX."""
+    from panoptikon_tpu_torch.models.impls import IMPL_INDEX
+    from panoptikon_tpu_torch.models.manager import ModelManager
+    from panoptikon_tpu_torch.models.registry import Registry
+
+    user_dir = None
+    if user_toml is not None:
+        user_dir = Path(root) / "registry"
+        user_dir.mkdir()
+        (user_dir / "50_smoke.toml").write_text(user_toml)
+    return ModelManager(Registry(None, user_dir), IMPL_INDEX)
+
+
+def text_embed_path(torch, dev, smi, counters):
+    """Phase 10(a): both text models loaded by the real model manager with
+    prewarm, TEXT_N seeded texts embedded through manager.predict in windows
+    of TEXT_WINDOW. Returns (the record, the manager)."""
+    from panoptikon_tpu_torch.models import batching, text_embed
+    from panoptikon_tpu_torch.models.impls import PredictionInput, npy
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    manager = text_manager()
+    texts = seeded_texts(TEXT_N, SEED + 50)
+    out = {}
+    for model in TEXT_MODELS:
+        t0 = time.perf_counter()
+        manager.load_model(model, cache_key=TEXT_CACHE_KEY, lru_size=len(TEXT_MODELS), prewarm=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        entry = manager._models[model]
+        impl = entry.model
+        require(entry.default_batch == TEXT_WINDOW and impl.combine_threshold == 4
+                and impl.device.type == dev.type, f"text: {model} as the registry defines it")
+        cap, ladder = impl.batch_ladder[-1], impl.length_ladder
+        chunks = [text_embed.split_tokens(impl.tokenize(t), impl.max_seq_length) for t in texts]
+        window_ms, window_chunks, by_bucket, rows = [], [], {}, []
+        for lo in range(0, TEXT_N, TEXT_WINDOW):
+            inputs = [PredictionInput(data={"text": t}) for t in texts[lo:lo + TEXT_WINDOW]]
+            t0 = time.perf_counter()
+            got = manager.predict(model, inputs, cache_key=TEXT_CACHE_KEY, lru_size=len(TEXT_MODELS))
+            window_ms.append(1e3 * (time.perf_counter() - t0))
+            rows.extend(npy.parse_npy(o) for o in got)
+            window = [c for cs in chunks[lo:lo + TEXT_WINDOW] for c in cs]
+            window_chunks.append(len(window))
+            bucket = batching.bucket_for(max(len(c) for c in window), ladder)
+            by_bucket.setdefault(bucket, []).append(window_ms[-1])
+        for i, (cs, r) in enumerate(zip(chunks, rows)):
+            want = len(cs) + (len(cs) >= impl.combine_threshold)
+            require(r.shape == (want, impl.cfg.embed_dim) and r.dtype == np.float32,
+                    f"text {model}: text {i} has rows {r.shape}, chunks {len(cs)}")
+            require(bool(np.isfinite(r).all()), f"text {model}: text {i} has a non-finite row")
+        flat = [c for cs in chunks for c in cs]
+        buckets = [batching.bucket_for(len(c), ladder) for c in flat]
+        require(set(buckets) == set(ladder), f"text {model}: length buckets {sorted(set(buckets))}")
+        require(max(window_chunks) > cap, f"text {model}: no window past the batch cap {cap}")
+        # TEXT_CHECKED chunks spread over every length bucket, encoded by B3
+        # and with mha_plain in its place.
+        per = TEXT_CHECKED // len(ladder)
+        picked = []
+        for bucket in ladder:
+            idx = [j for j, b in enumerate(buckets) if b == bucket]
+            picked += [idx[int(x)] for x in np.linspace(0, len(idx) - 1, min(per, len(idx)))]
+        sample = [flat[j] for j in picked]
+        kernel_mha = vit_attention.mha
+        with not_counted(counters):
+            got = impl.encode_chunks(sample)
+            vit_attention.mha = lambda q, k, v, causal=False, key_mask=None: vit_attention.mha_plain(
+                q, k, v, causal=causal, key_mask=key_mask)
+            try:
+                want = impl.encode_chunks(sample)
+            finally:
+                vit_attention.mha = kernel_mha
+        cos = cosines(got, want)
+        require(float(cos.min()) >= 0.999, f"text {model}: B3 vs mha_plain min cosine {cos.min()}")
+        # One full slice (cap chunks) of each length bucket, on the device.
+        gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+        slice_ms = {}
+        with not_counted(counters):
+            for length in ladder:
+                ids = torch.randint(3, impl.cfg.vocab, (cap, length), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                mask = torch.ones_like(ids)
+                slice_ms[length] = cuda_ms(
+                    torch, lambda: text_embed.encode(impl.params, impl.cfg, ids, mask), reps=5,
+                    warmup=1)
+        total_s = sum(window_ms) / 1e3
+        out[model] = {
+            "width": impl.cfg.width, "layers": impl.cfg.layers, "heads": impl.cfg.heads,
+            "head_dim": impl.cfg.width // impl.cfg.heads, "load_and_prewarm_s": load_s,
+            "texts": TEXT_N, "chunks": len(flat), "valid_tokens": sum(len(c) for c in flat),
+            "combined_rows": sum(len(cs) >= impl.combine_threshold for cs in chunks),
+            "chunks_by_length_bucket": {b: buckets.count(b) for b in ladder},
+            "windows": len(window_ms), "max_chunks_in_a_window": max(window_chunks),
+            "windows_past_the_batch_cap": sum(n > cap for n in window_chunks),
+            "chunks_per_s": len(flat) / total_s,
+            "valid_tokens_per_s": sum(len(c) for c in flat) / total_s,
+            "window_ms_by_longest_bucket": {b: float(np.mean(v)) for b, v in sorted(by_bucket.items())},
+            "windows_by_longest_bucket": {b: len(v) for b, v in sorted(by_bucket.items())},
+            "checked_chunks": len(sample), "min_cos_b3_vs_plain": float(cos.min()),
+            "slice_ms_by_length_bucket": slice_ms,
+            "slice_tokens_per_s_by_length_bucket": {n: cap * n / (t / 1e3) for n, t in slice_ms.items()},
+        }
+    return {"card": smi, "window": TEXT_WINDOW, "models": out}, manager
+
+
+class TimedManager:
+    """The model manager with the host time of each predict recorded (the
+    embed part of a PQL query's preprocess)."""
+
+    def __init__(self, manager):
+        self.manager, self.registry, self.seconds = manager, manager.registry, []
+
+    def predict(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.manager.predict(*args, **kw)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def _bulk_seed(conn, n: int) -> None:
+    """tools/e2e_server_bench.py's corpus (_inserts, :62-101) under
+    bulk_ingest: n items and files, and n OCR text chunks with live FTS,
+    item_data id i paired with extracted_text id i."""
+    from panoptikon_tpu_torch.db.bulk import bulk_ingest
+
+    words = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "ocean", "forest", "mountain",
+             "river"]
+    with bulk_ingest(conn):
+        conn.executemany(
+            "INSERT INTO items (id, sha256, md5, type, size, time_added) VALUES (?,?,?,?,?,?)",
+            ((i, f"{i:08x}" + "0" * 56, f"{i:032x}"[:32], "image/png", 1000 + i % 5000,
+              "2026-01-01T00:00:00") for i in range(1, n + 1)))
+        conn.executemany(
+            "INSERT INTO files (id, sha256, item_id, path, filename, last_modified)"
+            " VALUES (?,?,?,?,?,?)",
+            ((i, f"{i:08x}" + "0" * 56, i, f"/corpus/{i:07d}.png", f"{i:07d}.png",
+              "2026-01-01T00:00:00") for i in range(1, n + 1)))
+        sid = conn.execute("INSERT INTO setters (name) VALUES ('ocr/e2e')").lastrowid
+        conn.executemany(
+            "INSERT INTO item_data (id, item_id, setter_id, data_type, idx, is_origin)"
+            " VALUES (?,?,?,?,0,1)", ((i, i, sid, "text") for i in range(1, n + 1)))
+        conn.executemany(
+            "INSERT INTO extracted_text (id, text, language, language_confidence, confidence,"
+            " text_length) VALUES (?,?,?,?,?,?)",
+            ((i, f"{words[i % 10]} {words[(i // 10) % 10]} {words[(i // 100) % 10]} "
+                 f"tok{i % 5000:04d}", "en", 0.9, 0.8, 40) for i in range(1, n + 1)))
+
+
+def hybrid_path(torch, dev, smi, manager, counters) -> dict:
+    """Phase 10(b): BASELINE #4 through Executor.execute — an AND of a
+    match_text RRF leaf on a "tokNNNN" term and a text_embeddings RRF leaf
+    whose query is a text, embedded through the model manager, over
+    HYBRID_ROWS text chunks (tools/e2e_server_bench.py's hybrid_payload,
+    :265-283) in a HYBRID_ROWS × 768 mpnet-base space whose int8 codes are
+    made on the device (as phase 9(a)'s)."""
+    import tempfile
+
+    from panoptikon_tpu_torch.db.connection import Database
+    from panoptikon_tpu_torch.db.writer import IndexWriter
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
+        db = Database(root, "hybrid")
+        writer = IndexWriter(db)
+        try:
+            t0 = time.perf_counter()
+            writer.call(lambda conn: _bulk_seed(conn, HYBRID_ROWS))
+            out = {"card": smi, "seed_db_s": time.perf_counter() - t0}
+            out.update(_hybrid_queries(torch, dev, manager, counters, db))
+            return out
+        finally:
+            writer.close()
+
+
+def _hybrid_queries(torch, dev, manager, counters, db) -> dict:
+    """Phase 10(b) on its seeded DB: the space, then the queries."""
+    import itertools
+    import threading
+
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql import preprocess
+    from panoptikon_tpu_torch.pql.executor import Executor
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    codes, sumsq, scale, recall = _or3_space(torch, dev, HYBRID_ROWS, HYBRID_DIM, SEED + 60, counters)
+    require(recall["rescored"] >= 0.99, f"hybrid: recall@10 of the rescored candidates {recall}")
+    index = _Index()
+    snap = index.snaps[HYBRID_SPACE] = _Snap(HYBRID_ROWS, HYBRID_DIM, scale)
+    timed = TimedManager(manager)
+    ex = Executor(db, index, manager=timed, device=str(dev))
+    ex.device_cache_budget = OR3_CACHE_BUDGET
+    key = (HYBRID_SPACE, snap.generation, True)
+    with ex._cache_lock:
+        ex._device_cache[key] = {
+            "corpus": codes, "sumsq": sumsq,
+            "group_ids": torch.arange(HYBRID_ROWS, dtype=torch.int32, device=dev),
+            "weights": torch.ones(HYBRID_ROWS, dtype=torch.float32, device=dev),
+            "row_valid": torch.ones(HYBRID_ROWS, dtype=torch.bool, device=dev)}
+        ex._device_cache_bytes[key] = codes.numel()
+    torch.cuda.empty_cache()
+    space_s = time.perf_counter() - t0
+
+    def fail_materialize(*a, **k):
+        raise RuntimeError("the fused hybrid page fell back to the full readback")
+
+    ex._materialize_deferred = fail_materialize
+    rng = np.random.default_rng(SEED + 61)
+    numbers = itertools.count()
+    words = ("a photo of the red blue green small large dog cat car tree house beach night city "
+             "street ocean forest mountain river alpha beta gamma delta").split()
+    embed = {"cache_key": TEXT_CACHE_KEY, "lru_size": len(TEXT_MODELS)}
+
+    def payload():
+        i = next(numbers)
+        tok = f"tok{(7 + 13 * (i % 997)) % 5000:04d}"
+        text = " ".join(rng.choice(words, size=8)) + f" query {i}"
+        return {"query": {"and_": [
+            {"match_text": {"match": f'"{tok}"'}, "order_by": True, "row_n": True, "priority": 5,
+             "rrf": {"k": 60, "weight": 1.0}},
+            {"text_embeddings": {"query": text, "model": HYBRID_SPACE, "embed": embed,
+                                 "index": "quant"},
+             "row_n": True, "priority": 5, "rrf": {"k": 60, "weight": 0.5}}]}, "page_size": 10}
+
+    def run(p):
+        return ex.execute(pql.PqlQuery.from_json(p))
+
+    t0 = time.perf_counter()
+    r = run(payload())
+    warm_s = time.perf_counter() - t0
+    per_term = HYBRID_ROWS // 5000
+    require(r.count == per_term and len(r.results) == 10 and r.metrics.path == "fused",
+            f"hybrid: count {r.count}, {len(r.results)} results, path {r.metrics.path}")
+
+    parity = [payload() for _ in range(HYBRID_PARITY_Q)]
+    fused = [_pages(run(p).results) for p in parity]
+    ex._materialize_deferred = type(ex)._materialize_deferred.__get__(ex)
+    ex.enable_fused = False
+    full = [_pages(run(p).results) for p in parity]
+    ex.enable_fused = True
+    ex._materialize_deferred = fail_materialize
+    require(fused == full, f"hybrid: fused pages differ from the full readback: {fused} vs {full}")
+
+    # Sequential: distinct texts and terms, so that no embed is cached.
+    ex.debug_timing = True
+    lats, phases, embeds = [], {}, []
+    for _ in range(HYBRID_SEQ):
+        p = payload()
+        n_embeds = len(timed.seconds)
+        t0 = time.perf_counter()
+        res = run(p)
+        lats.append(time.perf_counter() - t0)
+        require(len(timed.seconds) == n_embeds + 1, "hybrid: a sequential query's embed was cached")
+        embeds.append(timed.seconds[-1])
+        require(len(res.results) == 10 and res.metrics.path == "fused", "hybrid: a fused page of 10")
+        for name, sec in res.metrics.phases.items():
+            phases[name] = phases.get(name, 0.0) + 1e3 * sec / HYBRID_SEQ
+    ex.debug_timing = False
+    lats.sort()
+    seq = [payload() for _ in range(HYBRID_SEQ)]
+    prof_wall, busy = busy_share(torch, lambda: [run(p) for p in seq])
+
+    def threaded(batch):
+        out, errs = [None] * len(batch), []
+
+        def drive(idx):
+            try:
+                for i in idx:
+                    out[i] = _pages(run(batch[i]).results)
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                errs.append(exc)
+
+        ts = [threading.Thread(target=drive, args=(range(t, len(batch), HYBRID_THREADS),))
+              for t in range(HYBRID_THREADS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        if errs:
+            raise errs[0]
+        return out
+
+    for _ in range(2):
+        threaded([payload() for _ in range(HYBRID_THREADS)])
+    batch = [payload() for _ in range(HYBRID_CONCURRENT)]
+    co0, n_embeds = ex._scan_coalescer.stats(), len(timed.seconds)
+    t0 = time.perf_counter()
+    concurrent = threaded(batch)
+    wall = time.perf_counter() - t0
+    co1 = ex._scan_coalescer.stats()
+    concurrent_embeds = len(timed.seconds) - n_embeds
+    solo = [_pages(run(p).results) for p in batch]  # the embeds now come from EMBED_CACHE
+    require(concurrent == solo, "hybrid: a coalesced page differs from its solo run")
+    dispatches, queries = co1["dispatches"] - co0["dispatches"], co1["queries"] - co0["queries"]
+    return {
+        "rows": HYBRID_ROWS, "dim": HYBRID_DIM, "space": HYBRID_SPACE,
+        "chunks_per_term": per_term, "space_build_s": space_s,
+        "codes_gib": HYBRID_ROWS * HYBRID_DIM / 2**30, "recall_at_10_and_b1": recall,
+        "warm_s": warm_s, "parity_queries": HYBRID_PARITY_Q, "fused_equals_full": True,
+        "p50_ms": 1e3 * lats[len(lats) // 2],
+        "p95_ms": 1e3 * lats[min(len(lats) - 1, int(len(lats) * 0.95))],
+        "sequential_ms": [1e3 * t for t in lats],
+        "embed_ms_p50": 1e3 * sorted(embeds)[len(embeds) // 2],
+        "executor_phase_ms": phases, "fts_and_masks_ms": phases.get("eval", 0.0),
+        "preprocess_ms_without_embed": phases.get("preprocess", 0.0) - 1e3 * float(np.mean(embeds)),
+        "profiled_sequential_s": prof_wall, "device_busy_share": busy, "device_idle_share": 1 - busy,
+        "concurrent_qps": HYBRID_CONCURRENT / wall, "concurrent_wall_s": wall,
+        "concurrent_embed_calls": concurrent_embeds, "coalesced_equals_solo": True,
+        "coalescer": {"dispatches": dispatches, "queries": queries, "max_batch": co1["max_batch"],
+                      "mean_batch": queries / dispatches if dispatches else 0.0},
+        "embed_cache": preprocess.EMBED_CACHE.stats(),
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+def text_db_shapes(index, texts) -> dict:
+    """Phase 10(c)'s PQL shapes over seed_pql_db's DB with real text
+    embeddings: the text leaves' queries are texts, embedded through the
+    model manager."""
+    mini, mpnet = TEXT_MODELS
+    embed = {"cache_key": TEXT_CACHE_KEY, "lru_size": len(TEXT_MODELS)}
+
+    def tleaf(model, text, **extra):
+        return {"text_embeddings": {"query": text, "model": model, "embed": embed, "index": "quant",
+                                    **extra}}
+
+    rrf = {"row_n": True, "priority": 5}
+    clip = {"image_embeddings": {"query": _b64(index.snapshot("clip/smoke").vectors[11] + 0.01),
+                                 "model": "clip/smoke", "embed": None, "index": "quant"}}
+    return {
+        "semantic_mpnet": {"query": tleaf(mpnet, texts[0]), "page_size": 20},
+        "semantic_minilm_exact": {"query": tleaf(mini, texts[1], index="exact"), "page_size": 20},
+        **{f"text_{agg.lower()}": {"query": tleaf(mini, texts[2], distance_aggregation=agg),
+                                   "page_size": 30} for agg in ("MIN", "MAX", "AVG")},
+        "and_rrf": {"query": {"and_": [{**tleaf(mini, texts[3]), **rrf, "rrf": {"k": 60, "weight": 1.0}},
+                                       {**tleaf(mpnet, texts[3]), **rrf, "rrf": {"k": 30, "weight": 0.5}}]},
+                    "page_size": 20},
+        "or_rrf": {"query": {"or_": [{**clip, **rrf, "rrf": {"k": 60, "weight": 1.0}},
+                                     {**tleaf(mini, texts[4]), **rrf, "rrf": {"k": 60, "weight": 0.8}}]},
+                   "page_size": 20},
+        "hybrid": {"query": {"and_": [
+            {"match_text": {"match": '"gamma"'}, "order_by": True, **rrf, "rrf": {"k": 60, "weight": 1.0}},
+            {**tleaf(mpnet, texts[5]), **rrf, "rrf": {"k": 60, "weight": 0.5}}]}, "page_size": 20},
+        "similar_to": {"query": {"similar_to": {"target": f"{4:08x}" * 8, "model": mini,
+                                                "distance_aggregation": "AVG", "index": "quant"}},
+                       "page_size": 20},
+    }
+
+
+def _embedded(obj):
+    """A payload with each text leaf's query replaced by the vector the
+    card embedded for it (preprocess.EMBED_CACHE), as base64, embed None."""
+    from panoptikon_tpu_torch.pql import preprocess
+
+    if isinstance(obj, list):
+        return [_embedded(v) for v in obj]
+    if not isinstance(obj, dict):
+        return obj
+    out = {k: _embedded(v) for k, v in obj.items()}
+    leaf = out.get("text_embeddings")
+    if isinstance(leaf, dict) and leaf.get("embed") is not None:
+        vec = preprocess.EMBED_CACHE.get((leaf["model"], "text", leaf["query"]))
+        require(vec is not None, f"text db: {leaf['query']!r} was not embedded on the card")
+        out["text_embeddings"] = {**leaf, "query": _b64(vec), "embed": None}
+    return out
+
+
+def text_db_path(torch, dev, smi, manager) -> dict:
+    """Phase 10(c): seed_pql_db's DB with its two text spaces filled by the
+    manager's minilm-l6 and mpnet-base embeddings of its own texts; PQL
+    shapes whose text leaves are embedded once on the card, then the same
+    vectors handed to an Executor on the card and one on the CPU."""
+    import tempfile
+
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql.executor import Executor
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
+        t0 = time.perf_counter()
+        db, writer, index = seed_pql_db(root, TEXT_DB_ITEMS, SEED + 70, manager=manager)
+        seed_s = time.perf_counter() - t0
+        try:
+            rows = {m: index.snapshot(m).size for m in TEXT_MODELS}
+            texts = [r[0] for r in db.reader().execute(
+                "SELECT text FROM extracted_text ORDER BY id LIMIT 6").fetchall()]
+            card = Executor(db, index, manager=manager, device=str(dev))
+            cpu = Executor(db, index, device="cpu")
+            checked = {}
+            for name, payload in text_db_shapes(index, texts).items():
+                by_text = card.execute(pql.PqlQuery.from_json(json.loads(json.dumps(payload))))
+                given = _embedded(payload)
+                got = card.execute(pql.PqlQuery.from_json(json.loads(json.dumps(given))))
+                want = cpu.execute(pql.PqlQuery.from_json(json.loads(json.dumps(given))))
+                require(len(got.results) > 0, f"text db: {name} returned no rows")
+                require(same_pages(by_text, got), f"text db: {name} by text differs from by vector")
+                require(same_pages(got, want), f"text db: {name} differs between the card and the CPU")
+                checked[name] = len(got.results)
+        finally:
+            writer.close()
+    return {"card": smi, "items": TEXT_DB_ITEMS, "seed_s_with_embeds": seed_s, "text_rows": rows,
+            "shapes": checked, "card_equals_cpu": True}
 
 
 def cosines(a, b):
@@ -1234,6 +1767,23 @@ def main() -> int:
         require(err <= 2e-2, f"mha {name}: max abs diff {err} > 2e-2")
         attn_err[name] = err
         attn_inputs[name] = (q, k, v, causal, mask)
+    # B3 at the text encoders' shapes: q, k, v the views of one fused qkv (the
+    # layout the encoder hands the kernel), a key mask of seeded ragged
+    # valid lengths; each launch on the tensor cores.
+    for name, (b, n, h, d) in TEXT_ATTN_CASES.items():
+        q, k, v = (t.view(b, n, h, d) for t in randn(b, n, 3 * h * d).split(h * d, dim=-1))
+        mask = torch.arange(n, device=dev)[None, :] < torch.randint(
+            1, n + 1, (b, 1), generator=gen, device=dev)
+        tc = vit_attention.mha.routes["tensor_core"]
+        got = vit_attention.mha(q, k, v, key_mask=mask)
+        require(vit_attention.mha.routes["tensor_core"] == tc + 1, f"mha {name}: not on the tensor cores")
+        want = vit_attention.mha_plain(q, k, v, key_mask=mask)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        require(torch.isfinite(got.float()).all().item(), f"mha {name}: non-finite output")
+        require(err <= 2e-2, f"mha {name}: max abs diff {err} > 2e-2")
+        attn_err[name] = err
+        attn_inputs[name] = (q, k, v, False, mask)
     # The tensor-core kernel's p = e / s (one correction of e·(1/s)) against a
     # correctly rounded division, for every float e in [0, 1], at row sums
     # 1 to 4,096: powers of two, the floats under them, seeded values.
@@ -1385,6 +1935,21 @@ def main() -> int:
             torch, lambda: vit_attention.mha(q, k, v, causal=causal, key_mask=mask),
             lambda: vit_attention.mha_plain(q, k, v, causal=causal, key_mask=mask),
             reps=5 if q.shape[0] * q.shape[1] * k.shape[1] > 2**22 else 20)
+    # The text encoder hands B3 the views of its fused qkv (one row stride).
+    # In turns against the way out it did not take: the three heads copied
+    # apart, then the contiguous kernel; and that kernel alone.
+    text_layout_ms = {}
+    for name in TEXT_ATTN_CASES:
+        q, k, v, _, mask = attn_inputs[name]
+        contig = [t.contiguous() for t in (q, k, v)]
+        strided_ms, copied_ms = paired_ms(
+            torch, lambda: vit_attention.mha(q, k, v, key_mask=mask),
+            lambda: vit_attention.mha(*(t.contiguous() for t in (q, k, v)), key_mask=mask), reps=10)
+        text_layout_ms[name] = {
+            "strided_ms": strided_ms, "copies_then_contiguous_ms": copied_ms,
+            "contiguous_alone_ms": cuda_ms(torch, lambda: vit_attention.mha(*contig, key_mask=mask),
+                                           reps=10)}
+    del contig
     scan_ms, scan_plain_ms = paired_ms(
         torch, lambda: int8_scan.int8_topk(*scan_args, k=k_scan),
         lambda: int8_scan.int8_topk_plain(*scan_args, k=k_scan), reps=10)
@@ -1455,6 +2020,7 @@ def main() -> int:
           "attention_routes": attn_routes, "attention_tc_query_rows": vit_attention.TC_QUERY_ROWS,
           "mha_ms": {n: t[0] for n, t in attn_ms.items()},
           "mha_plain_ms": {n: t[1] for n, t in attn_ms.items()},
+          "mha_text_layout_ms": text_layout_ms,
           "mha_qkv_ms": {n: t[0] for n, t in qkv_ms.items()},
           "mha_qkv_plain_ms": {n: t[1] for n, t in qkv_ms.items()},
           "ln_quant_ms": {n: t[0] for n, t in ln_ms.items()},
@@ -1664,8 +2230,27 @@ def main() -> int:
     emit({"phase": "pql", "launches": pql_launches, "attention_routes": pql_routes,
           "or3": or3, "text_leaf": text_leaf, "db": db_run})
 
+    # 10. Text search: (a) the two text encoders through the model manager,
+    # (b) BASELINE #4's hybrid FTS × embedding page over HYBRID_ROWS chunks,
+    # (c) a DB with real text embeddings on the card and on the CPU.
+    # Counters start at zero here.
+    torch.cuda.empty_cache()
+    reset_counts(counters)
+    text_run, text_mgr = text_embed_path(torch, dev, smi, counters)
+    hybrid = hybrid_path(torch, dev, smi, text_mgr, counters)
+    torch.cuda.empty_cache()
+    text_db = text_db_path(torch, dev, smi, text_mgr)
+    text_mgr.shutdown()
+    text_launches = {fn.__name__: fn.launches for fn in counters}
+    text_routes = read_routes(counters)
+    require(text_launches["mha"] > 0 and text_launches["int8_topk"] > 0,
+            f"text path kernel launches {text_launches}")
+    require_tensor_cores(text_launches, text_routes, ("mha",), "text encoders")
+    emit({"phase": "text", "launches": text_launches, "attention_routes": text_routes,
+          "embed": text_run, "hybrid": hybrid, "db": text_db})
+
     runs = ((launches, routes), (batch_launches, batch_routes), (composed_launches, composed_routes),
-            (l14_launches, l14_routes), (pql_launches, pql_routes))
+            (l14_launches, l14_routes), (pql_launches, pql_routes), (text_launches, text_routes))
     total = {name: sum(run[0][name] for run in runs) for name in launches}
     total_routes = {name: {path: sum(run[1][name][path] for run in runs) for path in routes[name]}
                     for name in routes}
@@ -1673,7 +2258,10 @@ def main() -> int:
         {"name": "int8_topk", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:138", "launches": total["int8_topk"],
          "max_abs_err": max(scan_err, scan_l2_err, *b1_err.values(), scan_1m_err,
-                            composed["int8_topk_max_abs_err"], l14_scan_err),
+                            composed["int8_topk_max_abs_err"], l14_scan_err,
+                            *(r["b1_k40_max_abs_err"]
+                              for r in or3["per_space_recall_at_10_and_b1"].values()),
+                            hybrid["recall_at_10_and_b1"]["b1_k40_max_abs_err"]),
          "ms": scan_ms, "plain_ms": scan_plain_ms, **scan_bound, "library_ms": None},
         {"name": "int8_topk_v2", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:321", "launches": total["int8_topk_v2"],
@@ -1685,7 +2273,10 @@ def main() -> int:
          "routes": total_routes["mha"],
          "max_abs_err": max(attn_err.values()), "ms": attn_ms["vit_b32_image"][0],
          "plain_ms": attn_ms["vit_b32_image"][1],
-         **bounds["vit_b32_image"], "library_ms": library_ms["vit_b32_image"]},
+         **bounds["vit_b32_image"], "library_ms": library_ms["vit_b32_image"],
+         "text_shapes": {name: {"ms": attn_ms[name][0], "plain_ms": attn_ms[name][1],
+                                "max_abs_err": attn_err[name], **bounds[name],
+                                "library_ms": library_ms[name]} for name in TEXT_ATTN_CASES}},
         {"name": "mha_qkv", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:296", "launches": total["mha_qkv"],
          "routes": total_routes["mha_qkv"],

@@ -1,8 +1,13 @@
-"""In-process CLIP model implementation — the port of
-``panoptikon_tpu/models/impls.py::ClipImpl``.
+"""In-process model implementations — the port of
+``panoptikon_tpu/models/impls.py``: ``ClipImpl``, ``TextEmbedImpl`` and the
+fixture impls the manager's tests drive, indexed by ``impl_class`` in
+:data:`IMPL_INDEX`. The other towers' impls (tagger, whisper, CLAP,
+captioner, OCR, the API-backed ones) are not ported yet (ROADMAP A.11); an
+``impl_class`` the index lacks raises ``ModelLoadError`` at load through
+``models.discovery``, as the reference does for a name it does not know.
 
-The same predict contract as the JAX class: inputs with an image ``file``,
-pre-decoded ``{"pixels": (S, S, 3)}`` or ``{"text": ...}``; outputs are
+``ClipImpl`` has the same predict contract as the JAX class: inputs with an
+image ``file``, pre-decoded ``{"pixels": (S, S, 3)}`` or ``{"text": ...}``; outputs are
 L2-normalized f32 embeddings as npy bytes, or an ``input`` error slot for
 that position only (a payload that does not decode, a wrong pixels shape, an
 input of no known kind). Batches pad to the bucket ladder of
@@ -12,6 +17,19 @@ input of no known kind). Batches pad to the bucket ladder of
 in :meth:`ClipImpl.load`, the first real image batch and the first real
 text batch each calibrate the static activation scales (one bf16 pass), and
 every batch then runs the static-int8 block (``clip._block_int8_static``).
+
+``TextEmbedImpl`` is the sentence-transformer embedder: one text in, a 2D
+npy array of chunk embeddings out, with the reference's chunking, task
+prompt and combined row. It encodes a call's chunks in slices of at most
+the top batch bucket, shortest chunks first, each slice padded to its own
+(length × batch) bucket, so any number of chunks gives every text its rows
+(the JAX class pads all of a call's chunks as one batch, which fails past
+the top bucket: ROADMAP §C).
+
+A ``checkpoint`` (a local HF ``.bin`` or ``.safetensors``, or a folder
+holding one) loads through ``models.weights`` and
+``models.convert.params_from_jax``; without one the weights are random,
+drawn from a fixed seed on the impl's device.
 
 The host modules are the port's own copies of the JAX package's
 (``models.base``, ``models.batching``, ``utils.npy``); ``PredictionInput``
@@ -25,21 +43,24 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import io
+import time
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
 from panoptikon_tpu_torch.device import device as select_device
-from panoptikon_tpu_torch.models import batching, clip
+from panoptikon_tpu_torch.models import batching, clip, convert, text_embed, weights
 from panoptikon_tpu_torch.models.base import InferenceModel, PredictionInput, SlotError
 from panoptikon_tpu_torch.utils import npy
 
-__all__ = ["ClipImpl", "HashTokenizer", "PredictionInput", "decode_image", "load_tokenizer", "npy"]
+__all__ = ["IMPL_INDEX", "ClipImpl", "HashTokenizer", "PredictionInput", "TextEmbedImpl",
+           "decode_image", "load_tokenizer", "npy"]
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
-INIT_SEED = 0
+INIT_SEED = 0  # ClipImpl's random weights; TextEmbedImpl's use TEXT_INIT_SEED
+TEXT_INIT_SEED = 1
 
 
 def decode_image(payload: bytes, size: int) -> np.ndarray:
@@ -108,15 +129,11 @@ class ClipImpl(InferenceModel):
         device: str | torch.device = "cuda",
         **_: Any,
     ):
-        if checkpoint:
-            raise NotImplementedError(
-                "ClipImpl(checkpoint=...): the checkpoint weight mapping "
-                "(panoptikon_tpu/models/weights.py) imports jax; see ROADMAP A.8"
-            )
         self.arch = model_arch
         self.cfg = clip.CONFIGS.get(model_arch) or clip.CONFIGS["ViT-B-32"]
         if precision != self.cfg.matmul_precision:
             self.cfg = dataclasses.replace(self.cfg, matmul_precision=precision)
+        self.checkpoint = checkpoint
         self.device = select_device(str(device))
         self.context_length = context_length or self.cfg.text_ctx
         self.batch_ladder = batching.bucket_ladder(batch_cap)
@@ -135,8 +152,12 @@ class ClipImpl(InferenceModel):
     def load(self) -> None:
         if self.params is not None:
             return
-        gen = torch.Generator(device=self.device).manual_seed(INIT_SEED)
-        self.params = clip.init_params(self.cfg, gen)
+        if self.checkpoint:
+            tree = weights.load_clip_checkpoint(self.checkpoint, self.cfg)
+            self.params = convert.params_from_jax(tree, device=self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(INIT_SEED)
+            self.params = clip.init_params(self.cfg, gen)
         if self.cfg.matmul_precision == "int8":
             # Weight quantization happens ONCE here, not per forward.
             self.params = clip.quantize_block_weights(self.params)
@@ -234,3 +255,334 @@ class ClipImpl(InferenceModel):
             for j, pos in enumerate(text_pos):
                 outputs[pos] = npy.serialize_npy(feats[j])
         return outputs
+
+
+class TextEmbedImpl(InferenceModel):
+    """Sentence-transformers-equivalent text embedder with the chunking and
+    combined-embedding contract (reference impl/sentence_transformers.py),
+    on one explicit device. One input text → a 2D npy array of chunk
+    embeddings (unnormalised f32), plus the mean row once a text has
+    ``combine_threshold`` chunks."""
+
+    def __init__(
+        self,
+        model_arch: str = "minilm-l6",
+        checkpoint: Optional[str] = None,
+        tokenizer_path: Optional[str] = None,
+        max_seq_length: Optional[int] = None,
+        combine_threshold: int = -1,
+        batch_cap: int = 64,
+        query_prompt_name_map: Optional[dict] = None,
+        device: str | torch.device = "cuda",
+        **_: Any,
+    ):
+        self.cfg = text_embed.CONFIGS.get(model_arch) or text_embed.CONFIGS["minilm-l6"]
+        self.checkpoint = checkpoint
+        self.device = select_device(str(device))
+        self.max_seq_length = min(max_seq_length or self.cfg.ctx, self.cfg.ctx)
+        self.combine_threshold = combine_threshold
+        self.batch_ladder = batching.bucket_ladder(batch_cap)
+        self.length_ladder = [
+            n for n in (32, 64, 128, 256, 512) if n <= self.max_seq_length
+        ] or [self.max_seq_length]
+        self.tokenize = load_tokenizer(tokenizer_path, self.cfg.vocab)
+        self.query_prompt_name_map = query_prompt_name_map or {}
+        self.params = None
+
+    @classmethod
+    def name(cls) -> str:
+        return "sentence_transformers"
+
+    def load(self) -> None:
+        if self.params is not None:
+            return
+        if self.checkpoint:
+            tree = weights.load_text_encoder_checkpoint(self.checkpoint, self.cfg)
+            params = convert.params_from_jax(tree, device=self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(TEXT_INIT_SEED)
+            params = text_embed.init_params(self.cfg, gen)
+        self.params = text_embed.bf16_linears(params)
+
+    def unload(self) -> None:
+        self.params = None
+
+    def prepare(self) -> None:
+        """Prewarm: run every (length × batch) bucket once (kernel builds,
+        library handles, the allocator's pools), as the JAX class compiles
+        them."""
+        self.load()
+        for length in self.length_ladder:
+            for bucket in self.batch_ladder:
+                ids = torch.zeros((bucket, length), dtype=torch.int32, device=self.device)
+                mask = torch.ones((bucket, length), dtype=torch.int32, device=self.device)
+                text_embed.encode(self.params, self.cfg, ids, mask)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def encode_chunks(self, chunks: Sequence[Sequence[int]]) -> np.ndarray:
+        """Token chunks → (len(chunks), embed_dim) f32, in order. Slices of
+        at most the top batch bucket, shortest chunks first, each padded to
+        its own (length × batch) bucket; one copy back at the end."""
+        order = sorted(range(len(chunks)), key=lambda i: len(chunks[i]))
+        cap = self.batch_ladder[-1]
+        parts = []
+        for lo in range(0, len(order), cap):
+            part = [chunks[i] for i in order[lo : lo + cap]]
+            ids, mask, _ = batching.pad_token_batch(part, self.length_ladder, self.batch_ladder)
+            feats = text_embed.encode(
+                self.params, self.cfg, torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(mask).to(self.device),
+            )
+            parts.append(feats[: len(part)])
+        out = np.empty((len(chunks), self.cfg.embed_dim), dtype=np.float32)
+        if parts:
+            out[order] = torch.cat(parts).cpu().numpy()
+        return out
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        self.load()
+        texts = []
+        combine_at = []
+        for inp in inputs:
+            data = inp.data if isinstance(inp.data, dict) else {}
+            text = str(data.get("text", ""))
+            # Task routing (reference sentence_transformers.py
+            # query_prompt_name_map): a query-side embed carries a task name
+            # (preprocess sends "s2s"); the mapped prompt prefixes the text.
+            task = data.get("task")
+            if task and task in self.query_prompt_name_map:
+                text = f"{self.query_prompt_name_map[task]}{text}"
+            texts.append(text)
+            combine_at.append(int(data.get("combine_threshold", self.combine_threshold)))
+
+        # Chunk every text (rebalanced tail), track ownership.
+        all_chunks: list[list[int]] = []
+        chunk_map: list[int] = []
+        for idx, text in enumerate(texts):
+            tokens = self.tokenize(text) or [0]
+            for chunk in text_embed.split_tokens(tokens, self.max_seq_length):
+                all_chunks.append(chunk or [0])
+                chunk_map.append(idx)
+        feats = self.encode_chunks(all_chunks)
+
+        grouped: list[list[np.ndarray]] = [[] for _ in texts]
+        for emb, owner in zip(feats, chunk_map):
+            grouped[owner].append(emb)
+        outputs = []
+        for idx, emb_list in enumerate(grouped):
+            arr = text_embed.combine_chunks(np.stack(emb_list), combine_at[idx])
+            outputs.append(npy.serialize_npy(arr))
+        return outputs
+
+
+# ---------------------------------------------------------------------------
+# Fixture impls — the reference's behavior-probe zoo (SURVEY.md §4), used by
+# the manager/API tests exactly as the reference uses its fake workers.
+# ---------------------------------------------------------------------------
+
+class EchoImpl(InferenceModel):
+    def __init__(self, **kwargs: Any):
+        self.kwargs = kwargs
+        self.loaded = False
+
+    @classmethod
+    def name(cls) -> str:
+        return "echo_impl"
+
+    def load(self) -> None:
+        self.loaded = True
+
+    def unload(self) -> None:
+        self.loaded = False
+
+    def predict(self, inputs):
+        return [
+            {"echo": inp.data, "file_len": len(inp.file) if inp.file else 0}
+            for inp in inputs
+        ]
+
+
+class BatchSizeImpl(InferenceModel):
+    """Reports the batch size it observed (batching-dynamics tests)."""
+
+    def __init__(self, **_: Any):
+        pass
+
+    @classmethod
+    def name(cls) -> str:
+        return "batchsize_impl"
+
+    def load(self) -> None:
+        pass
+
+    def unload(self) -> None:
+        pass
+
+    def predict(self, inputs):
+        return [{"observed_batch": len(inputs)} for _ in inputs]
+
+
+class OomImpl(InferenceModel):
+    """Raises a device-OOM-shaped error for batches above ``oom_above`` —
+    exercises the dispatch layer's batch-halving retry (the reference's
+    run_with_oom_retry, impl/utils.py)."""
+
+    def __init__(self, oom_above: int = 2, **_: Any):
+        self.oom_above = oom_above
+        self.calls: list[int] = []
+
+    @classmethod
+    def name(cls) -> str:
+        return "oom_impl"
+
+    def load(self) -> None:
+        pass
+
+    def unload(self) -> None:
+        pass
+
+    def predict(self, inputs):
+        self.calls.append(len(inputs))
+        if len(inputs) > self.oom_above:
+            raise RuntimeError(
+                "RESOURCE_EXHAUSTED: Out of memory allocating 9999 bytes"
+            )
+        return [{"n": len(inputs)} for _ in inputs]
+
+
+class FailBatchImpl(InferenceModel):
+    """Fails any merged batch (>1 input) — exercises the per-request
+    fallback (dispatch.rs:28-35)."""
+
+    def __init__(self, **_: Any):
+        pass
+
+    @classmethod
+    def name(cls) -> str:
+        return "failbatch_impl"
+
+    def load(self) -> None:
+        pass
+
+    def unload(self) -> None:
+        pass
+
+    def predict(self, inputs):
+        if len(inputs) > 1:
+            raise RuntimeError("merged batch refused")
+        return [{"ok": True} for _ in inputs]
+
+
+class ErrorSlotImpl(InferenceModel):
+    """Emits typed error slots on demand: data {"fail": "input"|"transient"}."""
+
+    def __init__(self, **_: Any):
+        pass
+
+    @classmethod
+    def name(cls) -> str:
+        return "errorslot_impl"
+
+    def load(self) -> None:
+        pass
+
+    def unload(self) -> None:
+        pass
+
+    def predict(self, inputs):
+        out = []
+        for inp in inputs:
+            fail = (inp.data or {}).get("fail") if isinstance(inp.data, dict) else None
+            if fail:
+                out.append(SlotError(fail, f"requested {fail} failure").to_slot())
+            else:
+                out.append({"ok": True})
+        return out
+
+
+class SlowImpl(InferenceModel):
+    def __init__(self, delay: float = 0.2, **_: Any):
+        self.delay = delay
+
+    @classmethod
+    def name(cls) -> str:
+        return "slow_impl"
+
+    def load(self) -> None:
+        pass
+
+    def unload(self) -> None:
+        pass
+
+    def predict(self, inputs):
+        time.sleep(self.delay)
+        return [{"ok": True} for _ in inputs]
+
+
+class BrokenLoadImpl(InferenceModel):
+    def __init__(self, **_: Any):
+        pass
+
+    @classmethod
+    def name(cls) -> str:
+        return "broken_impl"
+
+    def load(self) -> None:
+        raise RuntimeError("deliberately broken load")
+
+    def unload(self) -> None:
+        pass
+
+    def predict(self, inputs):
+        return []
+
+
+class LoadCountImpl(InferenceModel):
+    """Class-level load()/prepare() call counters — proves prewarm-loop
+    behavior (a warmed model's first predict must show NO load/compile
+    stall, i.e. no additional load call)."""
+
+    loads = 0
+    prepares = 0
+
+    def __init__(self, **_: Any):
+        pass
+
+    @classmethod
+    def name(cls) -> str:
+        return "loadcount_impl"
+
+    @classmethod
+    def reset_counters(cls) -> None:
+        cls.loads = 0
+        cls.prepares = 0
+
+    def load(self) -> None:
+        type(self).loads += 1
+
+    def prepare(self) -> None:
+        type(self).prepares += 1
+
+    def unload(self) -> None:
+        pass
+
+    def predict(self, inputs):
+        return [{"ok": True} for _ in inputs]
+
+
+IMPL_INDEX: dict[str, type[InferenceModel]] = {
+    cls.name(): cls
+    for cls in [
+        ClipImpl,
+        TextEmbedImpl,
+        EchoImpl,
+        BatchSizeImpl,
+        FailBatchImpl,
+        OomImpl,
+        ErrorSlotImpl,
+        SlowImpl,
+        BrokenLoadImpl,
+        LoadCountImpl,
+    ]
+}

@@ -27,7 +27,10 @@ picks one of two kernels from the dtype and head dim, before the launch:
   to bf16 after the normalisation, as the reference rounds it, so the row
   max and sum come first: from logits kept in shared memory up to
   ``TC_LOGITS_MAX_KEYS`` keys, else from a first pass over the keys whose
-  logits the second pass recomputes. Needs 16-byte aligned operands.
+  logits the second pass recomputes. Needs 16-byte aligned operands. q, k
+  and v may be views that share one row stride (:func:`row_stride`), such
+  as the three parts of a fused qkv projection: the kernel reads them in
+  place, with no split copies.
 - ``"cuda_core"`` (``pk_mha``, ``pk_mha_qkv``): f32 (held to 2e-5, which
   TF32 would break) and the other head dims (below 32 p stays f32).
 
@@ -76,8 +79,8 @@ def _tensor_core(q_ptr, k_ptr, v_ptr, mask, out, scale_t, ld, b, n_q, n_kv, h, d
                  device):
     """Launch ``pk_mha_tc`` on bf16 operands given by base pointer and row
     stride ``ld`` (elements)."""
-    if any(ptr % 16 for ptr in (q_ptr, k_ptr, v_ptr)):
-        raise ValueError("the tensor-core attention kernel needs 16-byte aligned q, k, v")
+    if any(ptr % 16 for ptr in (q_ptr, k_ptr, v_ptr)) or ld % 8:
+        raise ValueError("the tensor-core attention kernel needs 16-byte aligned q, k, v rows")
     lib = _build.load("attention", _SIGNATURES)
     return lib.pk_mha_tc(
         q_ptr, k_ptr, v_ptr, None if mask is None else mask.data_ptr(), out.data_ptr(),
@@ -142,6 +145,24 @@ def _attend(q, k, v, causal, key_mask):
     return torch.einsum("bhqk,bkhd->bqhd", p.to(torch.float32), v.to(torch.float32))
 
 
+def row_stride(q, k, v):
+    """The row stride (elements) that q, k and v share when each is laid out
+    as rows of ``ld`` elements with its heads packed inside a row — element
+    (b, i, head, c) at ``(b·N + i)·ld + head·D + c`` — as contiguous
+    (B, N, H, D) tensors are (``ld = H·D``) and as the three views of one
+    fused (B, N, 3·H·D) projection split along its last axis are
+    (``ld = 3·H·D``). None when they are not."""
+    h, d = q.shape[2], q.shape[3]
+    if q.is_contiguous() and k.is_contiguous() and v.is_contiguous():
+        return h * d
+    ld = q.stride(1)
+    for t in (q, k, v):
+        if (t.stride(3) != 1 or t.stride(2) != d or t.stride(1) != ld
+                or t.stride(0) != t.shape[1] * ld):
+            return None
+    return ld if ld >= h * d else None
+
+
 def mha_plain(q, k, v, *, causal: bool = False, key_mask=None):
     """Plain PyTorch version of :func:`mha`, in the reference's arithmetic."""
     _check(q, k, v, causal, key_mask)
@@ -151,7 +172,9 @@ def mha_plain(q, k, v, *, causal: bool = False, key_mask=None):
 def mha(q, k, v, *, causal: bool = False, key_mask=None):
     """Fused multi-head attention. q (B, N_q, H, D); k, v (B, N_kv, H, D),
     f32 or bf16, D ≤ 128; ``key_mask`` (B, N_kv), truthy for valid keys;
-    ``causal`` needs N_q == N_kv. Returns (B, N_q, H, D) in q's dtype."""
+    ``causal`` needs N_q == N_kv. Returns (B, N_q, H, D) in q's dtype. On
+    CUDA q, k, v are contiguous or, on the tensor-core route, views sharing
+    one row stride (:func:`row_stride`)."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, causal=causal, key_mask=key_mask)
     if q.device.type != "cuda":
@@ -161,15 +184,17 @@ def mha(q, k, v, *, causal: bool = False, key_mask=None):
     n_kv = k.shape[1]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"mha kernel supports D <= {MAX_HEAD_DIM}, got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("mha kernel needs contiguous q, k, v")
+    path = route(q.dtype, d)
+    ld = row_stride(q, k, v)
+    if ld is None or (path == "cuda_core" and ld != h * d):
+        raise ValueError("mha kernel needs contiguous q, k, v (or, on the tensor cores, views "
+                         "that share one row stride, such as the split of a fused qkv)")
     mask = None
     if key_mask is not None:
         mask = (key_mask.to(torch.float32) > 0).to(torch.uint8).contiguous()
-    out = torch.empty_like(q)
-    path = route(q.dtype, d)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if path == "tensor_core":
-        err = _tensor_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask, out, None, h * d,
+        err = _tensor_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask, out, None, ld,
                            b, n_q, n_kv, h, d, causal, q.device)
     else:
         lib = _build.load("attention", _SIGNATURES)

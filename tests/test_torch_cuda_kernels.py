@@ -82,6 +82,65 @@ def test_mha_kernel_matches_plain(cuda_device, tc_form, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+# The text encoders' attention (models/text_embed.py): key-masked with
+# seeded ragged valid lengths, at minilm-l6's head dim (32) and mpnet-base's
+# (64) up to its full context (N > 320 takes the two-pass form).
+TEXT_SHAPES = {
+    # name: (b, n, h, d)
+    "minilm_l6": (64, 128, 12, 32),
+    "mpnet_base_ctx512": (64, 512, 12, 64),
+    "mpnet_base_n256": (128, 256, 12, 64),
+}
+
+
+def text_attention_inputs(b, n, h, d, device, seed=0, strided=True):
+    """bf16 q, k, v of (B, N, H, D) — the three views of one fused
+    (B, N, 3·H·D) projection as the encoder passes them, or contiguous
+    copies — and a key mask of seeded valid lengths in [1, N]."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=device).to(torch.bfloat16)
+    q, k, v = (t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    if not strided:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    lengths = torch.randint(1, n + 1, (b, 1), generator=gen, device=device)
+    lengths[0] = n
+    mask = torch.arange(n, device=device)[None, :] < lengths
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("shape", list(TEXT_SHAPES))
+def test_mha_text_encoder_shapes(cuda_device, tc_form, shape, strided):
+    q, k, v, mask = text_attention_inputs(*TEXT_SHAPES[shape], cuda_device, strided=strided)
+    assert vit_attention.row_stride(q, k, v) == (3 if strided else 1) * q.shape[2] * q.shape[3]
+    routes = dict(vit_attention.mha.routes)
+    got = vit_attention.mha(q, k, v, key_mask=mask)
+    want = vit_attention.mha_plain(q, k, v, key_mask=mask)
+    torch.cuda.synchronize()
+    assert vit_attention.mha.routes == {**routes, "tensor_core": routes["tensor_core"] + 1}
+    assert got.is_contiguous() and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    # Strided or not, the kernel reads the same values.
+    if strided:
+        again = vit_attention.mha(*(t.contiguous() for t in (q, k, v)), key_mask=mask)
+        assert torch.equal(got, again)
+
+
+def test_mha_strided_views_need_the_tensor_cores_and_aligned_rows(cuda_device):
+    b, n, h, d = 2, 40, 2, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=cuda_device)
+    views = [t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1)]
+    before = vit_attention.mha.launches
+    with pytest.raises(ValueError, match="contiguous"):  # f32: the CUDA-core route
+        vit_attention.mha(*views)
+    odd = torch.zeros((b, n, 3 * h * d + 1), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):  # rows 2 bytes past 16
+        vit_attention.mha(*(odd[..., i * h * d:(i + 1) * h * d].view(b, n, h, d)
+                            for i in range(3)))
+    assert vit_attention.mha.launches == before
+
+
 def _codes_agree(got, want):
     """int8 outputs: no code more than one apart, at most 0.5 % apart at all."""
     diff = (got.to(torch.int32) - want.to(torch.int32)).abs()

@@ -25,6 +25,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
@@ -232,3 +233,90 @@ def test_executor_asks_for_its_device(world, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Executor(world.port.db, world.port.index)
     assert world.port.device == torch.device("cpu")
+
+
+def synth_bert(cfg, layers, seed=4):
+    """A BERT-layout state dict (tests/test_weights.py's recipe) with random
+    LayerNorm affines, so that every leaf of the mapping is exercised."""
+    rng = np.random.default_rng(seed)
+    w = cfg.width
+
+    def ln(prefix):
+        sd[f"{prefix}.weight"] = (1 + 0.1 * rng.normal(size=w)).astype(np.float32)
+        sd[f"{prefix}.bias"] = (0.1 * rng.normal(size=w)).astype(np.float32)
+
+    sd = {
+        "embeddings.word_embeddings.weight": rng.normal(size=(cfg.vocab, w)).astype(np.float32) * 0.02,
+        "embeddings.position_embeddings.weight": rng.normal(size=(cfg.ctx, w)).astype(np.float32) * 0.02,
+        "embeddings.token_type_embeddings.weight": rng.normal(size=(2, w)).astype(np.float32) * 0.02,
+    }
+    ln("embeddings.LayerNorm")
+    for i in range(layers):
+        p = f"encoder.layer.{i}"
+        for name, (ci, co) in {
+            "attention.self.query": (w, w), "attention.self.key": (w, w),
+            "attention.self.value": (w, w), "attention.output.dense": (w, w),
+            "intermediate.dense": (w, 4 * w), "output.dense": (4 * w, w),
+        }.items():
+            sd[f"{p}.{name}.weight"] = rng.normal(size=(co, ci)).astype(np.float32) * ci**-0.5
+            sd[f"{p}.{name}.bias"] = rng.normal(size=co).astype(np.float32) * 0.02
+        ln(f"{p}.attention.output.LayerNorm")
+        ln(f"{p}.output.LayerNorm")
+    return sd
+
+
+def save_bert(sd, path):
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, str(path))
+    return path
+
+
+def test_hybrid_fts_and_text_query_through_the_manager(world, tmp_path):
+    # BASELINE #4's shape (tools/e2e_server_bench.py's hybrid_payload): an
+    # AND of a match_text RRF leaf and a text_embeddings RRF leaf whose query
+    # is a text, which preprocess embeds through the port's model manager
+    # and TextEmbedImpl on the CPU. Both impls load one checkpoint: the
+    # vector is held to the JAX impl's within the text encoder's tolerance,
+    # and the page the port serves to the one the JAX executor serves when
+    # both are handed that same vector.
+    from panoptikon_tpu.models import impls as ref_impls
+    from panoptikon_tpu.models import text_embed as ref_text
+    from panoptikon_tpu_torch.models.impls import IMPL_INDEX, PredictionInput
+    from panoptikon_tpu_torch.models.manager import ModelManager
+    from panoptikon_tpu_torch.models.registry import Registry
+    from panoptikon_tpu_torch.pql import preprocess
+    from panoptikon_tpu_torch.utils import npy
+
+    ckpt = save_bert(synth_bert(ref_text.CONFIGS["test-tiny"], 2, seed=12), tmp_path / "st.bin")
+    (tmp_path / "registry").mkdir()
+    (tmp_path / "registry" / "00.toml").write_text(
+        '[group.st]\nconfig.impl_class = "sentence_transformers"\n'
+        '[group.st.inference_ids.test]\nconfig.model_arch = "test-tiny"\n'
+        f'config.device = "cpu"\nconfig.checkpoint = "{ckpt}"\n')
+    manager = ModelManager(Registry(tmp_path / "registry"), IMPL_INDEX)
+    ex = Executor(world.port.db, world.port.index, manager=manager, device="cpu")
+
+    def payload(query, embed):
+        return {"query": {"and_": [
+            {"match_text": {"match": '"gamma"'}, "order_by": True, "row_n": True, "priority": 5,
+             "rrf": {"k": 60, "weight": 1.0}},
+            {"text_embeddings": {"query": query, "model": "st/test", "embed": embed,
+                                 "index": "quant"},
+             "row_n": True, "priority": 5, "rrf": {"k": 60, "weight": 0.5}}]}, "page_size": 10}
+
+    text = "gamma delta epsilon token0004c0"
+    preprocess.EMBED_CACHE.clear()
+    try:
+        query = pql.PqlQuery.from_json(_payload(payload(text, {"cache_key": "hybrid"})))
+        res = ex.execute(query)
+    finally:
+        manager.shutdown()
+    vec = query.query.and_[1].text_embeddings._embedding
+    want = npy.parse_npy_embedding(ref_impls.TextEmbedImpl("test-tiny", checkpoint=str(ckpt)).predict(
+        [PredictionInput(data={"text": text, "task": "s2s"})])[0])
+    assert vec.shape == want.shape == (32,) and np.isfinite(vec).all()
+    assert float(vec @ want / (np.linalg.norm(vec) * np.linalg.norm(want))) >= 0.999
+    assert np.abs(vec - want).max() <= 2e-2 * np.abs(want).max()
+    given = payload(_b64(vec), None)
+    port = _run(world.port, given)
+    assert len(res.results) > 0 and res.count == port.count and res.results == port.results
+    assert same_pages(port, _run(world.ref, given, ref_pql))

@@ -1,7 +1,11 @@
 """The port's copies of the JAX package's host modules against their
 originals, on the same seeded inputs: the host codec, ``VectorIndex``,
-``utils.npy``, ``models.batching`` and ``models.base``. The port imports
-nothing of ``panoptikon_tpu``; only this test imports both."""
+``utils.npy``, ``models.batching`` and ``models.base``; and, by ``ast.dump``,
+every host function of the copied ``pql/``, ``db/`` and ``models/`` modules
+(the registry, discovery, the manager, the checkpoint mappings, the text
+chunking contract and the fixture impls) and the built-in registry TOML.
+The port imports nothing of ``panoptikon_tpu``; only this test imports
+both."""
 
 import ast
 import json
@@ -243,9 +247,10 @@ def test_error_slots_match():
 
 REPO = Path(__file__).resolve().parent.parent
 
-# Functions and methods of the copies that touch the device: ported, not
-# copied. ``ported`` are the reference's units the port rewrote or left out
-# (the sharded program waits for multi-GPU); ``added`` the port's own.
+# Functions and methods of the copies that the port rewrote: the units that
+# touch the device, and ``packaged_builtin_dir``, which finds the port's own
+# resources. ``ported`` are the reference's units the port rewrote or left
+# out (the sharded program waits for multi-GPU); ``added`` the port's own.
 DEVICE_UNITS = {
     "pql/executor.py": {
         "ported": {
@@ -260,10 +265,24 @@ DEVICE_UNITS = {
         "added": {"_HostCopy.<body>", "_collect_host", "_host_get", "Executor._upload"},
     },
     "pql/fused.py": {"ported": {"_rrf_device_eligible"}, "added": set()},
+    "models/registry.py": {"ported": {"packaged_builtin_dir"}, "added": set()},
 }
 HOST_COPIES = ("pql/executor.py", "pql/fused.py", "pql/model.py", "pql/preprocess.py",
                "db/schema.py", "db/connection.py", "db/epochs.py", "db/store.py", "db/writer.py",
-               "utils/splitmix.py")
+               "db/bulk.py", "utils/splitmix.py", "models/registry.py", "models/discovery.py",
+               "models/manager.py", "resources/__init__.py")
+# Modules of the port that copy some of a reference module's units beside
+# device code of their own: the units named here must equal the
+# reference's. ``weights.load_state_dict`` differs: it names the missing
+# package when a .safetensors file cannot be read (test_torch_weights.py).
+FIXTURE_IMPLS = ("EchoImpl", "BatchSizeImpl", "OomImpl", "FailBatchImpl", "ErrorSlotImpl",
+                 "SlowImpl", "BrokenLoadImpl", "LoadCountImpl")
+PARTIAL_COPIES = {
+    "models/text_embed.py": ("split_tokens", "combine_chunks"),
+    "models/weights.py": ("_ln", "_linear", "_hf_clip_block", "load_clip_checkpoint",
+                          "save_clip_checkpoint", "load_text_encoder_checkpoint"),
+    "models/impls.py": FIXTURE_IMPLS,
+}
 
 
 def _units(source: str) -> dict:
@@ -302,6 +321,108 @@ def test_host_code_is_the_reference_s(rel):
     assert set(want) - device["ported"] == set(got) - device["added"] - device["ported"]
     for name in set(want) - device["ported"]:
         assert got[name] == want[name], f"{rel}: {name} differs from the reference"
+
+
+@pytest.mark.parametrize("rel", list(PARTIAL_COPIES))
+def test_copied_units_are_the_reference_s(rel):
+    ref_src = (REPO / "panoptikon_tpu" / rel).read_text()
+    want = _units(re.sub(r"\bpanoptikon_tpu\.", "panoptikon_tpu_torch.", ref_src))
+    got = _units((REPO / "panoptikon_tpu_torch" / rel).read_text())
+    names = [n for n in want if n.split(".")[0] in PARTIAL_COPIES[rel]]
+    assert len(names) >= len(PARTIAL_COPIES[rel])
+    for name in names:
+        assert got.get(name) == want[name], f"{rel}: {name} differs from the reference"
+
+
+def test_builtin_registry_is_the_reference_s():
+    # The port's copy of the built-in TOML parses to the reference's, and
+    # both registries resolve every id alike.
+    import tomllib
+
+    from panoptikon_tpu.models.registry import Registry as RefRegistry
+    from panoptikon_tpu_torch.models.registry import Registry
+
+    rel = "resources/config/inference/00_builtin.toml"
+    assert tomllib.loads((REPO / "panoptikon_tpu_torch" / rel).read_text()) == \
+        tomllib.loads((REPO / "panoptikon_tpu" / rel).read_text())
+    got, want = Registry(None), RefRegistry(None)
+    assert got.builtin_dir == REPO / "panoptikon_tpu_torch/resources/config/inference"
+    assert got.all_ids() == want.all_ids() and got.metadata() == want.metadata()
+    for full in want.all_ids():
+        group, _, name = full.partition("/")
+        assert got.resolve(group, name).config == want.resolve(group, name).config
+
+
+def test_user_impl_discovery_registers_under_the_port(tmp_path):
+    # discovery.py's copy imports a user module under the port's namespace,
+    # never the JAX package's.
+    import sys
+
+    from panoptikon_tpu_torch.models import discovery
+
+    (tmp_path / "mine.py").write_text(
+        "IMPL_CLASS = 'Mine'\n"
+        "class Mine:\n"
+        "    @classmethod\n"
+        "    def name(cls):\n"
+        "        return 'mine_impl'\n")
+    (tmp_path / "bad.py").write_text("raise RuntimeError('broken user module')\n")
+    cls = discovery.find([tmp_path], "mine_impl")
+    assert cls.__name__ == "Mine" and discovery.find([tmp_path], "Mine") is cls
+    assert cls.__module__ == f"panoptikon_tpu_torch._user_impls.{tmp_path.name}.mine"
+    assert not [m for m in sys.modules if m.startswith("panoptikon_tpu._user_impls")]
+    with pytest.raises(LookupError, match="broken user module"):
+        discovery.find([tmp_path], "nothing_impl")
+
+
+def test_bulk_ingest_gives_the_reference_s_tables(tmp_path):
+    # e2e_server_bench's slab inserts under bulk_ingest through each
+    # package's Database and writer: equal tables, FTS rebuilt, the global
+    # change marker appended, triggers and indexes back.
+    from panoptikon_tpu.db.bulk import bulk_ingest as ref_bulk
+    from panoptikon_tpu.db.connection import Database as RefDatabase
+    from panoptikon_tpu.db.writer import IndexWriter as RefWriter
+    from panoptikon_tpu_torch.db.bulk import bulk_ingest
+    from panoptikon_tpu_torch.db.connection import Database
+    from panoptikon_tpu_torch.db.writer import IndexWriter
+
+    def seed(database_cls, writer_cls, bulk, root):
+        db = database_cls(root, "bulk")
+        writer = writer_cls(db)
+
+        def unit(conn):
+            with bulk(conn):
+                conn.executemany("INSERT INTO items (id, sha256, md5, type, size, time_added)"
+                                 " VALUES (?,?,?,?,?,?)",
+                                 [(i, f"{i:064x}", f"{i:032x}", "image/png", i, "2026-01-01")
+                                  for i in range(1, 51)])
+                sid = conn.execute("INSERT INTO setters (name) VALUES ('ocr/x')").lastrowid
+                conn.executemany("INSERT INTO item_data (id, item_id, setter_id, data_type, idx,"
+                                 " is_origin) VALUES (?,?,?,?,0,1)",
+                                 [(i, i, sid, "text") for i in range(1, 51)])
+                conn.executemany("INSERT INTO extracted_text (id, text, language,"
+                                 " language_confidence, confidence, text_length)"
+                                 " VALUES (?,?,?,?,?,?)",
+                                 [(i, f"w{i % 3} tok{i % 7:04d}", "en", 0.9, 0.8, 12)
+                                  for i in range(1, 51)])
+
+        try:
+            writer.call(unit)
+        finally:
+            writer.close()
+        conn = db.reader()
+        return {
+            "schema": _schema_dump(conn),
+            "fts": conn.execute("SELECT rowid FROM extracted_text_fts WHERE extracted_text_fts"
+                                " MATCH '\"tok0003\"' ORDER BY rowid").fetchall(),
+            "log": conn.execute("SELECT item_id FROM base_change_log").fetchall(),
+            "items": conn.execute("SELECT * FROM items").fetchall(),
+        }
+
+    got = seed(Database, IndexWriter, bulk_ingest, tmp_path / "port")
+    want = seed(RefDatabase, RefWriter, ref_bulk, tmp_path / "ref")
+    assert got == want
+    assert len(got["fts"]) == 7 and got["log"][-1] == (None,)
 
 
 def test_port_executor_and_fused_touch_no_jax_or_mesh():

@@ -133,9 +133,15 @@ def test_decode_image_matches_reference():
                                   ref.decode_image(buf.getvalue(), 32))
 
 
-def test_checkpoint_and_device_are_explicit():
-    with pytest.raises(NotImplementedError):
-        impls.ClipImpl(model_arch="test-tiny", checkpoint="weights.safetensors", device="cpu")
+def test_checkpoint_and_device_are_explicit(tmp_path):
+    # A checkpoint loads when the impl loads (test_torch_weights.py holds the
+    # loaded weights); one that is not there raises then, never falling back
+    # to random weights.
+    impl = impls.ClipImpl(model_arch="test-tiny", checkpoint=str(tmp_path / "missing.bin"),
+                          device="cpu")
+    with pytest.raises(FileNotFoundError):
+        impl.load()
+    assert impl.params is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # no silent fallback to the CPU
             impls.ClipImpl(model_arch="test-tiny")

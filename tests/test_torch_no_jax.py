@@ -24,6 +24,9 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not [m for m in leaked if sys.modules[m] is not None], leaked
+# the registry finds the port's own built-in TOML, not the JAX package's
+from panoptikon_tpu_torch.models.registry import Registry
+assert "textembed/mpnet-base" in Registry(None).all_ids()
 reference = sorted(m for m in sys.modules if m.startswith("panoptikon_tpu."))
 assert sys.modules["panoptikon_tpu"] is None and not reference, reference
 print(" ".join(names))
@@ -38,12 +41,13 @@ def test_every_port_module_imports_without_jax():
     names = set(out.stdout.split())
     # every module of the port was imported, the serving embed's and the
     # host copies included
-    assert len(names) >= 20
+    assert len(names) >= 27
     for name in ("ops.ln_quant", "ops.vit_attention", "ops.int8_scan", "models.clip",
                  "models.impls", "models.convert", "profiling", "index.vector_index",
                  "models.base", "models.batching", "utils.npy", "ops.fusion", "pql.executor",
                  "pql.fused", "pql.model", "pql.preprocess", "db.store", "db.writer",
-                 "utils.splitmix"):
+                 "utils.splitmix", "models.text_embed", "models.weights", "models.registry",
+                 "models.discovery", "models.manager", "db.bulk", "resources"):
         assert f"panoptikon_tpu_torch.{name}" in names
 
 
@@ -62,7 +66,10 @@ def test_no_port_source_imports_the_jax_package():
     # port imports only the port, the standard library and third parties
     # other than JAX.
     sources = sorted((REPO / "panoptikon_tpu_torch").rglob("*.py"))
-    assert len(sources) >= 20
+    assert len(sources) >= 27
+    assert {"models/text_embed.py", "models/weights.py", "models/registry.py",
+            "models/discovery.py", "models/manager.py", "db/bulk.py", "resources/__init__.py"} <= {
+        str(p.relative_to(REPO / "panoptikon_tpu_torch")) for p in sources}
     for path in sources:
         modules = _imported_modules(ast.parse(path.read_text()))
         top = {m.split(".")[0] for m in modules}
