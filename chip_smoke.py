@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's search core, serving embed, PQL pages and text search
-once on one NVIDIA GPU.
+"""Drive the PyTorch port's search core, serving embed, PQL pages, text search
+and the index build path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,9 @@ Phases, one JSON line each:
 1. env      the card (nvidia-smi name and power limit), torch, CUDA, nvcc,
             Triton, SQLite and whether it has FTS5;
 2. build    the three kernel sources of panoptikon_tpu_torch/csrc/, one nvcc
-            each, all started together (ptxas registers and spills); the
+            each, and the native host codec (csrc/host_codec.cpp, g++), all
+            started together (ptxas registers and spills); the host codec
+            must build and load; the
             tensor-core instructions (IMMA for mma.sync, IGMMA for wgmma)
             that cuobjdump -sass finds in each form of int8_topk_kernel and
             int8_topk_v2_kernel, which must hold some and no IDP4A: both
@@ -39,7 +41,10 @@ Phases, one JSON line each:
             yardstick); each case's bound on the card (bytes or operations);
 4. main     the ViT-B/32 search slice with seeded random bf16 weights: embed
             4,096 images, index them with seeded unit vectors to
-            1,048,576 × 512 in a host VectorIndex, build the int8 arm, upload
+            1,048,576 × 512 in a host VectorIndex, build the int8 arm through
+            the native host codec (required), build it again through the
+            codec's NumPy path (codes equal bit for bit; both timed, and
+            build_quant alone in turns native/NumPy/NumPy/native), upload
             it (DeviceIndex), embed 64 text queries and search them top-10,
             and search 256 Gaussian unit queries;
 5. check    launch counters of that path (every attention launch on the
@@ -122,9 +127,33 @@ Phases, one JSON line each:
             embeddings of its own texts (some long enough to chunk), 9 PQL
             shapes whose text leaves are embedded once on the card, their
             vectors then handed to an Executor on the card and one on the
-            CPU, with equal pages.
+            CPU, with equal pages;
+11. extract the build path (BASELINE #3's text half): (a) 32,768 items with
+            OCR text rows (seeded words, log-uniform 4-1,024 a text, so most
+            windows of 64 hold a text past mpnet-base's 512-token context)
+            seeded under bulk_ingest, textembed/mpnet-base loaded through
+            the model manager with prewarm, then DATA_EXTRACTION and
+            VECTOR_QUANT_RECONCILE on the port's JobQueue, whose runners
+            call run_extraction_job and run_reconcile as the server does:
+            texts/s, chunks/s, valid tokens/s, the split into load stall,
+            inference, quant reconcile and DB/index writes, the projection
+            to 1,000,000 rows, the device's idle share over one manager
+            window (profiler) and over the job (CUDA events), B3's launches
+            by route, peak memory; a second job finds nothing; (b) every row
+            processed, coverage ready at revision 1 over every row, the codes
+            equal to the host codec of the vectors stored in SQLite, every
+            weight 0.8 × 0.9, every embedding owned by its item (item_data
+            ids apart from item ids), a fresh index from index_sync.sync_all
+            equal to the built one; (c) 32 stored texts as text_embeddings
+            queries through Executor.execute, one at a time: each page holds
+            the query's own item, the serving path's rescored candidates
+            reach recall@10 ≥ 0.99 against the exact f32 top-10, B1 equal to
+            its plain version; (d) 256 rows (short texts and one that
+            chunks) built by the job on the card and on the CPU (the
+            registry's device "cpu"): equal tables, cosine ≥ 0.999, codes at
+            most one apart.
 
-Each main path (phases 4-5, 6, 8, 7, 9 and 10) runs with the launch counters (and
+Each main path (phases 4-5, 6, 8, 7, 9, 10 and 11) runs with the launch counters (and
 the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
@@ -212,6 +241,20 @@ TEXT_N, TEXT_WINDOW, TEXT_WORDS, TEXT_CHECKED = 8192, 64, (4, 2048), 256
 HYBRID_SPACE, HYBRID_ROWS, HYBRID_DIM = "textembed/mpnet-base", 1_000_000, 768
 HYBRID_SEQ, HYBRID_THREADS, HYBRID_CONCURRENT, HYBRID_PARITY_Q = 24, 16, 128, 4
 TEXT_DB_ITEMS, TEXT_DB_LONG_WORDS = 2000, 2200
+# Phase 11 (the build path, BASELINE #3's text half): N_BUILD OCR text rows
+# of seeded_texts (word counts log-uniform in BUILD_WORDS: one word is one
+# token, so texts past 510 words outrun mpnet-base's 512-token context and
+# most windows of 64 hold one that chunks) embedded by BUILD_MODEL through
+# the port's JobQueue, run_extraction_job, the finishing reconcile and
+# index_sync; item_data ids BUILD_DATA_OFFSET apart from the item ids;
+# BUILD_QUERIES stored texts searched through Executor.execute; and
+# BUILD_PAIR_ROWS rows built on the card and on the CPU (short texts, words
+# log-uniform in BUILD_PAIR_WORDS, and one of BUILD_PAIR_LONG words that
+# chunks: the card machine's CPU encodes mpnet-base at a few hundred
+# tokens/s).
+BUILD_MODEL, BUILD_CACHE_KEY = "textembed/mpnet-base", "build"
+N_BUILD, BUILD_WORDS, BUILD_DATA_OFFSET = 32_768, (4, 1024), 1_000_000
+BUILD_QUERIES, BUILD_PAIR_ROWS, BUILD_PAIR_WORDS, BUILD_PAIR_LONG = 32, 256, (4, 32), 600
 # Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): the least
 # time a kernel could take is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
@@ -364,6 +407,38 @@ def not_counted(counters):
             fn.launches = n
             if hasattr(fn, "routes"):
                 fn.routes = routes
+
+
+def host_index_build(torch, dev, img_np):
+    """Phase 4's host VectorIndex: the image embeddings, seeded unit rows up
+    to N_ROWS × DIM (made on the device, 131,072 at a time), then the int8
+    arm. Returns (index, scale, seconds)."""
+    from panoptikon_tpu_torch.index import VectorIndex
+
+    t0 = time.perf_counter()
+    index = VectorIndex()
+    index.reserve("clip", N_ROWS, DIM)
+    index.add("clip", np.arange(N_IMAGES), np.arange(N_IMAGES), img_np)
+    fill_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    step = 131_072
+    for lo in range(N_IMAGES, N_ROWS, step):
+        hi = min(lo + step, N_ROWS)
+        rows = torch.randn((hi - lo, DIM), generator=fill_gen, device=dev)
+        rows = rows / torch.linalg.norm(rows, dim=1, keepdim=True)
+        index.add("clip", np.arange(lo, hi), np.arange(lo, hi), rows.cpu().numpy())
+    scale = index.build_quant("clip")
+    return index, scale, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def numpy_codec(codec):
+    """The host codec's NumPy path in place of the native library."""
+    saved = codec._native
+    codec._native = lambda: None
+    try:
+        yield
+    finally:
+        codec._native = saved
 
 
 def int8_embed_path(torch, dev, smi, counters) -> dict:
@@ -1250,15 +1325,15 @@ def db_path(torch, dev, smi) -> dict:
             "card_equals_cpu": True, "card_ms_first_run": times}
 
 
-def seeded_texts(n: int, seed: int) -> list:
+def seeded_texts(n: int, seed: int, words: tuple = TEXT_WORDS) -> list:
     """n texts of distinct seeded words, their word counts log-uniform in
-    TEXT_WORDS (both ends included): with the hash tokenizer a word is one
-    token, so every length bucket 32-512 occurs, and the longest texts
-    chunk five times."""
+    ``words`` (both ends included): with the hash tokenizer a word is one
+    token, so at TEXT_WORDS every length bucket 32-512 occurs, and the
+    longest texts chunk five times."""
     rng = np.random.default_rng(seed)
-    lo, hi = TEXT_WORDS
+    lo, hi = words
     counts = np.exp(rng.uniform(np.log(lo), np.log(hi + 1), size=n)).astype(int)
-    counts[:2] = TEXT_WORDS
+    counts[:2] = words
     vocab = np.array([f"w{j}" for j in range(30_000)])
     return [" ".join(vocab[rng.integers(0, len(vocab), size=int(m))]) for m in counts]
 
@@ -1384,14 +1459,22 @@ class TimedManager:
         return out
 
 
-def _bulk_seed(conn, n: int) -> None:
+def _bulk_seed(conn, n: int, texts=None, data_offset: int = 0) -> None:
     """tools/e2e_server_bench.py's corpus (_inserts, :62-101) under
     bulk_ingest: n items and files, and n OCR text chunks with live FTS,
-    item_data id i paired with extracted_text id i."""
+    item_data id i + data_offset (on item i) paired with extracted_text id
+    i + data_offset; the texts are ``texts`` where given."""
     from panoptikon_tpu_torch.db.bulk import bulk_ingest
 
     words = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "ocean", "forest", "mountain",
              "river"]
+
+    def text(i):  # (text, text_length)
+        if texts is not None:
+            return texts[i - 1], len(texts[i - 1])
+        return (f"{words[i % 10]} {words[(i // 10) % 10]} {words[(i // 100) % 10]} "
+                f"tok{i % 5000:04d}", 40)
+
     with bulk_ingest(conn):
         conn.executemany(
             "INSERT INTO items (id, sha256, md5, type, size, time_added) VALUES (?,?,?,?,?,?)",
@@ -1405,12 +1488,12 @@ def _bulk_seed(conn, n: int) -> None:
         sid = conn.execute("INSERT INTO setters (name) VALUES ('ocr/e2e')").lastrowid
         conn.executemany(
             "INSERT INTO item_data (id, item_id, setter_id, data_type, idx, is_origin)"
-            " VALUES (?,?,?,?,0,1)", ((i, i, sid, "text") for i in range(1, n + 1)))
+            " VALUES (?,?,?,?,0,1)",
+            ((i + data_offset, i, sid, "text") for i in range(1, n + 1)))
         conn.executemany(
-            "INSERT INTO extracted_text (id, text, language, language_confidence, confidence,"
-            " text_length) VALUES (?,?,?,?,?,?)",
-            ((i, f"{words[i % 10]} {words[(i // 10) % 10]} {words[(i // 100) % 10]} "
-                 f"tok{i % 5000:04d}", "en", 0.9, 0.8, 40) for i in range(1, n + 1)))
+            "INSERT INTO extracted_text (id, text, text_length, language, language_confidence,"
+            " confidence) VALUES (?,?,?,?,?,?)",
+            ((i + data_offset, *text(i), "en", 0.9, 0.8) for i in range(1, n + 1)))
 
 
 def hybrid_path(torch, dev, smi, manager, counters) -> dict:
@@ -1668,6 +1751,462 @@ def text_db_path(torch, dev, smi, manager) -> dict:
             "shapes": checked, "card_equals_cpu": True}
 
 
+def extraction_runners(manager, db, writer, index) -> dict:
+    """The server's DATA_EXTRACTION and VECTOR_QUANT_RECONCILE runners
+    (api/server.py's _extraction_body, :362-386, and _run_reconcile,
+    :388-396): the job's arguments from the handle's params and the
+    registry's group metadata."""
+    from panoptikon_tpu_torch.jobs import extraction, reconcile
+    from panoptikon_tpu_torch.jobs.queue import JobType
+
+    def run_extraction(handle):
+        params = handle.params
+        inference_id = params["inference_id"]
+        meta = manager.registry.group_metadata(inference_id.split("/", 1)[0])
+        t0 = time.perf_counter()
+        report = extraction.run_extraction_job(
+            db=db, writer=writer, index=index, manager=manager, inference_id=inference_id,
+            setter_name=params.get("setter_name"),
+            output_type=params.get("output_type") or meta.get("output_type", "clip"),
+            mime_prefixes=tuple(params.get("mime_types") or meta.get("input_mime_types", ["image/"])),
+            batch_size=int(params.get("batch_size") or meta.get("default_batch_size", 16)),
+            threshold=params.get("threshold") or meta.get("default_threshold"),
+            target_entity="text" if "text" in (meta.get("target_entities") or ["items"]) else "items",
+            source_setters=tuple(params.get("source_setters") or ()),
+            input_handler=(meta.get("input_spec") or {}).get("handler"),
+            input_handler_opts=(meta.get("input_spec") or {}).get("opts"),
+            cancelled=lambda: handle.cancelled)
+        handle.result = {"report": report, "wall_s": time.perf_counter() - t0}
+        return report.summary
+
+    def run_reconcile(handle):
+        t0 = time.perf_counter()
+        report = reconcile.run_reconcile(db, writer, index, cancelled=lambda: handle.cancelled,
+                                         force_rescale=bool(handle.params.get("force_rescale")))
+        handle.result = {**report.__dict__, "wall_s": time.perf_counter() - t0}
+
+    return {JobType.DATA_EXTRACTION: run_extraction, JobType.VECTOR_QUANT_RECONCILE: run_reconcile}
+
+
+def run_jobs(runners, db_name: str, jobs: list, timeout: float = 900.0) -> list:
+    """Enqueue ``jobs`` ((JobType, params) pairs) on a JobQueue, wait until
+    it is idle, and return their handles; every job must complete."""
+    from panoptikon_tpu_torch.jobs.queue import JobQueue
+
+    queue = JobQueue(runners)
+    try:
+        handles = [queue.enqueue(db_name, job_type, params) for job_type, params in jobs]
+        require(queue.wait_idle(db_name, timeout=timeout), f"jobs on {db_name}: not idle in time")
+    finally:
+        queue.shutdown()
+    for h in handles:
+        require(h.state == "completed", f"job {h.job_type.value}: {h.state} {h.error}")
+    return handles
+
+
+@contextlib.contextmanager
+def encode_events(torch, text_embed):
+    """CUDA events around every text_embed.encode call while inside: the
+    device span of each forward (an upper bound of its busy time: gaps
+    between its kernels count as busy). Yields the list of event pairs."""
+    pairs, encode = [], text_embed.encode
+
+    def timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = encode(*args, **kw)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    text_embed.encode = timed
+    try:
+        yield pairs
+    finally:
+        text_embed.encode = encode
+
+
+def chunk_lengths(texts, max_len: int) -> list:
+    """The chunks each text becomes under the hash tokenizer (BOS, a token a
+    word, EOS), by length: text_embed.split_tokens depends only on it."""
+    from panoptikon_tpu_torch.models import text_embed
+
+    return [[len(c) for c in text_embed.split_tokens([0] * (len(t.split()) + 2), max_len)]
+            for t in texts]
+
+
+def extract_path(torch, dev, smi, counters) -> list:
+    """Phase 11: (a) the build of N_BUILD OCR rows through the JobQueue,
+    (b) the hard checks on what was built, (c) the built space searched
+    through Executor.execute. Returns the three records."""
+    import tempfile
+
+    from panoptikon_tpu_torch.db.connection import Database
+    from panoptikon_tpu_torch.db.writer import IndexWriter
+    from panoptikon_tpu_torch.index import VectorIndex
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
+        db = Database(root, "build")
+        writer = IndexWriter(db)
+        manager = text_manager()
+        try:
+            index = VectorIndex()
+            texts = seeded_texts(N_BUILD, SEED + 80, BUILD_WORDS)
+            built = _extract_build(torch, dev, smi, counters, db, writer, index, manager, texts)
+            checks = _extract_checks(db, writer, index, built.pop("report"), built["embed_dim"])
+            search = _extract_search(torch, dev, smi, counters, db, index, manager, texts)
+        finally:
+            manager.shutdown()
+            writer.close()
+    return [built, checks, search]
+
+
+def _extract_build(torch, dev, smi, counters, db, writer, index, manager, texts) -> dict:
+    """Phase 11(a): seed, load BUILD_MODEL with prewarm, then the
+    DATA_EXTRACTION and VECTOR_QUANT_RECONCILE jobs, timed by part."""
+    from panoptikon_tpu_torch.jobs import reconcile
+    from panoptikon_tpu_torch.jobs.queue import JobType
+    from panoptikon_tpu_torch.models import text_embed
+    from panoptikon_tpu_torch.models.impls import PredictionInput
+    from panoptikon_tpu_torch.ops import codec
+
+    t0 = time.perf_counter()
+    writer.call(lambda conn: _bulk_seed(conn, N_BUILD, texts, BUILD_DATA_OFFSET))
+    seed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    manager.load_model(BUILD_MODEL, cache_key=BUILD_CACHE_KEY, lru_size=1, prewarm=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    entry = manager._models[BUILD_MODEL]
+    impl = entry.model
+    require(entry.default_batch == TEXT_WINDOW and impl.combine_threshold == 4
+            and impl.device.type == dev.type and impl.cfg == text_embed.CONFIGS["mpnet-base"]
+            and impl.max_seq_length == 512, f"extract: {BUILD_MODEL} as the registry defines it")
+    chunks = chunk_lengths(texts, impl.max_seq_length)
+    multi = [len(c) > 1 for c in chunks]
+    windows = [any(multi[lo:lo + TEXT_WINDOW]) for lo in range(0, N_BUILD, TEXT_WINDOW)]
+    require(sum(windows) * 2 > len(windows), f"extract: {sum(windows)} of {len(windows)} windows "
+                                             "hold a text that chunks")
+    n_chunks = sum(len(c) for c in chunks)
+    valid_tokens = sum(sum(c) for c in chunks)
+    combined = sum(len(c) >= impl.combine_threshold for c in chunks)
+
+    # The device's idle share over one whole manager window (the profiler),
+    # off the main path's counts.
+    window = [PredictionInput(data={"text": t}) for t in texts[:TEXT_WINDOW]]
+    with not_counted(counters):
+        manager.predict(BUILD_MODEL, window, max_batch=TEXT_WINDOW)
+        window_wall, window_busy = busy_share(
+            torch, lambda: manager.predict(BUILD_MODEL, window, max_batch=TEXT_WINDOW))
+
+    quant_t = [0.0]
+    reconcile_space = reconcile.reconcile_space
+
+    def timed_reconcile(*a, **k):
+        q0 = time.perf_counter()
+        try:
+            return reconcile_space(*a, **k)
+        finally:
+            quant_t[0] += time.perf_counter() - q0
+
+    runners = extraction_runners(manager, db, writer, index)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls0 = dict(codec.native_calls)
+    reconcile.reconcile_space = timed_reconcile
+    try:
+        with encode_events(torch, text_embed) as spans:
+            job, rec = run_jobs(runners, "build", [
+                (JobType.DATA_EXTRACTION, {"inference_id": BUILD_MODEL}),
+                (JobType.VECTOR_QUANT_RECONCILE, {})])
+            torch.cuda.synchronize()
+    finally:
+        reconcile.reconcile_space = reconcile_space
+    native_calls = {k: codec.native_calls[k] - calls0[k] for k in calls0}
+    require(codec.native_available() and native_calls["quantize"] > 0,
+            f"extract: the reconcile did not quantize through the native codec {native_calls}")
+    report, wall = job.result["report"], job.result["wall_s"]
+    encode_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    again = run_jobs(runners, "build", [(JobType.DATA_EXTRACTION, {"inference_id": BUILD_MODEL})])
+    require(again[0].result["report"].processed == 0, "extract: a second job found work")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    texts_per_s = report.processed / wall
+    return {
+        "part": "a_build", "card": smi, "model": BUILD_MODEL, "width": impl.cfg.width,
+        "embed_dim": impl.cfg.embed_dim,
+        "layers": impl.cfg.layers, "heads": impl.cfg.heads, "rows": N_BUILD,
+        "words": BUILD_WORDS, "chunks": n_chunks, "valid_tokens": valid_tokens,
+        "multi_chunk_texts": sum(multi), "combined_rows": combined,
+        "windows_with_a_text_that_chunks": sum(windows), "windows": len(windows),
+        "seed_db_s": seed_s, "load_and_prewarm_s": load_s, "job_wall_s": wall,
+        "processed": report.processed, "segments": report.segments,
+        "texts_per_s": texts_per_s, "chunks_per_s": n_chunks / wall,
+        "valid_tokens_per_s": valid_tokens / wall,
+        "load_stall_s": report.data_load_time, "inference_s": report.inference_time,
+        "quant_reconcile_s": quant_t[0],
+        "db_index_writes_s": wall - report.data_load_time - report.inference_time - quant_t[0],
+        "reconcile_job_s": rec.result["wall_s"],
+        "projected_s_for_1m_text_rows": 1e6 / texts_per_s,
+        "encode_calls": len(spans), "encode_device_span_s": encode_s,
+        "device_busy_share_job_upper_bound": encode_s / wall,
+        "device_idle_share_job_lower_bound": 1 - encode_s / wall,
+        "window_wall_s": window_wall, "device_idle_share_window": 1 - window_busy,
+        "b3_launches_by_route": read_routes(counters).get("mha", {}),
+        "launches": launches, "host_codec_native_calls": native_calls,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "report": report,
+    }
+
+
+def _extract_checks(db, writer, index, report, dim: int) -> dict:
+    """Phase 11(b): the job's report, the coverage row, the codes against
+    the host codec of the vectors stored in SQLite, weights, ownership, and
+    a fresh index synced from the DB equal to the built one."""
+    from panoptikon_tpu_torch.db import store
+    from panoptikon_tpu_torch.index import VectorIndex
+    from panoptikon_tpu_torch.jobs import index_sync, reconcile
+    from panoptikon_tpu_torch.ops import codec
+
+    require(report.processed == N_BUILD and report.input_errors == 0
+            and report.transient_errors == 0,
+            f"extract: processed {report.processed}, errors {report.input_errors} input, "
+            f"{report.transient_errors} transient")
+    conn = db.reader()
+    rows = conn.execute("SELECT COUNT(*) FROM embeddings e JOIN item_data d ON d.id = e.id"
+                        " JOIN setters s ON s.id = d.setter_id WHERE s.name = ?",
+                        (BUILD_MODEL,)).fetchone()[0]
+    status = reconcile.coverage_status(db)
+    require(status == [{"profile": "int8", "setter": BUILD_MODEL, "state": "ready",
+                        "artifact_rev": 1, "n_at_artifact": rows, "dim": dim}],
+            f"extract: coverage {status}, {rows} rows")
+    snap = index.snapshot(BUILD_MODEL)
+    n = snap.size
+    require(snap.quant_ready and n == rows == report.segments, f"extract: snapshot of {n} rows")
+    artifact = conn.execute("SELECT artifact FROM vector_quant_coverage").fetchone()[0]
+    scale = codec.artifact_scale(artifact)
+    data_ids, item_ids, vectors, weights = store.load_embedding_space(conn, BUILD_MODEL,
+                                                                     limit=rows + 1)
+    require(np.array_equal(data_ids, snap.row_ids[:n]) and np.array_equal(vectors, snap.vectors[:n]),
+            "extract: the index rows are not the stored rows in row-id order")
+    require(scale == snap.scale == codec.scale_from_absmax(codec.corpus_absmax(vectors)),
+            f"extract: scale {snap.scale}, artifact {scale}")
+    require(np.array_equal(codec.quantize_int8_host(vectors, scale), snap.codes[:n]),
+            "extract: codes differ from the host codec of the stored vectors")
+    want_w = np.float32(0.8 * 0.9)
+    require(bool((snap.weights[:n] == want_w).all() and (weights == want_w).all()),
+            "extract: a row's weight is not 0.8 x 0.9")
+    strays = conn.execute(
+        """SELECT COUNT(*) FROM item_data e JOIN setters s ON s.id = e.setter_id
+           JOIN item_data t ON t.id = e.source_id
+           WHERE s.name = ? AND (e.item_id != t.item_id OR t.id != t.item_id + ?)""",
+        (BUILD_MODEL, BUILD_DATA_OFFSET)).fetchone()[0]
+    owners = conn.execute(
+        "SELECT COUNT(DISTINCT d.item_id) FROM item_data d JOIN setters s ON s.id = d.setter_id"
+        " WHERE s.name = ?", (BUILD_MODEL,)).fetchone()[0]
+    require(strays == 0 and owners == N_BUILD, f"extract: {strays} rows not owned by their item")
+    built_items = index.item_id_of_groups(BUILD_MODEL, snap.group_ids[:n])
+    require(np.array_equal(built_items, item_ids), "extract: index item ids differ from the DB's")
+    # The server's startup path: a fresh index from SQLite, its quant arm
+    # under the frozen artifact.
+    t0 = time.perf_counter()
+    fresh = VectorIndex()
+    added = index_sync.sync_all(db, fresh)
+    sync_s = time.perf_counter() - t0
+    reconcile.run_reconcile(db, writer, fresh)
+    fsnap = fresh.snapshot(BUILD_MODEL)
+    require(added == {BUILD_MODEL: n} and fsnap.size == n and fsnap.scale == scale
+            and np.array_equal(fsnap.row_ids[:n], snap.row_ids[:n])
+            and np.array_equal(fresh.item_id_of_groups(BUILD_MODEL, fsnap.group_ids[:n]), built_items)
+            and np.array_equal(fsnap.weights[:n], snap.weights[:n])
+            and np.array_equal(fsnap.codes[:n], snap.codes[:n]),
+            "extract: the index synced from the DB differs from the built one")
+    require(reconcile.coverage_status(db) == status, "extract: the startup reconcile moved coverage")
+    return {"part": "b_checks", "rows": n, "items": owners, "scale": scale,
+            "coverage": status[0], "codes_equal_host_codec_of_stored_vectors": True,
+            "weights": float(want_w), "owned_by_item": True, "sync_all_equals_built": True,
+            "sync_all_s": sync_s}
+
+
+def _extract_search(torch, dev, smi, counters, db, index, manager, texts) -> dict:
+    """Phase 11(c): BUILD_QUERIES stored single-chunk texts as
+    text_embeddings queries through Executor.execute, one at a time; their
+    query vectors' exact f32 top-10 over the stored rows and items against
+    the page, the serving path's rescored candidates and B1's plain
+    version."""
+    from panoptikon_tpu_torch.ops import codec, exact, int8_scan, scoring
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql import preprocess
+    from panoptikon_tpu_torch.pql.executor import Executor
+
+    snap = index.snapshot(BUILD_MODEL)
+    n = snap.size
+    words = [len(t.split()) for t in texts]
+    single = [i for i, w in enumerate(words) if w + 2 <= 512]
+    picks = [single[int(j)] for j in np.linspace(0, len(single) - 1, BUILD_QUERIES)]
+    ex = Executor(db, index, manager=manager, device=str(dev))
+    embed = {"cache_key": BUILD_CACHE_KEY, "lru_size": 1}
+
+    def payload(text):
+        return {"query": {"text_embeddings": {"query": text, "model": BUILD_MODEL, "embed": embed,
+                                              "index": "quant"}}, "page_size": K}
+
+    pages, first_ms, again_ms = [], [], []
+    for i in picks:
+        t0 = time.perf_counter()
+        res = ex.execute(pql.PqlQuery.from_json(payload(texts[i])))
+        first_ms.append(1e3 * (time.perf_counter() - t0))
+        require(len(res.results) == K, f"extract search: {len(res.results)} results")
+        pages.append(_pages(res.results))
+    for i in picks:  # the query vectors now come from EMBED_CACHE
+        t0 = time.perf_counter()
+        res = ex.execute(pql.PqlQuery.from_json(payload(texts[i])))
+        again_ms.append(1e3 * (time.perf_counter() - t0))
+        require(_pages(res.results) == pages[len(again_ms) - 1], "extract search: a page changed")
+    q = np.stack([preprocess.EMBED_CACHE.get((BUILD_MODEL, "text", texts[i])) for i in picks])
+    x = torch.from_numpy(snap.vectors[:n]).to(dev)
+    qt = torch.from_numpy(q).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    dist = exact.pairwise_distance(x, qt)
+    _, want_rows, _ = exact.topk_ascending(dist, valid, K)
+    # Items: each item's nearest row (the executor's MIN aggregation).
+    groups = torch.from_numpy(snap.group_ids[:n].astype(np.int64)).to(dev)
+    per_item = torch.full((len(picks), snap.num_groups), float("inf"), device=dev)
+    per_item.scatter_reduce_(1, groups.expand(len(picks), -1), dist, "amin")
+    _, want_slots = torch.topk(per_item, K, largest=False)
+    want_items = index.item_id_of_groups(BUILD_MODEL, want_slots.cpu().numpy())
+    page_recall = float(np.mean([len(set(p) & set(w)) / K for p, w in zip(pages, want_items)]))
+    own = [i + 1 in p for i, p in zip(picks, pages)]  # item i + 1 holds text i
+    require(all(own), f"extract search: a query's own item missing from its page {own}")
+    # The serving path's candidates (B1 at k·oversample 40), rescored in f32.
+    codes = torch.from_numpy(snap.codes[:n]).to(dev)
+    sumsq = scoring.row_sumsq(codes)
+    qc = codec.quantize_int8(qt, snap.scale)
+    _, got_rows, _ = scoring.int8_topk_rescored(codes, sumsq, valid, x, qc, qt, k=K, oversample=4,
+                                                distance="cosine", scale=snap.scale, rescore=True)
+    want_rows, got_rows = want_rows.cpu().numpy(), got_rows.cpu().numpy()
+    rescored = float(np.mean([len(set(g) & set(w)) / K for g, w in zip(got_rows, want_rows)]))
+    require(rescored >= 0.99, f"extract search: rescored recall@10 {rescored} < 0.99")
+    with not_counted(counters):
+        args = (codes, sumsq, valid, qc)
+        gv, gi, gok = int8_scan.int8_topk(*args, k=4 * K)
+        pv, pi, pok = int8_scan.int8_topk_plain(*args, k=4 * K)
+        torch.cuda.synchronize()
+        require(torch.equal(gi, pi) and torch.equal(gok, pok), "extract search: B1 ids differ from plain")
+        b1_err = (gv - pv).abs().max().item()
+        require(b1_err <= 1e-6, f"extract search: B1 max abs dist diff {b1_err}")
+        b1 = dict(zip(("b1_k40_ms", "b1_k40_plain_ms"), paired_ms(
+            torch, lambda: int8_scan.int8_topk(*args, k=4 * K),
+            lambda: int8_scan.int8_topk_plain(*args, k=4 * K), reps=10)))
+        b1.update({"b1_k40_" + key: value for key, value in scan_roofline(args, 4 * K).items()})
+        b1["b1_k40_gemm_only_ms"] = gemm_only_ms(torch, args)
+    first_ms.sort()
+    again_ms.sort()
+    return {"part": "c_search", "card": smi, "queries": BUILD_QUERIES, "rows": n,
+            "items": snap.num_groups, "rescored_recall_at_10": rescored,
+            "executor_page_recall_at_10_items": page_recall, "own_item_in_page": True,
+            "b1_k40_max_abs_err": b1_err, **b1,
+            "page_p50_ms_with_embed": first_ms[len(first_ms) // 2],
+            "page_p50_ms_embed_cached": again_ms[len(again_ms) // 2],
+            "page_ms_with_embed": first_ms}
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def extract_pair_path(torch, dev, smi) -> dict:
+    """Phase 11(d): BUILD_PAIR_ROWS seeded rows built by the job on the card
+    and, in a second DB, on the CPU (the registry's config.device = "cpu",
+    the card impl's weights copied over: random weights drawn from a CUDA
+    generator and from a CPU one differ). item_data, setters, the ledger
+    and coverage (but the artifact) equal; embeddings at cosine ≥ 0.999 row
+    by row; codes at most one apart; each scale its own absmax / 127, the
+    two within a bf16 rounding."""
+    import tempfile
+
+    from panoptikon_tpu_torch.db.connection import Database
+    from panoptikon_tpu_torch.db.writer import IndexWriter
+    from panoptikon_tpu_torch.index import VectorIndex
+    from panoptikon_tpu_torch.jobs.queue import JobType
+    from panoptikon_tpu_torch.ops import codec
+
+    texts = seeded_texts(BUILD_PAIR_ROWS, SEED + 81, BUILD_PAIR_WORDS)
+    texts[1] = seeded_texts(2, SEED + 82, (BUILD_PAIR_LONG, BUILD_PAIR_LONG))[0]
+    cpu_toml = ('allow_override = true\n[group.textembed]\nconfig.device = "cpu"\n'
+                '[group.textembed.inference_ids.mpnet-base]\nconfig.model_arch = "mpnet-base"\n')
+    out, built = {"part": "d_card_equals_cpu", "card": smi, "rows": BUILD_PAIR_ROWS}, {}
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
+        card = text_manager()
+        cpu = text_manager(cpu_toml, root)
+        try:
+            card.load_model(BUILD_MODEL, cache_key=BUILD_CACHE_KEY, lru_size=1, prewarm=True)
+            cpu.load_model(BUILD_MODEL, cache_key=BUILD_CACHE_KEY, lru_size=1)
+            cpu_impl, card_impl = cpu._models[BUILD_MODEL].model, card._models[BUILD_MODEL].model
+            require(cpu_impl.device.type == "cpu" and card_impl.device.type == dev.type,
+                    "extract pair: the registries' devices")
+            cpu_impl.params = _tree_to(card_impl.params, "cpu")
+            for name, manager in (("card", card), ("cpu", cpu)):
+                db = Database(Path(root) / name, "pair")
+                writer = IndexWriter(db)
+                index = VectorIndex()
+                try:
+                    writer.call(lambda conn: _bulk_seed(conn, BUILD_PAIR_ROWS, texts, 7))
+                    jobs = [(JobType.DATA_EXTRACTION, {"inference_id": BUILD_MODEL})]
+                    runners = extraction_runners(manager, db, writer, index)
+                    if name == "card":  # the device's idle share over a whole job
+                        wall, busy = busy_share(torch, lambda: run_jobs(runners, "pair", jobs))
+                        out.update({"card_job_wall_s": wall, "device_idle_share_job": 1 - busy})
+                    else:
+                        t0 = time.perf_counter()
+                        run_jobs(runners, "pair", jobs)
+                        out["cpu_job_wall_s"] = time.perf_counter() - t0
+                    conn = db.reader()
+                    built[name] = (
+                        {t: conn.execute(f"SELECT * FROM {t} ORDER BY 1, 2").fetchall()
+                         for t in ("item_data", "setters", "extraction_errors",
+                                   "vector_quant_coverage")},
+                        index.snapshot(BUILD_MODEL))
+                finally:
+                    writer.close()
+        finally:
+            card.shutdown()
+            cpu.shutdown()
+    (card_t, card_s), (cpu_t, cpu_s) = built["card"], built["cpu"]
+    require(all(card_t[t] == cpu_t[t] for t in card_t if t != "vector_quant_coverage"),
+            "extract pair: item_data, setters or the ledger differ between the card and the CPU")
+    n = card_s.size
+    cos = cosines(card_s.vectors[:n], cpu_s.vectors[:n])
+    diff = np.abs(card_s.codes[:n].astype(np.int32) - cpu_s.codes[:n].astype(np.int32))
+    ulps = abs(int(np.float32(card_s.scale).view(np.int32)) - int(np.float32(cpu_s.scale).view(np.int32)))
+    require(n == cpu_s.size and np.array_equal(card_s.row_ids[:n], cpu_s.row_ids[:n]),
+            "extract pair: row ids differ")
+    require(float(cos.min()) >= 0.999, f"extract pair: min cosine card vs CPU {cos.min()}")
+    require(int(diff.max()) <= 1, f"extract pair: codes {int(diff.max())} apart")
+    # Each side's scale is its own absmax / 127, exactly; the two absmaxes
+    # are one embedding component computed on two devices through bf16
+    # linears, as far apart as any component (0.08-0.21 % between an H100
+    # and its host's CPU).
+    for snap in (card_s, cpu_s):
+        require(snap.scale == codec.scale_from_absmax(codec.corpus_absmax(snap.vectors[:n])),
+                "extract pair: a scale is not its corpus absmax / 127")
+    rel = abs(card_s.scale - cpu_s.scale) / cpu_s.scale
+    require(rel <= 2.0 ** -6, f"extract pair: scales {card_s.scale} and {cpu_s.scale} differ by {rel}")
+    # Coverage rows equal but for the artifact (column 3), each its scale.
+    require([r[:3] + r[4:] for r in card_t["vector_quant_coverage"]]
+            == [r[:3] + r[4:] for r in cpu_t["vector_quant_coverage"]],
+            "extract pair: coverage rows differ beyond the artifact")
+    require(n > BUILD_PAIR_ROWS, f"extract pair: {n} rows for {BUILD_PAIR_ROWS} texts: none chunked")
+    out.update({"chunk_rows": n, "min_cosine_card_vs_cpu": float(cos.min()),
+                "max_code_diff": int(diff.max()), "codes_differing": int((diff > 0).sum()),
+                "scales": [card_s.scale, cpu_s.scale], "scale_ulps_apart": ulps,
+                "scale_rel_diff": rel, "tables_equal": True})
+    return out
+
+
 def cosines(a, b):
     return np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
 
@@ -1720,10 +2259,21 @@ def main() -> int:
                       if "registers" in ln or "spill" in ln],
         }
 
+    def build_host_codec():
+        t0 = time.perf_counter()
+        _build.build_host("host_codec")
+        return "host_codec", {"seconds": time.perf_counter() - t0,
+                              "library": _build.host_library_path("host_codec").name}
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        host = pool.submit(build_host_codec)
         build = dict(pool.map(build_one, ("int8_scan", "attention", "ln_quant")))
+        build.update([host.result()])
     build_s = time.perf_counter() - t0
+    # The native host codec is required here: the index builds of phases 4
+    # and 11 quantize through it.
+    require(codec.native_available(), "host_codec: the native host codec did not build or load")
     # Both scans' dots on the tensor cores: each form of B1's and B2's
     # kernels holds IMMA (mma.sync) or IGMMA (wgmma) instructions, and none
     # holds IDP4A (the CUDA cores' four-way int8 dot).
@@ -2071,19 +2621,30 @@ def main() -> int:
             "image embeddings unit norm")
     img_per_s = (N_IMAGES - IMAGE_BATCH) / t_embed
 
-    t0 = time.perf_counter()
-    index = VectorIndex()
-    index.reserve("clip", N_ROWS, DIM)
-    index.add("clip", np.arange(N_IMAGES), np.arange(N_IMAGES), img_emb.cpu().numpy())
-    fill_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    step = 131_072
-    for lo in range(N_IMAGES, N_ROWS, step):
-        hi = min(lo + step, N_ROWS)
-        rows = torch.randn((hi - lo, DIM), generator=fill_gen, device=dev)
-        rows = rows / torch.linalg.norm(rows, dim=1, keepdim=True)
-        index.add("clip", np.arange(lo, hi), np.arange(lo, hi), rows.cpu().numpy())
-    scale = index.build_quant("clip")
-    host_build_s = time.perf_counter() - t0
+    # The host index build through the native codec, then through its NumPy
+    # path on the same rows: codes equal bit for bit.
+    img_np = img_emb.cpu().numpy()
+    before = dict(codec.native_calls)
+    index, scale, host_build_s = host_index_build(torch, dev, img_np)
+    native_quant_calls = {k: codec.native_calls[k] - before[k] for k in before}
+    require(codec.native_available() and native_quant_calls["quantize"] > 0,
+            f"host index build: the native codec was not used {native_quant_calls}")
+    with numpy_codec(codec):
+        np_index, np_scale, host_build_numpy_s = host_index_build(torch, dev, img_np)
+    snap_n, snap_p = index.snapshot("clip"), np_index.snapshot("clip")
+    require(np_scale == scale and np.array_equal(snap_n.codes[:N_ROWS], snap_p.codes[:N_ROWS]),
+            "host index build: native codes differ from the NumPy path's")
+    del np_index, snap_p
+    quant_s = {"native": [], "numpy": []}
+    for path in ("native", "numpy", "numpy", "native"):
+        index.drop_quant("clip")
+        with numpy_codec(codec) if path == "numpy" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            require(index.build_quant("clip") == scale, "build_quant: the scale changed")
+            quant_s[path].append(time.perf_counter() - t0)
+    require(np.array_equal(index.snapshot("clip").codes[:N_ROWS], snap_n.codes[:N_ROWS]),
+            "host index build: codes changed on a rebuild")
+    del snap_n
     t0 = time.perf_counter()
     dindex = DeviceIndex(index, "clip", dev)
     torch.cuda.synchronize()
@@ -2180,7 +2741,11 @@ def main() -> int:
           **{"int8_topk_1m_q1_k80_" + key: value
              for key, value in scan_roofline(codes_1m_q1, K * OVERSAMPLE).items()},
           "int8_topk_1m_q1_gemm_only_ms": gemm_only_ms(torch, codes_1m_q1, reps=20),
-          "host_index_build_s": host_build_s, "upload_s": upload_s})
+          "host_index_build_s": host_build_s, "host_index_build_numpy_s": host_build_numpy_s,
+          "host_codec_native_calls": native_quant_calls, "native_codes_equal_numpy": True,
+          "build_quant_s_native_numpy_numpy_native": [quant_s["native"][0], quant_s["numpy"][0],
+                                                      quant_s["numpy"][1], quant_s["native"][1]],
+          "upload_s": upload_s})
     del params, img_emb, embeds, codes_1m, codes_1m_q1, txt_emb
 
     # 6. The batched search on the same index. Counters start at zero here.
@@ -2249,8 +2814,29 @@ def main() -> int:
     emit({"phase": "text", "launches": text_launches, "attention_routes": text_routes,
           "embed": text_run, "hybrid": hybrid, "db": text_db})
 
+    # 11. The build path: (a) N_BUILD OCR rows embedded by mpnet-base through
+    # the JobQueue, run_extraction_job and the reconcile, (b) hard checks on
+    # what was built, (c) the built space searched through Executor.execute,
+    # (d) a build on the card and on the CPU. Counters start at zero here.
+    del text_mgr
+    torch.cuda.empty_cache()
+    reset_counts(counters)
+    extract = extract_path(torch, dev, smi, counters)
+    torch.cuda.empty_cache()
+    extract.append(extract_pair_path(torch, dev, smi))
+    extract_launches = {fn.__name__: fn.launches for fn in counters}
+    extract_routes = read_routes(counters)
+    require(extract_launches["mha"] > 0 and extract_launches["int8_topk"] > 0,
+            f"build path kernel launches {extract_launches}")
+    require_tensor_cores(extract_launches, extract_routes, ("mha",), "build path")
+    for record in extract:
+        emit({"phase": "extract", **record})
+    emit({"phase": "extract", "part": "launches", "launches": extract_launches,
+          "attention_routes": extract_routes})
+
     runs = ((launches, routes), (batch_launches, batch_routes), (composed_launches, composed_routes),
-            (l14_launches, l14_routes), (pql_launches, pql_routes), (text_launches, text_routes))
+            (l14_launches, l14_routes), (pql_launches, pql_routes), (text_launches, text_routes),
+            (extract_launches, extract_routes))
     total = {name: sum(run[0][name] for run in runs) for name in launches}
     total_routes = {name: {path: sum(run[1][name][path] for run in runs) for path in routes[name]}
                     for name in routes}
@@ -2261,7 +2847,8 @@ def main() -> int:
                             composed["int8_topk_max_abs_err"], l14_scan_err,
                             *(r["b1_k40_max_abs_err"]
                               for r in or3["per_space_recall_at_10_and_b1"].values()),
-                            hybrid["recall_at_10_and_b1"]["b1_k40_max_abs_err"]),
+                            hybrid["recall_at_10_and_b1"]["b1_k40_max_abs_err"],
+                            extract[2]["b1_k40_max_abs_err"]),
          "ms": scan_ms, "plain_ms": scan_plain_ms, **scan_bound, "library_ms": None},
         {"name": "int8_topk_v2", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:321", "launches": total["int8_topk_v2"],

@@ -16,9 +16,13 @@ Two halves, bit-identical to each other and to the JAX package's codec:
 
 - the host half (NumPy: scale derivation, the scale artifact,
   :func:`quantize_int8_host` for index builds) is the port's own copy of the
-  reference's NumPy path. The reference's optional C++ path
-  (``panoptikon_tpu.native``) is left out: the NumPy path is its semantic
-  reference;
+  reference's host path: :func:`corpus_absmax` and
+  :func:`quantize_int8_host` stream through the native C++ codec
+  (``panoptikon_tpu_torch.native``, built at first use with the host
+  compiler) where it builds, as the reference's ``_native()`` does, and
+  keep the NumPy path where it does not; the NumPy path stays the semantic
+  reference (the two agree bit for bit). :data:`native_calls` counts the
+  calls that took the native path;
 - the tensor half: :func:`quantize_int8` is ``clamp(rint(x / s), -128,
   127)`` with round-half-to-even (``torch.round``), NaN mapped to 0 by an
   explicit select before the cast (a float->int8 cast of NaN is undefined),
@@ -52,6 +56,33 @@ ARTIFACT_MIN_VECTORS = 1024
 _ABSMAX_CHUNK_BYTES = 32 << 20
 _QUANT_WHOLE_MAX_BYTES = 256 << 20
 _QUANT_CHUNK_BYTES = 64 << 20
+
+_native_mod = None
+_native_checked = False
+# Calls of corpus_absmax and quantize_int8_host that took the native path.
+native_calls = {"absmax": 0, "quantize": 0}
+
+
+def _native():
+    """The C++ host codec (``panoptikon_tpu_torch.native``), built lazily
+    once per process; None without a host compiler or library, and every
+    caller then keeps its NumPy path."""
+    global _native_mod, _native_checked
+    if not _native_checked:
+        _native_checked = True
+        try:
+            from panoptikon_tpu_torch import native as n
+
+            if n.ensure_built():
+                _native_mod = n
+        except Exception:
+            _native_mod = None
+    return _native_mod
+
+
+def native_available() -> bool:
+    """Whether the host half runs through the native codec."""
+    return _native() is not None
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +130,11 @@ def corpus_absmax(vectors: np.ndarray, valid: np.ndarray | None = None) -> float
     x = np.asarray(vectors)
     if x.size == 0:
         return 0.0
+    n = _native()
+    if n is not None and valid is None and x.dtype == np.float32 and x.flags["C_CONTIGUOUS"]:
+        # One streaming native pass, no |x| temporary.
+        native_calls["absmax"] += 1
+        return float(n.absmax(x))
     if x.ndim < 2 or x.nbytes <= _ABSMAX_CHUNK_BYTES:
         x32 = x.astype(np.float32, copy=False)
         if valid is not None:
@@ -128,6 +164,12 @@ def quantize_int8_host(
         raise ValueError(
             f"out must be int8 with shape {x.shape}, got {out.dtype}/{out.shape}"
         )
+    n = _native()
+    if n is not None and x.flags["C_CONTIGUOUS"]:
+        dst = out if out is not None else np.empty(x.shape, dtype=np.int8)
+        if n.quantize_int8_into(x, dst, scale):
+            native_calls["quantize"] += 1
+            return dst
     if x.ndim >= 2 and x.shape[0] and (x.nbytes > _QUANT_WHOLE_MAX_BYTES or out is not None):
         if out is None:
             out = np.empty(x.shape, dtype=np.int8)

@@ -1,9 +1,12 @@
 """The port's copies of the JAX package's host modules against their
-originals, on the same seeded inputs: the host codec, ``VectorIndex``,
+originals, on the same seeded inputs: the host codec (its NumPy path and
+the native C++ library, built here with g++), ``VectorIndex``,
 ``utils.npy``, ``models.batching`` and ``models.base``; and, by ``ast.dump``,
-every host function of the copied ``pql/``, ``db/`` and ``models/`` modules
-(the registry, discovery, the manager, the checkpoint mappings, the text
-chunking contract and the fixture impls) and the built-in registry TOML.
+every host function of the copied ``pql/``, ``db/``, ``jobs/`` and
+``models/`` modules (the registry, discovery, the manager, the checkpoint
+mappings, the text chunking contract and the fixture impls), the native
+codec's bindings, and the built-in registry TOML; ``csrc/host_codec.cpp``
+text for text.
 The port imports nothing of ``panoptikon_tpu``; only this test imports
 both."""
 
@@ -248,9 +251,13 @@ def test_error_slots_match():
 REPO = Path(__file__).resolve().parent.parent
 
 # Functions and methods of the copies that the port rewrote: the units that
-# touch the device, and ``packaged_builtin_dir``, which finds the port's own
-# resources. ``ported`` are the reference's units the port rewrote or left
-# out (the sharded program waits for multi-GPU); ``added`` the port's own.
+# touch the device, ``packaged_builtin_dir``, which finds the port's own
+# resources, the native codec's build and load, which find the port's own
+# library (built from csrc/host_codec.cpp into build/torch_kernels/), and
+# the extraction job's text work query, which the port repairs.
+# ``ported`` are the reference's units the port rewrote or left out (the
+# sharded program waits for multi-GPU); ``added`` the port's own. A
+# module-level assignment is named ``<target>``.
 DEVICE_UNITS = {
     "pql/executor.py": {
         "ported": {
@@ -266,11 +273,21 @@ DEVICE_UNITS = {
     },
     "pql/fused.py": {"ported": {"_rrf_device_eligible"}, "added": set()},
     "models/registry.py": {"ported": {"packaged_builtin_dir"}, "added": set()},
+    "native/__init__.py": {"ported": {"ensure_built", "_load", "<_DIR>", "<_LIB_PATH>"},
+                           "added": {"<_NAME>"}},
+    # The derived-data work query with its index hint (the reference's plan
+    # is quadratic in a build: test_torch_jobs.py holds the rows equal).
+    "jobs/extraction.py": {"ported": {"_unprocessed_text"}, "added": set()},
 }
+# Names the port gives otherwise: the port's NumPy quantizer is
+# ``ops.codec.quantize_int8_host`` (its ``quantize_int8`` is the tensor one).
+RENAMED = {"native/__init__.py": {r"\bcodec\.quantize_int8\(": "codec.quantize_int8_host("}}
+JOBS = ("jobs/queue.py", "jobs/index_sync.py", "jobs/reconcile.py", "jobs/extraction.py",
+        "jobs/input_handlers.py", "jobs/outro.py", "jobs/media.py", "jobs/scan.py")
 HOST_COPIES = ("pql/executor.py", "pql/fused.py", "pql/model.py", "pql/preprocess.py",
                "db/schema.py", "db/connection.py", "db/epochs.py", "db/store.py", "db/writer.py",
                "db/bulk.py", "utils/splitmix.py", "models/registry.py", "models/discovery.py",
-               "models/manager.py", "resources/__init__.py")
+               "models/manager.py", "resources/__init__.py", *JOBS, "native/__init__.py")
 # Modules of the port that copy some of a reference module's units beside
 # device code of their own: the units named here must equal the
 # reference's. ``weights.load_state_dict`` differs: it names the missing
@@ -303,8 +320,24 @@ def _units(source: str) -> dict:
             units[f"{node.name}.<body>"] = "\n".join(rest + [ast.dump(d) for d in node.decorator_list])
         elif not isinstance(node, (ast.Import, ast.ImportFrom)) and not (
                 isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)):
-            units[f"<{ast.dump(node)[:80]}>"] = ast.dump(node)
+            targets = node.targets if isinstance(node, ast.Assign) else [getattr(node, "target", None)]
+            key = f"<{ast.dump(node)[:80]}>"
+            if isinstance(node, (ast.Assign, ast.AnnAssign)) and all(
+                    isinstance(t, ast.Name) for t in targets):
+                named = f"<{', '.join(t.id for t in targets)}>"
+                key = key if named in units else named
+            units[key] = ast.dump(node)
     return units
+
+
+def _reference_units(rel: str) -> dict:
+    """The reference's units with ``panoptikon_tpu.`` read as
+    ``panoptikon_tpu_torch.`` and the port's renames applied."""
+    src = re.sub(r"\bpanoptikon_tpu\.", "panoptikon_tpu_torch.",
+                 (REPO / "panoptikon_tpu" / rel).read_text())
+    for pattern, repl in RENAMED.get(rel, {}).items():
+        src = re.sub(pattern, repl, src)
+    return _units(src)
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)
@@ -313,8 +346,7 @@ def test_host_code_is_the_reference_s(rel):
     # reference's once `panoptikon_tpu.` reads `panoptikon_tpu_torch.`; only
     # the device units listed above differ. A later edit to either side
     # shows here instead of drifting.
-    ref_src = (REPO / "panoptikon_tpu" / rel).read_text()
-    want = _units(re.sub(r"\bpanoptikon_tpu\.", "panoptikon_tpu_torch.", ref_src))
+    want = _reference_units(rel)
     got = _units((REPO / "panoptikon_tpu_torch" / rel).read_text())
     device = DEVICE_UNITS.get(rel, {"ported": set(), "added": set()})
     assert device["ported"] <= want.keys() and not device["added"] & want.keys()
@@ -571,3 +603,114 @@ def test_preprocess_resolves_vectors_like_the_reference():
             assert gq.scale == wq.scale
             np.testing.assert_array_equal(gq.query_quant, wq.query_quant)
     assert resolved[0][0][1] is not None and resolved[0][1][1] is None
+
+
+# ---------------------------------------------------------------------------
+# The native host codec: csrc/host_codec.cpp, built with the host compiler
+# into build/torch_kernels/, against the NumPy path and the JAX package's
+# native library (tests/test_native.py's inputs).
+# ---------------------------------------------------------------------------
+
+
+def test_host_codec_source_is_the_reference_s():
+    assert (REPO / "panoptikon_tpu_torch/csrc/host_codec.cpp").read_text() == \
+        (REPO / "panoptikon_tpu/native/codec.cpp").read_text()
+
+
+@pytest.fixture(scope="module")
+def natives():
+    from panoptikon_tpu import native as ref_native
+    from panoptikon_tpu_torch import _build
+    from panoptikon_tpu_torch import native
+
+    assert native.ensure_built() and native.available()
+    assert _build.host_library_path("host_codec").parent == _build.BUILD_DIR
+    assert ref_native.ensure_built()
+    return native, ref_native
+
+
+def _numpy_path(monkeypatch):
+    monkeypatch.setattr(codec, "_native", lambda: None)
+
+
+def test_native_absmax_matches_numpy_and_the_reference(natives, monkeypatch):
+    native, ref_native = natives
+    rng = np.random.default_rng(0)
+    data = rng.normal(size=4096).astype(np.float32) * 7
+    data[17] = np.nan
+    edges = _edge_rows(0.5)
+    for arr in (data, edges, edges[:, 1:], data[:0]):
+        got = native.absmax(arr)
+        assert got == ref_native.absmax(arr)
+        before = dict(codec.native_calls)
+        via_codec = codec.corpus_absmax(arr)
+        streamed = arr.size > 0 and arr.flags["C_CONTIGUOUS"]  # else the NumPy path
+        assert codec.native_calls["absmax"] == before["absmax"] + streamed
+        with monkeypatch.context() as m:
+            _numpy_path(m)
+            assert codec.corpus_absmax(arr) == via_codec
+        if np.isfinite(arr).all():
+            assert got == via_codec == ref_codec.corpus_absmax(arr)
+    assert native.absmax(data) == codec.corpus_absmax(data) == ref_codec.corpus_absmax(data)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.01, 123.0, 0.5, 3e-20])
+def test_native_quantize_matches_numpy_and_the_reference(natives, monkeypatch, scale):
+    native, ref_native = natives
+    rng = np.random.default_rng(1)
+    data = rng.normal(size=(128, 64)).astype(np.float32) * 3
+    data[0, :5] = [0.5, 1.5, -2.5, np.nan, 1e9]
+    for arr in (data, _edge_rows(scale), _edge_rows(1.0)):
+        got = native.quantize_int8(arr, scale)
+        np.testing.assert_array_equal(got, ref_native.quantize_int8(arr, scale))
+        before = codec.native_calls["quantize"]
+        out = np.full(arr.shape, 99, np.int8)
+        assert codec.quantize_int8_host(arr, scale, out=out) is out
+        assert codec.native_calls["quantize"] == before + 1
+        np.testing.assert_array_equal(out, got)
+        with monkeypatch.context() as m:
+            _numpy_path(m)
+            np.testing.assert_array_equal(codec.quantize_int8_host(arr, scale), got)
+        np.testing.assert_array_equal(ref_codec.quantize_int8(arr, scale), got)
+
+
+def test_native_dequantize_sumsq_and_mix_match(natives):
+    from panoptikon_tpu.utils import splitmix as ref_mix
+    from panoptikon_tpu_torch.utils import splitmix
+
+    native, ref_native = natives
+    codes = np.random.default_rng(2).integers(-128, 128, size=(16, 32), dtype=np.int8)
+    got = native.dequantize_int8(codes, 0.02)
+    np.testing.assert_array_equal(got, ref_native.dequantize_int8(codes, 0.02))
+    np.testing.assert_array_equal(got, codec.dequantize_int8_host(codes, 0.02))
+    codes = np.random.default_rng(3).integers(-128, 128, size=(64, 96), dtype=np.int8)
+    sums = native.row_sumsq_int8(codes)
+    np.testing.assert_array_equal(sums, ref_native.row_sumsq_int8(codes))
+    np.testing.assert_array_equal(sums, np.sum(codes.astype(np.int32) ** 2, axis=1))
+    ids = np.array([0, 1, 42, 2**40, -1], dtype=np.int64)
+    for seed in (0, 7, -3, 2**52):
+        mixed = native.pk_mix_array(ids, seed)
+        np.testing.assert_array_equal(mixed, ref_native.pk_mix_array(ids, seed))
+        np.testing.assert_array_equal(mixed, splitmix.pk_mix_array(ids, seed))
+        np.testing.assert_array_equal(mixed, ref_mix.pk_mix_array(ids, seed))
+
+
+def test_native_build_is_keyed_and_falls_back_without_a_compiler(natives, monkeypatch):
+    # The library's name carries a hash of the source, the flags and the
+    # processor's target macros; without g++ nothing builds, the bindings
+    # and the codec keep their NumPy paths.
+    from panoptikon_tpu_torch import _build
+    from panoptikon_tpu_torch import native
+
+    path = _build.host_library_path("host_codec")
+    assert path.exists() and path.name.startswith("host_codec-") and path.suffix == ".so"
+    assert "-march=native" in _build.HOST_CXX_FLAGS and "-shared" in _build.HOST_CXX_FLAGS
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "_host_target", lambda: b"another processor")
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        _build.build_host("host_codec")
+    monkeypatch.setattr(native, "_lib", None)
+    assert not native.ensure_built() and not native.available()
+    x = np.array([[0.5, -1.5, np.nan, 300.0]], np.float32)
+    np.testing.assert_array_equal(native.quantize_int8(x, 1.0), [[0, -2, 0, 127]])
+    assert native.absmax(x) == 300.0

@@ -47,7 +47,9 @@ def test_every_port_module_imports_without_jax():
                  "models.base", "models.batching", "utils.npy", "ops.fusion", "pql.executor",
                  "pql.fused", "pql.model", "pql.preprocess", "db.store", "db.writer",
                  "utils.splitmix", "models.text_embed", "models.weights", "models.registry",
-                 "models.discovery", "models.manager", "db.bulk", "resources"):
+                 "models.discovery", "models.manager", "db.bulk", "resources", "native",
+                 "jobs.queue", "jobs.index_sync", "jobs.reconcile", "jobs.extraction",
+                 "jobs.input_handlers", "jobs.outro", "jobs.media", "jobs.scan"):
         assert f"panoptikon_tpu_torch.{name}" in names
 
 
