@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's search core, serving embed, PQL pages, text search
-and the index build path once on one NVIDIA GPU.
+"""Drive the PyTorch port's search core, serving embed, PQL pages, text search,
+the index build path and the audio path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -152,8 +152,32 @@ Phases, one JSON line each:
             chunks) built by the job on the card and on the CPU (the
             registry's device "cpu"): equal tables, cosine ≥ 0.999, codes at
             most one apart.
+12. audio   the audio path (ROADMAP A.11): (a) 256 WAV files made from the
+            seed (tones, chirps, noise bursts; 2-60 s log-uniform; one in
+            eight at 44.1 kHz stereo) scanned by jobs/scan.py, then
+            whisper/whisper-base (batch 4, 64 tokens) and clap/clap-base
+            (batch 8) loaded through the model manager with prewarm, their
+            DATA_EXTRACTION jobs and VECTOR_QUANT_RECONCILE on the JobQueue:
+            files/s, audio seconds/s and the split of each job, B3's
+            launches by route; (b) a transcript for every item (a language,
+            0 < confidence ≤ 1, found by FTS5), a unit CLAP vector for every
+            item, the CLAP space checked as 11(b); (c) through
+            Executor.execute a match_text page on a transcript's token
+            (every item holding it), a similar_to page ranking its item
+            first, the rescored recall@10 over the CLAP space ≥ 0.99 with B1
+            equal to its plain version; (d) one whisper window split into
+            log-mel, encode, language probe and decode steps, and the card's
+            busy share over it; (e) 8 files through both impls on the card
+            and on the CPU (the card's weights copied): CLAP and the encoder
+            at cosine ≥ 0.999 a row, language probabilities within 2e-3,
+            teacher-forced decoder logits at cosine ≥ 0.999 with the argmax
+            equal where the margin is wide and the CPU's free-running tokens
+            equal up to the first narrow margin; (f) B3 at the path's four
+            shapes (whisper's encoder B 4 × N 1,500, the probe's cross N_q 1
+            × N_kv 1,500 and causal N 1, CLAP B 8 × N 320; H 8, D 64) against
+            its plain version, timed beside SDPA and the bound.
 
-Each main path (phases 4-5, 6, 8, 7, 9, 10 and 11) runs with the launch counters (and
+Each main path (phases 4-5, 6, 8, 7, 9, 10, 11 and 12) runs with the launch counters (and
 the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
@@ -255,6 +279,23 @@ TEXT_DB_ITEMS, TEXT_DB_LONG_WORDS = 2000, 2200
 BUILD_MODEL, BUILD_CACHE_KEY = "textembed/mpnet-base", "build"
 N_BUILD, BUILD_WORDS, BUILD_DATA_OFFSET = 32_768, (4, 1024), 1_000_000
 BUILD_QUERIES, BUILD_PAIR_ROWS, BUILD_PAIR_WORDS, BUILD_PAIR_LONG = 32, 256, (4, 32), 600
+# Phase 12 (audio, ROADMAP A.11): AUDIO_FILES seeded WAV files (seconds
+# log-uniform in AUDIO_SECONDS, one in AUDIO_STEREO_EVERY at 44.1 kHz stereo)
+# scanned, then transcribed by WHISPER_MODEL and embedded by CLAP_MODEL
+# through the JobQueue (the registry's batches, 4 and 8); AUDIO_RECALL_Q
+# stored CLAP vectors as recall queries; AUDIO_PAIR_FILES of them through
+# both impls on the card and on the CPU, language probabilities within
+# AUDIO_PROB_ATOL; B3 at the shapes the path gives it.
+AUDIO_FILES, AUDIO_SECONDS, AUDIO_STEREO_EVERY, AUDIO_RECALL_Q = 256, (2.0, 60.0), 8, 32
+WHISPER_MODEL, CLAP_MODEL, AUDIO_CACHE_KEY = "whisper/whisper-base", "clap/clap-base", "audio"
+AUDIO_PAIR_FILES, AUDIO_PROB_ATOL = 8, 2e-3
+AUDIO_ATTN_CASES = {
+    # name: (b, n_q, n_kv, h, d, causal, q/k/v views of one fused qkv)
+    "whisper_base_encoder": (4, 1500, 1500, 8, 64, False, True),
+    "whisper_probe_cross": (4, 1, 1500, 8, 64, False, False),
+    "whisper_probe_causal": (4, 1, 1, 8, 64, True, True),
+    "clap_base": (8, 320, 320, 8, 64, False, False),
+}
 # Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): the least
 # time a kernel could take is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
@@ -1958,53 +1999,58 @@ def _extract_build(torch, dev, smi, counters, db, writer, index, manager, texts)
     }
 
 
-def _extract_checks(db, writer, index, report, dim: int) -> dict:
-    """Phase 11(b): the job's report, the coverage row, the codes against
-    the host codec of the vectors stored in SQLite, weights, ownership, and
-    a fresh index synced from the DB equal to the built one."""
+def _extract_checks(db, writer, index, report, dim: int, space: str = BUILD_MODEL,
+                    n_items: int = N_BUILD, weight: float = 0.8 * 0.9,
+                    data_offset: int | None = BUILD_DATA_OFFSET) -> dict:
+    """Phase 11(b) (and 12(b) over the CLAP space): the job's report, the
+    coverage row, the codes against the host codec of the vectors stored in
+    SQLite, weights, ownership (with ``data_offset``, each row sourced from
+    its item's text row that many ids apart), and a fresh index synced from
+    the DB equal to the built one."""
     from panoptikon_tpu_torch.db import store
     from panoptikon_tpu_torch.index import VectorIndex
     from panoptikon_tpu_torch.jobs import index_sync, reconcile
     from panoptikon_tpu_torch.ops import codec
 
-    require(report.processed == N_BUILD and report.input_errors == 0
+    require(report.processed == n_items and report.input_errors == 0
             and report.transient_errors == 0,
             f"extract: processed {report.processed}, errors {report.input_errors} input, "
             f"{report.transient_errors} transient")
     conn = db.reader()
     rows = conn.execute("SELECT COUNT(*) FROM embeddings e JOIN item_data d ON d.id = e.id"
                         " JOIN setters s ON s.id = d.setter_id WHERE s.name = ?",
-                        (BUILD_MODEL,)).fetchone()[0]
+                        (space,)).fetchone()[0]
     status = reconcile.coverage_status(db)
-    require(status == [{"profile": "int8", "setter": BUILD_MODEL, "state": "ready",
+    require(status == [{"profile": "int8", "setter": space, "state": "ready",
                         "artifact_rev": 1, "n_at_artifact": rows, "dim": dim}],
             f"extract: coverage {status}, {rows} rows")
-    snap = index.snapshot(BUILD_MODEL)
+    snap = index.snapshot(space)
     n = snap.size
     require(snap.quant_ready and n == rows == report.segments, f"extract: snapshot of {n} rows")
     artifact = conn.execute("SELECT artifact FROM vector_quant_coverage").fetchone()[0]
     scale = codec.artifact_scale(artifact)
-    data_ids, item_ids, vectors, weights = store.load_embedding_space(conn, BUILD_MODEL,
-                                                                     limit=rows + 1)
+    data_ids, item_ids, vectors, weights = store.load_embedding_space(conn, space, limit=rows + 1)
     require(np.array_equal(data_ids, snap.row_ids[:n]) and np.array_equal(vectors, snap.vectors[:n]),
             "extract: the index rows are not the stored rows in row-id order")
     require(scale == snap.scale == codec.scale_from_absmax(codec.corpus_absmax(vectors)),
             f"extract: scale {snap.scale}, artifact {scale}")
     require(np.array_equal(codec.quantize_int8_host(vectors, scale), snap.codes[:n]),
             "extract: codes differ from the host codec of the stored vectors")
-    want_w = np.float32(0.8 * 0.9)
+    want_w = np.float32(weight)
     require(bool((snap.weights[:n] == want_w).all() and (weights == want_w).all()),
-            "extract: a row's weight is not 0.8 x 0.9")
-    strays = conn.execute(
-        """SELECT COUNT(*) FROM item_data e JOIN setters s ON s.id = e.setter_id
-           JOIN item_data t ON t.id = e.source_id
-           WHERE s.name = ? AND (e.item_id != t.item_id OR t.id != t.item_id + ?)""",
-        (BUILD_MODEL, BUILD_DATA_OFFSET)).fetchone()[0]
+            f"extract: a row's weight is not {weight}")
+    strays = 0
+    if data_offset is not None:
+        strays = conn.execute(
+            """SELECT COUNT(*) FROM item_data e JOIN setters s ON s.id = e.setter_id
+               JOIN item_data t ON t.id = e.source_id
+               WHERE s.name = ? AND (e.item_id != t.item_id OR t.id != t.item_id + ?)""",
+            (space, data_offset)).fetchone()[0]
     owners = conn.execute(
         "SELECT COUNT(DISTINCT d.item_id) FROM item_data d JOIN setters s ON s.id = d.setter_id"
-        " WHERE s.name = ?", (BUILD_MODEL,)).fetchone()[0]
-    require(strays == 0 and owners == N_BUILD, f"extract: {strays} rows not owned by their item")
-    built_items = index.item_id_of_groups(BUILD_MODEL, snap.group_ids[:n])
+        " WHERE s.name = ?", (space,)).fetchone()[0]
+    require(strays == 0 and owners == n_items, f"extract: {strays} rows not owned by their item")
+    built_items = index.item_id_of_groups(space, snap.group_ids[:n])
     require(np.array_equal(built_items, item_ids), "extract: index item ids differ from the DB's")
     # The server's startup path: a fresh index from SQLite, its quant arm
     # under the frozen artifact.
@@ -2013,10 +2059,10 @@ def _extract_checks(db, writer, index, report, dim: int) -> dict:
     added = index_sync.sync_all(db, fresh)
     sync_s = time.perf_counter() - t0
     reconcile.run_reconcile(db, writer, fresh)
-    fsnap = fresh.snapshot(BUILD_MODEL)
-    require(added == {BUILD_MODEL: n} and fsnap.size == n and fsnap.scale == scale
+    fsnap = fresh.snapshot(space)
+    require(added == {space: n} and fsnap.size == n and fsnap.scale == scale
             and np.array_equal(fsnap.row_ids[:n], snap.row_ids[:n])
-            and np.array_equal(fresh.item_id_of_groups(BUILD_MODEL, fsnap.group_ids[:n]), built_items)
+            and np.array_equal(fresh.item_id_of_groups(space, fsnap.group_ids[:n]), built_items)
             and np.array_equal(fsnap.weights[:n], snap.weights[:n])
             and np.array_equal(fsnap.codes[:n], snap.codes[:n]),
             "extract: the index synced from the DB differs from the built one")
@@ -2205,6 +2251,455 @@ def extract_pair_path(torch, dev, smi) -> dict:
                 "scales": [card_s.scale, cpu_s.scale], "scale_ulps_apart": ulps,
                 "scale_rel_diff": rel, "tables_equal": True})
     return out
+
+
+def write_audio_folder(root: Path, n: int, seed: int) -> list:
+    """n seeded WAV files under ``root``: tones, linear chirps and noise
+    bursts by turn, seconds log-uniform in AUDIO_SECONDS, 16 kHz mono int16
+    but for one in AUDIO_STEREO_EVERY at 44.1 kHz stereo (decode_wav's
+    downmix and resample). Returns [(path, seconds, stereo)]."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    lo, hi = AUDIO_SECONDS
+    out = []
+    for i, seconds in enumerate(np.exp(rng.uniform(np.log(lo), np.log(hi), size=n))):
+        stereo = i % AUDIO_STEREO_EVERY == AUDIO_STEREO_EVERY - 1
+        rate = 44_100 if stereo else 16_000
+        t = np.arange(int(seconds * rate), dtype=np.float64) / rate
+        if i % 3 == 0:
+            sig = 0.5 * np.sin(2 * np.pi * rng.uniform(80, 4000) * t)
+        elif i % 3 == 1:
+            f0, f1 = rng.uniform(80, 6000, size=2)
+            sig = 0.4 * np.sin(2 * np.pi * (f0 + (f1 - f0) * t / (2 * seconds)) * t)
+        else:
+            gate = np.floor(t * rng.uniform(0.5, 4.0)) % 2 == 0
+            sig = 0.3 * rng.standard_normal(t.size) * gate
+        pcm = (np.clip(sig, -1.0, 1.0) * 32767).astype("<i2")
+        if stereo:
+            pcm = np.stack([pcm, pcm // 2], axis=1).reshape(-1)
+        path = root / f"clip{i:04d}.wav"
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(2 if stereo else 1)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes(pcm.tobytes())
+        out.append((path, t.size / rate, stereo))
+    return out
+
+
+def audio_path(torch, dev, smi, counters) -> list:
+    """Phase 12: (a) AUDIO_FILES seeded WAV files scanned, then the whisper
+    and clap DATA_EXTRACTION jobs and the quant reconcile on the JobQueue,
+    (b) the hard checks on what was built, (c) the transcripts and the CLAP
+    space searched through Executor.execute, (d) the split of one whisper
+    window. Returns the four records."""
+    import tempfile
+
+    from panoptikon_tpu_torch.db import store
+    from panoptikon_tpu_torch.db.connection import Database
+    from panoptikon_tpu_torch.db.writer import IndexWriter
+    from panoptikon_tpu_torch.index import VectorIndex
+    from panoptikon_tpu_torch.jobs import scan
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
+        folder = Path(root) / "audio"
+        folder.mkdir()
+        t0 = time.perf_counter()
+        clips = write_audio_folder(folder, AUDIO_FILES, SEED + 120)
+        write_s = time.perf_counter() - t0
+        db = Database(Path(root) / "db", "audio")
+        writer = IndexWriter(db)
+        manager = text_manager()
+        try:
+            index = VectorIndex()
+            writer.call(lambda conn: store.add_folder(conn, str(folder)))
+            t0 = time.perf_counter()
+            scanned = scan.rescan_folders(db, writer)
+            scan_s = time.perf_counter() - t0
+            require(scanned.new_files == AUDIO_FILES, f"audio: scanned {scanned.new_files} files")
+            built = _audio_build(torch, dev, smi, counters, db, writer, index, manager, clips)
+            built.update({"write_wav_s": write_s, "scan_s": scan_s})
+            checks = _audio_checks(db, writer, index, built.pop("reports"), built["clap_dim"])
+            search = _audio_search(torch, dev, smi, counters, db, index, manager)
+            window = _whisper_window(torch, smi, counters, manager, clips)
+        finally:
+            manager.shutdown()
+            writer.close()
+    return [built, checks, search, window]
+
+
+def _audio_build(torch, dev, smi, counters, db, writer, index, manager, clips) -> dict:
+    """Phase 12(a): both models loaded through the manager with prewarm,
+    then the whisper and clap jobs and the reconcile, each job's rates and
+    split."""
+    from panoptikon_tpu_torch.jobs import reconcile
+    from panoptikon_tpu_torch.jobs.queue import JobType
+    from panoptikon_tpu_torch.models import audio, whisper
+
+    t0 = time.perf_counter()
+    for model in (WHISPER_MODEL, CLAP_MODEL):
+        manager.load_model(model, cache_key=AUDIO_CACHE_KEY, lru_size=2, prewarm=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    stt, emb = manager._models[WHISPER_MODEL], manager._models[CLAP_MODEL]
+    require(stt.default_batch == 4 and stt.model.max_tokens == 64
+            and stt.model.cfg == whisper.CONFIGS["whisper-base"] and stt.model.device.type == dev.type,
+            f"audio: {WHISPER_MODEL} as the registry defines it")
+    require(emb.default_batch == 8 and emb.model.cfg == audio.CONFIGS["clap-base"]
+            and emb.model.device.type == dev.type, f"audio: {CLAP_MODEL} as the registry defines it")
+    quant_t = [0.0]
+    reconcile_space = reconcile.reconcile_space
+
+    def timed_reconcile(*a, **k):
+        q0 = time.perf_counter()
+        try:
+            return reconcile_space(*a, **k)
+        finally:
+            quant_t[0] += time.perf_counter() - q0
+
+    runners = extraction_runners(manager, db, writer, index)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reconcile.reconcile_space = timed_reconcile
+    try:
+        handles = run_jobs(runners, "audio", [
+            (JobType.DATA_EXTRACTION, {"inference_id": WHISPER_MODEL}),
+            (JobType.DATA_EXTRACTION, {"inference_id": CLAP_MODEL}),
+            (JobType.VECTOR_QUANT_RECONCILE, {})])
+        torch.cuda.synchronize()
+    finally:
+        reconcile.reconcile_space = reconcile_space
+    audio_s = sum(s for _, s, _ in clips)
+    window_s = sum(min(s, whisper.CHUNK_SECONDS) for _, s, _ in clips)
+    jobs, reports = {}, {}
+    for model, handle in zip((WHISPER_MODEL, CLAP_MODEL), handles):
+        report, wall = handle.result["report"], handle.result["wall_s"]
+        quant = quant_t[0] if model == CLAP_MODEL else 0.0
+        reports[model] = report
+        jobs[model] = {
+            "job_wall_s": wall, "processed": report.processed, "files_per_s": report.processed / wall,
+            "audio_s_per_s": audio_s / wall, "load_stall_s": report.data_load_time,
+            "inference_s": report.inference_time, "quant_reconcile_s": quant,
+            "db_index_writes_s": wall - report.data_load_time - report.inference_time - quant}
+    jobs[WHISPER_MODEL]["audio_s_in_30s_windows_per_s"] = window_s / jobs[WHISPER_MODEL]["job_wall_s"]
+    return {
+        "part": "a_build", "card": smi, "files": len(clips), "audio_seconds": audio_s,
+        "stereo_44k_files": sum(s for *_, s in clips), "seconds_range": AUDIO_SECONDS,
+        "load_and_prewarm_s": load_s, "clap_dim": emb.model.cfg.embed_dim, "jobs": jobs,
+        "reconcile_job_s": handles[2].result["wall_s"],
+        "b3_launches_by_route": read_routes(counters).get("mha", {}),
+        "launches": {fn.__name__: fn.launches for fn in counters},
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30, "reports": reports,
+    }
+
+
+def _audio_checks(db, writer, index, reports, dim: int) -> dict:
+    """Phase 12(b): a transcript row for every item (a language of
+    LANGUAGES, 0 < confidence ≤ 1, found through FTS5) and a unit CLAP
+    vector for every item, its space checked as phase 11's (codes equal to
+    the host codec of the stored vectors, sync_all equal to the built
+    index)."""
+    from panoptikon_tpu_torch.db import store
+    from panoptikon_tpu_torch.models import whisper
+
+    report = reports[WHISPER_MODEL]
+    require((report.processed, report.input_errors, report.transient_errors) == (AUDIO_FILES, 0, 0),
+            f"audio: whisper processed {report.processed}, {report.input_errors} input and "
+            f"{report.transient_errors} transient errors")
+    conn = db.reader()
+    rows = conn.execute(
+        """SELECT d.item_id, t.id, t.text, t.language, t.language_confidence, t.confidence
+           FROM extracted_text t JOIN item_data d ON d.id = t.id
+           JOIN setters s ON s.id = d.setter_id WHERE s.name = ?""", (WHISPER_MODEL,)).fetchall()
+    require(len(rows) == len({r[0] for r in rows}) == AUDIO_FILES,
+            f"audio: {len(rows)} transcripts for {AUDIO_FILES} items")
+    langs = set(whisper.LANGUAGES)
+    for item, tid, text, lang, lang_conf, conf in rows:
+        require(text and lang in langs and 0 < lang_conf <= 1 and 0 < conf <= 1,
+                f"audio: item {item}'s transcript {text[:40]!r} {lang} {lang_conf} {conf}")
+        hits = {r[0] for r in conn.execute(
+            "SELECT rowid FROM extracted_text_fts WHERE extracted_text_fts MATCH ?",
+            (f'"{text.split()[0]}"',))}
+        require(tid in hits, f"audio: FTS5 misses item {item}'s transcript")
+    clap = _extract_checks(db, writer, index, reports[CLAP_MODEL], dim, space=CLAP_MODEL,
+                           n_items=AUDIO_FILES, weight=1.0, data_offset=None)
+    _, _, vectors, _ = store.load_embedding_space(conn, CLAP_MODEL, limit=AUDIO_FILES + 1)
+    norms = np.linalg.norm(vectors, axis=1)
+    require(bool((np.abs(norms - 1) < 1e-3).all()), f"audio: CLAP norms {norms.min()}-{norms.max()}")
+    lengths = [len(r[2].split()) for r in rows]
+    return {"part": "b_checks", "transcripts": len(rows), "languages": sorted({r[3] for r in rows}),
+            "tokens_per_transcript": [min(lengths), float(np.mean(lengths)), max(lengths)],
+            "confidence_range": [min(r[5] for r in rows), max(r[5] for r in rows)],
+            "clap_norm_range": [float(norms.min()), float(norms.max())], "fts5_finds_each": True,
+            "clap": clap}
+
+
+def _audio_search(torch, dev, smi, counters, db, index, manager) -> dict:
+    """Phase 12(c): a match_text page on a token of one transcript holds
+    its item and every item whose transcript holds the token; a similar_to
+    page on one item over the CLAP space ranks that item first; the serving
+    path's rescored candidates over the CLAP space reach recall@10 ≥ 0.99
+    against the exact f32 top-10, B1 equal to its plain version."""
+    from panoptikon_tpu_torch.ops import codec, exact, int8_scan, scoring
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql.executor import Executor
+
+    conn = db.reader()
+    item, text, sha = conn.execute(
+        """SELECT d.item_id, t.text, i.sha256 FROM extracted_text t JOIN item_data d ON d.id = t.id
+           JOIN items i ON i.id = d.item_id ORDER BY d.item_id LIMIT 1""").fetchone()
+    token = text.split()[0]
+    holders = {r[0] for r in conn.execute(
+        "SELECT d.item_id FROM extracted_text t JOIN item_data d ON d.id = t.id"
+        " WHERE ' ' || t.text || ' ' LIKE ?", (f"% {token} %",))}
+    ex = Executor(db, index, manager=manager, device=str(dev))
+    t0 = time.perf_counter()
+    res = ex.execute(pql.PqlQuery.from_json(
+        {"query": {"match_text": {"match": f'"{token}"'}}, "page_size": AUDIO_FILES}))
+    fts_ms = 1e3 * (time.perf_counter() - t0)
+    found = {r["item_id"] for r in res.results}
+    require(item in found and found == holders,
+            f"audio search: match_text {token} found {len(found)} items, {len(holders)} hold it")
+    t0 = time.perf_counter()
+    res = ex.execute(pql.PqlQuery.from_json(
+        {"query": {"similar_to": {"target": sha, "model": CLAP_MODEL}}, "page_size": K}))
+    similar_ms = 1e3 * (time.perf_counter() - t0)
+    require(len(res.results) == K and res.results[0]["item_id"] == item,
+            f"audio search: similar_to ranks {[r['item_id'] for r in res.results[:3]]}, not {item}")
+    snap = index.snapshot(CLAP_MODEL)
+    n = snap.size
+    x = torch.from_numpy(snap.vectors[:n]).to(dev)
+    qt = x[:: max(1, n // AUDIO_RECALL_Q)][:AUDIO_RECALL_Q]
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    _, want_rows, _ = exact.topk_ascending(exact.pairwise_distance(x, qt), valid, K)
+    codes = torch.from_numpy(snap.codes[:n]).to(dev)
+    sumsq = scoring.row_sumsq(codes)
+    qc = codec.quantize_int8(qt, snap.scale)
+    _, got_rows, _ = scoring.int8_topk_rescored(codes, sumsq, valid, x, qc, qt, k=K, oversample=4,
+                                                distance="cosine", scale=snap.scale, rescore=True)
+    want_rows, got_rows = want_rows.cpu().numpy(), got_rows.cpu().numpy()
+    rescored = float(np.mean([len(set(g) & set(w)) / K for g, w in zip(got_rows, want_rows)]))
+    require(rescored >= 0.99, f"audio search: rescored recall@10 {rescored} < 0.99")
+    with not_counted(counters):
+        args = (codes, sumsq, valid, qc)
+        gv, gi, gok = int8_scan.int8_topk(*args, k=4 * K)
+        pv, pi, pok = int8_scan.int8_topk_plain(*args, k=4 * K)
+        torch.cuda.synchronize()
+        require(torch.equal(gi, pi) and torch.equal(gok, pok), "audio search: B1 ids differ from plain")
+        b1_err = (gv - pv).abs().max().item()
+        require(b1_err <= 1e-6, f"audio search: B1 max abs dist diff {b1_err}")
+        b1 = dict(zip(("b1_k40_ms", "b1_k40_plain_ms"), paired_ms(
+            torch, lambda: int8_scan.int8_topk(*args, k=4 * K),
+            lambda: int8_scan.int8_topk_plain(*args, k=4 * K), reps=10)))
+        b1.update({"b1_k40_" + key: value for key, value in scan_roofline(args, 4 * K).items()})
+        b1["b1_k40_gemm_only_ms"] = gemm_only_ms(torch, args)
+    return {"part": "c_search", "card": smi, "match_text_token": token,
+            "match_text_items": len(found), "match_text_ms": fts_ms, "similar_to_ms": similar_ms,
+            "similar_to_first_is_target": True, "clap_rows": n, "recall_queries": len(qt),
+            "rescored_recall_at_10": rescored, "b1_k40_max_abs_err": b1_err, **b1}
+
+
+def _whisper_window(torch, smi, counters, manager, clips) -> dict:
+    """Phase 12(d): one registry window of whisper-base (4 files) split into
+    the host log-mel, the encode, the language probe and the decode steps
+    (host clock around synchronised parts), and the card's busy share over
+    the whole window through predict (profiler); off the main path's
+    counts."""
+    from panoptikon_tpu_torch.models import whisper
+    from panoptikon_tpu_torch.models.impls import PredictionInput, decode_wav
+
+    impl = manager._models[WHISPER_MODEL].model
+    payloads = [p.read_bytes() for p, _, _ in clips[:4]]
+    steps = [0]
+    step = whisper._decode_step
+
+    def counted(*a, **k):
+        steps[0] += 1
+        return step(*a, **k)
+
+    with not_counted(counters), torch.inference_mode():
+        t0 = time.perf_counter()
+        mel = np.stack([whisper.log_mel_spectrogram(decode_wav(p), impl.cfg.n_mels) for p in payloads])
+        mel_s = time.perf_counter() - t0
+        mel_t = torch.from_numpy(mel).to(impl.device)
+        times = []
+        for _ in range(2):  # the second pass is the one kept
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = whisper.encode_audio(impl.params, impl.cfg, mel_t)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            idx, _ = whisper.language_probe(impl.params, impl.cfg, feats)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            prompt = whisper.prompt_tokens(impl.cfg, 4, impl.cfg.language_base + idx, impl.device)
+            steps[0] = 0
+            whisper._decode_step = counted
+            try:
+                _, lengths, _ = whisper.decode_from_feats(impl.params, impl.cfg, feats, prompt,
+                                                          impl.max_tokens)
+                torch.cuda.synchronize()
+            finally:
+                whisper._decode_step = step
+            times = [t1 - t0, t2 - t1, time.perf_counter() - t2]
+        inputs = [PredictionInput(file=p) for p in payloads]
+        impl.predict(inputs)
+        wall, busy = busy_share(torch, lambda: impl.predict(inputs))
+    return {"part": "d_whisper_window", "card": smi, "files": len(payloads), "mel_host_s": mel_s,
+            "encode_ms": 1e3 * times[0], "probe_ms": 1e3 * times[1], "decode_ms": 1e3 * times[2],
+            "decode_steps": steps[0], "decode_ms_per_step": 1e3 * times[2] / steps[0],
+            "lengths": lengths.tolist(), "window_wall_s": wall, "device_busy_share_window": busy,
+            "device_idle_share_window": 1 - busy}
+
+
+def audio_pair_path(torch, dev, smi) -> dict:
+    """Phase 12(e): AUDIO_PAIR_FILES of the seeded files through the impls on
+    the card and on the CPU (the card impls' weights copied over: CUDA and
+    CPU generators draw different random weights): CLAP embeddings and
+    whisper-base's encoder features at cosine ≥ 0.999 a row; the language
+    probabilities within AUDIO_PROB_ATOL, the language equal wherever the
+    card's top-2 margin exceeds twice the observed difference; the decoder
+    steps teacher-forced on the card's tokens at cosine ≥ 0.999 a position,
+    the argmax equal wherever the card's top-2 logit margin exceeds twice
+    the max abs error; the CPU's free-running tokens equal to the card's up
+    to the first position whose margin is below that."""
+    import tempfile
+
+    from panoptikon_tpu_torch.models import impls, whisper
+    from panoptikon_tpu_torch.models.impls import PredictionInput, decode_wav, npy
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
+        clips = write_audio_folder(Path(root), AUDIO_PAIR_FILES, SEED + 120)
+        payloads = [p.read_bytes() for p, _, _ in clips]
+    require(any(s for *_, s in clips), "audio pair: no stereo 44.1 kHz file")
+    inputs = [PredictionInput(file=p) for p in payloads]
+    out = {"part": "e_card_equals_cpu", "card": smi, "files": len(payloads)}
+    card_clap, cpu_clap = impls.ClapImpl("clap-base"), impls.ClapImpl("clap-base", device="cpu")
+    card_clap.load()
+    cpu_clap.params = _tree_to(card_clap.params, "cpu")
+    t0 = time.perf_counter()
+    cpu_rows = np.stack([npy.parse_npy_embedding(o) for o in cpu_clap.predict(inputs)])
+    out["cpu_clap_s"] = time.perf_counter() - t0
+    card_rows = np.stack([npy.parse_npy_embedding(o) for o in card_clap.predict(inputs)])
+    cos = cosines(card_rows, cpu_rows)
+    require(float(cos.min()) >= 0.999, f"audio pair: CLAP min cosine card vs CPU {cos.min()}")
+    out["clap_min_cosine"] = float(cos.min())
+    del card_clap, cpu_clap
+
+    card, cpu = impls.WhisperImpl("whisper-base"), impls.WhisperImpl("whisper-base", device="cpu")
+    card.load()
+    cpu.params = _tree_to(card.params, "cpu")
+    cfg = card.cfg
+    mel = np.stack([whisper.log_mel_spectrogram(decode_wav(p), cfg.n_mels) for p in payloads])
+    with torch.inference_mode():
+        feats = {}
+        for name, impl in (("card", card), ("cpu", cpu)):
+            t0 = time.perf_counter()
+            feats[name] = whisper.encode_audio(impl.params, cfg, torch.from_numpy(mel).to(impl.device))
+            torch.cuda.synchronize()
+            out[f"{name}_encode_s"] = time.perf_counter() - t0
+        f_card, f_cpu = feats["card"].cpu().numpy(), feats["cpu"].numpy()
+        cos = cosines(f_card.reshape(-1, f_card.shape[-1]), f_cpu.reshape(-1, f_cpu.shape[-1]))
+        require(float(cos.min()) >= 0.999, f"audio pair: encoder min cosine card vs CPU {cos.min()}")
+        out["encoder_min_cosine"] = float(cos.min())
+        probs = {}
+        for name, impl in (("card", card), ("cpu", cpu)):
+            sot = torch.full((len(payloads), 1), cfg.sot, device=impl.device)
+            logits = whisper._decoder_logits(impl.params, cfg, sot, feats[name])[:, 0]
+            base = cfg.language_base
+            probs[name] = torch.softmax(logits[:, base:base + cfg.n_langs], dim=-1).cpu().numpy()
+        diff = float(np.abs(probs["card"] - probs["cpu"]).max())
+        require(diff <= AUDIO_PROB_ATOL, f"audio pair: language probabilities {diff} apart")
+        top2 = np.sort(probs["card"], axis=-1)[:, -2:]
+        lang_decided = top2[:, 1] - top2[:, 0] > 2 * diff
+        same = probs["card"].argmax(-1) == probs["cpu"].argmax(-1)
+        require(bool(same[lang_decided].all()), f"audio pair: languages differ {same} where decided")
+        lang = torch.from_numpy(cfg.language_base + probs["card"].argmax(-1).astype(np.int32))
+        prompt = whisper.prompt_tokens(cfg, len(payloads), lang.to(dev), dev)
+        tokens, lengths, _ = whisper.decode_from_feats(card.params, cfg, feats["card"], prompt,
+                                                       card.max_tokens)
+        tokens = tokens.cpu()
+        logits = {}
+        for name, impl in (("card", card), ("cpu", cpu)):
+            t0 = time.perf_counter()
+            logits[name] = _teacher_forced(torch, impl, feats[name], tokens.to(impl.device))
+            out[f"{name}_teacher_forced_s"] = time.perf_counter() - t0
+        got, want = logits["cpu"], logits["card"]
+        cos = cosines(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]))
+        require(float(cos.min()) >= 0.999, f"audio pair: teacher-forced logits min cosine {cos.min()}")
+        err = float(np.abs(got - want).max())
+        top2 = np.sort(want, axis=-1)[..., -2:]
+        margin = top2[..., 1] - top2[..., 0]
+        decided = margin > 2 * err
+        agree = got.argmax(-1) == want.argmax(-1)
+        require(bool(agree[decided].all()), "audio pair: the argmax differs where the margin is wide")
+        t0 = time.perf_counter()
+        cpu_tokens = whisper.decode_from_feats(cpu.params, cfg, feats["cpu"], prompt.cpu(),
+                                               cpu.max_tokens)[0]
+        out["cpu_decode_s"] = time.perf_counter() - t0
+        splits = []
+        for j in range(len(payloads)):
+            low = np.flatnonzero(margin[j, 3:] <= 2 * err)
+            first = 3 + (int(low[0]) if low.size else cfg.n_text_ctx)
+            require(torch.equal(cpu_tokens[j, : first + 1], tokens[j, : first + 1]),
+                    f"audio pair: row {j}'s free-running tokens split before position {first}")
+            splits.append(first if low.size else None)
+    out.update({"language_prob_max_abs_diff": diff, "languages_decided": int(lang_decided.sum()),
+                "languages_equal": int(same.sum()),
+                "teacher_forced_min_cosine": float(cos.min()), "logits_max_abs_err": err,
+                "positions_decided": int(decided.sum()), "positions": int(decided.size),
+                "first_low_margin_position": splits, "card_lengths": lengths.tolist()})
+    return out
+
+
+def _teacher_forced(torch, impl, feats, tokens):
+    """whisper's incremental step over token rows (B, L) on the impl's
+    device: logits (B, L - 1, vocab) as NumPy."""
+    from panoptikon_tpu_torch.models import whisper
+
+    cfg = impl.cfg
+    b, length = tokens.shape
+    ck, cv = whisper._cross_heads(impl.params, cfg, feats)
+    sk = torch.zeros((cfg.n_text_layers, b, length, cfg.n_text_state), dtype=torch.bfloat16,
+                     device=feats.device)
+    sv = torch.zeros_like(sk)
+    return np.stack([whisper._decode_step(impl.params, cfg, tokens[:, i], i, sk, sv, ck, cv,
+                                          length).cpu().numpy() for i in range(length - 1)], axis=1)
+
+
+def audio_attention(torch, dev, smi, counters) -> dict:
+    """Phase 12(f): B3 at the audio path's shapes (AUDIO_ATTN_CASES), off
+    the main path's counts: against mha_plain (≤ 2e-2 max abs), on the
+    tensor cores, timed kernel/plain/plain/kernel beside SDPA and the
+    bound."""
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 121)
+    shapes = {}
+    with not_counted(counters):
+        for name, (b, nq, nkv, h, d, causal, fused) in AUDIO_ATTN_CASES.items():
+            if fused:  # q, k, v the views of one fused qkv, as the encoder hands them
+                q, k, v = (t.view(b, nq, h, d) for t in torch.randn(
+                    (b, nq, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16).split(h * d, -1))
+            else:
+                q, k, v = (torch.randn((b, n, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                           for n in (nq, nkv, nkv))
+            tc = vit_attention.mha.routes["tensor_core"]
+            got = vit_attention.mha(q, k, v, causal=causal)
+            require(vit_attention.mha.routes["tensor_core"] == tc + 1, f"mha {name}: not on the tensor cores")
+            want = vit_attention.mha_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            require(torch.isfinite(got.float()).all().item() and err <= 2e-2,
+                    f"mha {name}: max abs diff {err} > 2e-2")
+            ms, plain_ms = paired_ms(torch, lambda: vit_attention.mha(q, k, v, causal=causal),
+                                     lambda: vit_attention.mha_plain(q, k, v, causal=causal), reps=10)
+            shapes[name] = {"shape": [b, nq, nkv, h, d], "causal": causal, "max_abs_err": err,
+                            "ms": ms, "plain_ms": plain_ms,
+                            **attention_roofline(q, k, v, got, causal),
+                            "library_ms": cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal), reps=10)}
+    return {"part": "f_b3_audio_shapes", "card": smi, "shapes": shapes}
 
 
 def cosines(a, b):
@@ -2834,9 +3329,31 @@ def main() -> int:
     emit({"phase": "extract", "part": "launches", "launches": extract_launches,
           "attention_routes": extract_routes})
 
+    # 12. The audio path: (a) 256 WAV files through the whisper and clap jobs,
+    # (b) hard checks, (c) search, (d) a whisper window's split, (e) the card
+    # against the CPU, (f) B3 at the path's shapes. Counters start at zero
+    # here.
+    torch.cuda.empty_cache()
+    reset_counts(counters)
+    audio_run = audio_path(torch, dev, smi, counters)
+    audio_launches = {fn.__name__: fn.launches for fn in counters}
+    audio_routes = read_routes(counters)
+    require(audio_launches["mha"] > 0 and audio_launches["int8_topk"] > 0,
+            f"audio path kernel launches {audio_launches}")
+    require_tensor_cores(audio_launches, audio_routes, ("mha",), "audio path")
+    require(not torch.backends.cuda.matmul.allow_tf32, "audio: TF32 is on for f32 matmuls")
+    torch.cuda.empty_cache()
+    audio_run.append(audio_pair_path(torch, dev, smi))
+    audio_b3 = audio_attention(torch, dev, smi, counters)
+    audio_run.append(audio_b3)
+    for record in audio_run:
+        emit({"phase": "audio", **record})
+    emit({"phase": "audio", "part": "launches", "launches": audio_launches,
+          "attention_routes": audio_routes})
+
     runs = ((launches, routes), (batch_launches, batch_routes), (composed_launches, composed_routes),
             (l14_launches, l14_routes), (pql_launches, pql_routes), (text_launches, text_routes),
-            (extract_launches, extract_routes))
+            (extract_launches, extract_routes), (audio_launches, audio_routes))
     total = {name: sum(run[0][name] for run in runs) for name in launches}
     total_routes = {name: {path: sum(run[1][name][path] for run in runs) for path in routes[name]}
                     for name in routes}
@@ -2848,7 +3365,7 @@ def main() -> int:
                             *(r["b1_k40_max_abs_err"]
                               for r in or3["per_space_recall_at_10_and_b1"].values()),
                             hybrid["recall_at_10_and_b1"]["b1_k40_max_abs_err"],
-                            extract[2]["b1_k40_max_abs_err"]),
+                            extract[2]["b1_k40_max_abs_err"], audio_run[2]["b1_k40_max_abs_err"]),
          "ms": scan_ms, "plain_ms": scan_plain_ms, **scan_bound, "library_ms": None},
         {"name": "int8_topk_v2", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:321", "launches": total["int8_topk_v2"],
@@ -2858,12 +3375,14 @@ def main() -> int:
         {"name": "mha", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:192", "launches": total["mha"],
          "routes": total_routes["mha"],
-         "max_abs_err": max(attn_err.values()), "ms": attn_ms["vit_b32_image"][0],
-         "plain_ms": attn_ms["vit_b32_image"][1],
+         "max_abs_err": max(*attn_err.values(),
+                            *(r["max_abs_err"] for r in audio_b3["shapes"].values())),
+         "ms": attn_ms["vit_b32_image"][0], "plain_ms": attn_ms["vit_b32_image"][1],
          **bounds["vit_b32_image"], "library_ms": library_ms["vit_b32_image"],
          "text_shapes": {name: {"ms": attn_ms[name][0], "plain_ms": attn_ms[name][1],
                                 "max_abs_err": attn_err[name], **bounds[name],
-                                "library_ms": library_ms[name]} for name in TEXT_ATTN_CASES}},
+                                "library_ms": library_ms[name]} for name in TEXT_ATTN_CASES},
+         "audio_launches": audio_launches["mha"], "audio_shapes": audio_b3["shapes"]},
         {"name": "mha_qkv", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:296", "launches": total["mha_qkv"],
          "routes": total_routes["mha_qkv"],

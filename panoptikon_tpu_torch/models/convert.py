@@ -2,8 +2,11 @@
 
 The port keeps the JAX package's parameter keys and layouts — linear weights
 (in, out) applied as ``x @ w``, the patch embedding as a (p·p·3, width)
-matmul weight over NHWC patches — so conversion transposes nothing: each
-array becomes a tensor of the same shape and values. The tree arrives as
+matmul weight over NHWC patches, whisper's convolutions (K, C_in, C_out) —
+so conversion transposes nothing: each array becomes a tensor of the same
+shape and values, in the same nesting of dicts and lists (every tower's
+blocks are a list; whisper's are under ``encoder`` and ``decoder``). The tree
+arrives as
 NumPy arrays (``jax.tree.map(np.asarray, params)``), which keeps this module
 free of JAX.
 """

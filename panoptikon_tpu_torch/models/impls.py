@@ -1,8 +1,9 @@
 """In-process model implementations — the port of
-``panoptikon_tpu/models/impls.py``: ``ClipImpl``, ``TextEmbedImpl`` and the
-fixture impls the manager's tests drive, indexed by ``impl_class`` in
-:data:`IMPL_INDEX`. The other towers' impls (tagger, whisper, CLAP,
-captioner, OCR, the API-backed ones) are not ported yet (ROADMAP A.11); an
+``panoptikon_tpu/models/impls.py``: ``ClipImpl``, ``TextEmbedImpl``,
+``WhisperImpl``, ``ClapImpl`` and the fixture impls the manager's tests
+drive, indexed by ``impl_class`` in :data:`IMPL_INDEX`. The other impls
+(tagger, captioner, VLM tagger, OCR, the API-backed ones) are not ported
+yet (ROADMAP A.11); an
 ``impl_class`` the index lacks raises ``ModelLoadError`` at load through
 ``models.discovery``, as the reference does for a name it does not know.
 
@@ -25,6 +26,11 @@ the top batch bucket, shortest chunks first, each slice padded to its own
 (length × batch) bucket, so any number of chunks gives every text its rows
 (the JAX class pads all of a call's chunks as one batch, which fails past
 the top bucket: ROADMAP §C).
+
+``WhisperImpl`` and ``ClapImpl`` take WAV files (``decode_wav``, copied
+from the JAX package: mono 16 kHz, a downmix and a linear resample
+otherwise), with the JAX classes' outputs: a transcript with its language
+and confidences, and an L2-normalized audio embedding.
 
 A ``checkpoint`` (a local HF ``.bin`` or ``.safetensors``, or a folder
 holding one) loads through ``models.weights`` and
@@ -50,17 +56,20 @@ import numpy as np
 import torch
 
 from panoptikon_tpu_torch.device import device as select_device
-from panoptikon_tpu_torch.models import batching, clip, convert, text_embed, weights
+from panoptikon_tpu_torch.models import (audio, batching, clip, convert, text_embed, weights,
+                                         whisper)
 from panoptikon_tpu_torch.models.base import InferenceModel, PredictionInput, SlotError
 from panoptikon_tpu_torch.utils import npy
 
-__all__ = ["IMPL_INDEX", "ClipImpl", "HashTokenizer", "PredictionInput", "TextEmbedImpl",
-           "decode_image", "load_tokenizer", "npy"]
+__all__ = ["IMPL_INDEX", "ClapImpl", "ClipImpl", "HashTokenizer", "PredictionInput",
+           "TextEmbedImpl", "WhisperImpl", "decode_image", "decode_wav", "load_tokenizer", "npy"]
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
-INIT_SEED = 0  # ClipImpl's random weights; TextEmbedImpl's use TEXT_INIT_SEED
+INIT_SEED = 0  # ClipImpl's random weights; the other impls' seeds follow
 TEXT_INIT_SEED = 1
+WHISPER_INIT_SEED = 4
+CLAP_INIT_SEED = 5
 
 
 def decode_image(payload: bytes, size: int) -> np.ndarray:
@@ -376,6 +385,215 @@ class TextEmbedImpl(InferenceModel):
         return outputs
 
 
+def decode_wav(payload: bytes) -> np.ndarray:
+    """WAV bytes → mono f32 PCM at 16 kHz (linear resample). Non-WAV audio
+    needs ffmpeg, which is probed and ledgered as a blocker when missing —
+    the failed-media 'blocked' pattern."""
+    import io as _io
+    import wave
+
+    try:
+        with wave.open(_io.BytesIO(payload)) as w:
+            rate = w.getframerate()
+            channels = w.getnchannels()
+            width = w.getsampwidth()
+            frames = w.readframes(w.getnframes())
+    except Exception as exc:
+        raise SlotError("input", f"Undecodable WAV payload: {exc}") from exc
+    if width == 2:
+        pcm = np.frombuffer(frames, dtype="<i2").astype(np.float32) / 32768.0
+    elif width == 1:
+        pcm = (np.frombuffer(frames, dtype=np.uint8).astype(np.float32) - 128) / 128.0
+    elif width == 4:
+        pcm = np.frombuffer(frames, dtype="<i4").astype(np.float32) / 2**31
+    else:
+        raise SlotError("input", f"Unsupported WAV sample width {width}")
+    if channels > 1:
+        pcm = pcm.reshape(-1, channels).mean(axis=1)
+    if rate != 16000:
+        n_out = int(len(pcm) * 16000 / rate)
+        pcm = np.interp(
+            np.linspace(0, len(pcm) - 1, n_out), np.arange(len(pcm)), pcm
+        ).astype(np.float32)
+    return pcm
+
+
+class WhisperImpl(InferenceModel):
+    """Whisper speech-to-text (reference impl/whisper.py) on one explicit
+    device: WAV audio files → ``{"text", "language", "language_confidence",
+    "confidence"}``, the confidence being exp(avg logprob). Without a
+    tokenizer the text is the generated tokens as ``<id>``."""
+
+    def __init__(
+        self,
+        model_arch: str = "test-tiny",
+        checkpoint: Optional[str] = None,
+        tokenizer_path: Optional[str] = None,
+        max_tokens: int = 64,
+        device: str | torch.device = "cuda",
+        **_: Any,
+    ):
+        self.cfg = whisper.CONFIGS.get(model_arch) or whisper.CONFIGS["test-tiny"]
+        self.checkpoint = checkpoint
+        self.tokenizer_path = tokenizer_path
+        self.max_tokens = max_tokens
+        self.device = select_device(str(device))
+        self.params = None
+        self.detokenize = None
+
+    @classmethod
+    def name(cls) -> str:
+        return "whisper"
+
+    def load(self) -> None:
+        if self.params is not None:
+            return
+        if self.checkpoint:
+            tree = weights.load_whisper_checkpoint(self.checkpoint, self.cfg)
+            params = convert.params_from_jax(tree, device=self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(WHISPER_INIT_SEED)
+            params = whisper.init_params(self.cfg, gen)
+        self.params = whisper.bf16_linears(params)
+        if self.tokenizer_path and self.detokenize is None:
+            try:
+                from tokenizers import Tokenizer
+
+                tok = Tokenizer.from_file(self.tokenizer_path)
+                self.detokenize = lambda ids: tok.decode(
+                    [i for i in ids if 0 <= i < tok.get_vocab_size()]
+                )
+            except Exception:
+                pass
+
+    def unload(self) -> None:
+        self.params = None
+
+    @torch.inference_mode()
+    def transcribe(self, mel: np.ndarray):
+        """mel (B, n_mels, frames) → (language index, its probability,
+        tokens, lengths, avg logprob) as NumPy arrays. The reference encodes
+        the batch twice, in ``detect_language`` and in ``greedy_decode``; the
+        port encodes it once and hands the features to both."""
+        feats = whisper.encode_audio(self.params, self.cfg, torch.from_numpy(mel).to(self.device))
+        lang_idx, lang_conf = whisper.language_probe(self.params, self.cfg, feats)
+        prompt = whisper.prompt_tokens(self.cfg, mel.shape[0], self.cfg.language_base + lang_idx,
+                                       self.device)
+        decoded = whisper.decode_from_feats(self.params, self.cfg, feats, prompt, self.max_tokens)
+        return tuple(t.cpu().numpy() for t in (lang_idx, lang_conf, *decoded))
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        self.load()
+        outputs: list[Any] = [None] * len(inputs)
+        mels, kept = [], []
+        for i, inp in enumerate(inputs):
+            if inp.file is None:
+                outputs[i] = SlotError("input", "Whisper requires an audio file").to_slot()
+                continue
+            try:
+                pcm = decode_wav(inp.file)
+                mels.append(whisper.log_mel_spectrogram(pcm, self.cfg.n_mels))
+                kept.append(i)
+            except SlotError as err:
+                outputs[i] = err.to_slot()
+        if mels:
+            lang_idx, lang_conf, tokens, lengths, logprob = self.transcribe(np.stack(mels))
+            for j, pos in enumerate(kept):
+                toks = tokens[j, 4 : lengths[j]].tolist()
+                text = (
+                    self.detokenize(toks)
+                    if self.detokenize
+                    else " ".join(f"<{t}>" for t in toks)
+                )
+                outputs[pos] = {
+                    "text": text,
+                    "language": whisper.LANGUAGES[int(lang_idx[j])],
+                    "language_confidence": float(lang_conf[j]),
+                    "confidence": float(np.exp(logprob[j])),
+                }
+        return outputs
+
+
+class ClapImpl(InferenceModel):
+    """CLAP-class audio embeddings (reference impl/clap.py) on one explicit
+    device: WAV audio files → L2-normalized f32 embeddings as npy bytes,
+    through the AST-style tower of ``models.audio``. Clips are embedded in
+    slices of at most the top batch bucket, each padded to its bucket (the
+    JAX class pads a call's clips as one batch, which raises past the top
+    bucket: ROADMAP §C)."""
+
+    def __init__(
+        self,
+        model_arch: str = "test-tiny",
+        checkpoint: Optional[str] = None,
+        batch_cap: int = 16,
+        device: str | torch.device = "cuda",
+        **_: Any,
+    ):
+        self.cfg = audio.CONFIGS.get(model_arch) or audio.CONFIGS["test-tiny"]
+        self.checkpoint = checkpoint
+        self.device = select_device(str(device))
+        self.batch_ladder = batching.bucket_ladder(batch_cap)
+        self.params = None
+
+    @classmethod
+    def name(cls) -> str:
+        return "clap"
+
+    def load(self) -> None:
+        if self.params is not None:
+            return
+        if self.checkpoint:
+            tree = audio.load_ast_checkpoint(self.checkpoint, self.cfg)
+            self.params = convert.params_from_jax(tree, device=self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(CLAP_INIT_SEED)
+            self.params = audio.init_params(self.cfg, gen)
+
+    def unload(self) -> None:
+        self.params = None
+
+    def prepare(self) -> None:
+        """Run every bucket once (kernel builds, library handles), as the JAX
+        class compiles one program a bucket."""
+        self.load()
+        for bucket in self.batch_ladder:
+            mels = torch.zeros((bucket, self.cfg.n_mels, self.cfg.time_frames), device=self.device)
+            audio.embed_audio(self.params, self.cfg, mels)
+
+    def embed(self, mels: np.ndarray) -> np.ndarray:
+        """(N, n_mels, time_frames) → (N, embed_dim) f32, in slices of at most
+        the top bucket, each padded to its own bucket."""
+        cap = self.batch_ladder[-1]
+        parts = []
+        for lo in range(0, len(mels), cap):
+            part = mels[lo : lo + cap]
+            padded, _ = batching.pad_batch(part, batching.bucket_for(len(part), self.batch_ladder))
+            feats = audio.embed_audio(self.params, self.cfg, torch.from_numpy(padded).to(self.device))
+            parts.append(feats[: len(part)])
+        return torch.cat(parts).cpu().numpy()
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        self.load()
+        outputs: list[Any] = [None] * len(inputs)
+        mels, kept = [], []
+        for i, inp in enumerate(inputs):
+            if inp.file is None:
+                outputs[i] = SlotError("input", "CLAP requires an audio file").to_slot()
+                continue
+            try:
+                pcm = decode_wav(inp.file)
+                mels.append(audio.prepare_mels(pcm, self.cfg))
+                kept.append(i)
+            except SlotError as err:
+                outputs[i] = err.to_slot()
+        if mels:
+            feats = self.embed(np.stack(mels))
+            for j, pos in enumerate(kept):
+                outputs[pos] = npy.serialize_npy(feats[j])
+        return outputs
+
+
 # ---------------------------------------------------------------------------
 # Fixture impls — the reference's behavior-probe zoo (SURVEY.md §4), used by
 # the manager/API tests exactly as the reference uses its fake workers.
@@ -576,6 +794,8 @@ IMPL_INDEX: dict[str, type[InferenceModel]] = {
     for cls in [
         ClipImpl,
         TextEmbedImpl,
+        WhisperImpl,
+        ClapImpl,
         EchoImpl,
         BatchSizeImpl,
         FailBatchImpl,

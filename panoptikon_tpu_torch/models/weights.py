@@ -1,17 +1,20 @@
 """Checkpoint loading: HuggingFace state dicts → the port's parameter trees.
 
 The jax-free half of ``panoptikon_tpu/models/weights.py``: the HF
-``CLIPModel`` mapping (with its export inverse) and the BERT-style
-sentence-transformer mapping, copied function for function and held to the
-reference's by ``tests/test_torch_host_copies.py``. The trees come out as
-NumPy arrays with the JAX package's keys and layouts;
-``models.convert.params_from_jax`` puts them on a device. The configs are
-the port's ``ClipConfig`` and ``TextEncoderConfig``.
+``CLIPModel`` mapping (with its export inverse), the BERT-style
+sentence-transformer mapping and the HF ``WhisperModel`` mapping, copied
+function for function and held to the reference's by
+``tests/test_torch_host_copies.py``. The whisper exporter writes the
+reference's tensors as a torch ``.bin``. The trees come out as NumPy arrays
+with the JAX package's keys and layouts; ``models.convert.params_from_jax``
+puts them on a device. The configs are the port's ``ClipConfig``,
+``TextEncoderConfig`` and ``whisper.WhisperConfig``.
 
 A ``.bin``/``.pt`` pickle loads through ``torch.load(weights_only=True)``. A
 ``.safetensors`` file needs the ``safetensors`` package, imported when such
 a file is loaded; where it is missing the load raises and says so. The
-whisper and timm mappings are not here yet (ROADMAP A.11).
+whisper decoder-only mapping (the captioner's) and the timm mapping are not
+here yet (ROADMAP A.11).
 
 This module never downloads; it loads from local paths.
 """
@@ -243,3 +246,171 @@ def load_text_encoder_checkpoint(path: str | Path, cfg: TextEncoderConfig) -> di
     if i != cfg.layers:
         raise ValueError(f"checkpoint has {i} layers, config expects {cfg.layers}")
     return params
+
+
+def load_whisper_checkpoint(path: str | Path, cfg) -> dict[str, Any]:
+    """HF ``WhisperModel`` state dict → our whisper param tree.
+
+    HF layout: ``model.encoder.*`` / ``model.decoder.*`` with
+    conv1/conv2 (out, in, k), self_attn {q,k,v,out}_proj (k_proj has no
+    bias in Whisper — zero-filled), encoder_attn for cross attention,
+    fc1/fc2 MLPs, embed_tokens/embed_positions.
+    """
+    sd = load_state_dict(path)
+
+    def pfx(name):
+        return name if name in sd else f"model.{name}"
+
+    def lin(prefix, bias=True):
+        w = np.asarray(sd[pfx(f"{prefix}.weight")], np.float32).T
+        if bias and pfx(f"{prefix}.bias") in sd:
+            b = np.asarray(sd[pfx(f"{prefix}.bias")], np.float32)
+        else:
+            b = np.zeros(w.shape[1], np.float32)
+        return w, b
+
+    def ln(prefix):
+        return {
+            "scale": np.asarray(sd[pfx(f"{prefix}.weight")], np.float32),
+            "bias": np.asarray(sd[pfx(f"{prefix}.bias")], np.float32),
+        }
+
+    def self_attn(prefix):
+        qw, qb = lin(f"{prefix}.q_proj")
+        kw, kb = lin(f"{prefix}.k_proj")
+        vw, vb = lin(f"{prefix}.v_proj")
+        ow, ob = lin(f"{prefix}.out_proj")
+        return {
+            "qkv_w": np.concatenate([qw, kw, vw], axis=1),
+            "qkv_b": np.concatenate([qb, kb, vb]),
+            "out_w": ow,
+            "out_b": ob,
+        }
+
+    def cross_attn(prefix):
+        qw, qb = lin(f"{prefix}.q_proj")
+        kw, kb = lin(f"{prefix}.k_proj")
+        vw, vb = lin(f"{prefix}.v_proj")
+        ow, ob = lin(f"{prefix}.out_proj")
+        return {
+            "q_w": qw,
+            "q_b": qb,
+            "kv_w": np.concatenate([kw, vw], axis=1),
+            "kv_b": np.concatenate([kb, vb]),
+            "out_w": ow,
+            "out_b": ob,
+        }
+
+    def mlp(prefix):
+        fw, fb = lin(f"{prefix}.fc1")
+        pw, pb = lin(f"{prefix}.fc2")
+        return {"fc_w": fw, "fc_b": fb, "proj_w": pw, "proj_b": pb}
+
+    enc_blocks = []
+    for i in range(cfg.n_audio_layers):
+        p = f"encoder.layers.{i}"
+        enc_blocks.append(
+            {
+                "ln_1": ln(f"{p}.self_attn_layer_norm"),
+                "attn": self_attn(f"{p}.self_attn"),
+                "ln_2": ln(f"{p}.final_layer_norm"),
+                "mlp": mlp(p),
+            }
+        )
+    dec_blocks = []
+    for i in range(cfg.n_text_layers):
+        p = f"decoder.layers.{i}"
+        dec_blocks.append(
+            {
+                "ln_1": ln(f"{p}.self_attn_layer_norm"),
+                "attn": self_attn(f"{p}.self_attn"),
+                "ln_cross": ln(f"{p}.encoder_attn_layer_norm"),
+                "cross": cross_attn(f"{p}.encoder_attn"),
+                "ln_2": ln(f"{p}.final_layer_norm"),
+                "mlp": mlp(p),
+            }
+        )
+    # Conv (out, in, k) → (k, in, out) for NWC conv.
+    conv1 = np.asarray(sd[pfx("encoder.conv1.weight")], np.float32).transpose(2, 1, 0)
+    conv2 = np.asarray(sd[pfx("encoder.conv2.weight")], np.float32).transpose(2, 1, 0)
+    return {
+        "encoder": {
+            "conv1_w": conv1,
+            "conv1_b": np.asarray(sd[pfx("encoder.conv1.bias")], np.float32),
+            "conv2_w": conv2,
+            "conv2_b": np.asarray(sd[pfx("encoder.conv2.bias")], np.float32),
+            "blocks": enc_blocks,
+            "ln_post": ln("encoder.layer_norm"),
+        },
+        "decoder": {
+            "token_emb": np.asarray(sd[pfx("decoder.embed_tokens.weight")], np.float32),
+            "pos_emb": np.asarray(sd[pfx("decoder.embed_positions.weight")], np.float32),
+            "blocks": dec_blocks,
+            "ln_post": ln("decoder.layer_norm"),
+        },
+    }
+
+
+
+def save_whisper_checkpoint(params, path: str | Path) -> None:
+    """Our whisper param tree → an HF ``WhisperModel``-layout state dict, as
+    a torch ``.bin`` — the export inverse of :func:`load_whisper_checkpoint`
+    (the reference's exporter writes the same tensors as ``.safetensors``).
+    k-proj biases are written even though HF omits them (the loader
+    zero-fills absent ones), so the round trip is lossless."""
+    import torch
+
+    out: dict[str, np.ndarray] = {}
+
+    def put_ln(prefix, p):
+        out[f"{prefix}.weight"] = np.asarray(p["scale"], np.float32)
+        out[f"{prefix}.bias"] = np.asarray(p["bias"], np.float32)
+
+    def put_lin(prefix, w, b):
+        out[f"{prefix}.weight"] = np.asarray(w, np.float32).T
+        out[f"{prefix}.bias"] = np.asarray(b, np.float32)
+
+    def put_self_attn(prefix, attn):
+        w = np.asarray(attn["qkv_w"], np.float32)
+        b = np.asarray(attn["qkv_b"], np.float32)
+        d = w.shape[0]
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            put_lin(f"{prefix}.{name}", w[:, j * d:(j + 1) * d], b[j * d:(j + 1) * d])
+        put_lin(f"{prefix}.out_proj", attn["out_w"], attn["out_b"])
+
+    def put_cross_attn(prefix, cross):
+        put_lin(f"{prefix}.q_proj", cross["q_w"], cross["q_b"])
+        kv_w = np.asarray(cross["kv_w"], np.float32)
+        kv_b = np.asarray(cross["kv_b"], np.float32)
+        d = kv_w.shape[0]
+        put_lin(f"{prefix}.k_proj", kv_w[:, :d], kv_b[:d])
+        put_lin(f"{prefix}.v_proj", kv_w[:, d:], kv_b[d:])
+        put_lin(f"{prefix}.out_proj", cross["out_w"], cross["out_b"])
+
+    def put_mlp(prefix, mlp):
+        put_lin(f"{prefix}.fc1", mlp["fc_w"], mlp["fc_b"])
+        put_lin(f"{prefix}.fc2", mlp["proj_w"], mlp["proj_b"])
+
+    enc, dec = params["encoder"], params["decoder"]
+    for i in (1, 2):  # our (K, C_in, C_out) convolution → HF (C_out, C_in, K)
+        out[f"encoder.conv{i}.weight"] = np.asarray(enc[f"conv{i}_w"], np.float32).transpose(2, 1, 0)
+        out[f"encoder.conv{i}.bias"] = np.asarray(enc[f"conv{i}_b"], np.float32)
+    for i, blk in enumerate(enc["blocks"]):
+        p = f"encoder.layers.{i}"
+        put_ln(f"{p}.self_attn_layer_norm", blk["ln_1"])
+        put_self_attn(f"{p}.self_attn", blk["attn"])
+        put_ln(f"{p}.final_layer_norm", blk["ln_2"])
+        put_mlp(p, blk["mlp"])
+    put_ln("encoder.layer_norm", enc["ln_post"])
+    out["decoder.embed_tokens.weight"] = np.asarray(dec["token_emb"], np.float32)
+    out["decoder.embed_positions.weight"] = np.asarray(dec["pos_emb"], np.float32)
+    for i, blk in enumerate(dec["blocks"]):
+        p = f"decoder.layers.{i}"
+        put_ln(f"{p}.self_attn_layer_norm", blk["ln_1"])
+        put_self_attn(f"{p}.self_attn", blk["attn"])
+        put_ln(f"{p}.encoder_attn_layer_norm", blk["ln_cross"])
+        put_cross_attn(f"{p}.encoder_attn", blk["cross"])
+        put_ln(f"{p}.final_layer_norm", blk["ln_2"])
+        put_mlp(p, blk["mlp"])
+    put_ln("decoder.layer_norm", dec["ln_post"])
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in out.items()}, str(path))

@@ -151,15 +151,28 @@ def row_stride(q, k, v):
     (b, i, head, c) at ``(b·N + i)·ld + head·D + c`` — as contiguous
     (B, N, H, D) tensors are (``ld = H·D``) and as the three views of one
     fused (B, N, 3·H·D) projection split along its last axis are
-    (``ld = 3·H·D``). None when they are not."""
+    (``ld = 3·H·D``). None when they are not.
+
+    An axis of length 1 has no stride of its own (PyTorch reports any): at
+    N = 1 the row stride is the batch axis's, as in a decoder's one-token
+    step, and a single row (B = N = 1) reads alike at any stride."""
     h, d = q.shape[2], q.shape[3]
     if q.is_contiguous() and k.is_contiguous() and v.is_contiguous():
         return h * d
-    ld = q.stride(1)
+    strides = set()
     for t in (q, k, v):
-        if (t.stride(3) != 1 or t.stride(2) != d or t.stride(1) != ld
-                or t.stride(0) != t.shape[1] * ld):
+        b, n = t.shape[0], t.shape[1]
+        if t.stride(3) != 1 or (h > 1 and t.stride(2) != d):
             return None
+        if n > 1:
+            if b > 1 and t.stride(0) != n * t.stride(1):
+                return None
+            strides.add(t.stride(1))
+        elif b > 1:
+            strides.add(t.stride(0))
+    if len(strides) > 1:
+        return None
+    ld = strides.pop() if strides else h * d
     return ld if ld >= h * d else None
 
 

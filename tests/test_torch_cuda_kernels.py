@@ -126,6 +126,42 @@ def test_mha_text_encoder_shapes(cuda_device, tc_form, shape, strided):
         assert torch.equal(got, again)
 
 
+AUDIO_SHAPES = {
+    # name: (b, n_q, n_kv, h, d, causal, q/k/v views of one fused qkv)
+    "whisper_encoder": (2, 1500, 1500, 8, 64, False, True),
+    "whisper_probe_cross": (4, 1, 1500, 8, 64, False, False),
+    "whisper_probe_causal": (4, 1, 1, 8, 64, True, True),
+    "clap": (2, 320, 320, 8, 64, False, False),
+}
+
+
+@pytest.mark.parametrize("shape", list(AUDIO_SHAPES))
+def test_mha_audio_shapes(cuda_device, tc_form, shape):
+    # The audio towers' shapes (models/whisper.py, models/audio.py): the
+    # encoder's and the probe's causal step read q, k, v in place from the
+    # fused qkv (at N = 1 the row stride is the batch axis's), the probe's
+    # cross-attention one query against 1,500 keys.
+    b, nq, nkv, h, d, causal, fused = AUDIO_SHAPES[shape]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    if fused:
+        qkv = torch.randn((b, nq, 3 * h * d), generator=gen, device=cuda_device).to(torch.bfloat16)
+        q, k, v = (t.view(b, nq, h, d) for t in qkv.split(h * d, dim=-1))
+        assert vit_attention.row_stride(q, k, v) == 3 * h * d
+    else:
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+                   for n in (nq, nkv, nkv))
+    routes = dict(vit_attention.mha.routes)
+    got = vit_attention.mha(q, k, v, causal=causal)
+    want = vit_attention.mha_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert vit_attention.mha.routes == {**routes, "tensor_core": routes["tensor_core"] + 1}
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    if fused:
+        assert torch.equal(got, vit_attention.mha(*(t.contiguous() for t in (q, k, v)),
+                                                  causal=causal))
+
+
 def test_mha_strided_views_need_the_tensor_cores_and_aligned_rows(cuda_device):
     b, n, h, d = 2, 40, 2, 64
     gen = torch.Generator(device=cuda_device).manual_seed(1)

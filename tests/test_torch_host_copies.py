@@ -4,7 +4,8 @@ the native C++ library, built here with g++), ``VectorIndex``,
 ``utils.npy``, ``models.batching`` and ``models.base``; and, by ``ast.dump``,
 every host function of the copied ``pql/``, ``db/``, ``jobs/`` and
 ``models/`` modules (the registry, discovery, the manager, the checkpoint
-mappings, the text chunking contract and the fixture impls), the native
+mappings, the text chunking contract, the fixture impls, the WAV decoder,
+and the audio towers' configs, log-mel and mel preparation), the native
 codec's bindings, and the built-in registry TOML; ``csrc/host_codec.cpp``
 text for text.
 The port imports nothing of ``panoptikon_tpu``; only this test imports
@@ -297,8 +298,17 @@ FIXTURE_IMPLS = ("EchoImpl", "BatchSizeImpl", "OomImpl", "FailBatchImpl", "Error
 PARTIAL_COPIES = {
     "models/text_embed.py": ("split_tokens", "combine_chunks"),
     "models/weights.py": ("_ln", "_linear", "_hf_clip_block", "load_clip_checkpoint",
-                          "save_clip_checkpoint", "load_text_encoder_checkpoint"),
-    "models/impls.py": FIXTURE_IMPLS,
+                          "save_clip_checkpoint", "load_text_encoder_checkpoint",
+                          "load_whisper_checkpoint"),
+    "models/impls.py": (*FIXTURE_IMPLS, "decode_wav"),
+    # The audio towers' host units: whisper's constants, config, languages
+    # and log-mel; the audio tower's config, mel preparation and HF ASTModel
+    # mapping.
+    "models/whisper.py": ("<SAMPLE_RATE>", "<N_FFT>", "<HOP>", "<N_MELS>", "<CHUNK_SECONDS>",
+                          "WhisperConfig", "<LANGUAGES>", "<CONFIGS>", "mel_filterbank",
+                          "log_mel_spectrogram"),
+    "models/audio.py": ("<Params>", "AudioConfig", "<CONFIGS>", "prepare_mels", "_bert_block",
+                        "load_ast_checkpoint"),
 }
 
 

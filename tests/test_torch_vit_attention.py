@@ -303,6 +303,31 @@ def test_route_follows_dtype_and_head_dim():
         set(vit_attention.ROUTES)
 
 
+@pytest.mark.parametrize("b, n", [(4, 1), (1, 1), (1, 5), (4, 5), (3, 1500)])
+def test_row_stride_of_fused_qkv_views(b, n):
+    # The views of one fused (B, N, 3·H·D) qkv share the row stride 3·H·D,
+    # N = 1 included (a decoder's one-token step: PyTorch reports any stride
+    # for the length-1 axis, so the batch axis gives it); the kernel's
+    # addressing, (b·N + i)·ld + head·D + c from each view's base, reads
+    # every element of each view.
+    h, d = 2, 64
+    qkv = torch.arange(b * n * 3 * h * d, dtype=torch.float32).reshape(b, n, 3 * h * d)
+    views = [t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1)]
+    ld = vit_attention.row_stride(*views)
+    assert ld == (h * d if b == n == 1 else 3 * h * d)
+    for t in views:
+        assert torch.equal(t.as_strided(t.shape, (n * ld, ld, d, 1)), t)
+    # Contiguous heads (a cross-attention's q of one token beside its own
+    # keys) share H·D; views of two different projections share nothing.
+    q = torch.zeros(b, 1, h, d)
+    kv = [torch.zeros(b, 7, h, d)] * 2
+    assert vit_attention.row_stride(q, *kv) == h * d
+    if b > 1:
+        fused_kv = torch.zeros(b, 7, 2 * h * d).split(h * d, dim=-1)
+        assert vit_attention.row_stride(views[0][:, :1], *(t.view(b, 7, h, d) for t in fused_kv)) \
+            is None
+
+
 def test_qkv_fused_fits_is_the_kernels_limit():
     from panoptikon_tpu_torch.models import clip
 
