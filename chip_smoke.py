@@ -1,5 +1,6 @@
 """Drive the PyTorch port's search core, serving embed, PQL pages, text search,
-the index build path and the audio path once on one NVIDIA GPU.
+the index build path, the audio path and the image tag and caption path once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -176,8 +177,37 @@ Phases, one JSON line each:
             shapes (whisper's encoder B 4 × N 1,500, the probe's cross N_q 1
             × N_kv 1,500 and causal N 1, CLAP B 8 × N 320; H 8, D 64) against
             its plain version, timed beside SDPA and the bound.
+13. tags    image tags and captions (ROADMAP A.11a-b): (a) 1,024 seeded
+            224 × 224 RGB images written as binary PPM files with NumPy and
+            scanned by a FOLDER_RESCAN job on the JobQueue (no PIL: no
+            thumbnails); (b) tags/vit-tagger (ViT-B/32) through the model
+            manager with prewarm, TaggerImpl.tag_arrays over the images'
+            normalised pixels in windows of 32, in bf16 and then in int8
+            through a user TOML overlay: images/s, ms a window, the busy
+            share over a window, peak memory; one call of 100 arrays equal
+            to calls of at most 32; int8 raw features against the bf16
+            tower on the same dequantized weights at cosine ≥ 0.999 a row on
+            images the calibration slice never saw; (c) the bf16 tag maps
+            as a SQLite dump keyed by md5, tagmatch/local-dump (the overlay
+            gives its dump_path and the md5 handler) through the JobQueue:
+            every item the dump's tags, and 16 match_tags pages through
+            Executor.execute each holding exactly the items with the tag;
+            (d) vlm/caption-base (48 tokens, windows of 8) and
+            vlmtags/vlm-tagger (windows of 16) on 256 of the images: every
+            item a caption and a tag map, captions/s, a window's vision
+            tower and decode split with its steps counted, the busy share;
+            (e) 8 images through the tagger and the captioner on the card
+            and on the CPU (the card's weights copied): raw features and
+            vision tokens at cosine ≥ 0.999, probabilities within 1e-2, mcut
+            tag sets equal where the chosen gap is wide, teacher-forced
+            decoder steps at cosine ≥ 0.999 with the argmax equal where the
+            margin is wide, free-running tokens equal up to the first
+            narrow margin; (f) B3 (B 32 × N 50 × H 12 × D 64), B4 (the
+            same, int8 out) and B5 (1,600 × 768) against their plain
+            versions with phase 3's limits, on the tensor cores, timed
+            beside the bound and, for B3, SDPA.
 
-Each main path (phases 4-5, 6, 8, 7, 9, 10, 11 and 12) runs with the launch counters (and
+Each main path (phases 4-5, 6, 8, 7, 9, 10, 11, 12 and 13) runs with the launch counters (and
 the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
@@ -296,6 +326,22 @@ AUDIO_ATTN_CASES = {
     "whisper_probe_causal": (4, 1, 1, 8, 64, True, True),
     "clap_base": (8, 320, 320, 8, 64, False, False),
 }
+# Phase 13 (image tags and captions, ROADMAP A.11a-b): TAG_IMAGES seeded
+# TAG_SIZE² RGB images written as binary PPM files and scanned; TAG_MODEL
+# through the manager in windows of TAG_WINDOW (its default batch), bf16 and
+# int8, one call of TAG_SLICE_CHECK arrays held to calls of at most the batch
+# cap; its tag maps as TAGMATCH_MODEL's dump, TAG_QUERIES match_tags pages;
+# CAPTION_MODEL and VLM_TAG_MODEL on CAPTION_IMAGES of the arrays;
+# TAG_PAIR_IMAGES on the card and on the CPU, probabilities within
+# TAG_PROB_ATOL; B3 and B4 at the trunk's attention (B 32 × N 50 × H 12 ×
+# D 64), B5 at a window's LayerNorm rows (32 × 50 × 768).
+TAG_IMAGES, TAG_SIZE, TAG_WINDOW, TAG_SLICE_CHECK, TAG_QUERIES = 1024, 224, 32, 100, 16
+TAG_MODEL, TAGMATCH_MODEL, TAG_CACHE_KEY = "tags/vit-tagger", "tagmatch/local-dump", "tags"
+CAPTION_MODEL, VLM_TAG_MODEL, CAPTION_IMAGES = "vlm/caption-base", "vlmtags/vlm-tagger", 256
+# Two bf16 ViT-B/32 trunks (the card's, the CPU's) agree at cosine 0.99993;
+# the head turns that into probabilities up to 8e-3 apart (PERF.md §6).
+TAG_PAIR_IMAGES, TAG_PROB_ATOL = 8, 1e-2
+TAG_ATTN_SHAPE, TAG_LN_SHAPE = (32, 50, 12, 64), (32 * 50, 768)
 # Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): the least
 # time a kernel could take is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
@@ -2623,7 +2669,8 @@ def audio_pair_path(torch, dev, smi) -> dict:
         logits = {}
         for name, impl in (("card", card), ("cpu", cpu)):
             t0 = time.perf_counter()
-            logits[name] = _teacher_forced(torch, impl, feats[name], tokens.to(impl.device))
+            logits[name] = _teacher_forced(torch, impl.params, cfg, feats[name],
+                                           tokens.to(impl.device))
             out[f"{name}_teacher_forced_s"] = time.perf_counter() - t0
         got, want = logits["cpu"], logits["card"]
         cos = cosines(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]))
@@ -2653,18 +2700,18 @@ def audio_pair_path(torch, dev, smi) -> dict:
     return out
 
 
-def _teacher_forced(torch, impl, feats, tokens):
-    """whisper's incremental step over token rows (B, L) on the impl's
-    device: logits (B, L - 1, vocab) as NumPy."""
+def _teacher_forced(torch, params, cfg, feats, tokens):
+    """whisper's incremental step over token rows (B, L) on the features'
+    device (the whisper decoder's or the captioner's): logits (B, L - 1,
+    vocab) as NumPy."""
     from panoptikon_tpu_torch.models import whisper
 
-    cfg = impl.cfg
     b, length = tokens.shape
-    ck, cv = whisper._cross_heads(impl.params, cfg, feats)
+    ck, cv = whisper._cross_heads(params, cfg, feats)
     sk = torch.zeros((cfg.n_text_layers, b, length, cfg.n_text_state), dtype=torch.bfloat16,
                      device=feats.device)
     sv = torch.zeros_like(sk)
-    return np.stack([whisper._decode_step(impl.params, cfg, tokens[:, i], i, sk, sv, ck, cv,
+    return np.stack([whisper._decode_step(params, cfg, tokens[:, i], i, sk, sv, ck, cv,
                                           length).cpu().numpy() for i in range(length - 1)], axis=1)
 
 
@@ -2700,6 +2747,533 @@ def audio_attention(torch, dev, smi, counters) -> dict:
                             **attention_roofline(q, k, v, got, causal),
                             "library_ms": cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal), reps=10)}
     return {"part": "f_b3_audio_shapes", "card": smi, "shapes": shapes}
+
+
+def write_image_folder(root: Path, n: int, seed: int):
+    """n seeded TAG_SIZE² RGB images under ``root`` as binary PPM files
+    written with NumPy (no PIL on the card machine): a 7 × 7 grid of seeded
+    colours with seeded noise on it. Returns (paths, pixels (n, S, S, 3)
+    uint8)."""
+    rng = np.random.default_rng(seed)
+    s, g = TAG_SIZE, 7
+    coarse = rng.integers(0, 256, size=(n, g, g, 3), dtype=np.int16)
+    pixels = np.repeat(np.repeat(coarse, s // g, axis=1), s // g, axis=2)
+    pixels += rng.integers(-24, 25, size=pixels.shape, dtype=np.int16)
+    pixels = np.clip(pixels, 0, 255).astype(np.uint8)
+    header = f"P6\n{s} {s}\n255\n".encode()
+    paths = []
+    for i, img in enumerate(pixels):
+        path = root / f"img{i:04d}.ppm"
+        path.write_bytes(header + img.tobytes())
+        paths.append(path)
+    return paths, pixels
+
+
+def clip_normalize(pixels):
+    """uint8 (…, S, S, 3) → f32 normalised as impls.decode_image normalises
+    a decoded S × S image (its resize and crop are the identity there)."""
+    from panoptikon_tpu_torch.models.impls import CLIP_MEAN, CLIP_STD
+
+    return (pixels.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD
+
+
+TAG_MAP_KEYS = {"namespace", "tags", "mcut", "rating_severity", "metadata", "metadata_score"}
+
+
+def tag_map_shape(out) -> bool:
+    """The tagger output shape the extraction job's tags handler ingests."""
+    return (isinstance(out, dict) and set(out) == TAG_MAP_KEYS
+            and [c for c, _ in out["tags"]] == ["rating", "character", "general"]
+            and all(isinstance(m, dict) for _, m in out["tags"]))
+
+
+def tag_path(torch, dev, smi, counters) -> list:
+    """Phase 13: (a) TAG_IMAGES seeded PPM images scanned through the
+    JobQueue; (b) tags/vit-tagger through the manager in windows of 32, in
+    bf16 and, through a user TOML overlay, in int8; (c) the bf16 tag maps as
+    a SQLite dump keyed by md5, the tagmatch job through the JobQueue and
+    match_tags pages through Executor.execute; (d) the captioner and the VLM
+    tagger on CAPTION_IMAGES of the arrays. Returns the records and the
+    first TAG_PAIR_IMAGES arrays (for 13(e))."""
+    import tempfile
+
+    from panoptikon_tpu_torch.db import store
+    from panoptikon_tpu_torch.db.connection import Database
+    from panoptikon_tpu_torch.db.writer import IndexWriter
+    from panoptikon_tpu_torch.index import VectorIndex
+    from panoptikon_tpu_torch.jobs import scan
+    from panoptikon_tpu_torch.jobs.queue import ChangeSummary, JobType
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
+        folder = Path(root) / "images"
+        folder.mkdir()
+        t0 = time.perf_counter()
+        paths, pixels = write_image_folder(folder, TAG_IMAGES, SEED + 130)
+        write_s = time.perf_counter() - t0
+        folder_mb = sum(p.stat().st_size for p in paths) / 1e6
+        arrays = clip_normalize(pixels)
+        del pixels
+        db = Database(Path(root) / "db", "tags")
+        writer = IndexWriter(db)
+        manager = text_manager()
+        overlay = None
+        try:
+            index = VectorIndex()
+            writer.call(lambda conn: store.add_folder(conn, str(folder)))
+
+            def run_rescan(handle):
+                counts = scan.rescan_folders(db, writer, folders=handle.params.get("folders"),
+                                             cancelled=lambda: handle.cancelled)
+                handle.result = counts.__dict__
+                return ChangeSummary(wrote_data=counts.new_files > 0)
+
+            t0 = time.perf_counter()
+            scanned = run_jobs({JobType.FOLDER_RESCAN: run_rescan}, "tags",
+                               [(JobType.FOLDER_RESCAN, {})])[0].result
+            scan_s = time.perf_counter() - t0
+            require(scanned["new_files"] == TAG_IMAGES and scanned["errors"] == 0,
+                    f"tags: scanned {scanned}")
+            folder_rec = {"images": TAG_IMAGES, "size": TAG_SIZE, "folder_mb": folder_mb,
+                          "write_ppm_s": write_s, "scan_job_s": scan_s, "scanned": scanned}
+            tagger, bf16_maps = _tagger_run(torch, dev, smi, counters, manager, TAG_MODEL, arrays)
+            tagger.update(folder_rec)
+            dump = Path(root) / "dump.sqlite"
+            dump_rows = _write_tag_dump(db, dump, paths, bf16_maps)
+            overlay = text_manager(
+                "allow_override = true\n"
+                "[group.tags.inference_ids.vit-tagger]\n"
+                'config.model_arch = "ViT-B-32"\nconfig.precision = "int8"\n'
+                "[group.tagmatch.metadata.input_spec]\n"
+                'handler = "md5"\n'
+                "[group.tagmatch.inference_ids.local-dump]\n"
+                f'config.dump_path = "{dump}"\n', root)
+            int8_run, _ = _tagger_run(torch, dev, smi, counters, overlay, TAG_MODEL, arrays,
+                                      bf16_impl=manager._models[TAG_MODEL].model)
+            build = _tag_build(torch, dev, smi, db, writer, index, overlay, dump, dump_rows)
+            captions = _caption_run(torch, dev, smi, counters, manager, arrays[:CAPTION_IMAGES])
+        finally:
+            manager.shutdown()
+            if overlay is not None:
+                overlay.shutdown()
+            writer.close()
+    return [tagger, int8_run, build, captions], arrays[:TAG_PAIR_IMAGES]
+
+
+def _tagger_run(torch, dev, smi, counters, manager, model, arrays, bf16_impl=None):
+    """Phase 13(b): ``model`` loaded through ``manager`` with prewarm, then
+    tag_arrays over ``arrays`` in windows of its default batch (general
+    tags at each image's mcut); images/s, ms a window, the busy share over a
+    window, peak memory. The bf16 run (``bf16_impl`` None) also holds one
+    call of TAG_SLICE_CHECK arrays equal to calls of at most the batch cap;
+    the int8 run holds its raw features to the bf16 tower on the same
+    dequantized weights, and reports them against ``bf16_impl``'s, at cosine
+    ≥ 0.999 a row on images the calibration slice never saw. Returns the
+    record and the tag maps."""
+    from panoptikon_tpu_torch.models import clip
+
+    t0 = time.perf_counter()
+    manager.load_model(model, cache_key=TAG_CACHE_KEY, lru_size=4, prewarm=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    entry = manager._models[model]
+    impl = entry.model
+    precision = "bf16" if bf16_impl is None else "int8"
+    require(entry.default_batch == TAG_WINDOW and impl.precision == precision
+            and impl.cfg == dataclasses.replace(clip.CONFIGS["ViT-B-32"], matmul_precision=precision)
+            and impl.device.type == dev.type and impl._act_scales is None,
+            f"tags: {model} as the registry (and overlay) define it, {precision}")
+    # No threshold: each image's general tags are cut at its mcut, so the
+    # sets differ between images (with random weights most probabilities
+    # clear the group's default_threshold of 0.1).
+    configs = [{}] * TAG_WINDOW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    maps, window_s = [], []
+    t0 = time.perf_counter()
+    for lo in range(0, len(arrays), TAG_WINDOW):
+        w0 = time.perf_counter()
+        window = arrays[lo : lo + TAG_WINDOW]
+        maps += impl.tag_arrays(window, configs[: len(window)])
+        window_s.append(time.perf_counter() - w0)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(len(maps) == len(arrays) and all(tag_map_shape(m) for m in maps),
+            f"tags {precision}: {len(maps)} tag maps for {len(arrays)} images")
+    rec = {"part": f"b_tagger_{precision}", "card": smi, "model": model, "images": len(arrays),
+           "window": TAG_WINDOW, "load_and_prewarm_s": load_s, "wall_s": wall,
+           "images_per_s": len(arrays) / wall, "window_ms_median": 1e3 * float(np.median(window_s)),
+           "window_ms_range": [1e3 * min(window_s), 1e3 * max(window_s)],
+           "peak_device_gib": peak, "threshold": "mcut",
+           "general_tags_per_image": [min(len(dict(m["tags"])["general"]) for m in maps),
+                                      float(np.mean([len(dict(m["tags"])["general"]) for m in maps])),
+                                      max(len(dict(m["tags"])["general"]) for m in maps)]}
+    unseen = arrays[-2 * TAG_WINDOW:]  # never in the calibrating first window
+    window = arrays[:TAG_WINDOW]
+    with not_counted(counters):
+        wall_w, busy = busy_share(torch, lambda: impl.tag_arrays(window, configs))
+        # A window's split (host clock around synchronised parts, the second
+        # pass kept): the copy to the card, the trunk on it alone, the
+        # probabilities (pad, copy, trunk, head, copy back), and the tag maps
+        # alone (tag_arrays over those probabilities).
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x_dev = torch.from_numpy(window).to(dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if precision == "int8":
+                clip.embed_images_raw_scaled(impl.params, impl.cfg, x_dev, impl._act_scales)
+            else:
+                clip.embed_images_raw(impl.params, impl.cfg, x_dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            probs = impl.probabilities(window)
+            t4 = time.perf_counter()
+            impl.probabilities = lambda _images: probs
+            try:
+                impl.tag_arrays(window, configs)
+            finally:
+                del impl.probabilities
+            t5 = time.perf_counter()
+        rec.update({"profiled_window_s": wall_w, "device_busy_share_window": busy,
+                    "window_split_ms": {"h2d": 1e3 * (t2 - t1), "trunk": 1e3 * (t3 - t2),
+                                        "probabilities": 1e3 * (t4 - t3),
+                                        "tag_maps": 1e3 * (t5 - t4)}})
+        if bf16_impl is None:
+            one = impl.raw_features(arrays[:TAG_SLICE_CHECK])
+            parts = torch.cat([impl.raw_features(arrays[lo : min(lo + TAG_WINDOW, TAG_SLICE_CHECK)])
+                               for lo in range(0, TAG_SLICE_CHECK, TAG_WINDOW)])
+            p_one = impl.probabilities(arrays[:TAG_SLICE_CHECK])
+            p_parts = np.concatenate([impl.probabilities(arrays[lo : min(lo + TAG_WINDOW,
+                                                                         TAG_SLICE_CHECK)])
+                                      for lo in range(0, TAG_SLICE_CHECK, TAG_WINDOW)])
+            p_diff = float(np.abs(p_one - p_parts).max())
+            require(torch.equal(one, parts) and p_diff <= 1e-6,
+                    f"tags: {TAG_SLICE_CHECK} arrays in one call differ from calls of "
+                    f"{TAG_WINDOW} (probabilities {p_diff} apart)")
+            rec.update({"one_call_of": TAG_SLICE_CHECK, "equals_calls_of_at_most": TAG_WINDOW,
+                        "one_call_prob_max_abs_diff": p_diff})
+        else:
+            got = impl.raw_features(unseen).cpu().numpy()
+            bf16_cfg = dataclasses.replace(impl.cfg, matmul_precision="bf16")
+            same_weights = clip.embed_images_raw(
+                impl.params, bf16_cfg, torch.from_numpy(unseen).to(dev)).cpu().numpy()
+            cos = cosines(got, same_weights)
+            require(float(cos.min()) >= 0.999,
+                    f"tags int8: raw features against bf16 (same weights) min cosine {cos.min()}")
+            cos_b = cosines(got, bf16_impl.raw_features(unseen).cpu().numpy())
+            rec.update({"int8_vs_bf16_same_weights_min_cosine": float(cos.min()),
+                        "int8_vs_bf16_tagger_min_cosine": float(cos_b.min()),
+                        "unseen_images": len(unseen)})
+    return rec, maps
+
+
+def _write_tag_dump(db, dump: Path, paths, maps) -> dict:
+    """Phase 13(c): the tag maps as a SQLite dump ``tags(md5, namespace, name,
+    confidence)`` with an md5 index, the layout Md5LookupImpl reads, keyed by
+    each scanned file's md5. Returns {md5: {name: confidence}}, what the
+    lookup gives each item."""
+    by_path = dict(db.reader().execute(
+        "SELECT f.path, i.md5 FROM files f JOIN items i ON i.id = f.item_id").fetchall())
+    expected, rows = {}, []
+    for path, out in zip(paths, maps):
+        md5 = by_path[str(path)]
+        tags = {}
+        for _, cat in out["tags"]:
+            tags.update(cat)
+        expected[md5] = tags
+        rows += [(md5, out["namespace"], name, conf) for name, conf in tags.items()]
+    conn = sqlite3.connect(dump)
+    conn.executescript("CREATE TABLE tags (md5 TEXT, namespace TEXT, name TEXT, confidence REAL);"
+                       "CREATE INDEX tags_md5 ON tags(md5);")
+    conn.executemany("INSERT INTO tags VALUES (?, ?, ?, ?)", rows)
+    conn.commit()
+    conn.close()
+    return expected
+
+
+def _tag_build(torch, dev, smi, db, writer, index, manager, dump, expected) -> dict:
+    """Phase 13(c): the tagmatch job (md5 handler, the overlay's dump) on the
+    JobQueue; every item holds the tags the dump gives its md5; match_tags
+    pages through Executor.execute on TAG_QUERIES tags each hold exactly the
+    items whose map has the tag."""
+    from panoptikon_tpu_torch.jobs.queue import JobType
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql.executor import Executor
+
+    meta = manager.registry.group_metadata("tagmatch")
+    require((meta.get("input_spec") or {}).get("handler") == "md5", f"tagmatch metadata {meta}")
+    runners = extraction_runners(manager, db, writer, index)
+    handle = run_jobs(runners, "tags", [(JobType.DATA_EXTRACTION, {"inference_id": TAGMATCH_MODEL})])[0]
+    report, wall = handle.result["report"], handle.result["wall_s"]
+    require((report.processed, report.input_errors, report.transient_errors) == (TAG_IMAGES, 0, 0),
+            f"tagmatch: processed {report.processed}, {report.input_errors} input and "
+            f"{report.transient_errors} transient errors")
+    conn = db.reader()
+    got: dict = {}
+    for md5, name, conf in conn.execute(
+            """SELECT i.md5, t.name, ti.confidence FROM tags_items ti JOIN tags t ON t.id = ti.tag_id
+               JOIN items i ON i.id = ti.item_id"""):
+        got.setdefault(md5, {})[name] = conf
+    require(got.keys() == expected.keys(), f"tagmatch: {len(got)} items tagged of {len(expected)}")
+    for md5, tags in expected.items():
+        require(got[md5].keys() == tags.keys() and all(
+            abs(got[md5][k] - v) <= 1e-6 for k, v in tags.items()), f"tagmatch: item {md5}'s tags")
+    item_of = dict(conn.execute("SELECT md5, id FROM items").fetchall())
+    counts: dict = {}
+    for tags in expected.values():
+        for name in tags:
+            counts[name] = counts.get(name, 0) + 1
+    ranked = sorted(counts, key=lambda n: (-counts[n], n))
+    picks = [ranked[int(i)] for i in np.linspace(0, len(ranked) - 1, min(TAG_QUERIES, len(ranked)))]
+    ex = Executor(db, index, manager=manager, device=str(dev))
+    page_ms, sizes = [], []
+    for name in dict.fromkeys(picks):
+        holders = {item_of[m] for m, tags in expected.items() if name in tags}
+        t0 = time.perf_counter()
+        res = ex.execute(pql.PqlQuery.from_json(
+            {"query": {"match_tags": {"tags": [name]}}, "page_size": TAG_IMAGES}))
+        page_ms.append(1e3 * (time.perf_counter() - t0))
+        found = [r["item_id"] for r in res.results]
+        require(len(found) == len(set(found)) and set(found) == holders,
+                f"tags search: match_tags {name} found {len(found)} items, {len(holders)} hold it")
+        sizes.append(len(found))
+    return {"part": "c_tag_build", "card": smi, "job_wall_s": wall, "processed": report.processed,
+            "items_per_s": report.processed / wall, "load_stall_s": report.data_load_time,
+            "inference_s": report.inference_time, "dump_rows": sum(len(t) for t in expected.values()),
+            "tag_rows": sum(len(t) for t in got.values()), "distinct_tags": len(counts),
+            "match_tags_queries": len(sizes), "match_tags_items": sizes,
+            "match_tags_ms": [min(page_ms), float(np.median(page_ms)), max(page_ms)]}
+
+
+def _caption_run(torch, dev, smi, counters, manager, arrays) -> dict:
+    """Phase 13(d): vlm/caption-base (windows of 8) and vlmtags/vlm-tagger
+    (windows of 16) through the manager on ``arrays``: captions/s, a window's
+    vision tower and decode split (the steps counted), the busy share over a
+    window; every item a caption and a tag map in the tagger's shape."""
+    from panoptikon_tpu_torch.models import clip, impls, whisper
+
+    rec = {"part": "d_captioners", "card": smi, "images": len(arrays)}
+    for model, key in ((CAPTION_MODEL, "caption"), (VLM_TAG_MODEL, "vlm_tags")):
+        t0 = time.perf_counter()
+        manager.load_model(model, cache_key=TAG_CACHE_KEY, lru_size=4, prewarm=True)
+        torch.cuda.synchronize()
+        entry = manager._models[model]
+        impl, batch = entry.model, entry.default_batch
+        require(impl.vision_cfg == clip.CONFIGS["ViT-B-32"]
+                and impl.decoder_cfg.n_text_state == impl.vision_cfg.vision_width
+                and impl.decoder_cfg.n_text_heads == 2 and impl.device.type == dev.type
+                and batch == {"caption": 8, "vlm_tags": 16}[key]
+                and impl.max_tokens == {"caption": 48, "vlm_tags": 32}[key],
+                f"captioners: {model} as the registry defines it")
+        load_s = time.perf_counter() - t0
+        run = impl.caption_arrays if key == "caption" else impl.tag_arrays
+        out = []
+        t0 = time.perf_counter()
+        for lo in range(0, len(arrays), batch):
+            out += run(arrays[lo : lo + batch])
+        wall = time.perf_counter() - t0
+        if key == "caption":
+            require(len(out) == len(arrays) and all(
+                o["text"] and 0 < o["confidence"] <= 1 and o["language"] == "en" for o in out),
+                "captioner: every item a caption")
+        else:
+            require(len(out) == len(arrays) and all(tag_map_shape(o) and o["namespace"] == "vlm"
+                                                    and dict(o["tags"])["general"] for o in out),
+                    "vlm tagger: every item a tag map in the tagger's output shape")
+        steps = [0]
+        step = whisper._decode_step
+
+        def counted(*a, **k):
+            steps[0] += 1
+            return step(*a, **k)
+
+        window = arrays[:batch]
+        with not_counted(counters):
+            for _ in range(2):  # the second pass is the one kept
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                feats = clip.encode_image_tokens(impl.vision_params, impl.vision_cfg,
+                                                 torch.from_numpy(window).to(dev))
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                steps[0] = 0
+                whisper._decode_step = counted
+                try:
+                    _, lengths, _ = impls._caption_decode(impl.decoder_params, impl.decoder_cfg,
+                                                          feats, impl.max_tokens, impl._prompt_ids)
+                    torch.cuda.synchronize()
+                finally:
+                    whisper._decode_step = step
+                t3 = time.perf_counter()
+            wall_w, busy = busy_share(torch, lambda: run(window))
+        rec[key] = {"model": model, "window": batch, "max_tokens": impl.max_tokens,
+                    "load_and_prewarm_s": load_s, "wall_s": wall, "per_s": len(arrays) / wall,
+                    "window_ms": 1e3 * wall / -(-len(arrays) // batch),
+                    "vision_tower_ms": 1e3 * (t2 - t1), "decode_ms": 1e3 * (t3 - t2),
+                    "decode_steps": steps[0], "decode_ms_per_step": 1e3 * (t3 - t2) / steps[0],
+                    "generated_tokens": (lengths - 3).tolist(),
+                    "profiled_window_s": wall_w, "device_busy_share_window": busy,
+                    "device_idle_share_window": 1 - busy,
+                    "example": out[0]["text"][:60] if key == "caption" else
+                    list(dict(out[0]["tags"])["general"])[:6]}
+    return rec
+
+
+def tag_pair_path(torch, dev, smi, x) -> dict:
+    """Phase 13(e): the arrays ``x`` through the registry's bf16 tagger and
+    captioner (ViT-B-32; the seeded weights of 13(b) and (d)) on the card and
+    on the CPU, the card's weights copied (CUDA and CPU generators draw
+    different random weights): raw features at
+    cosine ≥ 0.999 a row; probabilities within TAG_PROB_ATOL; mcut tag sets
+    equal wherever the chosen gap beats the runner-up by more than twice the
+    largest probability difference; vision tokens at cosine ≥ 0.999;
+    teacher-forced decoder steps at cosine ≥ 0.999 with the argmax equal
+    where the margin exceeds twice the max abs error; the CPU's free-running
+    tokens equal to the card's up to the first narrow margin."""
+    from panoptikon_tpu_torch.models import clip, impls
+
+    card = impls.TaggerImpl("ViT-B-32")
+    card.load()
+    cpu = impls.TaggerImpl("ViT-B-32", device="cpu")
+    cpu.params, cpu.head, cpu.head_bias = (_tree_to(t, "cpu") for t in
+                                           (card.params, card.head, card.head_bias))
+    out = {"part": "e_card_equals_cpu", "card": smi, "images": len(x)}
+    t0 = time.perf_counter()
+    f_cpu = cpu.raw_features(x).numpy()
+    out["cpu_tagger_s"] = time.perf_counter() - t0
+    f_card = card.raw_features(x).cpu().numpy()
+    cos = cosines(f_card, f_cpu)
+    require(float(cos.min()) >= 0.999, f"tag pair: raw features min cosine card vs CPU {cos.min()}")
+    p_card, p_cpu = card.probabilities(x), cpu.probabilities(x)
+    diff = float(np.abs(p_card - p_cpu).max())
+    require(diff <= TAG_PROB_ATOL, f"tag pair: probabilities {diff} apart")
+    n_rating = len(card.rating_tags)
+    held = 0
+    for g, w, pc in zip(cpu.tag_arrays(x, [None] * len(x)), card.tag_arrays(x, [None] * len(x)),
+                        p_card):
+        probs = np.sort(pc[n_rating : n_rating + len(card.tag_vocab)])[::-1]
+        gaps = np.sort(probs[:-1] - probs[1:])[::-1]
+        if gaps[0] - gaps[1] > 2 * diff:
+            require(dict(g["tags"])["general"].keys() == dict(w["tags"])["general"].keys(),
+                    "tag pair: mcut tag sets differ where the gap is wide")
+            held += 1
+    out.update({"raw_features_min_cosine": float(cos.min()), "prob_max_abs_diff": diff,
+                "mcut_sets_compared": held})
+
+    del card, cpu
+    cap = impls.CaptionerImpl("ViT-B-32", max_tokens=48)
+    cap.load()
+    cpu_cap = impls.CaptionerImpl("ViT-B-32", max_tokens=48, device="cpu")
+    cpu_cap.vision_params = _tree_to(cap.vision_params, "cpu")
+    cpu_cap.decoder_params = _tree_to(cap.decoder_params, "cpu")
+    cfg = cap.decoder_cfg
+    feats = {}
+    for name, impl in (("card", cap), ("cpu", cpu_cap)):
+        t0 = time.perf_counter()
+        feats[name] = clip.encode_image_tokens(impl.vision_params, impl.vision_cfg,
+                                               torch.from_numpy(x).to(impl.device))
+        torch.cuda.synchronize()
+        out[f"{name}_vision_s"] = time.perf_counter() - t0
+    t_card, t_cpu = feats["card"].cpu().numpy(), feats["cpu"].numpy()
+    cos = cosines(t_card.reshape(-1, t_card.shape[-1]), t_cpu.reshape(-1, t_cpu.shape[-1]))
+    require(float(cos.min()) >= 0.999, f"tag pair: vision tokens min cosine card vs CPU {cos.min()}")
+    out["vision_tokens_min_cosine"] = float(cos.min())
+    with torch.inference_mode():
+        tokens, lengths, _ = impls._caption_decode(cap.decoder_params, cfg, feats["card"],
+                                                   cap.max_tokens)
+        tokens = tokens.cpu()
+        logits = {}
+        for name, impl in (("card", cap), ("cpu", cpu_cap)):
+            t0 = time.perf_counter()
+            logits[name] = _teacher_forced(torch, impl.decoder_params, cfg, feats[name],
+                                           tokens.to(impl.device))
+            out[f"{name}_teacher_forced_s"] = time.perf_counter() - t0
+        got, want = logits["cpu"], logits["card"]
+        cos = cosines(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]))
+        require(float(cos.min()) >= 0.999, f"tag pair: teacher-forced logits min cosine {cos.min()}")
+        err = float(np.abs(got - want).max())
+        top2 = np.sort(want, axis=-1)[..., -2:]
+        margin = top2[..., 1] - top2[..., 0]
+        decided = margin > 2 * err
+        require(bool((got.argmax(-1) == want.argmax(-1))[decided].all()),
+                "tag pair: the decoder's argmax differs where the margin is wide")
+        cpu_tokens = impls._caption_decode(cpu_cap.decoder_params, cfg, feats["cpu"],
+                                           cap.max_tokens)[0]
+        splits = []
+        for j in range(len(x)):
+            low = np.flatnonzero(margin[j, 2:] <= 2 * err)
+            first = 2 + (int(low[0]) if low.size else cap.max_tokens)
+            require(torch.equal(cpu_tokens[j, : first + 1], tokens[j, : first + 1]),
+                    f"tag pair: row {j}'s free-running tokens split before position {first}")
+            splits.append(first if low.size else None)
+    out.update({"teacher_forced_min_cosine": float(cos.min()), "logits_max_abs_err": err,
+                "positions_decided": int(decided.sum()), "positions": int(decided.size),
+                "first_low_margin_position": splits, "card_lengths": lengths.tolist()})
+    return out
+
+
+def tag_kernels(torch, dev, smi, counters) -> dict:
+    """Phase 13(f): B3, B4 and B5 at the tagger's shapes, off the main path's
+    counts: B3 bf16 ≤ 2e-2 max abs from mha_plain, B4 (int8 out) and B5 at
+    most one code apart and at most 0.5 % of codes apart, the attention on
+    the tensor cores; each timed kernel/plain/plain/kernel beside the bound,
+    B3 beside SDPA."""
+    from panoptikon_tpu_torch.ops import ln_quant, vit_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 131)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    out = {"part": "f_kernels_at_tagger_shapes", "card": smi}
+    with not_counted(counters):
+        b, n, h, d = TAG_ATTN_SHAPE
+        q, k, v = (randn(b, n, h, d) for _ in range(3))
+        tc = vit_attention.mha.routes["tensor_core"]
+        got = vit_attention.mha(q, k, v)
+        require(vit_attention.mha.routes["tensor_core"] == tc + 1, "tags B3: not on the tensor cores")
+        want = vit_attention.mha_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        require(torch.isfinite(got.float()).all().item() and err <= 2e-2,
+                f"tags B3: max abs diff {err} > 2e-2")
+        ms, plain_ms = paired_ms(torch, lambda: vit_attention.mha(q, k, v),
+                                 lambda: vit_attention.mha_plain(q, k, v))
+        out["mha"] = {"shape": [b, n, n, h, d], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      **attention_roofline(q, k, v, got),
+                      "library_ms": cuda_ms(torch, lambda: sdpa(torch, q, k, v))}
+        qkv = randn(b, n, 3 * h * d)
+        scale = torch.tensor(3.0, device=dev)
+        tc = vit_attention.mha_qkv.routes["tensor_core"]
+        got = vit_attention.mha_qkv(qkv, heads=h, out_scale=scale)
+        require(vit_attention.mha_qkv.routes["tensor_core"] == tc + 1,
+                "tags B4: not on the tensor cores")
+        want = vit_attention.mha_qkv_plain(qkv, heads=h, out_scale=scale)
+        torch.cuda.synchronize()
+        codes = require_codes(torch, got, want, "tags B4")
+        ms, plain_ms = paired_ms(torch, lambda: vit_attention.mha_qkv(qkv, heads=h, out_scale=scale),
+                                 lambda: vit_attention.mha_qkv_plain(qkv, heads=h, out_scale=scale))
+        parts = qkv.view(b, n, 3, h, d).unbind(2)
+        out["mha_qkv"] = {"shape": [b, n, h, d], "int8_out": True, "max_abs_err": codes, "ms": ms,
+                          "plain_ms": plain_ms, **attention_roofline(*parts, got),
+                          "library_ms": None}
+        rows, width = TAG_LN_SHAPE
+        x = randn(rows, width) * 3
+        g, beta = randn(width, dtype=torch.float32), randn(width, dtype=torch.float32)
+        s = torch.tensor(4.2, device=dev)
+        got = ln_quant.ln_quant_2d(x, g, beta, s)
+        want = ln_quant.ln_quant_plain(x, g, beta, s)
+        torch.cuda.synchronize()
+        codes = require_codes(torch, got, want, "tags B5")
+        ms, plain_ms = paired_ms(torch, lambda: ln_quant.ln_quant_2d(x, g, beta, s),
+                                 lambda: ln_quant.ln_quant_plain(x, g, beta, s))
+        out["ln_quant"] = {"shape": [rows, width], "max_abs_err": codes, "ms": ms,
+                           "plain_ms": plain_ms,
+                           **roofline(LN_OPS_PER_ELEMENT * rows * width, "f32",
+                                      nbytes(x, g, beta, s) + rows * width),
+                           "library_ms": None}
+    return out
 
 
 def cosines(a, b):
@@ -3351,9 +3925,31 @@ def main() -> int:
     emit({"phase": "audio", "part": "launches", "launches": audio_launches,
           "attention_routes": audio_routes})
 
+    # 13. Image tags and captions: (a) 1,024 PPM images scanned, (b) the
+    # tagger in bf16 and int8, (c) the tag build and match_tags pages, (d)
+    # the captioner and the VLM tagger, (e) the card against the CPU, (f) B3,
+    # B4 and B5 at the tagger's shapes. Counters start at zero here.
+    torch.cuda.empty_cache()
+    reset_counts(counters)
+    tag_run, tag_pair = tag_path(torch, dev, smi, counters)
+    tag_launches = {fn.__name__: fn.launches for fn in counters}
+    tag_routes = read_routes(counters)
+    require(all(tag_launches[name] > 0 for name in ("mha", "mha_qkv", "ln_quant_2d")),
+            f"tag path kernel launches {tag_launches}")
+    require_tensor_cores(tag_launches, tag_routes, ("mha", "mha_qkv"), "tag path")
+    torch.cuda.empty_cache()
+    tag_run.append(tag_pair_path(torch, dev, smi, tag_pair))
+    tag_k = tag_kernels(torch, dev, smi, counters)
+    tag_run.append(tag_k)
+    for record in tag_run:
+        emit({"phase": "tags", **record})
+    emit({"phase": "tags", "part": "launches", "launches": tag_launches,
+          "attention_routes": tag_routes})
+
     runs = ((launches, routes), (batch_launches, batch_routes), (composed_launches, composed_routes),
             (l14_launches, l14_routes), (pql_launches, pql_routes), (text_launches, text_routes),
-            (extract_launches, extract_routes), (audio_launches, audio_routes))
+            (extract_launches, extract_routes), (audio_launches, audio_routes),
+            (tag_launches, tag_routes))
     total = {name: sum(run[0][name] for run in runs) for name in launches}
     total_routes = {name: {path: sum(run[1][name][path] for run in runs) for path in routes[name]}
                     for name in routes}
@@ -3376,23 +3972,29 @@ def main() -> int:
          "replaces": "panoptikon_tpu/ops/vit_attention.py:192", "launches": total["mha"],
          "routes": total_routes["mha"],
          "max_abs_err": max(*attn_err.values(),
-                            *(r["max_abs_err"] for r in audio_b3["shapes"].values())),
+                            *(r["max_abs_err"] for r in audio_b3["shapes"].values()),
+                            tag_k["mha"]["max_abs_err"]),
          "ms": attn_ms["vit_b32_image"][0], "plain_ms": attn_ms["vit_b32_image"][1],
          **bounds["vit_b32_image"], "library_ms": library_ms["vit_b32_image"],
          "text_shapes": {name: {"ms": attn_ms[name][0], "plain_ms": attn_ms[name][1],
                                 "max_abs_err": attn_err[name], **bounds[name],
                                 "library_ms": library_ms[name]} for name in TEXT_ATTN_CASES},
-         "audio_launches": audio_launches["mha"], "audio_shapes": audio_b3["shapes"]},
+         "audio_launches": audio_launches["mha"], "audio_shapes": audio_b3["shapes"],
+         "tag_launches": tag_launches["mha"], "tag_shape": tag_k["mha"]},
         {"name": "mha_qkv", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:296", "launches": total["mha_qkv"],
          "routes": total_routes["mha_qkv"],
-         "max_abs_err": max(qkv_err.values()), "ms": qkv_ms["vit_l14_image_int8"][0],
+         "max_abs_err": max(*qkv_err.values(), tag_k["mha_qkv"]["max_abs_err"]),
+         "ms": qkv_ms["vit_l14_image_int8"][0],
          "plain_ms": qkv_ms["vit_l14_image_int8"][1], **bounds["qkv_vit_l14_image_int8"],
-         "library_ms": None},
+         "library_ms": None, "tag_launches": tag_launches["mha_qkv"],
+         "tag_shape": tag_k["mha_qkv"]},
         {"name": "ln_quant", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/ln_quant.cu",
          "replaces": "panoptikon_tpu/ops/ln_quant.py:60", "launches": total["ln_quant_2d"],
-         "max_abs_err": max(ln_err.values()), "ms": ln_ms["vit_l14_image"][0],
-         "plain_ms": ln_ms["vit_l14_image"][1], **bounds["ln_vit_l14_image"], "library_ms": None},
+         "max_abs_err": max(*ln_err.values(), tag_k["ln_quant"]["max_abs_err"]),
+         "ms": ln_ms["vit_l14_image"][0],
+         "plain_ms": ln_ms["vit_l14_image"][1], **bounds["ln_vit_l14_image"], "library_ms": None,
+         "tag_launches": tag_launches["ln_quant_2d"], "tag_shape": tag_k["ln_quant"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -316,13 +316,9 @@ def _normalize(feats):
     return feats / torch.clamp(torch.linalg.norm(feats, dim=-1, keepdim=True), min=1e-8)
 
 
-def encode_image(params: Params, cfg: ClipConfig, images, normalize: bool = True,
-                 act_scales=None, _collector=None):
-    """images (B, H, W, 3), already mean/std normalized -> (B, embed_dim) f32.
-
-    ``act_scales`` — (vision_layers, 4) calibrated per-tensor activation
-    absmax (:func:`calibrate_image_scales`); with ``cfg.matmul_precision ==
-    "int8"`` and prequantized weights it selects the static-int8 block."""
+def _visual_trunk(params: Params, cfg: ClipConfig, images, act_scales=None, collector=None):
+    """The patch embedding, positions, ``ln_pre`` and every block: (B, 1 +
+    grid², vision_width) in bf16."""
     v = params["visual"]
     b = images.shape[0]
     p, g = cfg.patch_size, cfg.grid
@@ -338,10 +334,29 @@ def encode_image(params: Params, cfg: ClipConfig, images, normalize: bool = True
     for i, blk in enumerate(v["blocks"]):
         x = _block(x, blk, cfg.vision_heads, causal=False, precision=cfg.matmul_precision,
                    scales=act_scales[i] if act_scales is not None else None,
-                   collector=_collector)
+                   collector=collector)
+    return x
+
+
+def encode_image(params: Params, cfg: ClipConfig, images, normalize: bool = True,
+                 act_scales=None, _collector=None):
+    """images (B, H, W, 3), already mean/std normalized -> (B, embed_dim) f32.
+
+    ``act_scales`` — (vision_layers, 4) calibrated per-tensor activation
+    absmax (:func:`calibrate_image_scales`); with ``cfg.matmul_precision ==
+    "int8"`` and prequantized weights it selects the static-int8 block."""
+    v = params["visual"]
+    x = _visual_trunk(params, cfg, images, act_scales, _collector)
     x = _layernorm(x[:, 0], v["ln_post"])
     feats = (x @ v["proj"].to(x.dtype)).to(torch.float32)
     return _normalize(feats) if normalize else feats
+
+
+@torch.inference_mode()
+def encode_image_tokens(params: Params, cfg: ClipConfig, images):
+    """Every trunk token (B, 1 + grid², vision_width) f32, with no
+    ``ln_post`` or ``proj``: the captioner's cross-attention memory."""
+    return _visual_trunk(params, cfg, images).to(torch.float32)
 
 
 def encode_text(params: Params, cfg: ClipConfig, token_ids, normalize: bool = True,
@@ -394,6 +409,13 @@ def embed_images(params: Params, cfg: ClipConfig, images):
 def embed_images_scaled(params: Params, cfg: ClipConfig, images, act_scales):
     """Static-scale int8 image embed (calibrated ``act_scales``)."""
     return encode_image(params, cfg, images, act_scales=act_scales)
+
+
+@torch.inference_mode()
+def embed_images_raw(params: Params, cfg: ClipConfig, images):
+    """Unnormalized pooled features (classifier heads, the taggers, apply to
+    the raw trunk output, not the retrieval embedding)."""
+    return encode_image(params, cfg, images, normalize=False)
 
 
 @torch.inference_mode()

@@ -1,23 +1,25 @@
 """In-process model implementations — the port of
 ``panoptikon_tpu/models/impls.py``: ``ClipImpl``, ``TextEmbedImpl``,
-``WhisperImpl``, ``ClapImpl`` and the fixture impls the manager's tests
-drive, indexed by ``impl_class`` in :data:`IMPL_INDEX`. The other impls
-(tagger, captioner, VLM tagger, OCR, the API-backed ones) are not ported
-yet (ROADMAP A.11); an
-``impl_class`` the index lacks raises ``ModelLoadError`` at load through
-``models.discovery``, as the reference does for a name it does not know.
+``TaggerImpl``, ``WhisperImpl``, ``ClapImpl``, ``CaptionerImpl``,
+``VlmTaggerImpl``, the host-only ``Md5LookupImpl``, ``ApiEmbedImpl`` and
+``TagApiImpl`` (copied text for text) and the fixture impls the manager's
+tests drive, indexed by ``impl_class`` in :data:`IMPL_INDEX`. OCR
+(``OcrImpl``) is not ported yet (ROADMAP A.11c); an ``impl_class`` the index
+lacks raises ``ModelLoadError`` at load through ``models.discovery``, as the
+reference does for a name it does not know.
 
 ``ClipImpl`` has the same predict contract as the JAX class: inputs with an
 image ``file``, pre-decoded ``{"pixels": (S, S, 3)}`` or ``{"text": ...}``; outputs are
 L2-normalized f32 embeddings as npy bytes, or an ``input`` error slot for
 that position only (a payload that does not decode, a wrong pixels shape, an
-input of no known kind). Batches pad to the bucket ladder of
-``models.batching``.
+input of no known kind). Images and texts embed in slices of at most the top
+batch bucket, each padded to its bucket of ``models.batching``'s ladder.
 
 ``precision="int8"`` is the serving embed: block weights are quantized once
-in :meth:`ClipImpl.load`, the first real image batch and the first real
-text batch each calibrate the static activation scales (one bf16 pass), and
-every batch then runs the static-int8 block (``clip._block_int8_static``).
+in :meth:`ClipImpl.load`, the first real image slice and the first real
+text slice each calibrate the static activation scales (one bf16 pass), and
+every slice then runs the static-int8 block (``clip._block_int8_static``).
+``TaggerImpl`` takes the same option for its trunk.
 
 ``TextEmbedImpl`` is the sentence-transformer embedder: one text in, a 2D
 npy array of chunk embeddings out, with the reference's chunking, task
@@ -27,13 +29,19 @@ the top batch bucket, shortest chunks first, each slice padded to its own
 (the JAX class pads all of a call's chunks as one batch, which fails past
 the top bucket: ROADMAP §C).
 
+``TaggerImpl``, ``CaptionerImpl`` and ``VlmTaggerImpl`` take image files,
+as the JAX classes do, and have an array entry each (``tag_arrays``,
+``caption_arrays``) that takes normalised pixels: ``predict`` is the host
+decode and that entry.
+
 ``WhisperImpl`` and ``ClapImpl`` take WAV files (``decode_wav``, copied
 from the JAX package: mono 16 kHz, a downmix and a linear resample
 otherwise), with the JAX classes' outputs: a transcript with its language
 and confidences, and an L2-normalized audio embedding.
 
 A ``checkpoint`` (a local HF ``.bin`` or ``.safetensors``, or a folder
-holding one) loads through ``models.weights`` and
+holding one; a timm state dict for the tagger, and a whisper-decoder one as
+the captioner's ``decoder_checkpoint``) loads through ``models.weights`` and
 ``models.convert.params_from_jax``; without one the weights are random,
 drawn from a fixed seed on the impl's device.
 
@@ -61,15 +69,18 @@ from panoptikon_tpu_torch.models import (audio, batching, clip, convert, text_em
 from panoptikon_tpu_torch.models.base import InferenceModel, PredictionInput, SlotError
 from panoptikon_tpu_torch.utils import npy
 
-__all__ = ["IMPL_INDEX", "ClapImpl", "ClipImpl", "HashTokenizer", "PredictionInput",
-           "TextEmbedImpl", "WhisperImpl", "decode_image", "decode_wav", "load_tokenizer", "npy"]
+__all__ = ["IMPL_INDEX", "ApiEmbedImpl", "CaptionerImpl", "ClapImpl", "ClipImpl", "HashTokenizer",
+           "Md5LookupImpl", "PredictionInput", "TagApiImpl", "TaggerImpl", "TextEmbedImpl",
+           "VlmTaggerImpl", "WhisperImpl", "decode_image", "decode_wav", "load_tokenizer", "npy"]
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 INIT_SEED = 0  # ClipImpl's random weights; the other impls' seeds follow
 TEXT_INIT_SEED = 1
+TAGGER_INIT_SEED = 2
 WHISPER_INIT_SEED = 4
 CLAP_INIT_SEED = 5
+CAPTIONER_INIT_SEED = 7
 
 
 def decode_image(payload: bytes, size: int) -> np.ndarray:
@@ -124,8 +135,12 @@ def load_tokenizer(tokenizer_path: Optional[str], vocab: int):
 
 class ClipImpl(InferenceModel):
     """OpenCLIP-equivalent image/text encoder on one explicit device: encodes
-    image files, pre-decoded pixels and ``{"text": ...}`` inputs in one
-    batch, L2-normalized f32 features as npy bytes."""
+    image files, pre-decoded pixels and ``{"text": ...}`` inputs,
+    L2-normalized f32 features as npy bytes. Images and texts go in slices
+    of at most the top batch bucket, each padded to its own bucket (the JAX
+    class pads a call as one batch and raises past the top bucket: ROADMAP
+    §C, C.4); with int8 the first image slice and the first text slice
+    calibrate."""
 
     def __init__(
         self,
@@ -219,8 +234,9 @@ class ClipImpl(InferenceModel):
         return feats.cpu().numpy()
 
     def token_ids(self, texts: Sequence[str]) -> np.ndarray:
-        """(bucket, text_ctx) int32 token ids of ``texts``, padded to the
-        batch bucket, exactly as :meth:`predict` embeds them."""
+        """(bucket, text_ctx) int32 token ids of at most the top bucket of
+        ``texts``, padded to the batch bucket, exactly as :meth:`predict`
+        embeds a slice of them."""
         seqs = [self.tokenize(t)[: self.context_length] for t in texts]
         ids, _, _ = batching.pad_token_batch(seqs, [self.cfg.text_ctx], self.batch_ladder)
         return ids
@@ -253,15 +269,18 @@ class ClipImpl(InferenceModel):
                     "input", "Input must be an image file or {'text': ...}"
                 ).to_slot()
 
+        cap = self.batch_ladder[-1]
         if images:
-            bucket = batching.bucket_for(len(images), self.batch_ladder)
-            padded, _ = batching.pad_batch(np.stack(images), bucket)
-            feats = self._embed_images(padded)
-            for j, pos in enumerate(image_pos):
-                outputs[pos] = npy.serialize_npy(feats[j])
-        if texts:
-            feats = self._embed_texts(self.token_ids(texts))
-            for j, pos in enumerate(text_pos):
+            stacked = np.stack(images)
+            for lo in range(0, len(images), cap):
+                part = stacked[lo : lo + cap]
+                bucket = batching.bucket_for(len(part), self.batch_ladder)
+                feats = self._embed_images(batching.pad_batch(part, bucket)[0])
+                for j, pos in enumerate(image_pos[lo : lo + cap]):
+                    outputs[pos] = npy.serialize_npy(feats[j])
+        for lo in range(0, len(texts), cap):
+            feats = self._embed_texts(self.token_ids(texts[lo : lo + cap]))
+            for j, pos in enumerate(text_pos[lo : lo + cap]):
                 outputs[pos] = npy.serialize_npy(feats[j])
         return outputs
 
@@ -382,6 +401,197 @@ class TextEmbedImpl(InferenceModel):
         for idx, emb_list in enumerate(grouped):
             arr = text_embed.combine_chunks(np.stack(emb_list), combine_at[idx])
             outputs.append(npy.serialize_npy(arr))
+        return outputs
+
+
+class TaggerImpl(InferenceModel):
+    """WD-tagger-equivalent multi-label tagger (reference impl/wd_tagger.py)
+    on one explicit device: a CLIP visual trunk's raw pooled features, a
+    sigmoid head, and the rating/character/general tag maps with mcut and
+    fixed thresholds. :meth:`tag_arrays` is the array entry (normalised
+    pixels in, tag maps out); :meth:`predict` decodes image files and calls
+    it. The trunk embeds in slices of at most the top batch bucket, each
+    padded to its own bucket (the JAX class pads a call as one batch and
+    raises past the top bucket: ROADMAP §C); with ``precision="int8"`` the
+    trunk is the static-int8 block and the first slice calibrates. The head
+    is applied on the device in f32 (the JAX class applies it on the host
+    in f32)."""
+
+    def __init__(
+        self,
+        model_arch: str = "test-tiny",
+        checkpoint: Optional[str] = None,
+        namespace: str = "danbooru",
+        tag_vocab: Optional[list[str]] = None,
+        rating_tags: Optional[list[str]] = None,
+        character_tags: Optional[list[str]] = None,
+        character_threshold: float = 0.75,
+        batch_cap: int = 32,
+        precision: str = "bf16",
+        device: str | torch.device = "cuda",
+        **_: Any,
+    ):
+        self.precision = precision
+        self.cfg = clip.CONFIGS.get(model_arch) or clip.CONFIGS["test-tiny"]
+        if precision == "int8":
+            self.cfg = dataclasses.replace(self.cfg, matmul_precision="int8")
+        self._act_scales = None
+        self.checkpoint = checkpoint
+        self.device = select_device(str(device))
+        self.namespace = namespace
+        self.rating_tags = rating_tags or ["general", "safe", "sensitive", "questionable", "explicit"]
+        self.tag_vocab = tag_vocab or [f"tag_{i}" for i in range(64)]
+        # The WD head layout is [ratings | general | characters]; character
+        # tags take a fixed threshold rather than mcut (impl/wd_tagger.py).
+        self.character_tags = character_tags or []
+        self.character_threshold = character_threshold
+        self.batch_ladder = batching.bucket_ladder(batch_cap)
+        self.params = None
+        self.head = None
+        self.head_bias = None
+
+    @classmethod
+    def name(cls) -> str:
+        return "wd_tagger"
+
+    def load(self) -> None:
+        if self.params is not None:
+            return
+        if self.checkpoint:
+            # timm ViT mapping (the reference's WD taggers are timm models):
+            # identity projection, the head on the raw pooled features; the
+            # head's width overrides the vocabulary.
+            self.cfg = dataclasses.replace(self.cfg, embed_dim=self.cfg.vision_width)
+            visual, head_w, head_b = weights.load_timm_vit_checkpoint(self.checkpoint, self.cfg)
+            self.params = convert.params_from_jax({"visual": visual}, device=self.device)
+            self.head = torch.from_numpy(head_w).to(self.device)
+            self.head_bias = torch.from_numpy(head_b).to(self.device)
+            n_out = head_w.shape[1]
+            declared = len(self.rating_tags) + len(self.tag_vocab) + len(self.character_tags)
+            if declared != n_out:
+                self.character_tags = []
+                self.tag_vocab = [f"tag_{i}" for i in range(n_out - len(self.rating_tags))]
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(TAGGER_INIT_SEED)
+            self.params = clip.init_params(self.cfg, gen)
+            n_out = len(self.rating_tags) + len(self.tag_vocab) + len(self.character_tags)
+            dim = self.cfg.embed_dim
+            self.head = torch.randn((dim, n_out), generator=gen, device=self.device) * dim**-0.5
+            self.head_bias = torch.zeros(n_out, device=self.device)
+        if self.precision == "int8":
+            self.params = clip.quantize_block_weights(self.params)
+
+    def unload(self) -> None:
+        self.params = None
+        self.head = None
+        self._act_scales = None
+
+    def prepare(self) -> None:
+        """Run every bucket once (kernel builds, library handles). With int8
+        the warm-up calibrates on its all-zeros batch and throws the scales
+        away, as ``ClipImpl.prepare`` does: the first real slice
+        calibrates."""
+        self.load()
+        size = self.cfg.image_size
+        for bucket in self.batch_ladder:
+            images = torch.zeros((bucket, size, size, 3), device=self.device)
+            if self.precision == "int8":
+                warm = self._act_scales
+                if warm is None:
+                    warm = clip.calibrate_image_scales(self.params, self.cfg, images)
+                clip.embed_images_raw_scaled(self.params, self.cfg, images, warm)
+            else:
+                clip.embed_images_raw(self.params, self.cfg, images)
+
+    @staticmethod
+    def mcut_threshold(probs: np.ndarray) -> float:
+        """Maximum-category-cut: threshold at the largest gap in the sorted
+        score curve (impl/utils.py mcut)."""
+        sorted_probs = np.sort(probs)[::-1]
+        if len(sorted_probs) < 2:
+            return 0.0
+        gaps = sorted_probs[:-1] - sorted_probs[1:]
+        t = int(np.argmax(gaps))
+        return float((sorted_probs[t] + sorted_probs[t + 1]) / 2)
+
+    def raw_features(self, images: np.ndarray) -> torch.Tensor:
+        """(N, S, S, 3) normalised pixels → the trunk's raw pooled features
+        (N, embed_dim) f32 on the device, in slices of at most the top
+        bucket, each padded to its own bucket; under int8 the first slice
+        calibrates."""
+        self.load()
+        cap = self.batch_ladder[-1]
+        parts = []
+        for lo in range(0, len(images), cap):
+            part = images[lo : lo + cap]
+            bucket = batching.bucket_for(len(part), self.batch_ladder)
+            padded = torch.from_numpy(batching.pad_batch(part, bucket)[0]).to(self.device)
+            if self.precision == "int8":
+                if self._act_scales is None:
+                    self._act_scales = clip.calibrate_image_scales(self.params, self.cfg, padded)
+                feats = clip.embed_images_raw_scaled(self.params, self.cfg, padded, self._act_scales)
+            else:
+                feats = clip.embed_images_raw(self.params, self.cfg, padded)
+            parts.append(feats[: len(part)])
+        return torch.cat(parts)
+
+    def probabilities(self, images: np.ndarray) -> np.ndarray:
+        """(N, S, S, 3) normalised pixels → the head's sigmoid (N, n_out)."""
+        logits = self.raw_features(images) @ self.head + self.head_bias
+        return torch.sigmoid(logits).cpu().numpy()
+
+    def tag_arrays(self, images: np.ndarray, configs: Sequence[Optional[dict]]) -> list[dict]:
+        """(N, S, S, 3) normalised pixels and each one's config (``threshold``,
+        ``character_threshold``) → the tagger's output for each."""
+        probs = self.probabilities(images)
+        n_rating = len(self.rating_tags)
+        n_general = len(self.tag_vocab)
+        outputs = []
+        for j, config in enumerate(configs):
+            config = config if isinstance(config, dict) else {}
+            rating_probs = probs[j, :n_rating]
+            general_probs = probs[j, n_rating : n_rating + n_general]
+            char_probs = probs[j, n_rating + n_general :]
+            thresh = config.get("threshold")
+            mcut = self.mcut_threshold(general_probs)
+            eff = mcut if not thresh else float(thresh)
+            general = {
+                self.tag_vocab[t]: float(general_probs[t])
+                for t in np.flatnonzero(general_probs >= eff)
+            }
+            char_eff = float(config.get("character_threshold", self.character_threshold))
+            character = {
+                self.character_tags[t]: float(char_probs[t])
+                for t in np.flatnonzero(char_probs >= char_eff)
+            }
+            rating = {self.rating_tags[int(np.argmax(rating_probs))]: float(rating_probs.max())}
+            outputs.append({
+                "namespace": self.namespace,
+                "tags": [("rating", rating), ("character", character), ("general", general)],
+                "mcut": mcut,
+                "rating_severity": self.rating_tags,
+                "metadata": {},
+                "metadata_score": 0.0,
+            })
+        return outputs
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        self.load()
+        outputs: list[Any] = [None] * len(inputs)
+        images, kept = [], []
+        for i, inp in enumerate(inputs):
+            if inp.file is None:
+                outputs[i] = SlotError("input", "Tagger requires an image file").to_slot()
+                continue
+            try:
+                images.append(decode_image(inp.file, self.cfg.image_size))
+                kept.append(i)
+            except SlotError as err:
+                outputs[i] = err.to_slot()
+        if images:
+            configs = [inputs[pos].data for pos in kept]
+            for pos, out in zip(kept, self.tag_arrays(np.stack(images), configs)):
+                outputs[pos] = out
         return outputs
 
 
@@ -594,6 +804,512 @@ class ClapImpl(InferenceModel):
         return outputs
 
 
+class CaptionerImpl(InferenceModel):
+    """VLM captioner family (reference impl/florence2.py / md_captioner.py /
+    qwen3_vl.py) on one explicit device: image → caption text. CLIP vision
+    tokens (``clip.encode_image_tokens``) are the cross-attention memory of a
+    Whisper-style text decoder, decoded greedily by
+    ``whisper.decode_from_feats``. :meth:`caption_arrays` is the array entry
+    (normalised pixels in, one unpadded batch); :meth:`predict` decodes
+    image files and calls it. The decoder is ``vision_width`` wide with 2
+    heads, so its head dim is past kernel B3's 128 at ViT-B widths: the
+    decode step's attention is plain tensor ops (``whisper._step_attention``)
+    and never launches B3."""
+
+    def __init__(
+        self,
+        model_arch: str = "test-tiny",
+        checkpoint: Optional[str] = None,
+        decoder_checkpoint: Optional[str] = None,
+        tokenizer_path: Optional[str] = None,
+        max_tokens: int = 32,
+        prompt: Optional[str] = None,
+        device: str | torch.device = "cuda",
+        **_: Any,
+    ):
+        self.vision_cfg = clip.CONFIGS.get(model_arch) or clip.CONFIGS["test-tiny"]
+        self.checkpoint = checkpoint
+        self.decoder_checkpoint = decoder_checkpoint
+        self.max_tokens = max_tokens
+        self.prompt = prompt
+        self.tokenizer_path = tokenizer_path
+        self.device = select_device(str(device))
+        n_ctx = 1 + self.vision_cfg.grid**2
+        self.decoder_cfg = whisper.WhisperConfig(
+            n_mels=1,
+            n_audio_ctx=n_ctx,
+            n_audio_state=self.vision_cfg.vision_width,
+            n_audio_layers=0,
+            n_audio_heads=1,
+            n_vocab=512,
+            n_text_ctx=max(max_tokens, 16),
+            n_text_state=self.vision_cfg.vision_width,
+            n_text_layers=2,
+            n_text_heads=2,
+            sot=500, eot=501, no_timestamps=503, transcribe=502,
+        )
+        self.vision_params = None
+        self.decoder_params = None
+        self.detokenize = None
+        self._prompt_ids: tuple = ()
+
+    @classmethod
+    def name(cls) -> str:
+        return "captioner"
+
+    def load(self) -> None:
+        if self.vision_params is not None:
+            return
+        gen = torch.Generator(device=self.device).manual_seed(CAPTIONER_INIT_SEED)
+        if self.checkpoint:
+            tree = weights.load_clip_checkpoint(self.checkpoint, self.vision_cfg)
+            self.vision_params = convert.params_from_jax(tree, device=self.device)
+        else:
+            self.vision_params = clip.init_params(self.vision_cfg, gen)
+        if self.decoder_checkpoint:
+            # Real decoder weights (HF whisper decoder layout; the same
+            # cross-attention block mapping the whisper loader uses).
+            tree = weights.load_whisper_decoder_checkpoint(self.decoder_checkpoint, self.decoder_cfg)
+            decoder = convert.params_from_jax(tree, device=self.device)
+        else:
+            decoder = whisper.init_params(self.decoder_cfg, gen)
+        self.decoder_params = whisper.bf16_linears(decoder)
+        if self.tokenizer_path and self.detokenize is None:
+            try:
+                from tokenizers import Tokenizer
+
+                tok = Tokenizer.from_file(self.tokenizer_path)
+                self.detokenize = lambda ids: tok.decode(
+                    [i for i in ids if 0 <= i < tok.get_vocab_size()]
+                )
+                if self.prompt:
+                    # Task-prompted decode (reference florence2.py task
+                    # prompts): the tokenized prompt extends the SOT triple,
+                    # bounded by the decoder context and the KV cache
+                    # (max_tokens − SOT triple − at least one generated slot).
+                    ids = tok.encode(self.prompt).ids
+                    budget = max(min(self.decoder_cfg.n_text_ctx // 2, self.max_tokens - 4), 1)
+                    self._prompt_ids = tuple(
+                        int(i) for i in ids[:budget] if 0 <= i < self.decoder_cfg.n_vocab
+                    )
+            except Exception:
+                pass
+
+    def unload(self) -> None:
+        self.vision_params = None
+        self.decoder_params = None
+        self.detokenize = None
+
+    def caption_arrays(self, images: np.ndarray) -> list[dict]:
+        """(N, S, S, 3) normalised pixels, one unpadded batch → a caption
+        each: ``{"text", "confidence", "language", "language_confidence"}``.
+        Without a tokenizer the text is the generated tokens as ``<id>``."""
+        self.load()
+        feats = clip.encode_image_tokens(self.vision_params, self.vision_cfg,
+                                         torch.from_numpy(images).to(self.device))
+        tokens, lengths, logprob = (t.cpu().numpy() for t in _caption_decode(
+            self.decoder_params, self.decoder_cfg, feats, self.max_tokens, self._prompt_ids))
+        p_len = 3 + len(self._prompt_ids)
+        outputs = []
+        for j in range(len(images)):
+            toks = tokens[j, p_len : lengths[j]].tolist()
+            text = self.detokenize(toks) if self.detokenize else " ".join(f"<{t}>" for t in toks)
+            outputs.append({
+                "text": text,
+                "confidence": float(np.exp(logprob[j])),
+                "language": "en",
+                "language_confidence": 1.0,
+            })
+        return outputs
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        self.load()
+        outputs: list[Any] = [None] * len(inputs)
+        images, kept = [], []
+        for i, inp in enumerate(inputs):
+            if inp.file is None:
+                outputs[i] = SlotError("input", "Captioner requires an image file").to_slot()
+                continue
+            try:
+                images.append(decode_image(inp.file, self.vision_cfg.image_size))
+                kept.append(i)
+            except SlotError as err:
+                outputs[i] = err.to_slot()
+        if images:
+            for pos, out in zip(kept, self.caption_arrays(np.stack(images))):
+                outputs[pos] = out
+        return outputs
+
+
+def _caption_decode(params, cfg, feats, max_tokens: int, extra_ids=()):
+    """Greedy decode against vision features (the cross-attention memory
+    fed directly, no audio encoder) through the KV-cached
+    ``whisper.decode_from_feats``; the prompt is [SOT, transcribe,
+    no_timestamps, *extra_ids]."""
+    ids = [cfg.sot, cfg.transcribe, cfg.no_timestamps, *extra_ids]
+    prompt = torch.tensor(ids, dtype=torch.int32, device=feats.device)
+    return whisper.decode_from_feats(params, cfg, feats, prompt.expand(feats.shape[0], len(ids)),
+                                     max_tokens)
+
+
+class VlmTaggerImpl(CaptionerImpl):
+    """VLM-prompted tagger (reference impl/md_tagger.py: a moondream VLM
+    asked to list tags). Reuses the captioner's vision-tokens →
+    cross-attention decoder; the decoded text is parsed as a comma/
+    whitespace-separated tag list and emitted in the tagger output shape
+    so extraction's tags output-handler ingests it unchanged. Confidence
+    is the decode's avg-logprob (one value for the whole list — the
+    reference's VLM taggers report a fixed confidence the same way)."""
+
+    def __init__(self, namespace: str = "vlm", max_tags: int = 16,
+                 **kwargs: Any):
+        super().__init__(**kwargs)
+        self.namespace = namespace
+        self.max_tags = max_tags
+
+    @classmethod
+    def name(cls) -> str:
+        return "vlm_tagger"
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        caps = super().predict(inputs)
+        outputs: list[Any] = []
+        for cap in caps:
+            if not isinstance(cap, dict) or "text" not in cap:
+                outputs.append(cap)  # slot error passthrough
+                continue
+            conf = float(cap.get("confidence", 0.0))
+            seen: dict[str, float] = {}
+            for raw in cap["text"].replace(",", " ").split():
+                tag = raw.strip().strip(".").lower()
+                if tag and tag not in seen:
+                    seen[tag] = conf
+                if len(seen) >= self.max_tags:
+                    break
+            outputs.append({
+                "namespace": self.namespace,
+                "tags": [("rating", {}), ("character", {}), ("general", seen)],
+                "mcut": 0.0,
+                "rating_severity": [],
+                "metadata": {},
+                "metadata_score": conf,
+            })
+        return outputs
+
+    def tag_arrays(self, images: np.ndarray) -> list[dict]:
+        """(N, S, S, 3) normalised pixels → the tag map of each one's
+        caption, parsed as :meth:`predict` parses it (a test holds the two
+        equal)."""
+        outputs = []
+        for cap in self.caption_arrays(images):
+            conf = float(cap["confidence"])
+            seen: dict[str, float] = {}
+            for raw in cap["text"].replace(",", " ").split():
+                tag = raw.strip().strip(".").lower()
+                if tag and tag not in seen:
+                    seen[tag] = conf
+                if len(seen) >= self.max_tags:
+                    break
+            outputs.append({
+                "namespace": self.namespace,
+                "tags": [("rating", {}), ("character", {}), ("general", seen)],
+                "mcut": 0.0,
+                "rating_severity": [],
+                "metadata": {},
+                "metadata_score": conf,
+            })
+        return outputs
+
+
+class Md5LookupImpl(InferenceModel):
+    """md5-lookup tagger (reference impl/danbooru.py + saucenao/): tags by
+    hash against a local dump (JSON/sqlite: md5 → [[namespace, name,
+    confidence], ...]). Remote lookups are out of scope in a zero-egress
+    build; a missing dump yields transient blocked errors, never verdicts."""
+
+    def __init__(self, dump_path: Optional[str] = None, namespace: str = "danbooru", **_: Any):
+        self.dump_path = dump_path
+        self.namespace = namespace
+        self.table: Optional[dict] = None
+        self._conn = None  # sqlite backend (the at-scale default)
+
+    @classmethod
+    def name(cls) -> str:
+        return "md5_lookup"
+
+    def load(self) -> None:
+        if self.table is not None or self._conn is not None or self.dump_path is None:
+            return
+        from pathlib import Path as _Path
+
+        path = _Path(self.dump_path)
+        if not path.exists():
+            return
+        if path.suffix in (".db", ".sqlite", ".sqlite3"):
+            # sqlite dump (a danbooru-scale table is GBs as a resident
+            # dict): `tags(md5 TEXT, namespace TEXT, name TEXT,
+            # confidence REAL)` with an md5 index, queried per batch.
+            import sqlite3 as _sqlite3
+
+            self._conn = _sqlite3.connect(
+                f"file:{path}?mode=ro", uri=True, check_same_thread=False
+            )
+        else:
+            import json as _json
+
+            self.table = _json.loads(path.read_text())
+
+    def _lookup(self, md5: str):
+        if self.table is not None:
+            return self.table.get(md5)
+        rows = self._conn.execute(
+            "SELECT namespace, name, confidence FROM tags WHERE md5 = ?",
+            (md5,),
+        ).fetchall()
+        return rows or None
+
+    def unload(self) -> None:
+        self.table = None
+        if self._conn is not None:
+            self._conn.close()
+            self._conn = None
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        self.load()
+        out = []
+        for inp in inputs:
+            md5 = (inp.data or {}).get("md5") if isinstance(inp.data, dict) else None
+            if md5 is None:
+                out.append(SlotError("input", "md5 lookup requires data.md5").to_slot())
+                continue
+            if self.table is None and self._conn is None:
+                out.append(
+                    {
+                        "__error__": {
+                            "class": "transient",
+                            "message": "blocked: no tag dump configured (blocker=tag-dump)",
+                        }
+                    }
+                )
+                continue
+            entry = self._lookup(md5)
+            tags: dict[str, float] = {}
+            if entry:
+                for ns, tag_name, conf in entry:
+                    tags[tag_name] = float(conf)
+            out.append(
+                {
+                    "namespace": self.namespace,
+                    "tags": [("general", tags)],
+                    "mcut": 0.0,
+                    "rating_severity": [],
+                    "metadata": {},
+                    "metadata_score": 0.0,
+                }
+            )
+        return out
+
+
+class ApiEmbedImpl(InferenceModel):
+    """Remote-API embedding backends (reference impl/jina_clip.py — Jina's
+    hosted CLIP API — and the nemotron/qwen embed family): text and image
+    inputs are POSTed to an OpenAI/Jina-style ``/embeddings`` endpoint and
+    the returned vectors are re-emitted as L2-normalized npy bytes.
+
+    Offline/gated semantics follow the failed-media design: no endpoint
+    configured → every slot gets a typed ``transient`` error naming the
+    blocker; a transport failure is likewise transient (retry later), and
+    a per-item API rejection is an ``input`` verdict."""
+
+    def __init__(
+        self,
+        endpoint: Optional[str] = None,
+        model: str = "jina-clip-v1",
+        api_key_env: str = "EMBED_API_KEY",
+        timeout: float = 60.0,
+        normalize: bool = True,
+        **_: Any,
+    ):
+        self.endpoint = endpoint
+        self.model = model
+        self.api_key_env = api_key_env
+        self.timeout = timeout
+        self.normalize = normalize
+
+    @classmethod
+    def name(cls) -> str:
+        return "api_embed"
+
+    @classmethod
+    def available(cls, config: dict) -> bool:
+        """Availability overlay (the reference's capability probe,
+        inferio/capability.rs): API backends are usable only with an
+        endpoint configured."""
+        return bool(config.get("endpoint"))
+
+    def load(self) -> None:
+        pass
+
+    def unload(self) -> None:
+        pass
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        import base64
+        import json as _json
+        import os
+        import urllib.request
+
+        if not self.endpoint:
+            err = SlotError(
+                "transient",
+                "blocked: no embeddings endpoint configured (blocker=embed-api)",
+            ).to_slot()
+            return [err for _ in inputs]
+        payload_inputs = []
+        for inp in inputs:
+            if inp.file is not None:
+                payload_inputs.append(
+                    {"image": base64.b64encode(inp.file).decode()}
+                )
+            elif isinstance(inp.data, dict) and "text" in inp.data:
+                payload_inputs.append({"text": str(inp.data["text"])})
+            else:
+                payload_inputs.append({"text": ""})
+        body = _json.dumps(
+            {"model": self.model, "input": payload_inputs}
+        ).encode()
+        headers = {"content-type": "application/json"}
+        key = os.environ.get(self.api_key_env)
+        if key:
+            headers["authorization"] = f"Bearer {key}"
+        req = urllib.request.Request(
+            self.endpoint, data=body, headers=headers, method="POST"
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+                out = _json.loads(resp.read())
+        except Exception as exc:
+            err = SlotError("transient", f"embeddings API failed: {exc}").to_slot()
+            return [err for _ in inputs]
+        outputs: list[Any] = []
+        data = out.get("data", [])
+        # OpenAI/Jina-style responses may reorder or omit entries; the
+        # per-entry "index" field is authoritative for slot alignment.
+        by_index = {}
+        for pos, entry in enumerate(data):
+            if isinstance(entry, dict):
+                by_index[int(entry.get("index", pos))] = entry
+        for i in range(len(inputs)):
+            entry = by_index.get(i)
+            if not entry or "embedding" not in entry:
+                outputs.append(
+                    SlotError("input", "no embedding returned for slot").to_slot()
+                )
+                continue
+            vec = np.asarray(entry["embedding"], np.float32)
+            if self.normalize:
+                vec = vec / max(float(np.linalg.norm(vec)), 1e-8)
+            outputs.append(npy.serialize_npy(vec))
+        return outputs
+
+
+class TagApiImpl(InferenceModel):
+    """Remote tag-lookup backend (reference impl/saucenao/ + the hosted
+    half of impl/danbooru.py): each image's md5 (or the provided hash) is
+    POSTed to a configured JSON API and the response's tag map is emitted
+    in the tagger output shape. Same offline/gated semantics as
+    ApiEmbedImpl: no endpoint → typed transient blocker; transport
+    failure → transient; an explicit per-item miss → empty tags (a valid
+    verdict, not an error — the reference records "no match" results)."""
+
+    def __init__(
+        self,
+        endpoint: Optional[str] = None,
+        namespace: str = "danbooru",
+        api_key_env: str = "TAG_API_KEY",
+        timeout: float = 30.0,
+        default_confidence: float = 1.0,
+        **_: Any,
+    ):
+        self.endpoint = endpoint
+        self.namespace = namespace
+        self.api_key_env = api_key_env
+        self.timeout = timeout
+        self.default_confidence = default_confidence
+
+    @classmethod
+    def name(cls) -> str:
+        return "tag_api"
+
+    @classmethod
+    def available(cls, config: dict) -> bool:
+        return bool(config.get("endpoint"))
+
+    def load(self) -> None:
+        pass
+
+    def unload(self) -> None:
+        pass
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        import json as _json
+        import os
+        import urllib.request
+
+        if not self.endpoint:
+            err = SlotError(
+                "transient",
+                "blocked: no tag API endpoint configured (blocker=tag-api)",
+            ).to_slot()
+            return [err for _ in inputs]
+        hashes = []
+        for inp in inputs:
+            if isinstance(inp.data, dict) and inp.data.get("md5"):
+                hashes.append(str(inp.data["md5"]))
+            elif inp.file is not None:
+                hashes.append(hashlib.md5(inp.file).hexdigest())
+            else:
+                hashes.append(None)
+        body = _json.dumps({"md5": [h for h in hashes if h]}).encode()
+        headers = {"content-type": "application/json"}
+        key = os.environ.get(self.api_key_env)
+        if key:
+            headers["authorization"] = f"Bearer {key}"
+        req = urllib.request.Request(
+            self.endpoint, data=body, headers=headers, method="POST"
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+                out = _json.loads(resp.read())
+        except Exception as exc:
+            err = SlotError("transient", f"tag API failed: {exc}").to_slot()
+            return [err for _ in inputs]
+        # Response: {"results": {"<md5>": {"tags": {name: conf | null}}}}.
+        results = out.get("results", {})
+        outputs: list[Any] = []
+        for h in hashes:
+            if h is None:
+                outputs.append(
+                    SlotError("input", "tag lookup requires a file or md5").to_slot()
+                )
+                continue
+            entry = results.get(h) or {}
+            tags = {
+                str(name): (float(conf) if conf is not None
+                            else self.default_confidence)
+                for name, conf in (entry.get("tags") or {}).items()
+            }
+            outputs.append({
+                "namespace": self.namespace,
+                "tags": [("rating", {}), ("character", {}), ("general", tags)],
+                "mcut": 0.0,
+                "rating_severity": [],
+                "metadata": {"source": "tag_api", "matched": bool(tags)},
+                "metadata_score": 0.0,
+            })
+        return outputs
+
+
 # ---------------------------------------------------------------------------
 # Fixture impls — the reference's behavior-probe zoo (SURVEY.md §4), used by
 # the manager/API tests exactly as the reference uses its fake workers.
@@ -794,8 +1510,14 @@ IMPL_INDEX: dict[str, type[InferenceModel]] = {
     for cls in [
         ClipImpl,
         TextEmbedImpl,
+        TaggerImpl,
         WhisperImpl,
         ClapImpl,
+        CaptionerImpl,
+        VlmTaggerImpl,
+        Md5LookupImpl,
+        ApiEmbedImpl,
+        TagApiImpl,
         EchoImpl,
         BatchSizeImpl,
         FailBatchImpl,

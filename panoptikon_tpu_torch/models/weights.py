@@ -1,20 +1,19 @@
 """Checkpoint loading: HuggingFace state dicts → the port's parameter trees.
 
 The jax-free half of ``panoptikon_tpu/models/weights.py``: the HF
-``CLIPModel`` mapping (with its export inverse), the BERT-style
-sentence-transformer mapping and the HF ``WhisperModel`` mapping, copied
-function for function and held to the reference's by
-``tests/test_torch_host_copies.py``. The whisper exporter writes the
-reference's tensors as a torch ``.bin``. The trees come out as NumPy arrays
-with the JAX package's keys and layouts; ``models.convert.params_from_jax``
-puts them on a device. The configs are the port's ``ClipConfig``,
+``CLIPModel`` mapping (with its export inverse), the timm ViT mapping (the
+tagger's trunk and head), the BERT-style sentence-transformer mapping, the
+HF ``WhisperModel`` mapping and its decoder-only form (the captioner's),
+copied function for function and held to the reference's by
+``tests/test_torch_host_copies.py``. The timm, whisper and whisper-decoder
+exporters write the reference's tensors as a torch ``.bin``. The trees come
+out as NumPy arrays with the JAX package's keys and layouts;
+``models.convert.params_from_jax`` puts them on a device. The configs are the port's ``ClipConfig``,
 ``TextEncoderConfig`` and ``whisper.WhisperConfig``.
 
 A ``.bin``/``.pt`` pickle loads through ``torch.load(weights_only=True)``. A
 ``.safetensors`` file needs the ``safetensors`` package, imported when such
-a file is loaded; where it is missing the load raises and says so. The
-whisper decoder-only mapping (the captioner's) and the timm mapping are not
-here yet (ROADMAP A.11).
+a file is loaded; where it is missing the load raises and says so.
 
 This module never downloads; it loads from local paths.
 """
@@ -198,6 +197,98 @@ def save_clip_checkpoint(params, cfg: ClipConfig, path: str | Path) -> None:
     sd["logit_scale"] = np.asarray(params["logit_scale"], np.float32)
 
     torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, str(path))
+
+
+def load_timm_vit_checkpoint(path: str | Path, cfg: ClipConfig):
+    """timm ViT state dict (the reference's WD taggers, impl/wd_tagger.py
+    run timm models) → (visual param tree, head weight, head bias).
+
+    timm layout: ``patch_embed.proj`` conv (out,in,kh,kw)+bias, cls_token,
+    pos_embed (1, N+1, D), ``blocks.N.{norm1,attn.qkv,attn.proj,norm2,
+    mlp.fc1,mlp.fc2}``, final ``norm``, ``head``. The tagger head applies
+    on the pooled trunk output, so the CLIP-style projection maps to
+    identity and ``cfg.embed_dim`` must equal ``cfg.vision_width``."""
+    sd = load_state_dict(path)
+
+    def lin(p):
+        return (
+            np.asarray(sd[f"{p}.weight"], np.float32).T,
+            np.asarray(sd[f"{p}.bias"], np.float32),
+        )
+
+    conv = np.asarray(sd["patch_embed.proj.weight"], np.float32)
+    width = conv.shape[0]
+    blocks = []
+    for i in range(cfg.vision_layers):
+        p = f"blocks.{i}"
+        qkv_w, qkv_b = lin(f"{p}.attn.qkv")
+        ow, ob = lin(f"{p}.attn.proj")
+        fw, fb = lin(f"{p}.mlp.fc1")
+        pw, pb = lin(f"{p}.mlp.fc2")
+        blocks.append({
+            "ln_1": _ln(sd, f"{p}.norm1"),
+            "attn": {"qkv_w": qkv_w, "qkv_b": qkv_b, "out_w": ow, "out_b": ob},
+            "ln_2": _ln(sd, f"{p}.norm2"),
+            "mlp": {"fc_w": fw, "fc_b": fb, "proj_w": pw, "proj_b": pb},
+        })
+    visual = {
+        "patch_w": conv.transpose(2, 3, 1, 0).reshape(-1, width),
+        "patch_b": np.asarray(sd["patch_embed.proj.bias"], np.float32),
+        "class_emb": np.asarray(sd["cls_token"], np.float32).reshape(-1),
+        "pos_emb": np.asarray(sd["pos_embed"], np.float32).reshape(-1, width),
+        # timm ViTs have no pre-LN (norm_pre is identity in the default
+        # arch); keep identity parameters.
+        "ln_pre": {
+            "scale": np.ones(width, np.float32),
+            "bias": np.zeros(width, np.float32),
+        },
+        "blocks": blocks,
+        "ln_post": _ln(sd, "norm"),
+        "proj": np.eye(width, dtype=np.float32),
+    }
+    head_w = np.asarray(sd["head.weight"], np.float32).T
+    head_b = np.asarray(
+        sd.get("head.bias", np.zeros(head_w.shape[1], np.float32)), np.float32
+    )
+    return visual, head_w, head_b
+
+
+def save_timm_vit_checkpoint(
+    visual, head_w, head_b, cfg: ClipConfig, path: str | Path
+) -> None:
+    """Our ViT trunk and tagger head → a timm state dict on disk (torch
+    ``.bin``) — the export inverse of :func:`load_timm_vit_checkpoint` (the
+    reference's exporter writes the same tensors as ``.safetensors``)."""
+    import torch
+
+    out: dict[str, np.ndarray] = {}
+    p = cfg.patch_size
+    patch_w = np.asarray(visual["patch_w"], np.float32)
+    width = patch_w.shape[1]
+    out["patch_embed.proj.weight"] = patch_w.reshape(p, p, 3, width).transpose(3, 2, 0, 1)
+    out["patch_embed.proj.bias"] = np.asarray(visual.get("patch_b", np.zeros(width)), np.float32)
+    out["cls_token"] = np.asarray(visual["class_emb"], np.float32).reshape(1, 1, -1)
+    out["pos_embed"] = np.asarray(visual["pos_emb"], np.float32)[None]
+
+    def put_ln(prefix, q):
+        out[f"{prefix}.weight"] = np.asarray(q["scale"], np.float32)
+        out[f"{prefix}.bias"] = np.asarray(q["bias"], np.float32)
+
+    def put_lin(prefix, w, b):
+        out[f"{prefix}.weight"] = np.asarray(w, np.float32).T
+        out[f"{prefix}.bias"] = np.asarray(b, np.float32)
+
+    for i, blk in enumerate(visual["blocks"]):
+        q = f"blocks.{i}"
+        put_ln(f"{q}.norm1", blk["ln_1"])
+        put_lin(f"{q}.attn.qkv", blk["attn"]["qkv_w"], blk["attn"]["qkv_b"])
+        put_lin(f"{q}.attn.proj", blk["attn"]["out_w"], blk["attn"]["out_b"])
+        put_ln(f"{q}.norm2", blk["ln_2"])
+        put_lin(f"{q}.mlp.fc1", blk["mlp"]["fc_w"], blk["mlp"]["fc_b"])
+        put_lin(f"{q}.mlp.fc2", blk["mlp"]["proj_w"], blk["mlp"]["proj_b"])
+    put_ln("norm", visual["ln_post"])
+    put_lin("head", head_w, head_b)
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in out.items()}, str(path))
 
 
 def load_text_encoder_checkpoint(path: str | Path, cfg: TextEncoderConfig) -> dict[str, Any]:
@@ -412,5 +503,130 @@ def save_whisper_checkpoint(params, path: str | Path) -> None:
         put_cross_attn(f"{p}.encoder_attn", blk["cross"])
         put_ln(f"{p}.final_layer_norm", blk["ln_2"])
         put_mlp(p, blk["mlp"])
+    put_ln("decoder.layer_norm", dec["ln_post"])
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in out.items()}, str(path))
+
+
+def load_whisper_decoder_checkpoint(path: str | Path, cfg) -> dict[str, Any]:
+    """HF whisper-layout state dict → the DECODER subtree only.
+
+    The captioner reuses the whisper decoder architecture with CLIP vision
+    tokens as cross-attention memory (reference impl/florence2.py maps a
+    real VLM decoder; VERDICT r2 missing #6) — its checkpoints carry no
+    audio encoder, so this maps ``decoder.*`` alone and tolerates absent
+    ``encoder.*`` weights.
+    """
+    sd = load_state_dict(path)
+
+    def pfx(name):
+        return name if name in sd else f"model.{name}"
+
+    def lin(prefix, bias=True):
+        w = np.asarray(sd[pfx(f"{prefix}.weight")], np.float32).T
+        if bias and pfx(f"{prefix}.bias") in sd:
+            b = np.asarray(sd[pfx(f"{prefix}.bias")], np.float32)
+        else:
+            b = np.zeros(w.shape[1], np.float32)
+        return w, b
+
+    def ln(prefix):
+        return {
+            "scale": np.asarray(sd[pfx(f"{prefix}.weight")], np.float32),
+            "bias": np.asarray(sd[pfx(f"{prefix}.bias")], np.float32),
+        }
+
+    def self_attn(prefix):
+        qw, qb = lin(f"{prefix}.q_proj")
+        kw, kb = lin(f"{prefix}.k_proj")
+        vw, vb = lin(f"{prefix}.v_proj")
+        ow, ob = lin(f"{prefix}.out_proj")
+        return {
+            "qkv_w": np.concatenate([qw, kw, vw], axis=1),
+            "qkv_b": np.concatenate([qb, kb, vb]),
+            "out_w": ow,
+            "out_b": ob,
+        }
+
+    def cross_attn(prefix):
+        qw, qb = lin(f"{prefix}.q_proj")
+        kw, kb = lin(f"{prefix}.k_proj")
+        vw, vb = lin(f"{prefix}.v_proj")
+        ow, ob = lin(f"{prefix}.out_proj")
+        return {
+            "q_w": qw,
+            "q_b": qb,
+            "kv_w": np.concatenate([kw, vw], axis=1),
+            "kv_b": np.concatenate([kb, vb]),
+            "out_w": ow,
+            "out_b": ob,
+        }
+
+    def mlp(prefix):
+        fw, fb = lin(f"{prefix}.fc1")
+        pw, pb = lin(f"{prefix}.fc2")
+        return {"fc_w": fw, "fc_b": fb, "proj_w": pw, "proj_b": pb}
+
+    dec_blocks = []
+    for i in range(cfg.n_text_layers):
+        p = f"decoder.layers.{i}"
+        dec_blocks.append(
+            {
+                "ln_1": ln(f"{p}.self_attn_layer_norm"),
+                "attn": self_attn(f"{p}.self_attn"),
+                "ln_cross": ln(f"{p}.encoder_attn_layer_norm"),
+                "cross": cross_attn(f"{p}.encoder_attn"),
+                "ln_2": ln(f"{p}.final_layer_norm"),
+                "mlp": mlp(p),
+            }
+        )
+    return {
+        "decoder": {
+            "token_emb": np.asarray(sd[pfx("decoder.embed_tokens.weight")], np.float32),
+            "pos_emb": np.asarray(sd[pfx("decoder.embed_positions.weight")], np.float32),
+            "blocks": dec_blocks,
+            "ln_post": ln("decoder.layer_norm"),
+        }
+    }
+
+
+def save_whisper_decoder_checkpoint(params, path: str | Path) -> None:
+    """Our decoder subtree → an HF whisper-layout state dict, as a torch
+    ``.bin`` — the export inverse of :func:`load_whisper_decoder_checkpoint`
+    (the reference's exporter writes the same tensors as ``.safetensors``).
+    k-proj biases are written, as :func:`save_whisper_checkpoint` writes
+    them, so the round trip is lossless."""
+    import torch
+
+    dec = params["decoder"]
+    out: dict[str, np.ndarray] = {}
+
+    def put_ln(prefix, p):
+        out[f"{prefix}.weight"] = np.asarray(p["scale"], np.float32)
+        out[f"{prefix}.bias"] = np.asarray(p["bias"], np.float32)
+
+    def put_lin(prefix, w, b):
+        out[f"{prefix}.weight"] = np.asarray(w, np.float32).T
+        out[f"{prefix}.bias"] = np.asarray(b, np.float32)
+
+    for i, blk in enumerate(dec["blocks"]):
+        p = f"decoder.layers.{i}"
+        put_ln(f"{p}.self_attn_layer_norm", blk["ln_1"])
+        w, b = np.asarray(blk["attn"]["qkv_w"]), np.asarray(blk["attn"]["qkv_b"])
+        d = w.shape[0]
+        put_lin(f"{p}.self_attn.q_proj", w[:, :d], b[:d])
+        put_lin(f"{p}.self_attn.k_proj", w[:, d : 2 * d], b[d : 2 * d])
+        put_lin(f"{p}.self_attn.v_proj", w[:, 2 * d :], b[2 * d :])
+        put_lin(f"{p}.self_attn.out_proj", blk["attn"]["out_w"], blk["attn"]["out_b"])
+        put_ln(f"{p}.encoder_attn_layer_norm", blk["ln_cross"])
+        put_lin(f"{p}.encoder_attn.q_proj", blk["cross"]["q_w"], blk["cross"]["q_b"])
+        kv_w, kv_b = np.asarray(blk["cross"]["kv_w"]), np.asarray(blk["cross"]["kv_b"])
+        put_lin(f"{p}.encoder_attn.k_proj", kv_w[:, :d], kv_b[:d])
+        put_lin(f"{p}.encoder_attn.v_proj", kv_w[:, d:], kv_b[d:])
+        put_lin(f"{p}.encoder_attn.out_proj", blk["cross"]["out_w"], blk["cross"]["out_b"])
+        put_ln(f"{p}.final_layer_norm", blk["ln_2"])
+        put_lin(f"{p}.fc1", blk["mlp"]["fc_w"], blk["mlp"]["fc_b"])
+        put_lin(f"{p}.fc2", blk["mlp"]["proj_w"], blk["mlp"]["proj_b"])
+    out["decoder.embed_tokens.weight"] = np.asarray(dec["token_emb"], np.float32)
+    out["decoder.embed_positions.weight"] = np.asarray(dec["pos_emb"], np.float32)
     put_ln("decoder.layer_norm", dec["ln_post"])
     torch.save({k: torch.from_numpy(np.array(v)) for k, v in out.items()}, str(path))

@@ -227,7 +227,8 @@ def init_params(cfg: WhisperConfig, gen: torch.Generator) -> Params:
 def bf16_linears(params: Params) -> Params:
     """The tree with the convolutions and every block linear (weights and
     biases) cast to bf16 once, as the forward casts them on each use;
-    LayerNorms and the embedding tables stay f32. Other leaves are shared."""
+    LayerNorms and the embedding tables stay f32. Other leaves are shared.
+    A decoder-only tree (the captioner's checkpoint) stays decoder-only."""
     def cast(d):
         return {k: v.to(torch.bfloat16) for k, v in d.items()}
 
@@ -235,10 +236,13 @@ def bf16_linears(params: Params) -> Params:
         return [{k: cast(v) if k in ("attn", "cross", "mlp") else v for k, v in blk.items()}
                 for blk in bs]
 
-    enc, dec = params["encoder"], params["decoder"]
-    convs = cast({k: enc[k] for k in ("conv1_w", "conv1_b", "conv2_w", "conv2_b")})
-    return {"encoder": {**enc, **convs, "blocks": blocks(enc["blocks"])},
-            "decoder": {**dec, "blocks": blocks(dec["blocks"])}}
+    dec = params["decoder"]
+    out = {"decoder": {**dec, "blocks": blocks(dec["blocks"])}}
+    if "encoder" in params:
+        enc = params["encoder"]
+        convs = cast({k: enc[k] for k in ("conv1_w", "conv1_b", "conv2_w", "conv2_b")})
+        out["encoder"] = {**enc, **convs, "blocks": blocks(enc["blocks"])}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -126,6 +126,80 @@ def test_mha_text_encoder_shapes(cuda_device, tc_form, shape, strided):
         assert torch.equal(got, again)
 
 
+def test_mha_refuses_the_captioner_head_dim(cuda_device):
+    # caption-base's decoder is 768 wide with 2 heads: D 384, past B3's 128.
+    # The kernel raises there and never falls back to the plain version; the
+    # captioner's decode step keeps its attention in plain ops (next test).
+    q = torch.zeros((1, 4, 2, 384), dtype=torch.bfloat16, device=cuda_device)
+    before = vit_attention.mha.launches
+    with pytest.raises(ValueError, match="D <= 128"):
+        vit_attention.mha(q, q, q, causal=True)
+    assert vit_attention.mha.launches == before
+
+
+def test_captioner_launches_b3_only_in_its_vision_tower(cuda_device):
+    # The registry's caption-base (ViT-B-32, max_tokens 48): the vision
+    # tower's 12 blocks launch B3 on the tensor cores once each; the decode's
+    # steps (at most 47: 3 prompt, 44 more) launch none.
+    from panoptikon_tpu_torch.models import impls, whisper
+
+    impl = impls.CaptionerImpl("ViT-B-32", max_tokens=48)
+    impl.load()
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    pixels = torch.randn((3, 224, 224, 3), generator=gen, device=cuda_device).cpu().numpy()
+    steps = []
+    step = whisper._decode_step
+    before = dict(vit_attention.mha.routes)
+    try:
+        whisper._decode_step = lambda *a, **k: steps.append(1) or step(*a, **k)
+        out = impl.caption_arrays(pixels)
+    finally:
+        whisper._decode_step = step
+    assert 3 < len(steps) <= 47 and len(out) == 3
+    assert vit_attention.mha.routes == {**before, "tensor_core": before["tensor_core"] + 12}
+    assert all(len(o["text"].split()) <= 45 and 0 < o["confidence"] <= 1 for o in out)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_tagger_trunk_on_the_card_equals_the_cpu(cuda_device, precision):
+    # tags/vit-tagger's trunk (ViT-B-32) on the card against the same weights
+    # on the CPU: raw features at cosine ≥ 0.999 a row, probabilities within
+    # 1e-2 (bf16) and 3e-2 (int8), the tolerances of test_torch_tagger.py:
+    # the raw features are unnormalized, so the head turns the two trunks'
+    # cosine of 0.99993 (bf16), 0.9995 (int8) into 8e-3 and 2.3e-2; every
+    # attention launch on the tensor cores, B4 and B5 under int8.
+    from panoptikon_tpu_torch.models import impls
+
+    def tree_to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: tree_to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [tree_to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    card = impls.TaggerImpl("ViT-B-32", precision=precision)
+    cpu = impls.TaggerImpl("ViT-B-32", precision=precision, device="cpu")
+    card.load()
+    cpu.params, cpu.head, cpu.head_bias = (tree_to(t, "cpu") for t in
+                                           (card.params, card.head, card.head_bias))
+    pixels = np.random.default_rng(5).normal(size=(6, 224, 224, 3)).astype(np.float32)
+    counts = (vit_attention.mha.routes["tensor_core"], vit_attention.mha_qkv.routes["tensor_core"],
+              ln_quant.ln_quant_2d.launches)
+    got = card.raw_features(pixels).cpu().numpy()
+    launched = (vit_attention.mha.routes["tensor_core"], vit_attention.mha_qkv.routes["tensor_core"],
+                ln_quant.ln_quant_2d.launches)
+    want = cpu.raw_features(pixels).numpy()
+    cos = np.sum(got * want, -1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+    assert cos.min() >= 0.999
+    atol = {"bf16": 1e-2, "int8": 3e-2}[precision]
+    assert np.abs(card.probabilities(pixels) - cpu.probabilities(pixels)).max() <= atol
+    grew = [b - a for a, b in zip(counts, launched)]
+    if precision == "int8":  # calibration (bf16, 12 B3 launches), then the int8 trunk
+        assert grew == [12, 12, 24]
+    else:
+        assert grew == [12, 0, 0]
+
+
 AUDIO_SHAPES = {
     # name: (b, n_q, n_kv, h, d, causal, q/k/v views of one fused qkv)
     "whisper_encoder": (2, 1500, 1500, 8, 64, False, True),

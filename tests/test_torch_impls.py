@@ -145,3 +145,213 @@ def test_checkpoint_and_device_are_explicit(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # no silent fallback to the CPU
             impls.ClipImpl(model_arch="test-tiny")
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_every_row_past_the_top_bucket(precision):
+    # ROADMAP §C, C.4: the JAX impl pads a call's images (and texts) as one
+    # batch and raises past the top bucket; the port embeds slices of at
+    # most the top bucket, each padded to its own, and its rows are the JAX
+    # impl's fed the same slices in order (with int8 the first slice of each
+    # kind calibrates on both sides).
+    kwargs = dict(model_arch="test-tiny", precision=precision, batch_cap=4)
+    jimpl = ref.ClipImpl(**kwargs)
+    jimpl.load()
+    rng = np.random.default_rng(7)
+    size = impls.clip.CONFIGS["test-tiny"].image_size
+    images = [PredictionInput(data={"pixels": rng.normal(size=(size, size, 3)).astype(np.float32)})
+              for _ in range(5)]
+    texts = [PredictionInput(data={"text": f"caption {i} of a seeded batch"}) for i in range(5)]
+    with pytest.raises(ValueError, match="exceeds bucket 4"):
+        jimpl.predict(images)
+    with pytest.raises(IndexError):
+        jimpl.predict(texts)
+    timpl = impls.ClipImpl(**kwargs, device="cpu")
+    timpl.params = convert.params_from_jax(jax.tree.map(np.asarray, jimpl.params), device="cpu")
+    got = timpl.predict(texts + images)
+    assert len(got) == 10
+    want = [*jimpl.predict(texts[:4]), *jimpl.predict(texts[4:]),
+            *jimpl.predict(images[:4]), *jimpl.predict(images[4:])]
+    g = np.stack([npy.parse_npy(o) for o in got])
+    w = np.stack([npy.parse_npy(o) for o in want])
+    assert _cos(g[5:], w[5:]).min() >= 0.999
+    cos = _cos(g[:5], w[:5])
+    assert cos.min() >= 0.998 and cos.mean() >= 0.999, (cos.min(), cos.mean())
+    if precision == "int8":
+        np.testing.assert_allclose(timpl._act_scales.numpy(), np.asarray(jimpl._act_scales),
+                                   rtol=2e-2)
+        np.testing.assert_allclose(timpl._text_scales.numpy(), np.asarray(jimpl._text_scales),
+                                   rtol=2e-2)
+    # A call of five is a call of four and a call of one, bit for bit.
+    np.testing.assert_array_equal(
+        g, np.stack([npy.parse_npy(o) for o in [*timpl.predict(texts[:4]), *timpl.predict(texts[4:]),
+                                                *timpl.predict(images[:4]),
+                                                *timpl.predict(images[4:])]]))
+
+
+# ---------------------------------------------------------------------------
+# The host-only impls (copied text for text; test_torch_host_copies.py holds
+# the text): both packages on the same dumps and the same localhost stub.
+# ---------------------------------------------------------------------------
+
+def _both(name, **kwargs):
+    return getattr(ref, name)(**kwargs), getattr(impls, name)(**kwargs)
+
+
+def _as_ref(inputs):
+    return [ref.PredictionInput(data=i.data, file=i.file) for i in inputs]
+
+
+def test_md5_lookup_on_json_and_sqlite_dumps(tmp_path):
+    import json
+    import sqlite3
+
+    table = {"a" * 32: [["general", "scenery", 0.8], ["general", "sky", 0.5]],
+             "b" * 32: [["character", "alice", 1.0]]}
+    (tmp_path / "dump.json").write_text(json.dumps(table))
+    conn = sqlite3.connect(tmp_path / "dump.sqlite")
+    conn.executescript("CREATE TABLE tags (md5 TEXT, namespace TEXT, name TEXT, confidence REAL);"
+                       "CREATE INDEX tags_md5 ON tags(md5);")
+    conn.executemany("INSERT INTO tags VALUES (?, ?, ?, ?)",
+                     [(md5, *row) for md5, rows in table.items() for row in rows])
+    conn.commit()
+    conn.close()
+    inputs = [PredictionInput(data={"md5": "a" * 32}), PredictionInput(data={"md5": "b" * 32}),
+              PredictionInput(data={"md5": "c" * 32}), PredictionInput(data={"other": 1}),
+              PredictionInput(file=b"x")]
+    for dump in ("dump.json", "dump.sqlite", "missing.json"):
+        want_impl, got_impl = _both("Md5LookupImpl", dump_path=str(tmp_path / dump), namespace="db")
+        got, want = got_impl.predict(inputs), want_impl.predict(_as_ref(inputs))
+        assert got == want, dump
+        if dump == "missing.json":
+            assert got[0]["__error__"]["class"] == "transient" and "tag-dump" in \
+                got[0]["__error__"]["message"]
+        else:
+            assert dict(got[0]["tags"])["general"] == {"scenery": 0.8, "sky": 0.5}
+            assert dict(got[2]["tags"])["general"] == {}
+        assert got[3]["__error__"]["class"] == got[4]["__error__"]["class"] == "input"
+        got_impl.unload()
+        want_impl.unload()
+
+
+@pytest.fixture
+def api_stub():
+    """A localhost endpoint answering /embeddings (vector = f(payload
+    length), entries listed in reverse with their index) and /tags (the
+    first md5 a hit, the rest misses); /fail answers 500."""
+    import json
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    seen = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(self.headers["content-length"])))
+            seen.append((self.path, body, self.headers.get("authorization")))
+            if self.path == "/fail":
+                self.send_response(500)
+                self.end_headers()
+                return
+            if self.path == "/embeddings":
+                data = [{"index": i, "embedding": (np.arange(8.0) + len(
+                    item.get("text") or item.get("image") or "")).tolist()}
+                        for i, item in enumerate(body["input"]) if item.get("text") != "drop"]
+                out = {"data": data[::-1]}
+            else:
+                out = {"results": {h: {"tags": {"1girl": 0.9, "outdoors": None}}
+                                   for h in body["md5"][:1]}}
+            raw = json.dumps(out).encode()
+            self.send_response(200)
+            self.send_header("content-type", "application/json")
+            self.send_header("content-length", str(len(raw)))
+            self.end_headers()
+            self.wfile.write(raw)
+
+        def log_message(self, *a):
+            pass
+
+    server = HTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{server.server_port}", seen
+    server.shutdown()
+
+
+def test_api_embed_matches_the_reference(api_stub, monkeypatch):
+    url, seen = api_stub
+    monkeypatch.setenv("EMBED_API_KEY", "sk-test")
+    inputs = [PredictionInput(data={"text": "hello"}), PredictionInput(file=b"\x89PNGfake"),
+              PredictionInput(data={"text": "drop"}), PredictionInput(data={"x": 1})]
+    want_impl, got_impl = _both("ApiEmbedImpl", endpoint=f"{url}/embeddings", model="jina-clip-v1")
+    got, want = got_impl.predict(inputs), want_impl.predict(_as_ref(inputs))
+    assert got == want
+    assert seen[0][1:] == seen[1][1:]  # the same request body and key from both
+    v = npy.parse_npy(got[0])
+    np.testing.assert_allclose(np.linalg.norm(v), 1.0, atol=1e-6)
+    assert got[2]["__error__"]["class"] == "input"  # no entry returned for that slot
+    assert impls.ApiEmbedImpl.available({"endpoint": url}) and not impls.ApiEmbedImpl.available({})
+    for impl in (impls.ApiEmbedImpl(), impls.ApiEmbedImpl(endpoint=f"{url}/fail", timeout=5)):
+        out = impl.predict(inputs[:2])
+        assert [o["__error__"]["class"] for o in out] == ["transient", "transient"]
+    assert "blocker=embed-api" in impls.ApiEmbedImpl().predict(inputs[:1])[0]["__error__"]["message"]
+
+
+def test_tag_api_matches_the_reference(api_stub):
+    url, seen = api_stub
+    inputs = [PredictionInput(file=b"imagebytes"), PredictionInput(data={"md5": "deadbeef" * 4}),
+              PredictionInput()]
+    want_impl, got_impl = _both("TagApiImpl", endpoint=f"{url}/tags", namespace="remote",
+                                default_confidence=0.5)
+    got, want = got_impl.predict(inputs), want_impl.predict(_as_ref(inputs))
+    assert got == want and seen[0][1] == seen[1][1]
+    assert dict(got[0]["tags"])["general"] == {"1girl": 0.9, "outdoors": 0.5}
+    assert got[0]["metadata"]["matched"] and not got[1]["metadata"]["matched"]
+    assert got[2]["__error__"]["class"] == "input"
+    blocked = impls.TagApiImpl().predict(inputs[:1])[0]["__error__"]
+    assert blocked["class"] == "transient" and "blocker=tag-api" in blocked["message"]
+    failed = impls.TagApiImpl(endpoint=f"{url}/fail", timeout=5).predict(inputs[:1])[0]
+    assert failed["__error__"]["class"] == "transient"
+
+
+IMAGE_TAG_IDS = {"tags/vit-tagger": "TaggerImpl", "tagmatch/local-dump": "Md5LookupImpl",
+                 "tagmatch/remote-api": "TagApiImpl", "vlmtags/vlm-tagger": "VlmTaggerImpl",
+                 "vlm/caption-base": "CaptionerImpl"}
+
+
+@pytest.mark.parametrize("model_id", list(IMAGE_TAG_IDS))
+def test_manager_loads_the_image_tag_entries(model_id, monkeypatch):
+    # The built-in registry's tag and caption entries load through the
+    # port's manager with prewarm; the device impls at test-tiny on the CPU
+    # (the registry's ViT-B-32 runs on the card).
+    from panoptikon_tpu_torch.models.manager import ModelManager
+    from panoptikon_tpu_torch.models.registry import Registry
+
+    registry = Registry(None)
+    group, name = model_id.split("/")
+    rid = registry.resolve(group, name)
+    cls = getattr(impls, IMAGE_TAG_IDS[model_id])
+    assert impls.IMPL_INDEX[rid.impl_class] is cls
+    if "model_arch" in rid.config:
+        assert rid.config["model_arch"] == "ViT-B-32"
+        monkeypatch.setattr(rid, "config", {**rid.config, "model_arch": "test-tiny", "device": "cpu"})
+    manager = ModelManager(registry, impls.IMPL_INDEX)
+    try:
+        manager.load_model(model_id, prewarm=True)
+        entry = manager._models[model_id]
+        assert type(entry.model) is cls
+        assert entry.default_batch == registry.group_metadata(group)["default_batch_size"]
+        if group == "vlm":
+            assert entry.model.max_tokens == 48 and entry.model.decoder_params is not None
+        if group == "tags":
+            assert entry.model.params is not None and entry.model._act_scales is None
+    finally:
+        manager.shutdown()
+
+
+def test_impl_index_is_the_reference_s_but_ocr():
+    # Every impl_class of the JAX package's index has its port but OCR
+    # (ROADMAP A.11c), under the same name.
+    assert set(impls.IMPL_INDEX) == set(ref.IMPL_INDEX) - {"ocr"}
+    for name, cls in impls.IMPL_INDEX.items():
+        assert cls.__name__ == ref.IMPL_INDEX[name].__name__ and cls.__module__ == impls.__name__

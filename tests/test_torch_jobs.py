@@ -486,3 +486,60 @@ def test_text_work_query_matches_the_reference_and_looks_up_by_source(tmp_path, 
         assert "dv USING INDEX item_data_setter_type" in plans["ref"]  # a walk of the setter's rows
     finally:
         writer.close()
+
+
+MD5_TOML = """
+[group.tagmatch]
+config.impl_class = "md5_lookup"
+config.dump_path = "{dump}"
+[group.tagmatch.metadata]
+output_type = "tags"
+[group.tagmatch.inference_ids.dump]
+"""
+
+
+def test_md5_lookup_build_matches_the_reference(tmp_path, media, monkeypatch):
+    # tests/test_jobs.py::TestHashHandlers on both packages: a SQLite tag
+    # dump keyed by three of the scanned images' md5s, the md5 handler (no
+    # payload decode), equal items, item_data and tag rows.
+    import hashlib
+    import sqlite3
+
+    images = sorted(p for p in media.rglob("*.png") if not p.name.startswith("."))
+    md5s = [hashlib.md5(p.read_bytes()).hexdigest() for p in images]
+    dump = tmp_path / "dump.sqlite"
+    conn = sqlite3.connect(dump)
+    conn.executescript("CREATE TABLE tags (md5 TEXT, namespace TEXT, name TEXT, confidence REAL);"
+                       "CREATE INDEX tags_md5 ON tags(md5);")
+    conn.executemany("INSERT INTO tags VALUES (?, 'danbooru', ?, ?)", [
+        (md5s[0], "scenery", 0.8), (md5s[0], "sky", 0.5), (md5s[3], "scenery", 1.0),
+        (md5s[5], "red", 0.25)])
+    conn.commit()
+    conn.close()
+    built = {}
+    for side in (REF, PORT):
+        monkeypatch.setattr(side.store, "now_iso", lambda: NOW)
+        reg = tmp_path / f"md5-registry-{side.name}"
+        reg.mkdir()
+        (reg / "00.toml").write_text(MD5_TOML.format(dump=dump))
+        db = side.Database(tmp_path / f"md5-{side.name}", "jobs")
+        writer, manager = side.Writer(db), side.Manager(side.Registry(reg), side.impls.IMPL_INDEX)
+        try:
+            writer.call(lambda c: side.store.add_folder(c, str(media)))
+            side.scan.rescan_folders(db, writer)
+            report = side.extraction.run_extraction_job(
+                db=db, writer=writer, index=side.Index(chunk_rows=64), manager=manager,
+                inference_id="tagmatch/dump", output_type="tags", mime_prefixes=("image/",),
+                input_handler="md5")
+            built[side.name] = (report, tables(db, ("items", "item_data", "setters", "tags",
+                                                    "tags_items", "extraction_errors")))
+        finally:
+            manager.shutdown()
+            writer.close()
+    (report, got), (ref_report, want) = built["port"], built["ref"]
+    assert (report.processed, report.input_errors, report.transient_errors) == \
+        (ref_report.processed, ref_report.input_errors, ref_report.transient_errors) == (8, 0, 0)
+    assert got == want
+    rows = {(r[1], r[3]) for r in got["tags_items"]}
+    assert len(got["tags_items"]) == 4 and {r[2] for r in got["tags"]} == {"scenery", "sky", "red"}
+    assert {round(c, 6) for _, c in rows} == {0.8, 0.5, 1.0, 0.25}
