@@ -1,6 +1,6 @@
 """Drive the PyTorch port's search core, serving embed, PQL pages, text search,
-the index build path, the audio path and the image tag and caption path once
-on one NVIDIA GPU.
+the index build path, the audio path, the image tag and caption path and the
+OCR path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,8 @@ Phases, one JSON line each:
             the shapes the main paths give it, timed kernel/plain/plain/
             kernel: mha and mha_qkv bf16 ≤ 2e-2 max abs, every attention
             case timed and the route each takes (tensor cores for bf16 at
-            32 ≤ D ≤ 128, D % 16 = 0, else CUDA cores); B3 also at the
+            32 ≤ D ≤ 128, D % 16 = 0, else CUDA cores, up to D 512 for
+            mha); B3 also at the
             text encoders' shapes (minilm-l6 B 64 × N 128 × H 12 × D 32,
             mpnet-base B 64 × N 512 and B 128 × N 256 × H 12 × D 64),
             key-masked with seeded ragged lengths, q, k, v read in place
@@ -202,12 +203,44 @@ Phases, one JSON line each:
             tag sets equal where the chosen gap is wide, teacher-forced
             decoder steps at cosine ≥ 0.999 with the argmax equal where the
             margin is wide, free-running tokens equal up to the first
-            narrow margin; (f) B3 (B 32 × N 50 × H 12 × D 64), B4 (the
-            same, int8 out) and B5 (1,600 × 768) against their plain
-            versions with phase 3's limits, on the tensor cores, timed
-            beside the bound and, for B3, SDPA.
+            narrow margin, and the same token rows whole through
+            whisper._decoder_logits (caption-base's decoder: 768 wide, 2
+            heads, so B3 at D 384 on its CUDA-core route, 4 launches
+            required) at cosine ≥ 0.999 against the steps; (f) B3 (B 32 ×
+            N 50 × H 12 × D 64), B4 (the same, int8 out) and B5 (1,600 ×
+            768) against their plain versions with phase 3's limits, on
+            the tensor cores, timed beside the bound and, for B3, SDPA.
+14. ocr     the OCR path (ROADMAP A.11c): (a) 256 seeded grayscale pages,
+            640 px wide with 8-40 lines of rendered digits (most past the
+            readers' top bucket of 16 strips), written as binary PGM files
+            with NumPy and scanned by a FOLDER_RESCAN job, the first 64
+            also into a second DB; (b) doctr/ocr-default (crnn-base, CTC)
+            over all 256 and doctr/ocr-attn (attn-base, whisper's decode
+            over the same encoder) over the 64, through the model manager
+            with prewarm and the JobQueue's run_extraction_job in the
+            registry's windows of 16 pages; a registry overlay's impl_dirs
+            give the port's OcrImpl a NumPy PGM decode (no PIL here):
+            pages/s, each job's split, peak memory; (c) every item its
+            item_data row and text equal to a direct read_arrays call in
+            the job's windows (or the empty-text placeholder), B3's
+            launches equal to the prewarm's and the windows' slices, all on
+            the tensor cores; 16 match_text pages on substrings of items'
+            texts through Executor.execute, each holding its item and
+            exactly the items whose text holds it, equal to the CPU
+            executor's; a window's split (segmentation and strip prep,
+            copy, encode, head and argmax or decode ms a step, collapse)
+            and the busy share; (d) 8 pages' lines through both readers on
+            the card and on the CPU (the card's weights copied): features
+            and CTC logits at cosine ≥ 0.999, CTC ids equal where the
+            margin is wide, teacher-forced decoder steps at cosine ≥ 0.999
+            and free-running tokens equal up to the first narrow margin;
+            (e) B3 against mha_plain within 2e-2 at the trunk's shape (B
+            16 × N 128 × H 4 × D 64, tensor cores) and at D 160, 256, 384
+            and 512 (self, causal, cross 48 × 50 and key-masked: the
+            captioner decoder's rows; CUDA cores), timed beside SDPA and
+            the bound.
 
-Each main path (phases 4-5, 6, 8, 7, 9, 10, 11, 12 and 13) runs with the launch counters (and
+Each main path (phases 4-5, 6, 8, 7, 9, 10, 11, 12, 13 and 14) runs with the launch counters (and
 the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
@@ -342,6 +375,26 @@ CAPTION_MODEL, VLM_TAG_MODEL, CAPTION_IMAGES = "vlm/caption-base", "vlmtags/vlm-
 # the head turns that into probabilities up to 8e-3 apart (PERF.md §6).
 TAG_PAIR_IMAGES, TAG_PROB_ATOL = 8, 1e-2
 TAG_ATTN_SHAPE, TAG_LN_SHAPE = (32, 50, 12, 64), (32 * 50, 768)
+# Phase 14 (OCR, ROADMAP A.11c): OCR_PAGES seeded grayscale pages
+# OCR_PAGE_WIDTH wide with OCR_LINES lines each (most past the readers' top
+# bucket of 16 strips), written as binary PGM files and scanned; OCR_MODEL
+# over every page and OCR_ATTN_MODEL over the first OCR_ATTN_PAGES through
+# the JobQueue in the registry's windows of 16 pages; OCR_QUERIES match_text
+# pages; OCR_PAIR_PAGES on the card and on the CPU; B3 at the trunk's
+# attention (OCR_ATTN_SHAPE: 16 strips × 128 column tokens × 4 heads × 64)
+# and past D 128 at the captioner decoder's rows (WIDE_HEAD_DIMS ×
+# WIDE_ATTN_CASES: 8 rows of 48 tokens, 2 heads, cross over 50 tokens).
+OCR_PAGES, OCR_PAGE_WIDTH, OCR_LINES, OCR_ATTN_PAGES, OCR_QUERIES = 256, 640, (8, 40), 64, 16
+OCR_MODEL, OCR_ATTN_MODEL, OCR_CACHE_KEY, OCR_PAIR_PAGES = (
+    "doctr/ocr-default", "doctr/ocr-attn", "ocr", 8)
+OCR_ATTN_SHAPE, WIDE_HEAD_DIMS = (16, 128, 4, 64), (160, 256, 384, 512)
+WIDE_ATTN_CASES = {
+    # name: (b, n_q, n_kv, h, causal, key-masked)
+    "self": (8, 48, 48, 2, False, False),
+    "causal": (8, 48, 48, 2, True, False),
+    "cross": (8, 48, 50, 2, False, False),
+    "key_masked": (8, 48, 48, 2, False, True),
+}
 # Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): the least
 # time a kernel could take is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
@@ -2652,7 +2705,7 @@ def audio_pair_path(torch, dev, smi) -> dict:
         probs = {}
         for name, impl in (("card", card), ("cpu", cpu)):
             sot = torch.full((len(payloads), 1), cfg.sot, device=impl.device)
-            logits = whisper._decoder_logits(impl.params, cfg, sot, feats[name])[:, 0]
+            logits = whisper._decoder_logits(impl.params, cfg, sot, feats[name], None)[:, 0]
             base = cfg.language_base
             probs[name] = torch.softmax(logits[:, base:base + cfg.n_langs], dim=-1).cpu().numpy()
         diff = float(np.abs(probs["card"] - probs["cpu"]).max())
@@ -3131,7 +3184,8 @@ def tag_pair_path(torch, dev, smi, x) -> dict:
     teacher-forced decoder steps at cosine ≥ 0.999 with the argmax equal
     where the margin exceeds twice the max abs error; the CPU's free-running
     tokens equal to the card's up to the first narrow margin."""
-    from panoptikon_tpu_torch.models import clip, impls
+    from panoptikon_tpu_torch.models import clip, impls, whisper
+    from panoptikon_tpu_torch.ops import vit_attention
 
     card = impls.TaggerImpl("ViT-B-32")
     card.load()
@@ -3198,6 +3252,23 @@ def tag_pair_path(torch, dev, smi, x) -> dict:
         decided = margin > 2 * err
         require(bool((got.argmax(-1) == want.argmax(-1))[decided].all()),
                 "tag pair: the decoder's argmax differs where the margin is wide")
+        # The same rows whole through _decoder_logits on the card: caption-base's
+        # decoder is 768 wide with 2 heads, so its causal self-attention and its
+        # cross-attention over the 50 vision tokens launch B3 at D 384, on the
+        # CUDA-core route, once each a layer. Held to the step logits.
+        routes = dict(vit_attention.mha.routes)
+        full = whisper._decoder_logits(cap.decoder_params, cfg, tokens.to(dev), feats["card"],
+                                       None)[:, :-1].cpu().numpy()
+        grew = {path: vit_attention.mha.routes[path] - routes[path] for path in routes}
+        require(grew == {"tensor_core": 0, "cuda_core": 2 * cfg.n_text_layers},
+                f"tag pair: _decoder_logits at D 384 launched B3 {grew}")
+        cos_full = cosines(full.reshape(-1, full.shape[-1]), want.reshape(-1, want.shape[-1]))
+        require(float(cos_full.min()) >= 0.999,
+                f"tag pair: _decoder_logits against the step logits min cosine {cos_full.min()}")
+        out["decoder_logits_d384"] = {
+            "head_dim": cfg.n_text_state // cfg.n_text_heads, "b3_launches_by_route": grew,
+            "min_cosine_vs_steps": float(cos_full.min()),
+            "max_abs_err_vs_steps": float(np.abs(full - want).max())}
         cpu_tokens = impls._caption_decode(cpu_cap.decoder_params, cfg, feats["cpu"],
                                            cap.max_tokens)[0]
         splits = []
@@ -3274,6 +3345,491 @@ def tag_kernels(torch, dev, smi, counters) -> dict:
                                       nbytes(x, g, beta, s) + rows * width),
                            "library_ms": None}
     return out
+
+
+# Phase 14 (OCR, ROADMAP A.11c): the digit font the seeded pages are drawn in
+# (3 × 5 glyphs at twice their size, OCR_LINE_PITCH rows a line).
+DIGIT_GLYPHS = {
+    "0": ("111", "101", "101", "101", "111"), "1": ("010", "110", "010", "010", "111"),
+    "2": ("111", "001", "111", "100", "111"), "3": ("111", "001", "111", "001", "111"),
+    "4": ("101", "101", "111", "001", "001"), "5": ("111", "100", "111", "001", "111"),
+    "6": ("111", "100", "111", "101", "111"), "7": ("111", "001", "010", "010", "010"),
+    "8": ("111", "101", "111", "101", "111"), "9": ("111", "101", "111", "001", "111"),
+}
+OCR_LINE_PITCH, OCR_DIGITS = 18, (8, 60)
+# The port's OcrImpl with its one change for the card machine, which has no
+# PIL: pages decode from binary PGM with NumPy. chip_smoke writes it to a
+# folder that the registry overlay names in impl_dirs (models/discovery.py).
+PGM_OCR_IMPL = '''"""OcrImpl reading binary PGM (P5, 8-bit) pages with NumPy."""
+
+import re
+
+import numpy as np
+
+from panoptikon_tpu_torch.models.impls import OcrImpl
+
+IMPL_CLASS = "PgmOcrImpl"
+_HEADER = re.compile(rb"P5\\s+(\\d+)\\s+(\\d+)\\s+255\\s")
+
+
+class PgmOcrImpl(OcrImpl):
+    @staticmethod
+    def decode_gray(payload: bytes) -> np.ndarray:
+        m = _HEADER.match(payload)
+        if m is None:
+            raise ValueError("not an 8-bit binary PGM")
+        w, h = int(m.group(1)), int(m.group(2))
+        return np.frombuffer(payload, np.uint8, w * h, m.end()).reshape(h, w)
+'''
+
+
+def write_page_folder(root: Path, n: int, seed: int):
+    """n seeded grayscale pages OCR_PAGE_WIDTH wide under ``root`` as binary
+    PGM files written with NumPy: OCR_LINES lines a page of OCR_DIGITS digits
+    each (every glyph row then holds ink in every digit, so each line clears
+    segment_lines' 2 % row threshold), dark ink at a seeded level on a
+    seeded light ground. Returns (paths, pages, lines a page)."""
+    rng = np.random.default_rng(seed)
+    glyphs = [np.kron(np.array([[c == "1" for c in row] for row in DIGIT_GLYPHS[str(d)]]),
+                      np.ones((2, 2), bool)) for d in range(10)]
+    w = OCR_PAGE_WIDTH
+    paths, pages, counts = [], [], []
+    for i in range(n):
+        lines = int(rng.integers(OCR_LINES[0], OCR_LINES[1] + 1))
+        gray = np.full((2 * 16 + lines * OCR_LINE_PITCH, w), int(rng.integers(220, 256)), np.uint8)
+        ink = int(rng.integers(0, 48))
+        for j in range(lines):
+            y, x = 16 + j * OCR_LINE_PITCH, int(rng.integers(8, 48))
+            for d in rng.integers(0, 10, size=int(rng.integers(OCR_DIGITS[0], OCR_DIGITS[1] + 1))):
+                gray[y : y + 10, x : x + 6][glyphs[d]] = ink
+                x += 8
+        path = root / f"page{i:04d}.pgm"
+        path.write_bytes(f"P5\n{w} {gray.shape[0]}\n255\n".encode() + gray.tobytes())
+        paths.append(path)
+        pages.append(gray)
+        counts.append(lines)
+    return paths, pages, counts
+
+
+def ocr_path(torch, dev, smi, counters):
+    """Phase 14: (a) OCR_PAGES seeded PGM pages scanned by a FOLDER_RESCAN job
+    (and the first OCR_ATTN_PAGES, copied to a folder of their own, into a
+    second DB); (b) doctr/ocr-default over every page and doctr/ocr-attn over
+    the second DB's through the JobQueue and run_extraction_job, in windows
+    of the registry's 16 pages, the impls loaded by the manager with prewarm
+    through a registry overlay whose impl_dirs give the port's OcrImpl a PGM
+    decode; (c) the hard checks and OCR_QUERIES match_text pages. Returns the
+    records and the first OCR_PAIR_PAGES pages (for 14(d))."""
+    import shutil
+    import tempfile
+
+    from panoptikon_tpu_torch.db import store
+    from panoptikon_tpu_torch.db.connection import Database
+    from panoptikon_tpu_torch.db.writer import IndexWriter
+    from panoptikon_tpu_torch.index import VectorIndex
+    from panoptikon_tpu_torch.jobs import scan
+    from panoptikon_tpu_torch.jobs.queue import ChangeSummary, JobType
+    from panoptikon_tpu_torch.models import ocr
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
+        root = Path(root)
+        folders = {"ocr": root / "pages", "ocr_attn": root / "attn_pages"}
+        for folder in folders.values():
+            folder.mkdir()
+        t0 = time.perf_counter()
+        paths, pages, counts = write_page_folder(folders["ocr"], OCR_PAGES, SEED + 140)
+        write_s = time.perf_counter() - t0
+        for path in paths[:OCR_ATTN_PAGES]:
+            shutil.copy(path, folders["ocr_attn"] / path.name)
+        found = [len(ocr.segment_lines(g)) for g in pages]
+        require(found == counts, "ocr pages: segment_lines finds other lines than were drawn")
+        impl_dir = root / "impls"
+        impl_dir.mkdir()
+        (impl_dir / "pgm_ocr.py").write_text(PGM_OCR_IMPL)
+        manager = text_manager(
+            f'allow_override = true\nimpl_dirs = ["{impl_dir}"]\n'
+            "[group.doctr.inference_ids.ocr-default]\n"
+            'config.impl_class = "PgmOcrImpl"\nconfig.model_arch = "crnn-base"\n'
+            "[group.doctr.inference_ids.ocr-attn]\n"
+            'config.impl_class = "PgmOcrImpl"\nconfig.model_arch = "attn-base"\n'
+            'config.recognizer = "attn"\n', root)
+        sides = {}
+        try:
+            for name, folder in folders.items():
+                db = Database(root / "db", name)
+                sides[name] = (db, IndexWriter(db), VectorIndex())
+            folder_rec = {"pages": OCR_PAGES, "width": OCR_PAGE_WIDTH, "write_pgm_s": write_s,
+                          "folder_mb": sum(p.stat().st_size for p in paths) / 1e6,
+                          "lines_a_page": [min(counts), float(np.mean(counts)), max(counts)],
+                          "pages_over_16_lines": sum(c > 16 for c in counts)}
+            for name, (db, writer, _) in sides.items():
+                writer.call(lambda conn, f=folders[name]: store.add_folder(conn, str(f)))
+
+                def run_rescan(handle, db=db, writer=writer):
+                    got = scan.rescan_folders(db, writer, folders=handle.params.get("folders"),
+                                              cancelled=lambda: handle.cancelled)
+                    handle.result = got.__dict__
+                    return ChangeSummary(wrote_data=got.new_files > 0)
+
+                t0 = time.perf_counter()
+                scanned = run_jobs({JobType.FOLDER_RESCAN: run_rescan}, name,
+                                   [(JobType.FOLDER_RESCAN, {})])[0].result
+                want = OCR_PAGES if name == "ocr" else OCR_ATTN_PAGES
+                require(scanned["new_files"] == want and scanned["errors"] == 0,
+                        f"ocr: {name} scanned {scanned}")
+                folder_rec[f"scan_job_s_{name}"] = time.perf_counter() - t0
+            build = _ocr_build(torch, dev, smi, counters, manager, sides)
+            build.update(folder_rec)
+            checks = _ocr_checks(torch, dev, smi, counters, manager, sides, paths, pages, counts)
+        finally:
+            manager.shutdown()
+            for _, writer, _ in sides.values():
+                writer.close()
+    return [build, checks], pages[:OCR_PAIR_PAGES]
+
+
+def _ocr_build(torch, dev, smi, counters, manager, sides) -> dict:
+    """Phase 14(b): both ids loaded through the manager with prewarm, then
+    the two DATA_EXTRACTION jobs on the JobQueue: pages/s, lines/s, each
+    job's split, B3's launches by route, peak memory."""
+    from panoptikon_tpu_torch.jobs.queue import JobType
+    from panoptikon_tpu_torch.models import ocr
+    from panoptikon_tpu_torch.models.impls import OcrImpl
+
+    t0 = time.perf_counter()
+    for model in (OCR_MODEL, OCR_ATTN_MODEL):
+        manager.load_model(model, cache_key=OCR_CACHE_KEY, lru_size=2, prewarm=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ctc, attn = manager._models[OCR_MODEL], manager._models[OCR_ATTN_MODEL]
+    for entry, recognizer in ((ctc, "ctc"), (attn, "attn")):
+        impl = entry.model
+        require(type(impl).__name__ == "PgmOcrImpl" and isinstance(impl, OcrImpl)
+                and impl.recognizer == recognizer and impl.cfg == ocr.CONFIGS["crnn-base"]
+                and entry.default_batch == 16 and impl.batch_ladder[-1] == 16
+                and impl.device.type == dev.type, f"ocr: the {recognizer} reader as defined")
+    require(attn.model.attn_cfg == ocr.ATTN_CONFIGS["attn-base"], "ocr: attn-base's decoder")
+    jobs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, model in (("ocr", OCR_MODEL), ("ocr_attn", OCR_ATTN_MODEL)):
+        db, writer, index = sides[name]
+        handle = run_jobs(extraction_runners(manager, db, writer, index), name,
+                          [(JobType.DATA_EXTRACTION, {"inference_id": model})])[0]
+        report, wall = handle.result["report"], handle.result["wall_s"]
+        n = OCR_PAGES if name == "ocr" else OCR_ATTN_PAGES
+        require((report.processed, report.input_errors, report.transient_errors) == (n, 0, 0),
+                f"ocr: {model} processed {report.processed}, {report.input_errors} input and "
+                f"{report.transient_errors} transient errors")
+        jobs[model] = {"pages": n, "job_wall_s": wall, "pages_per_s": n / wall,
+                       "load_stall_s": report.data_load_time, "inference_s": report.inference_time,
+                       "db_writes_s": wall - report.data_load_time - report.inference_time}
+    return {"part": "a_b_build", "card": smi, "load_and_prewarm_s": load_s, "jobs": jobs,
+            "b3_launches_by_route": read_routes(counters).get("mha", {}),
+            "launches": {fn.__name__: fn.launches for fn in counters},
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _ocr_checks(torch, dev, smi, counters, manager, sides, paths, pages, counts) -> dict:
+    """Phase 14(c): every item its setter's item_data row and a text row (or
+    the reference's empty-text output, a placeholder), the text equal to a
+    direct read_arrays call on the same pages in the job's windows, lines/s
+    from the pages' line counts; OCR_QUERIES match_text pages through
+    Executor.execute, each on a substring of one item's text, holding that
+    item and equal to the CPU executor's page; one window's split."""
+    from panoptikon_tpu_torch.models import ocr, whisper
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql.executor import Executor
+
+    rec = {"part": "c_checks", "card": smi}
+    page_of = {str(p): g for p, g in zip(paths, pages)}
+    lines_of = {str(p): c for p, c in zip(paths, counts)}
+    texts, expected = {}, {}
+    with not_counted(counters):
+        for name, model in (("ocr", OCR_MODEL), ("ocr_attn", OCR_ATTN_MODEL)):
+            db = sides[name][0]
+            impl = manager._models[model].model
+            conn = db.reader()
+            items = conn.execute("SELECT i.id, f.filename FROM items i JOIN files f "
+                                 "ON f.item_id = i.id ORDER BY i.id").fetchall()
+            rows = {r[0]: r[1:] for r in conn.execute(
+                """SELECT d.item_id, d.is_placeholder, t.text, t.confidence FROM item_data d
+                   JOIN setters s ON s.id = d.setter_id LEFT JOIN extracted_text t ON t.id = d.id
+                   WHERE s.name = ? AND d.data_type = 'text'""", (model,))}
+            require(len(rows) == len(items), f"ocr {name}: {len(rows)} item_data rows for "
+                    f"{len(items)} items")
+            grays = [page_of[str(paths[0].parent / f)] for _, f in items]
+            t0 = time.perf_counter()
+            want = []
+            for lo in range(0, len(grays), 16):  # the job's windows of the registry's 16
+                want += impl.read_arrays(grays[lo : lo + 16])
+            direct_s = time.perf_counter() - t0
+            n_lines = sum(lines_of[str(paths[0].parent / f)] for _, f in items)
+            for (item, _), out in zip(items, want):
+                placeholder, text, conf = rows[item]
+                if out["text"]:
+                    require(not placeholder and text == out["text"] and abs(conf - out["confidence"])
+                            <= 1e-6, f"ocr {name}: item {item}'s text differs from read_arrays")
+                else:
+                    require(placeholder and text is None, f"ocr {name}: item {item} empty")
+            texts[name] = {item: out["text"] for (item, _), out in zip(items, want)}
+            # The job's B3 launches: each slice of at most 16 strips a window
+            # runs the trunk's layers once, after the prewarm's buckets.
+            window_lines = [sum(lines_of[str(paths[0].parent / f)] for _, f in items[lo : lo + 16])
+                            for lo in range(0, len(items), 16)]
+            layers = impl.cfg.layers
+            expected[name] = layers * (len(impl.batch_ladder) + sum(-(-n // 16) for n in window_lines))
+            rec[name] = {"items": len(items), "lines": n_lines, "direct_read_s": direct_s,
+                         "lines_per_s_direct": n_lines / direct_s,
+                         "text_rows": sum(1 for t in texts[name].values() if t),
+                         "chars_a_page": [min(map(len, texts[name].values())),
+                                          float(np.mean([len(t) for t in texts[name].values()])),
+                                          max(map(len, texts[name].values()))]}
+        t_search = time.perf_counter()
+        db, _, index = sides["ocr"]
+        card = Executor(db, index, manager=manager, device=str(dev))
+        cpu = Executor(db, index, manager=manager, device="cpu")
+        rng = np.random.default_rng(SEED + 141)
+        items = sorted(i for i, t in texts["ocr"].items() if len(t) >= 5)
+        require(len(items) >= OCR_QUERIES, f"ocr search: {len(items)} items have a text")
+        picks = [int(i) for i in np.linspace(0, len(items) - 1, OCR_QUERIES)]
+        sizes, page_ms = [], []
+        for pick in picks:
+            item, text = items[pick], texts["ocr"][items[pick]]
+            # A seeded 5-character window of the text, at least 3 of them not
+            # blank (random weights read punctuation and blanks), as one FTS5
+            # phrase: the trigram index matches it as a substring, any case,
+            # blanks and newlines included.
+            starts = [i for i in range(len(text) - 4)
+                      if sum(not ch.isspace() for ch in text[i : i + 5]) >= 3]
+            require(starts, f"ocr search: item {item}'s text {text[:40]!r} has no window")
+            sub = text[starts[int(rng.integers(len(starts)))]:][:5]
+            phrase = '"' + sub.replace('"', '""') + '"'
+            payload = {"query": {"match_text": {"match": phrase}}, "page_size": OCR_PAGES}
+            t0 = time.perf_counter()
+            got = card.execute(pql.PqlQuery.from_json(payload))
+            page_ms.append(1e3 * (time.perf_counter() - t0))
+            want = cpu.execute(pql.PqlQuery.from_json(payload))
+            found = [r["item_id"] for r in got.results]
+            holders = {i for i, t in texts["ocr"].items() if sub.lower() in t.lower()}
+            require(item in found and set(found) == holders,
+                    f"ocr search: match_text {sub!r} found {len(found)} items, {len(holders)} "
+                    f"hold it, item {item} among them: {item in found}")
+            require(same_pages(got, want), f"ocr search: {sub!r} differs on the CPU")
+            sizes.append(len(found))
+        rec["expected_b3_launches"] = sum(expected.values())
+        rec["search_s"] = time.perf_counter() - t_search
+        rec["search"] = {"match_text_queries": len(sizes), "match_text_items": sizes,
+                         "match_text_ms": [min(page_ms), float(np.median(page_ms)), max(page_ms)],
+                         "card_equals_cpu": True}
+        # One window of 16 pages split (host clock around synchronised parts,
+        # the second pass kept): segmentation and strip prep on the host, the
+        # copy to the card, the encoder, the head and argmax (and the one copy
+        # back), the collapse; for the attention reader the decode, its steps
+        # counted; and the card's busy share over the whole window.
+        window = pages[:16]
+        t_split = time.perf_counter()
+        for name, model in (("ocr", OCR_MODEL), ("ocr_attn", OCR_ATTN_MODEL)):
+            impl = manager._models[model].model
+            steps = [0]
+            step = whisper._decode_step
+
+            def counted(*a, **k):
+                steps[0] += 1
+                return step(*a, **k)
+
+            for _ in range(2):
+                t = [time.perf_counter()]
+                strips = [ocr.prepare_strip(g, box, impl.cfg) for g in window
+                          for box in ocr.segment_lines(g)]
+                t.append(time.perf_counter())
+                xs = [torch.from_numpy(np.stack(strips[lo : lo + 16])).to(dev)
+                      for lo in range(0, len(strips), 16)]
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                with torch.inference_mode():
+                    feats = [ocr.encode_strips(impl.params, impl.cfg, x) for x in xs]
+                    torch.cuda.synchronize()
+                    t.append(time.perf_counter())
+                    steps[0] = 0
+                    if name == "ocr":
+                        outs = [ocr.recognize(impl.params, impl.cfg, x) for x in xs]
+                        host = [torch.cat([i.float(), c[:, None]], 1).cpu().numpy() for i, c in outs]
+                    else:
+                        whisper._decode_step = counted
+                        try:
+                            outs = [ocr.attn_read(impl.params, impl.attn_cfg, x) for x in xs]
+                            host = [torch.cat([a.float(), b.float()[:, None], c[:, None]], 1)
+                                    .cpu().numpy() for a, b, c in outs]
+                        finally:
+                            whisper._decode_step = step
+                    t.append(time.perf_counter())
+                for h in host:
+                    for row in h:
+                        if name == "ocr":
+                            ocr.ctc_collapse(row[:-1].astype(np.int64), impl.cfg.charset)
+                        else:
+                            ocr.attn_collapse(row[:-2].astype(np.int64), int(row[-2]),
+                                              impl.cfg.charset)
+                t.append(time.perf_counter())
+            # The busy share over one page of at most 16 lines (one slice):
+            # the profiler's record of a whole window of the attention reader
+            # (about 1,600 decode steps) takes minutes to read back.
+            page = next(g for g, c in zip(pages, counts) if c <= 16)
+            t_profile = time.perf_counter()
+            wall_w, busy = busy_share(torch, lambda: impl.read_arrays([page]))
+            t_profile = time.perf_counter() - t_profile
+            split = dict(zip(("segment_and_prep", "h2d", "encode",
+                              "head_argmax_and_copy" if name == "ocr" else "decode_and_copy",
+                              "collapse"), (1e3 * (b - a) for a, b in zip(t, t[1:]))))
+            rec[name].update({"window_pages": len(window), "window_lines": len(strips),
+                              "window_slices": len(xs), "window_split_ms": split,
+                              "profiled_page_lines": len(ocr.segment_lines(page)),
+                              "profiled_page_s": wall_w, "profile_and_read_back_s": t_profile,
+                              "device_busy_share_page": busy, "device_idle_share_page": 1 - busy})
+            if name == "ocr_attn":
+                rec[name].update({"decode_steps": steps[0],
+                                  "decode_ms_per_step": split["decode_and_copy"] / steps[0]})
+        rec["split_s"] = time.perf_counter() - t_split
+    return rec
+
+
+def ocr_pair_path(torch, dev, smi, pages) -> dict:
+    """Phase 14(d): the lines of ``pages`` through both readers on the card
+    and on the CPU (the card impls' weights copied: CUDA and CPU generators
+    draw different random weights): strip features and CTC logits at cosine
+    ≥ 0.999 a token, the CTC ids equal wherever the card's top-2 margin
+    exceeds twice the logits' max abs error; the attention reader's decoder
+    steps teacher-forced on the card's tokens at cosine ≥ 0.999 a position
+    with the argmax rule, and the CPU's free-running tokens equal to the
+    card's up to the first narrow margin."""
+    from panoptikon_tpu_torch.models import impls, ocr
+
+    out = {"part": "d_card_equals_cpu", "card": smi, "pages": len(pages)}
+    for recognizer in ("ctc", "attn"):
+        arch = "attn-base" if recognizer == "attn" else "crnn-base"
+        card = impls.OcrImpl(arch, recognizer=recognizer)
+        card.load()
+        cpu = impls.OcrImpl(arch, recognizer=recognizer, device="cpu")
+        cpu.params = _tree_to(card.params, "cpu")
+        cfg = card.cfg
+        strips = np.stack([ocr.prepare_strip(g, box, cfg) for g in pages
+                           for box in ocr.segment_lines(g)])
+        x = torch.from_numpy(strips)
+        rec = {"lines": len(strips)}
+        with torch.inference_mode():
+            feats = {}
+            for name, impl in (("card", card), ("cpu", cpu)):
+                t0 = time.perf_counter()
+                feats[name] = ocr.encode_strips(impl.params, cfg, x.to(impl.device))
+                torch.cuda.synchronize()
+                rec[f"{name}_encode_s"] = time.perf_counter() - t0
+            f_card, f_cpu = (feats[k].float().cpu().numpy() for k in ("card", "cpu"))
+            cos = cosines(f_card.reshape(-1, cfg.width), f_cpu.reshape(-1, cfg.width))
+            require(float(cos.min()) >= 0.999, f"ocr pair {recognizer}: features min cosine "
+                    f"{cos.min()}")
+            rec["features_min_cosine"] = float(cos.min())
+            if recognizer == "ctc":
+                lg = {name: ocr.logits(impl.params, cfg, x.to(impl.device)).cpu().numpy()
+                      for name, impl in (("card", card), ("cpu", cpu))}
+                got, want = lg["cpu"], lg["card"]
+                cos = cosines(got.reshape(-1, cfg.classes), want.reshape(-1, cfg.classes))
+                require(float(cos.min()) >= 0.999, f"ocr pair: CTC logits min cosine {cos.min()}")
+                err = float(np.abs(got - want).max())
+                top2 = np.sort(want, axis=-1)[..., -2:]
+                decided = top2[..., 1] - top2[..., 0] > 2 * err
+                ids = ocr.recognize(card.params, cfg, x.to(dev))[0].cpu().numpy()
+                require((ids == want.argmax(-1)).all() and bool(
+                    (got.argmax(-1) == ids)[decided].all()),
+                    "ocr pair: CTC ids differ where the margin is wide")
+                rec.update({"logits_min_cosine": float(cos.min()), "logits_max_abs_err": err,
+                            "columns_decided": int(decided.sum()), "columns": int(decided.size)})
+            else:
+                acfg = card.attn_cfg
+                dcfg = acfg.decoder_cfg()
+                tokens = ocr.attn_read(card.params, acfg, x.to(dev))[0].cpu()
+                logits = {name: _teacher_forced(torch, impl.params, dcfg, feats[name],
+                                                tokens.to(impl.device))
+                          for name, impl in (("card", card), ("cpu", cpu))}
+                got, want = logits["cpu"], logits["card"]
+                cos = cosines(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]))
+                require(float(cos.min()) >= 0.999,
+                        f"ocr pair: teacher-forced logits min cosine {cos.min()}")
+                err = float(np.abs(got - want).max())
+                top2 = np.sort(want, axis=-1)[..., -2:]
+                margin = top2[..., 1] - top2[..., 0]
+                decided = margin > 2 * err
+                require(bool((got.argmax(-1) == want.argmax(-1))[decided].all()),
+                        "ocr pair: the decoder's argmax differs where the margin is wide")
+                t0 = time.perf_counter()
+                cpu_tokens = ocr.attn_read(cpu.params, acfg, x)[0]
+                rec["cpu_decode_s"] = time.perf_counter() - t0
+                splits = []
+                for j in range(len(strips)):
+                    # Step i decides token i + 1; past a row's EOT nothing is
+                    # decided (the row latches EOT, or stays 0 once every row
+                    # is done, which may differ between the two decodes).
+                    ends = np.flatnonzero(tokens[j].numpy() == acfg.eot)
+                    end = int(ends[0]) if ends.size else acfg.max_chars - 1
+                    low = np.flatnonzero(margin[j, :end] <= 2 * err)
+                    first = int(low[0]) if low.size else end
+                    require(torch.equal(cpu_tokens[j, : first + 1], tokens[j, : first + 1]),
+                            f"ocr pair: line {j}'s free-running tokens split before {first}")
+                    splits.append(first if low.size else None)
+                rec.update({"teacher_forced_min_cosine": float(cos.min()),
+                            "logits_max_abs_err": err, "positions_decided": int(decided.sum()),
+                            "positions": int(decided.size),
+                            "first_low_margin_position": [min(s for s in splits if s is not None)
+                                                          if any(s is not None for s in splits)
+                                                          else None,
+                                                          sum(s is None for s in splits)]})
+        out[recognizer] = rec
+        del card, cpu
+    return out
+
+
+def ocr_kernels(torch, dev, smi, counters) -> dict:
+    """Phase 14(e): B3 off the main path's counts, against mha_plain within
+    2e-2 and timed kernel/plain/plain/kernel beside SDPA and the bound: at
+    the OCR trunk's attention (OCR_ATTN_SHAPE) on the tensor cores, and past
+    D 128 (WIDE_HEAD_DIMS × WIDE_ATTN_CASES, the captioner decoder's rows)
+    on the CUDA-core route's wide instantiation."""
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 142)
+    cases = {"ocr_trunk": (*OCR_ATTN_SHAPE[:2], *OCR_ATTN_SHAPE[1:], False, False)}
+    for d in WIDE_HEAD_DIMS:
+        for mode, (b, nq, nkv, h, causal, masked) in WIDE_ATTN_CASES.items():
+            cases[f"d{d}_{mode}"] = (b, nq, nkv, h, d, causal, masked)
+    shapes = {}
+    with not_counted(counters):
+        for name, (b, nq, nkv, h, d, causal, masked) in cases.items():
+            q, k, v = (torch.randn((b, n, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                       for n in (nq, nkv, nkv))
+            mask = None
+            if masked:
+                mask = torch.rand((b, nkv), generator=gen, device=dev) < 0.7
+                mask[0] = False  # a fully masked row
+            path = vit_attention.route(q.dtype, d)
+            require(path == ("tensor_core" if name == "ocr_trunk" else "cuda_core"),
+                    f"mha {name}: route {path}")
+            before = vit_attention.mha.routes[path]
+            got = vit_attention.mha(q, k, v, causal=causal, key_mask=mask)
+            require(vit_attention.mha.routes[path] == before + 1, f"mha {name}: not on {path}")
+            want = vit_attention.mha_plain(q, k, v, causal=causal, key_mask=mask)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            require(torch.isfinite(got.float()).all().item() and err <= 2e-2,
+                    f"mha {name}: max abs diff {err} > 2e-2")
+            ms, plain_ms = paired_ms(
+                torch, lambda: vit_attention.mha(q, k, v, causal=causal, key_mask=mask),
+                lambda: vit_attention.mha_plain(q, k, v, causal=causal, key_mask=mask), reps=10)
+            shapes[name] = {"shape": [b, nq, nkv, h, d], "causal": causal, "key_masked": masked,
+                            "route": path, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            **attention_roofline(q, k, v, got, causal, mask),
+                            "library_ms": cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal, mask),
+                                                  reps=10)}
+    return {"part": "e_b3", "card": smi, "shapes": shapes}
 
 
 def cosines(a, b):
@@ -3938,7 +4494,8 @@ def main() -> int:
             f"tag path kernel launches {tag_launches}")
     require_tensor_cores(tag_launches, tag_routes, ("mha", "mha_qkv"), "tag path")
     torch.cuda.empty_cache()
-    tag_run.append(tag_pair_path(torch, dev, smi, tag_pair))
+    tag_pair_rec = tag_pair_path(torch, dev, smi, tag_pair)
+    tag_run.append(tag_pair_rec)
     tag_k = tag_kernels(torch, dev, smi, counters)
     tag_run.append(tag_k)
     for record in tag_run:
@@ -3946,10 +4503,34 @@ def main() -> int:
     emit({"phase": "tags", "part": "launches", "launches": tag_launches,
           "attention_routes": tag_routes})
 
+    # 14. OCR: (a) 256 PGM pages scanned, (b) the CTC and attention readers'
+    # jobs, (c) hard checks and match_text pages, (d) the card against the
+    # CPU, (e) B3 at the trunk's shape and past D 128. Counters start at zero
+    # here.
+    torch.cuda.empty_cache()
+    reset_counts(counters)
+    t14 = time.perf_counter()
+    ocr_run, ocr_pages = ocr_path(torch, dev, smi, counters)
+    ocr_launches = {fn.__name__: fn.launches for fn in counters}
+    ocr_routes = read_routes(counters)
+    require(ocr_launches["mha"] == ocr_run[1]["expected_b3_launches"]
+            and all(n == 0 for name, n in ocr_launches.items() if name != "mha"),
+            f"ocr path kernel launches {ocr_launches}, B3 expected "
+            f"{ocr_run[1]['expected_b3_launches']}")
+    require_tensor_cores(ocr_launches, ocr_routes, ("mha",), "ocr path")
+    torch.cuda.empty_cache()
+    ocr_run.append(ocr_pair_path(torch, dev, smi, ocr_pages))
+    ocr_k = ocr_kernels(torch, dev, smi, counters)
+    ocr_run.append(ocr_k)
+    for record in ocr_run:
+        emit({"phase": "ocr", **record})
+    emit({"phase": "ocr", "part": "launches", "launches": ocr_launches,
+          "attention_routes": ocr_routes, "phase_s": time.perf_counter() - t14})
+
     runs = ((launches, routes), (batch_launches, batch_routes), (composed_launches, composed_routes),
             (l14_launches, l14_routes), (pql_launches, pql_routes), (text_launches, text_routes),
             (extract_launches, extract_routes), (audio_launches, audio_routes),
-            (tag_launches, tag_routes))
+            (tag_launches, tag_routes), (ocr_launches, ocr_routes))
     total = {name: sum(run[0][name] for run in runs) for name in launches}
     total_routes = {name: {path: sum(run[1][name][path] for run in runs) for path in routes[name]}
                     for name in routes}
@@ -3973,14 +4554,19 @@ def main() -> int:
          "routes": total_routes["mha"],
          "max_abs_err": max(*attn_err.values(),
                             *(r["max_abs_err"] for r in audio_b3["shapes"].values()),
-                            tag_k["mha"]["max_abs_err"]),
+                            tag_k["mha"]["max_abs_err"],
+                            *(r["max_abs_err"] for r in ocr_k["shapes"].values())),
          "ms": attn_ms["vit_b32_image"][0], "plain_ms": attn_ms["vit_b32_image"][1],
          **bounds["vit_b32_image"], "library_ms": library_ms["vit_b32_image"],
          "text_shapes": {name: {"ms": attn_ms[name][0], "plain_ms": attn_ms[name][1],
                                 "max_abs_err": attn_err[name], **bounds[name],
                                 "library_ms": library_ms[name]} for name in TEXT_ATTN_CASES},
          "audio_launches": audio_launches["mha"], "audio_shapes": audio_b3["shapes"],
-         "tag_launches": tag_launches["mha"], "tag_shape": tag_k["mha"]},
+         "tag_launches": tag_launches["mha"], "tag_shape": tag_k["mha"],
+         "ocr_launches": ocr_launches["mha"], "ocr_shape": ocr_k["shapes"]["ocr_trunk"],
+         "wide_head_dim_shapes": {name: r for name, r in ocr_k["shapes"].items()
+                                  if name != "ocr_trunk"},
+         "captioner_decoder_logits_d384": tag_pair_rec["decoder_logits_d384"]},
         {"name": "mha_qkv", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:296", "launches": total["mha_qkv"],
          "routes": total_routes["mha_qkv"],

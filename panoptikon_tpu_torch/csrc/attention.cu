@@ -55,18 +55,24 @@
 // (8 warps) an SM and the two-pass form's 158 registers 3. wgmma tiles, a
 // producer warp for the loads and a cheaper exact softmax are next.
 //
-// CUDA-core route (pk_mha, pk_mha_qkv; f32, and bf16 with D < 32 or D not a
-// multiple of 16, where the tests hold 2e-5 in f32 and the reference keeps
-// p in f32 below 32). One block per (batch, head, 16-query block), four
-// warps of four query rows each. Keys and values stream through shared
-// memory in chunks of 64 (stored as f32, K rows padded by one word against
-// bank conflicts), so any N_kv works, whisper's 1500 included. A lane owns
-// keys for the logits (lane, lane + 32) and output dims (lane, lane + 32,
-// ...) for AV; each probability reaches the other lanes by a warp shuffle.
-// Three passes over the keys (max, sum, AV) reproduce the reference's
-// arithmetic; when N_kv fits one chunk, K is loaded once for all three. Its
-// f32 FMAs, one operand read from shared memory each, bound it; the shapes
-// it takes are not on the towers' path.
+// CUDA-core route (pk_mha, pk_mha_qkv; f32, bf16 with D < 32 or D not a
+// multiple of 16, and, for mha alone, bf16 with 128 < D <= 512, where the
+// tests hold 2e-5 in f32 and the reference keeps p in f32 below 32). One
+// block per (batch, head, 16-query block), four warps of four query rows
+// each. Keys and values stream through shared memory in chunks (stored as
+// f32, K rows padded by one word against bank conflicts), so any N_kv
+// works, whisper's 1500 included. A lane owns keys for the logits (lane,
+// lane + 32, ...) and output dims (lane, lane + 32, ...) for AV, so it
+// holds D/32 accumulators a row; each probability reaches the other lanes
+// by a warp shuffle. Three passes over the keys (max, sum, AV) reproduce
+// the reference's arithmetic; when N_kv fits one chunk, K is loaded once
+// for all three. Two instantiations (mha_kernel's kMaxD and kKeyChunk):
+// D <= 128 with 64-key chunks (the q block and one K and one V chunk in
+// f32 are at most 74 KB of shared memory), and 128 < D <= 512 with 32-key
+// chunks (at most 162 KB at D 512, 120 KB at the captioner's decoder's D
+// 384; 64 accumulators a lane, the key loop of the AV pass unrolled by 4).
+// Its f32 FMAs, one operand read from shared memory each, bound it; the
+// shapes it takes are off the towers' hot paths.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,10 +89,11 @@ constexpr int kQBlock = 16;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kQBlock / kWarps;
-constexpr int kKeyChunk = 64;
-constexpr int kMaxD = 128;
-constexpr int kDimsPerLane = kMaxD / 32;
-constexpr int kKeysPerLane = kKeyChunk / 32;
+// The two instantiations of mha_kernel: (kMaxD, kKeyChunk).
+constexpr int kNarrowD = 128;
+constexpr int kNarrowChunk = 64;
+constexpr int kWideD = 512;
+constexpr int kWideChunk = 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -98,12 +105,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 // q, k, v: element (b, i, head, c) at b * n * ld + i * ld + head * d + c,
 // with n = nq for q and nkv for k and v. out: (b, nq, h * d) contiguous, in
-// T, or int8 (O = int8_t) at the static scale *out_scale.
-template <typename T, typename O>
+// T, or int8 (O = int8_t) at the static scale *out_scale. d <= kMaxD.
+template <typename T, typename O, int kMaxD, int kKeyChunk>
 __global__ void __launch_bounds__(kThreads) mha_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const uint8_t* __restrict__ mask, O* __restrict__ out, int ld, int nq, int nkv,
     int h, int d, int causal, float scale, const float* __restrict__ out_scale) {
+  constexpr int kDimsPerLane = kMaxD / 32;
+  constexpr int kKeysPerLane = kKeyChunk / 32;
   extern __shared__ float sm[];
   float* qs = sm;                          // [kQBlock][d]
   float* ks = qs + kQBlock * d;            // [kKeyChunk][d + 1]
@@ -222,7 +231,8 @@ __global__ void __launch_bounds__(kThreads) mha_kernel(
       }
 #pragma unroll
       for (int t = 0; t < kKeysPerLane; ++t) {
-        for (int src = 0; src < 32 && 32 * t + src < kc; ++src) {
+        // Key src's probability times its V row, into this lane's dims.
+        auto av = [&](int src) {
           const int jj = 32 * t + src;
           const float pj = __shfl_sync(0xffffffffu, p[t], src);
 #pragma unroll
@@ -230,6 +240,14 @@ __global__ void __launch_bounds__(kThreads) mha_kernel(
             const int c = lane + 32 * u;
             if (c < d) acc[rr][u] = fmaf(pj, vs[jj * d + c], acc[rr][u]);
           }
+        };
+        if constexpr (kMaxD > kNarrowD) {
+          // 16 dims a lane: left to the compiler, this loop unrolled whole,
+          // built several times slower and ran slower.
+#pragma unroll 4
+          for (int src = 0; src < 32 && 32 * t + src < kc; ++src) av(src);
+        } else {
+          for (int src = 0; src < 32 && 32 * t + src < kc; ++src) av(src);
         }
       }
     }
@@ -258,21 +276,37 @@ __global__ void __launch_bounds__(kThreads) mha_kernel(
   }
 }
 
-template <typename T, typename O>
+template <typename T, typename O, int kMaxD = kNarrowD, int kKeyChunk = kNarrowChunk>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* out,
            int ld, int b, int nq, int nkv, int h, int d, int causal, float scale,
            const void* out_scale, cudaStream_t stream) {
+  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kQBlock) * d + kKeyChunk * (d + 1) + kKeyChunk * d);
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(mha_kernel<T, O, kMaxD, kKeyChunk>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((nq + kQBlock - 1) / kQBlock, h, b);
-  mha_kernel<T, O><<<grid, kThreads, smem, stream>>>(
+  mha_kernel<T, O, kMaxD, kKeyChunk><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<O*>(out), ld, nq, nkv, h, d, causal,
       scale, static_cast<const float*>(out_scale));
   return static_cast<int>(cudaGetLastError());
+}
+
+// mha's CUDA-core launch: the narrow instantiation up to D 128, the wide
+// one above (it refuses D > 512).
+template <typename T>
+int launch_mha(const void* q, const void* k, const void* v, const void* mask, void* out,
+               int ld, int b, int nq, int nkv, int h, int d, int causal, float scale,
+               cudaStream_t stream) {
+  if (d <= kNarrowD) {
+    return launch<T, T>(q, k, v, mask, out, ld, b, nq, nkv, h, d, causal, scale, nullptr,
+                        stream);
+  }
+  return launch<T, T, kWideD, kWideChunk>(q, k, v, mask, out, ld, b, nq, nkv, h, d, causal,
+                                          scale, nullptr, stream);
 }
 
 
@@ -690,20 +724,20 @@ int launch_tc_rows(int rows, int d, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q (b, nq, h, d), k and v (b, nkv, h, d), contiguous, f32 (bf16 == 0) or
-// bf16 (bf16 == 1); mask (b, nkv) uint8, nonzero = valid key, or null.
-// out (b, nq, h, d) in the input dtype. Requires 1 <= d <= 128.
+// q (b, nq, h, d), k and v (b, nkv, h, d), f32 (bf16 == 0) or bf16 (bf16 ==
+// 1), element (b, i, head, c) at (b * n + i) * ld + head * d + c (ld = h * d
+// for contiguous tensors, 3 * h * d for the views of one fused qkv); mask
+// (b, nkv) uint8, nonzero = valid key, or null. out (b, nq, h, d)
+// contiguous, in the input dtype. Requires 1 <= d <= 512.
 int pk_mha(const void* q, const void* k, const void* v, const void* mask, void* out,
-           int b, int nq, int nkv, int h, int d, int causal, int bf16, float scale,
+           int ld, int b, int nq, int nkv, int h, int d, int causal, int bf16, float scale,
            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ld = h * d;
   if (bf16) {
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, mask, out, ld, b, nq, nkv, h, d,
-                                                causal, scale, nullptr, st);
+    return launch_mha<__nv_bfloat16>(q, k, v, mask, out, ld, b, nq, nkv, h, d, causal, scale,
+                                     st);
   }
-  return launch<float, float>(q, k, v, mask, out, ld, b, nq, nkv, h, d, causal, scale,
-                              nullptr, st);
+  return launch_mha<float>(q, k, v, mask, out, ld, b, nq, nkv, h, d, causal, scale, st);
 }
 
 // qkv (b, n, 3 * h * d) contiguous, f32 (bf16 == 0) or bf16 (bf16 == 1).

@@ -2,11 +2,11 @@
 ``panoptikon_tpu/models/impls.py``: ``ClipImpl``, ``TextEmbedImpl``,
 ``TaggerImpl``, ``WhisperImpl``, ``ClapImpl``, ``CaptionerImpl``,
 ``VlmTaggerImpl``, the host-only ``Md5LookupImpl``, ``ApiEmbedImpl`` and
-``TagApiImpl`` (copied text for text) and the fixture impls the manager's
-tests drive, indexed by ``impl_class`` in :data:`IMPL_INDEX`. OCR
-(``OcrImpl``) is not ported yet (ROADMAP A.11c); an ``impl_class`` the index
-lacks raises ``ModelLoadError`` at load through ``models.discovery``, as the
-reference does for a name it does not know.
+``TagApiImpl`` (copied text for text), ``OcrImpl`` and the fixture impls the
+manager's tests drive, indexed by ``impl_class`` in :data:`IMPL_INDEX`, which
+holds every ``impl_class`` of the reference's; any other raises
+``ModelLoadError`` at load through ``models.discovery`` unless a user's
+``impl_dirs`` defines it, as in the reference.
 
 ``ClipImpl`` has the same predict contract as the JAX class: inputs with an
 image ``file``, pre-decoded ``{"pixels": (S, S, 3)}`` or ``{"text": ...}``; outputs are
@@ -33,6 +33,11 @@ the top bucket: ROADMAP §C).
 as the JAX classes do, and have an array entry each (``tag_arrays``,
 ``caption_arrays``) that takes normalised pixels: ``predict`` is the host
 decode and that entry.
+
+``OcrImpl`` takes image files, as the JAX class does, and has an array
+entry (``read_arrays``) that takes grayscale pages; it recognizes a call's
+line strips in slices of at most the top batch bucket (the JAX class pads
+them as one batch and raises past it: ROADMAP §C).
 
 ``WhisperImpl`` and ``ClapImpl`` take WAV files (``decode_wav``, copied
 from the JAX package: mono 16 kHz, a downmix and a linear resample
@@ -64,13 +69,13 @@ import numpy as np
 import torch
 
 from panoptikon_tpu_torch.device import device as select_device
-from panoptikon_tpu_torch.models import (audio, batching, clip, convert, text_embed, weights,
-                                         whisper)
+from panoptikon_tpu_torch.models import (audio, batching, clip, convert, ocr, text_embed,
+                                         weights, whisper)
 from panoptikon_tpu_torch.models.base import InferenceModel, PredictionInput, SlotError
 from panoptikon_tpu_torch.utils import npy
 
 __all__ = ["IMPL_INDEX", "ApiEmbedImpl", "CaptionerImpl", "ClapImpl", "ClipImpl", "HashTokenizer",
-           "Md5LookupImpl", "PredictionInput", "TagApiImpl", "TaggerImpl", "TextEmbedImpl",
+           "Md5LookupImpl", "OcrImpl", "PredictionInput", "TagApiImpl", "TaggerImpl", "TextEmbedImpl",
            "VlmTaggerImpl", "WhisperImpl", "decode_image", "decode_wav", "load_tokenizer", "npy"]
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -81,6 +86,7 @@ TAGGER_INIT_SEED = 2
 WHISPER_INIT_SEED = 4
 CLAP_INIT_SEED = 5
 CAPTIONER_INIT_SEED = 7
+OCR_INIT_SEED = 11
 
 
 def decode_image(payload: bytes, size: int) -> np.ndarray:
@@ -812,9 +818,11 @@ class CaptionerImpl(InferenceModel):
     ``whisper.decode_from_feats``. :meth:`caption_arrays` is the array entry
     (normalised pixels in, one unpadded batch); :meth:`predict` decodes
     image files and calls it. The decoder is ``vision_width`` wide with 2
-    heads, so its head dim is past kernel B3's 128 at ViT-B widths: the
-    decode step's attention is plain tensor ops (``whisper._step_attention``)
-    and never launches B3."""
+    heads (a head dim of 384 at ViT-B widths). The decode step's attention
+    is plain tensor ops (``whisper._step_attention``), as the reference's
+    is, and never launches B3; whole token rows through
+    ``whisper._decoder_logits`` take B3's CUDA-core route at that head
+    dim."""
 
     def __init__(
         self,
@@ -1310,6 +1318,157 @@ class TagApiImpl(InferenceModel):
         return outputs
 
 
+class OcrImpl(InferenceModel):
+    """OCR (reference impl/ocr.py docTR / eocr.py EasyOCR) on one explicit
+    device: image → ``{"text", "confidence", "language"}``.
+
+    Projection-profile line segmentation on the host (``models/ocr.py``),
+    then one of two recognizers over fixed-height line strips:
+    ``recognizer="ctc"`` (greedy CTC over the strip encoder) or ``"attn"``
+    (whisper's KV-cached decode over the same encoder's features).
+    :meth:`read_arrays` is the array entry (grayscale pages in, one output
+    each); :meth:`predict` decodes image files (PIL, ``convert("L")``, in
+    :meth:`decode_gray`) and calls it. The strips of a call go to the card
+    in slices of at most the top batch bucket, each padded to its own
+    bucket: the JAX class pads every strip of a call as one batch and raises
+    ``ValueError`` past the top bucket, so a page of more than 16 lines
+    fails there (ROADMAP §C). A checkpoint is the reference's pickle of a
+    NumPy parameter tree; without one the weights are random, drawn from a
+    fixed seed on the impl's device."""
+
+    def __init__(
+        self,
+        model_arch: str = "crnn-base",
+        checkpoint: Optional[str] = None,
+        batch_cap: int = 16,
+        min_confidence: float = 0.0,
+        recognizer: str = "ctc",
+        device: str | torch.device = "cuda",
+        **_: Any,
+    ):
+        self.recognizer = recognizer
+        if recognizer == "attn":
+            self.attn_cfg = ocr.ATTN_CONFIGS.get(model_arch) or ocr.ATTN_CONFIGS["attn-base"]
+            self.cfg = self.attn_cfg.enc
+        else:
+            self.attn_cfg = None
+            self.cfg = ocr.CONFIGS.get(model_arch) or ocr.CONFIGS["crnn-base"]
+        self.checkpoint = checkpoint
+        self.device = select_device(str(device))
+        self.batch_ladder = batching.bucket_ladder(batch_cap)
+        self.min_confidence = min_confidence
+        self.params = None
+
+    @classmethod
+    def name(cls) -> str:
+        return "ocr"
+
+    def load(self) -> None:
+        if self.params is not None:
+            return
+        if self.checkpoint:
+            import pickle
+
+            with open(self.checkpoint, "rb") as f:
+                tree = convert.params_from_jax(pickle.load(f), device=self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(OCR_INIT_SEED)
+            if self.recognizer == "attn":
+                tree = ocr.init_attn_params(self.attn_cfg, gen)
+            else:
+                tree = ocr.init_params(self.cfg, gen)
+        self.params = ocr.bf16_linears(tree)
+
+    def unload(self) -> None:
+        self.params = None
+
+    def prepare(self) -> None:
+        """Run every bucket of the ladder once through the configured
+        recognizer (kernel builds, library handles)."""
+        self.load()
+        for bucket in self.batch_ladder:
+            self._recognize(np.zeros((bucket, self.cfg.height, self.cfg.max_width), np.float32))
+
+    def _recognize(self, strips: np.ndarray) -> list[tuple[str, float]]:
+        """One padded slice of strips → (text, confidence) a strip, the
+        device's results brought back by one copy."""
+        x = torch.from_numpy(strips).to(self.device)
+        if self.recognizer == "attn":
+            toks, lens, conf = ocr.attn_read(self.params, self.attn_cfg, x)
+            host = torch.cat([toks.to(torch.float32), lens.to(torch.float32)[:, None],
+                              conf[:, None]], dim=1).cpu().numpy()
+            return [(ocr.attn_collapse(row[:-2].astype(np.int64), int(row[-2]), self.cfg.charset),
+                     float(row[-1])) for row in host]
+        ids, conf = ocr.recognize(self.params, self.cfg, x)
+        host = torch.cat([ids.to(torch.float32), conf[:, None]], dim=1).cpu().numpy()
+        return [(ocr.ctc_collapse(row[:-1].astype(np.int64), self.cfg.charset), float(row[-1]))
+                for row in host]
+
+    def read_lines(self, grays: Sequence[np.ndarray]) -> list[list[tuple[str, float]]]:
+        """Grayscale pages ((H, W) uint8 each) → each page's lines as (text,
+        confidence), top to bottom: every page segmented and its strips
+        prepared on the host, then recognized in slices of at most the top
+        bucket, each padded to its own bucket."""
+        self.load()
+        strips, owners = [], []
+        for i, gray in enumerate(grays):
+            for box in ocr.segment_lines(gray):
+                strips.append(ocr.prepare_strip(gray, box, self.cfg))
+                owners.append(i)
+        lines: list = []
+        cap = self.batch_ladder[-1]
+        for lo in range(0, len(strips), cap):
+            part = np.stack(strips[lo : lo + cap])
+            bucket = batching.bucket_for(len(part), self.batch_ladder)
+            lines += self._recognize(batching.pad_batch(part, bucket)[0])[: len(part)]
+        pages: list = [[] for _ in grays]
+        for owner, line in zip(owners, lines):
+            pages[owner].append(line)
+        return pages
+
+    def read_arrays(self, grays: Sequence[np.ndarray]) -> list[dict]:
+        """Grayscale pages → the reference's output for each: the lines at
+        or above ``min_confidence`` (and not empty) joined by newlines, with
+        their mean confidence; a page with no line (or none kept) gives
+        ``{"text": "", "confidence": 0.0, "language": None}``."""
+        outputs = []
+        for lines in self.read_lines(grays):
+            kept = [(t, c) for t, c in lines if c >= self.min_confidence and t]
+            outputs.append({
+                "text": "\n".join(t for t, _ in kept),
+                "confidence": float(np.mean([c for _, c in kept])) if kept else 0.0,
+                "language": None,
+            })
+        return outputs
+
+    @staticmethod
+    def decode_gray(payload: bytes) -> np.ndarray:
+        """Image bytes → (H, W) uint8 grayscale, as the reference decodes
+        them (PIL's ``convert("L")``); raises on an undecodable payload."""
+        from PIL import Image
+
+        with Image.open(io.BytesIO(payload)) as im:
+            return np.asarray(im.convert("L"))
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        self.load()
+        outputs: list[Any] = [None] * len(inputs)
+        grays, kept = [], []
+        for i, inp in enumerate(inputs):
+            if inp.file is None:
+                outputs[i] = SlotError("input", "OCR requires an image file").to_slot()
+                continue
+            try:
+                grays.append(self.decode_gray(inp.file))
+            except Exception as exc:
+                outputs[i] = SlotError("input", f"Undecodable image: {exc}").to_slot()
+                continue
+            kept.append(i)
+        for pos, out in zip(kept, self.read_arrays(grays)):
+            outputs[pos] = out
+        return outputs
+
+
 # ---------------------------------------------------------------------------
 # Fixture impls — the reference's behavior-probe zoo (SURVEY.md §4), used by
 # the manager/API tests exactly as the reference uses its fake workers.
@@ -1518,6 +1677,7 @@ IMPL_INDEX: dict[str, type[InferenceModel]] = {
         Md5LookupImpl,
         ApiEmbedImpl,
         TagApiImpl,
+        OcrImpl,
         EchoImpl,
         BatchSizeImpl,
         FailBatchImpl,

@@ -174,54 +174,63 @@ def log_mel_spectrogram(audio: np.ndarray, n_mels: int = N_MELS) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def _normal(gen: torch.Generator, shape, std: float):
+    return torch.randn(shape, generator=gen, device=gen.device) * std
+
+
+def _ln(w: int, dev) -> Params:
+    return {"scale": torch.ones(w, device=dev), "bias": torch.zeros(w, device=dev)}
+
+
+def _init_attn(gen: torch.Generator, w: int) -> Params:
+    dev = gen.device
+    return {"qkv_w": _normal(gen, (w, 3 * w), w**-0.5), "qkv_b": torch.zeros(3 * w, device=dev),
+            "out_w": _normal(gen, (w, w), w**-0.5), "out_b": torch.zeros(w, device=dev)}
+
+
+def _init_cross(gen: torch.Generator, w: int) -> Params:
+    dev = gen.device
+    return {"q_w": _normal(gen, (w, w), w**-0.5), "q_b": torch.zeros(w, device=dev),
+            "kv_w": _normal(gen, (w, 2 * w), w**-0.5), "kv_b": torch.zeros(2 * w, device=dev),
+            "out_w": _normal(gen, (w, w), w**-0.5), "out_b": torch.zeros(w, device=dev)}
+
+
+def _init_mlp(gen: torch.Generator, w: int) -> Params:
+    dev = gen.device
+    return {"fc_w": _normal(gen, (w, 4 * w), w**-0.5), "fc_b": torch.zeros(4 * w, device=dev),
+            "proj_w": _normal(gen, (4 * w, w), (4 * w) ** -0.5), "proj_b": torch.zeros(w, device=dev)}
+
+
+def init_decoder(cfg: WhisperConfig, gen: torch.Generator) -> Params:
+    """The text decoder's random f32 tree (``params["decoder"]``), drawn from
+    ``gen``: the whisper decoder's, and OCR's attention reader's over its
+    strip features (``models/ocr.init_attn_params``)."""
+    dev, w = gen.device, cfg.n_text_state
+    return {
+        "token_emb": _normal(gen, (cfg.n_vocab, w), 0.02),
+        "pos_emb": _normal(gen, (cfg.n_text_ctx, w), 0.01),
+        "blocks": [{"ln_1": _ln(w, dev), "attn": _init_attn(gen, w), "ln_cross": _ln(w, dev),
+                    "cross": _init_cross(gen, w), "ln_2": _ln(w, dev), "mlp": _init_mlp(gen, w)}
+                   for _ in range(cfg.n_text_layers)],
+        "ln_post": _ln(w, dev),
+    }
+
+
 def init_params(cfg: WhisperConfig, gen: torch.Generator) -> Params:
     """Random f32 parameters with the JAX package's shapes and scales, drawn
     from ``gen`` on ``gen.device``. The values differ from ``jax.random``'s;
     tests that compare the two packages convert one JAX tree instead."""
-    dev = gen.device
-
-    def normal(shape, std):
-        return torch.randn(shape, generator=gen, device=dev) * std
-
-    def zeros(n):
-        return torch.zeros(n, device=dev)
-
-    def ln(w):
-        return {"scale": torch.ones(w, device=dev), "bias": zeros(w)}
-
-    def attn(w):
-        return {"qkv_w": normal((w, 3 * w), w**-0.5), "qkv_b": zeros(3 * w),
-                "out_w": normal((w, w), w**-0.5), "out_b": zeros(w)}
-
-    def cross(w):
-        return {"q_w": normal((w, w), w**-0.5), "q_b": zeros(w),
-                "kv_w": normal((w, 2 * w), w**-0.5), "kv_b": zeros(2 * w),
-                "out_w": normal((w, w), w**-0.5), "out_b": zeros(w)}
-
-    def mlp(w):
-        return {"fc_w": normal((w, 4 * w), w**-0.5), "fc_b": zeros(4 * w),
-                "proj_w": normal((4 * w, w), (4 * w) ** -0.5), "proj_b": zeros(w)}
-
-    w_a, w_t = cfg.n_audio_state, cfg.n_text_state
-    return {
-        "encoder": {
-            "conv1_w": normal((3, cfg.n_mels, w_a), 0.02),
-            "conv1_b": zeros(w_a),
-            "conv2_w": normal((3, w_a, w_a), 0.02),
-            "conv2_b": zeros(w_a),
-            "blocks": [{"ln_1": ln(w_a), "attn": attn(w_a), "ln_2": ln(w_a), "mlp": mlp(w_a)}
-                       for _ in range(cfg.n_audio_layers)],
-            "ln_post": ln(w_a),
-        },
-        "decoder": {
-            "token_emb": normal((cfg.n_vocab, w_t), 0.02),
-            "pos_emb": normal((cfg.n_text_ctx, w_t), 0.01),
-            "blocks": [{"ln_1": ln(w_t), "attn": attn(w_t), "ln_cross": ln(w_t),
-                        "cross": cross(w_t), "ln_2": ln(w_t), "mlp": mlp(w_t)}
-                       for _ in range(cfg.n_text_layers)],
-            "ln_post": ln(w_t),
-        },
+    dev, w_a = gen.device, cfg.n_audio_state
+    encoder = {
+        "conv1_w": _normal(gen, (3, cfg.n_mels, w_a), 0.02),
+        "conv1_b": torch.zeros(w_a, device=dev),
+        "conv2_w": _normal(gen, (3, w_a, w_a), 0.02),
+        "conv2_b": torch.zeros(w_a, device=dev),
+        "blocks": [{"ln_1": _ln(w_a, dev), "attn": _init_attn(gen, w_a), "ln_2": _ln(w_a, dev),
+                    "mlp": _init_mlp(gen, w_a)} for _ in range(cfg.n_audio_layers)],
+        "ln_post": _ln(w_a, dev),
     }
+    return {"encoder": encoder, "decoder": init_decoder(cfg, gen)}
 
 
 def bf16_linears(params: Params) -> Params:
@@ -304,9 +313,12 @@ def encode_audio(params: Params, cfg: WhisperConfig, mel):
     return _layernorm(x, e["ln_post"]).to(torch.float32)
 
 
-def _decoder_logits(params: Params, cfg: WhisperConfig, tokens, audio_feats):
+def _decoder_logits(params: Params, cfg: WhisperConfig, tokens, audio_feats, token_mask):
     """tokens (B, L), causal over the row; audio_feats (B, M, state) →
-    logits (B, L, vocab) f32."""
+    logits (B, L, vocab) f32. ``token_mask`` is the reference's parameter,
+    which it accepts and never reads (the causal mask alone bounds each
+    position), so the port takes it and does the same. At a head dim past
+    128 (the captioner's decoder: D 384) B3 takes its CUDA-core route."""
     d = params["decoder"]
     b, n = tokens.shape
     w, heads = cfg.n_text_state, cfg.n_text_heads
@@ -339,7 +351,7 @@ def language_probe(params: Params, cfg: WhisperConfig, audio_feats):
     probability (B,) f32)."""
     b = audio_feats.shape[0]
     tokens = torch.full((b, 1), cfg.sot, dtype=torch.int64, device=audio_feats.device)
-    logits = _decoder_logits(params, cfg, tokens, audio_feats)[:, 0]
+    logits = _decoder_logits(params, cfg, tokens, audio_feats, None)[:, 0]
     base = cfg.language_base
     probs = torch.softmax(logits[:, base: base + cfg.n_langs], dim=-1)
     idx = torch.argmax(probs, dim=-1)
@@ -523,7 +535,7 @@ def _greedy_decode_rerun(params: Params, cfg: WhisperConfig, mel, *, max_tokens:
     count = torch.zeros(b, dtype=torch.int64, device=tokens.device)
     pos = p_len
     while pos < max_tokens and not bool(done.all()):
-        logits = _decoder_logits(params, cfg, tokens, audio_feats)
+        logits = _decoder_logits(params, cfg, tokens, audio_feats, None)
         nxt, tok_logp = _greedy(logits[:, pos - 1])
         nxt = torch.where(done, cfg.eot, nxt)
         tokens[:, pos] = nxt

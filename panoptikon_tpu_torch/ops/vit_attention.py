@@ -27,12 +27,16 @@ picks one of two kernels from the dtype and head dim, before the launch:
   to bf16 after the normalisation, as the reference rounds it, so the row
   max and sum come first: from logits kept in shared memory up to
   ``TC_LOGITS_MAX_KEYS`` keys, else from a first pass over the keys whose
-  logits the second pass recomputes. Needs 16-byte aligned operands. q, k
-  and v may be views that share one row stride (:func:`row_stride`), such
-  as the three parts of a fused qkv projection: the kernel reads them in
-  place, with no split copies.
+  logits the second pass recomputes. Needs 16-byte aligned operands.
 - ``"cuda_core"`` (``pk_mha``, ``pk_mha_qkv``): f32 (held to 2e-5, which
-  TF32 would break) and the other head dims (below 32 p stays f32).
+  TF32 would break) and the other head dims: below 32 p stays f32; past
+  128, up to :data:`MAX_HEAD_DIM` = 512 and for :func:`mha` alone, a second
+  instantiation of the kernel with smaller key chunks (the captioner's
+  decoder is 768 wide with 2 heads: D 384).
+
+On either route q, k and v may be views that share one row stride
+(:func:`row_stride`), such as the three parts of a fused qkv projection:
+the kernel reads them in place, with no split copies.
 
 Each wrapper counts its launches (``.launches``) and its launches by route
 (``.routes``).
@@ -48,13 +52,14 @@ from panoptikon_tpu_torch import _build
 from panoptikon_tpu_torch.ops.codec import quantize_static
 
 _SIGNATURES = {
-    "pk_mha": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    "pk_mha": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
     "pk_mha_qkv": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
     "pk_mha_tc": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "pk_check_div_rn": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 }
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 512  # mha's: the CUDA-core kernel's wide instantiation
+QKV_MAX_HEAD_DIM = 128  # mha_qkv's, and the tensor-core kernel's
 ROUTES = ("tensor_core", "cuda_core")
 # The tensor-core kernel's variants, each the faster at the towers' shapes
 # in ``python3 -m panoptikon_tpu_torch.profiling --attention``: query rows a
@@ -69,8 +74,11 @@ TC_LOGITS_MAX_KEYS = 320
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call of :func:`mha` or :func:`mha_qkv` launches:
     ``"tensor_core"`` for bf16 with 32 ≤ D ≤ 128 and D % 16 == 0, else
-    ``"cuda_core"``."""
-    if dtype == torch.bfloat16 and 32 <= head_dim <= MAX_HEAD_DIM and head_dim % 16 == 0:
+    ``"cuda_core"`` (bf16 past 128 included). Past :data:`MAX_HEAD_DIM` no
+    kernel takes the head dim: it raises ``ValueError``."""
+    if head_dim > MAX_HEAD_DIM:
+        raise ValueError(f"mha kernel supports D <= {MAX_HEAD_DIM}, got {head_dim}")
+    if dtype == torch.bfloat16 and 32 <= head_dim <= QKV_MAX_HEAD_DIM and head_dim % 16 == 0:
         return "tensor_core"
     return "cuda_core"
 
@@ -184,10 +192,10 @@ def mha_plain(q, k, v, *, causal: bool = False, key_mask=None):
 
 def mha(q, k, v, *, causal: bool = False, key_mask=None):
     """Fused multi-head attention. q (B, N_q, H, D); k, v (B, N_kv, H, D),
-    f32 or bf16, D ≤ 128; ``key_mask`` (B, N_kv), truthy for valid keys;
+    f32 or bf16, D ≤ 512; ``key_mask`` (B, N_kv), truthy for valid keys;
     ``causal`` needs N_q == N_kv. Returns (B, N_q, H, D) in q's dtype. On
-    CUDA q, k, v are contiguous or, on the tensor-core route, views sharing
-    one row stride (:func:`row_stride`)."""
+    CUDA q, k, v are contiguous or views sharing one row stride
+    (:func:`row_stride`); past D 512 it raises and launches nothing."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, causal=causal, key_mask=key_mask)
     if q.device.type != "cuda":
@@ -195,13 +203,11 @@ def mha(q, k, v, *, causal: bool = False, key_mask=None):
     _check(q, k, v, causal, key_mask)
     b, n_q, h, d = q.shape
     n_kv = k.shape[1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"mha kernel supports D <= {MAX_HEAD_DIM}, got {d}")
     path = route(q.dtype, d)
     ld = row_stride(q, k, v)
-    if ld is None or (path == "cuda_core" and ld != h * d):
-        raise ValueError("mha kernel needs contiguous q, k, v (or, on the tensor cores, views "
-                         "that share one row stride, such as the split of a fused qkv)")
+    if ld is None:
+        raise ValueError("mha kernel needs contiguous q, k, v or views that share one row "
+                         "stride, such as the split of a fused qkv")
     mask = None
     if key_mask is not None:
         mask = (key_mask.to(torch.float32) > 0).to(torch.uint8).contiguous()
@@ -213,7 +219,7 @@ def mha(q, k, v, *, causal: bool = False, key_mask=None):
         lib = _build.load("attention", _SIGNATURES)
         err = lib.pk_mha(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), ld,
             b, n_q, n_kv, h, d, int(causal), int(q.dtype == torch.bfloat16),
             float(d) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -242,8 +248,9 @@ def qkv_fused_fits(head_dim: int) -> bool:
     block's 64 query rows, K and V tiles in bf16 and up to 80 KB of logits
     are at most 132 KB of the H100's 227 KB). Every ``CONFIGS`` entry fits,
     ViT-H-14-378 (D = 80, N = 730) included; the JAX package's VMEM rule
-    rejects that one."""
-    return 1 <= head_dim <= MAX_HEAD_DIM
+    rejects that one. The int8 path reaches no wider head, so the CUDA-core
+    kernel's wide instantiation (D ≤ 512) serves :func:`mha` alone."""
+    return 1 <= head_dim <= QKV_MAX_HEAD_DIM
 
 
 def _check_qkv(qkv, heads):
@@ -283,7 +290,7 @@ def mha_qkv(qkv, *, heads: int, causal: bool = False, out_scale=None):
     w = w3 // 3
     d = w // heads
     if not qkv_fused_fits(d):
-        raise ValueError(f"mha_qkv kernel supports D <= {MAX_HEAD_DIM}, got {d}")
+        raise ValueError(f"mha_qkv kernel supports D <= {QKV_MAX_HEAD_DIM}, got {d}")
     if not qkv.is_contiguous():
         raise ValueError("mha_qkv kernel needs a contiguous qkv")
     scale_t = None

@@ -404,7 +404,7 @@ def test_audio_build_matches_the_reference(tmp_path, folder, checkpoints, monkey
     with torch.inference_mode():
         feats = whisper.encode_audio(params, wcfg, torch.from_numpy(mel))
         got_logits = whisper._decoder_logits(params, wcfg, torch.from_numpy(rows["ref"]),
-                                             feats)[:, :-1].numpy()
+                                             feats, None)[:, :-1].numpy()
     assert cosines(got_logits, want_logits).min() >= COS_FLOOR
     err = float(np.abs(got_logits - want_logits).max())
     top2 = np.sort(want_logits, axis=-1)[..., -2:]

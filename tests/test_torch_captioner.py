@@ -242,3 +242,32 @@ def test_decoder_checkpoint_round_trips_through_both_packages(tmp_path):
     carried.decoder_params = whisper.bf16_linears(convert.params_from_jax(dec, device="cpu"))
     x = images(2, seed=6)
     assert timpl.caption_arrays(x) == carried.caption_arrays(x)
+
+
+def test_decoder_logits_at_the_caption_base_head_dim():
+    # whisper._decoder_logits with the reference's fifth parameter (token_mask,
+    # accepted and never read) at caption-base's decoder widths: 768 wide, 2
+    # heads, so D 384, B3's CUDA-core route on the card. Whole teacher-forced
+    # rows (causal self-attention, cross-attention over 50 vision tokens),
+    # against the JAX function on the same tree: cosine ≥ 0.999 a position.
+    rcfg = ref.CaptionerImpl("ViT-B-32", max_tokens=48).decoder_cfg
+    cfg = impls.CaptionerImpl("ViT-B-32", max_tokens=48, device="cpu").decoder_cfg
+    assert (cfg.n_text_state // cfg.n_text_heads, cfg.n_audio_ctx) == (384, 50)
+    jparams = {"decoder": ref_whisper.init_params(jax.random.key(9), rcfg)["decoder"]}
+    params = whisper.bf16_linears(convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                                          device="cpu"))
+    rng = np.random.default_rng(10)
+    tokens = np.concatenate([np.broadcast_to([[500, 502, 503]], (2, 3)),
+                             rng.integers(0, 500, size=(2, 13))], axis=1).astype(np.int32)
+    feats = rng.normal(size=(2, 50, 768)).astype(np.float32)
+    want = np.asarray(jax.jit(ref_whisper._decoder_logits, static_argnums=1)(
+        jparams, rcfg, jnp.asarray(tokens), jnp.asarray(feats), None))
+    with torch.inference_mode():
+        got = whisper._decoder_logits(params, cfg, torch.from_numpy(tokens),
+                                      torch.from_numpy(feats), None).numpy()
+        mask = torch.ones(tokens.shape, dtype=torch.bool)
+        assert np.array_equal(got, whisper._decoder_logits(
+            params, cfg, torch.from_numpy(tokens), torch.from_numpy(feats), mask).numpy())
+    assert got.shape == want.shape == (2, 16, cfg.n_vocab) and got.dtype == np.float32
+    assert cosines(got, want).min() >= 0.999
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()

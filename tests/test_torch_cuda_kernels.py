@@ -126,15 +126,92 @@ def test_mha_text_encoder_shapes(cuda_device, tc_form, shape, strided):
         assert torch.equal(got, again)
 
 
-def test_mha_refuses_the_captioner_head_dim(cuda_device):
-    # caption-base's decoder is 768 wide with 2 heads: D 384, past B3's 128.
-    # The kernel raises there and never falls back to the plain version; the
-    # captioner's decode step keeps its attention in plain ops (next test).
-    q = torch.zeros((1, 4, 2, 384), dtype=torch.bfloat16, device=cuda_device)
+# The CUDA-core kernel's wide instantiation (128 < D <= 512, 32-key chunks):
+# the captioner's decoder rows through whisper._decoder_logits (768 wide, 2
+# heads: D 384) are its main caller.
+WIDE_SHAPES = {
+    # name: (b, n_q, n_kv, h, causal, masked)
+    "self": (2, 70, 70, 2, False, False),
+    "causal": (2, 48, 48, 2, True, False),  # the captioner's token rows
+    "cross": (8, 48, 50, 2, False, False),  # over its 50 vision tokens
+    "masked": (3, 100, 100, 2, False, True),  # four key chunks, a row fully masked
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [160, 256, 384, 512])
+@pytest.mark.parametrize("shape", list(WIDE_SHAPES))
+def test_mha_takes_wide_head_dims(cuda_device, shape, d, dtype):
+    # B3 past D 128 on the CUDA-core route against its plain version, at the
+    # tolerances of the narrow kernel; q, k, v as views of one fused qkv
+    # read in place alike; past D 512 mha raises and launches nothing (it
+    # never falls back to the plain version).
+    b, nq, nkv, h, causal, masked = WIDE_SHAPES[shape]
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device=cuda_device).to(tdt)
+               for n in (nq, nkv, nkv))
+    mask = None
+    if masked:
+        mask = torch.rand((b, nkv), generator=gen, device=cuda_device) < 0.7
+        mask[-1] = False
+    routes = dict(vit_attention.mha.routes)
+    got = vit_attention.mha(q, k, v, causal=causal, key_mask=mask)
+    want = vit_attention.mha_plain(q, k, v, causal=causal, key_mask=mask)
+    torch.cuda.synchronize()
+    assert vit_attention.mha.routes == {**routes, "cuda_core": routes["cuda_core"] + 1}
+    assert got.dtype == tdt and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    if nq == nkv:
+        qkv = torch.cat([t.reshape(b, nq, h * d) for t in (q, k, v)], dim=-1)
+        views = [t.view(b, nq, h, d) for t in qkv.split(h * d, dim=-1)]
+        assert vit_attention.row_stride(*views) == 3 * h * d
+        assert torch.equal(vit_attention.mha(*views, causal=causal, key_mask=mask), got)
+    wide = torch.zeros((1, 4, 2, vit_attention.MAX_HEAD_DIM + 16), dtype=tdt, device=cuda_device)
     before = vit_attention.mha.launches
-    with pytest.raises(ValueError, match="D <= 128"):
-        vit_attention.mha(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="D <= 512"):
+        vit_attention.mha(wide, wide, wide, causal=True)
     assert vit_attention.mha.launches == before
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_ocr_trunk_on_the_card_equals_the_cpu(cuda_device):
+    # doctr/ocr-default's recognizer (crnn-base: 4 layers, 4 heads of 64 over
+    # 128 column tokens) on the card against the same weights on the CPU:
+    # strip features and CTC logits at cosine ≥ 0.999 a token, the ids equal
+    # wherever the CPU's top-2 margin exceeds twice the logits' max abs
+    # error; each layer one B3 launch on the tensor cores.
+    from panoptikon_tpu_torch.models import impls, ocr
+
+    card = impls.OcrImpl("crnn-base")
+    card.load()
+    cpu = impls.OcrImpl("crnn-base", device="cpu")
+    cpu.params = tree_to(card.params, "cpu")
+    rng = np.random.default_rng(7)
+    strips = (rng.random((8, 32, 512)) < 0.2).astype(np.float32)
+    x = torch.from_numpy(strips)
+    routes = dict(vit_attention.mha.routes)
+    with torch.inference_mode():
+        got = ocr.encode_strips(card.params, card.cfg, x.to(cuda_device)).float().cpu().numpy()
+        assert vit_attention.mha.routes == {**routes, "tensor_core": routes["tensor_core"] + 4}
+        want = ocr.encode_strips(cpu.params, cpu.cfg, x).float().numpy()
+        got_l = ocr.logits(card.params, card.cfg, x.to(cuda_device)).cpu().numpy()
+        want_l = ocr.logits(cpu.params, cpu.cfg, x).numpy()
+    for a, b in ((got, want), (got_l, want_l)):
+        cos = np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+        assert cos.min() >= 0.999
+    err = float(np.abs(got_l - want_l).max())
+    top2 = np.sort(want_l, axis=-1)[..., -2:]
+    decided = top2[..., 1] - top2[..., 0] > 2 * err
+    ids, _ = ocr.recognize(card.params, card.cfg, x.to(cuda_device))
+    assert (ids.cpu().numpy() == want_l.argmax(-1))[decided].all()
 
 
 def test_captioner_launches_b3_only_in_its_vision_tower(cuda_device):
@@ -169,13 +246,6 @@ def test_tagger_trunk_on_the_card_equals_the_cpu(cuda_device, precision):
     # cosine of 0.99993 (bf16), 0.9995 (int8) into 8e-3 and 2.3e-2; every
     # attention launch on the tensor cores, B4 and B5 under int8.
     from panoptikon_tpu_torch.models import impls
-
-    def tree_to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: tree_to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [tree_to(v, dev) for v in tree]
-        return tree.to(dev)
 
     card = impls.TaggerImpl("ViT-B-32", precision=precision)
     cpu = impls.TaggerImpl("ViT-B-32", precision=precision, device="cpu")
@@ -237,13 +307,21 @@ def test_mha_audio_shapes(cuda_device, tc_form, shape):
 
 
 def test_mha_strided_views_need_the_tensor_cores_and_aligned_rows(cuda_device):
+    # Both routes read the views of a fused qkv in place (the CUDA-core route
+    # too, since the captioner's decoder rows at D 384 take it); the tensor
+    # cores need 16-byte aligned rows, and views that share no row stride
+    # are refused, with no launch.
     b, n, h, d = 2, 40, 2, 64
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=cuda_device)
     views = [t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1)]
+    routes = dict(vit_attention.mha.routes)
+    got = vit_attention.mha(*views)  # f32: the CUDA-core route
+    assert vit_attention.mha.routes == {**routes, "cuda_core": routes["cuda_core"] + 1}
+    assert torch.equal(got, vit_attention.mha(*(t.contiguous() for t in views)))
     before = vit_attention.mha.launches
-    with pytest.raises(ValueError, match="contiguous"):  # f32: the CUDA-core route
-        vit_attention.mha(*views)
+    with pytest.raises(ValueError, match="contiguous"):  # rows 3·H·D and H·D apart
+        vit_attention.mha(views[0], torch.zeros((b, n, h, d), device=cuda_device), views[2])
     odd = torch.zeros((b, n, 3 * h * d + 1), device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="aligned"):  # rows 2 bytes past 16
         vit_attention.mha(*(odd[..., i * h * d:(i + 1) * h * d].view(b, n, h, d)

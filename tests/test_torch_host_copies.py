@@ -6,8 +6,9 @@ every host function of the copied ``pql/``, ``db/``, ``jobs/`` and
 ``models/`` modules (the registry, discovery, the manager, the checkpoint
 mappings, the text chunking contract, the fixture impls, the host-only
 impls (md5 lookup, the embedding and tag APIs), the tagger's mcut threshold,
-the VLM tagger's caption parse, the WAV decoder, and the audio towers'
-configs, log-mel and mel preparation), the native
+the VLM tagger's caption parse, the WAV decoder, the audio towers'
+configs, log-mel and mel preparation, and OCR's configs, segmentation,
+strip preparation and decodes to text), the native
 codec's bindings, and the built-in registry TOML; ``csrc/host_codec.cpp``
 text for text.
 The port imports nothing of ``panoptikon_tpu``; only this test imports
@@ -307,7 +308,12 @@ PARTIAL_COPIES = {
     # units (the mcut threshold; the caption parse).
     "models/impls.py": (*FIXTURE_IMPLS, "decode_wav", "Md5LookupImpl", "ApiEmbedImpl",
                         "TagApiImpl", "TaggerImpl.name", "TaggerImpl.mcut_threshold",
-                        "CaptionerImpl.name", "VlmTaggerImpl"),
+                        "CaptionerImpl.name", "VlmTaggerImpl", "OcrImpl.name"),
+    # OCR's host units: the charset, both configs, the projection-profile
+    # segmentation, the strip preparation and the two decodes to text.
+    "models/ocr.py": ("<Params>", "<DEFAULT_CHARSET>", "OcrConfig", "<CONFIGS>", "AttnOcrConfig",
+                      "<ATTN_CONFIGS>", "ctc_collapse", "attn_collapse", "segment_lines",
+                      "prepare_strip"),
     # The audio towers' host units: whisper's constants, config, languages
     # and log-mel; the audio tower's config, mel preparation and HF ASTModel
     # mapping.
@@ -316,6 +322,18 @@ PARTIAL_COPIES = {
                           "log_mel_spectrogram"),
     "models/audio.py": ("<Params>", "AudioConfig", "<CONFIGS>", "prepare_mels", "_bert_block",
                         "load_ast_checkpoint"),
+}
+
+
+# Units of the partial copies that differ from the reference's by design,
+# each with its reason (as ``_unprocessed_text`` is listed above).
+PARTIAL_DIVERGENCES = {
+    "models/impls.py": {
+        # The JAX impl pads every line strip of a call as one batch and raises
+        # past the top bucket (ROADMAP §C); the port's predict decodes, then
+        # reads the strips in slices of at most the top bucket (read_arrays).
+        "OcrImpl.predict": "slices the call's line strips",
+    },
 }
 
 
@@ -382,6 +400,17 @@ def test_copied_units_are_the_reference_s(rel):
     assert len(names) >= len(PARTIAL_COPIES[rel])
     for name in names:
         assert got.get(name) == want[name], f"{rel}: {name} differs from the reference"
+
+
+@pytest.mark.parametrize("rel", list(PARTIAL_DIVERGENCES))
+def test_listed_divergences_differ_from_the_reference(rel):
+    # A unit listed as differing by design exists on both sides and still
+    # differs: one that comes back to the reference's leaves the table.
+    want = _units(re.sub(r"\bpanoptikon_tpu\.", "panoptikon_tpu_torch.",
+                         (REPO / "panoptikon_tpu" / rel).read_text()))
+    got = _units((REPO / "panoptikon_tpu_torch" / rel).read_text())
+    for name in PARTIAL_DIVERGENCES[rel]:
+        assert name in want and name in got and got[name] != want[name], name
 
 
 def test_builtin_registry_is_the_reference_s():

@@ -350,8 +350,9 @@ def test_manager_loads_the_image_tag_entries(model_id, monkeypatch):
 
 
 def test_impl_index_is_the_reference_s_but_ocr():
-    # Every impl_class of the JAX package's index has its port but OCR
-    # (ROADMAP A.11c), under the same name.
-    assert set(impls.IMPL_INDEX) == set(ref.IMPL_INDEX) - {"ocr"}
+    # Every impl_class of the JAX package's index has its port, OCR's
+    # included now, under the same name.
+    assert set(impls.IMPL_INDEX) == set(ref.IMPL_INDEX)
+    assert impls.IMPL_INDEX["ocr"] is impls.OcrImpl
     for name, cls in impls.IMPL_INDEX.items():
         assert cls.__name__ == ref.IMPL_INDEX[name].__name__ and cls.__module__ == impls.__name__

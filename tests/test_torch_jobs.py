@@ -13,6 +13,9 @@ same seeded inputs and one checkpoint loaded by both registries:
   falls back to one predict per input and skips the text longer than the
   top bucket as ``transient``. That is the reference's fault, asserted as
   such; the port gives every item its rows;
+- an OCR build: PNG pages of rendered digits through ``OcrImpl`` with one
+  checkpoint trained by the reference's recipe (``test_torch_ocr.trained``):
+  equal item_data and extracted_text rows, the blank page a placeholder;
 - the quant reconcile bit for bit: a DB built by the JAX package, copied,
   reconciled and synced by the port (codes, artifact bytes and revision
   equal), through the frozen-artifact path (at least
@@ -543,3 +546,83 @@ def test_md5_lookup_build_matches_the_reference(tmp_path, media, monkeypatch):
     rows = {(r[1], r[3]) for r in got["tags_items"]}
     assert len(got["tags_items"]) == 4 and {r[2] for r in got["tags"]} == {"scenery", "sky", "red"}
     assert {round(c, 6) for _, c in rows} == {0.8, 0.5, 1.0, 0.25}
+
+
+OCR_TOML = """
+[group.doctr]
+config.impl_class = "ocr"
+config.model_arch = "test-tiny"
+config.checkpoint = "{ckpt}"
+{device}
+[group.doctr.metadata]
+default_batch_size = 4
+target_entities = ["items"]
+output_type = "text"
+input_mime_types = ["image/"]
+[group.doctr.inference_ids.tiny]
+"""
+
+
+def test_ocr_build_matches_the_reference(tmp_path, monkeypatch):
+    # An OCR job on both packages over one folder of PNG pages (one to three
+    # lines of rendered digits each, and a blank page) with one checkpoint
+    # trained by the reference's recipe: equal items, item_data (the blank
+    # page a placeholder) and extracted_text rows, confidences within 1e-2;
+    # FTS5 finds each text. A window of 4 pages holds at most 12 lines, under
+    # the JAX impl's top bucket of 16 (ROADMAP §C).
+    import pickle
+
+    from PIL import Image
+
+    from test_torch_ocr import SAMPLES, page, trained
+
+    params, _ = trained("ctc")
+    ckpt = tmp_path / "ocr.pkl"
+    with open(ckpt, "wb") as f:
+        pickle.dump(params, f)
+    folder = tmp_path / "pages"
+    folder.mkdir()
+    for i in range(7):
+        lines = [SAMPLES[(i + j) % len(SAMPLES)] for j in range(1 + i % 3)]
+        Image.fromarray(page(lines)).save(folder / f"page{i}.png")
+    Image.fromarray(np.full((30, 60), 255, np.uint8)).save(folder / "blank.png")
+    built = {}
+    for side in (REF, PORT):
+        monkeypatch.setattr(side.store, "now_iso", lambda: NOW)
+        reg = tmp_path / f"ocr-registry-{side.name}"
+        reg.mkdir()
+        (reg / "00.toml").write_text(OCR_TOML.format(ckpt=ckpt, device=side.device))
+        db = side.Database(tmp_path / f"ocr-{side.name}", "jobs")
+        writer, manager = side.Writer(db), side.Manager(side.Registry(reg), side.impls.IMPL_INDEX)
+        try:
+            writer.call(lambda c: side.store.add_folder(c, str(folder)))
+            assert side.scan.rescan_folders(db, writer).new_files == 8
+            report = side.extraction.run_extraction_job(
+                db=db, writer=writer, index=side.Index(chunk_rows=64), manager=manager,
+                inference_id="doctr/tiny", output_type="text", batch_size=4,
+                mime_prefixes=("image/",))
+            conn = db.reader()
+            texts = conn.execute("SELECT * FROM extracted_text ORDER BY id").fetchall()
+            # FTS5's trigram tokenizer matches terms of 3 or more characters.
+            fts = {t[0]: {r[0] for r in conn.execute(
+                "SELECT rowid FROM extracted_text_fts WHERE extracted_text_fts MATCH ?",
+                (f'"{max(t[4].split(), key=len)}"',))} for t in texts}
+            placeholders = conn.execute(
+                "SELECT COUNT(*) FROM item_data WHERE is_placeholder = 1").fetchone()[0]
+            built[side.name] = (report, tables(db), texts, fts, placeholders)
+        finally:
+            manager.shutdown()
+            writer.close()
+    (report, got, got_texts, got_fts, got_ph), (ref_report, want, want_texts, want_fts, want_ph) = \
+        built["port"], built["ref"]
+    assert (report.processed, report.input_errors, report.transient_errors) == \
+        (ref_report.processed, ref_report.input_errors, ref_report.transient_errors) == (8, 0, 0)
+    assert got == want
+    assert len(got_texts) == len(want_texts) == 7
+    for g, w in zip(got_texts, want_texts):
+        (gid, glang, glc, gconf, gtext, glen), (wid, wlang, wlc, wconf, wtext, wlen) = g, w
+        assert (gid, glang, glc, gtext, glen) == (wid, wlang, wlc, wtext, wlen)
+        assert abs(gconf - wconf) <= 1e-2 and gconf > 0.5
+        assert set(gtext.split("\n")) <= set(SAMPLES)
+    assert got_fts == want_fts and all(tid in hits for tid, hits in got_fts.items())
+    assert got_ph == want_ph == 1  # the blank page: an item_data row, no text

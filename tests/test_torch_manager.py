@@ -40,8 +40,8 @@ config.impl_class = "failbatch_impl"
 config.impl_class = "loadcount_impl"
 [group.fixtures.inference_ids.cuda_oom]
 config.impl_class = "cuda_oom_impl"
-[group.fixtures.inference_ids.ocr]
-config.impl_class = "ocr"
+[group.fixtures.inference_ids.unknown]
+config.impl_class = "no_such_impl"
 """
 
 
@@ -182,14 +182,15 @@ def test_prewarm_calls_prepare_once(manager):
 
 
 def test_an_impl_the_port_lacks_raises_at_load(manager):
-    # OCR (ROADMAP A.11c) is the one impl_class of the reference's the port
-    # does not have yet.
-    with pytest.raises(ModelLoadError, match="unknown impl_class 'ocr'"):
-        manager.load_model("fixtures/ocr")
+    # The port has every impl_class of the reference's, so the fixture names
+    # one that neither package has: it raises at load, as the reference's
+    # manager does.
+    with pytest.raises(ModelLoadError, match="unknown impl_class 'no_such_impl'"):
+        manager.load_model("fixtures/unknown")
     with pytest.raises(ModelLoadError, match="deliberately broken"):
         ModelManager(manager.registry, {"echo_impl": IMPL_INDEX["broken_impl"]}).load_model(
             "fixtures/echo")
-    assert "fixtures/ocr" not in manager.loaded_models()
+    assert "fixtures/unknown" not in manager.loaded_models()
 
 
 def test_builtin_registry_serves_the_text_models(monkeypatch):

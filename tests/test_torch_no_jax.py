@@ -50,7 +50,7 @@ def test_every_port_module_imports_without_jax():
                  "models.discovery", "models.manager", "db.bulk", "resources", "native",
                  "jobs.queue", "jobs.index_sync", "jobs.reconcile", "jobs.extraction",
                  "jobs.input_handlers", "jobs.outro", "jobs.media", "jobs.scan",
-                 "models.whisper", "models.audio"):
+                 "models.whisper", "models.audio", "models.ocr"):
         assert f"panoptikon_tpu_torch.{name}" in names
 
 
@@ -72,7 +72,7 @@ def test_no_port_source_imports_the_jax_package():
     assert len(sources) >= 27
     assert {"models/text_embed.py", "models/weights.py", "models/registry.py",
             "models/discovery.py", "models/manager.py", "db/bulk.py", "resources/__init__.py",
-            "models/whisper.py", "models/audio.py"} <= {
+            "models/whisper.py", "models/audio.py", "models/ocr.py"} <= {
         str(p.relative_to(REPO / "panoptikon_tpu_torch")) for p in sources}
     for path in sources:
         modules = _imported_modules(ast.parse(path.read_text()))

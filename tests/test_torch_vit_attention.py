@@ -61,6 +61,44 @@ def test_plain_matches_pallas_kernel(mode, dtype):
     np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+WIDE_MODES = {
+    # name: (b, n_q, n_kv, h, causal, masked); cross at the captioner's
+    # teacher-forced rows (48 tokens over 50 vision tokens)
+    "self": (2, 19, 19, 2, False, False),
+    "causal": (2, 17, 17, 2, True, False),
+    "cross": (1, 48, 50, 2, False, False),
+    "masked": (3, 21, 21, 2, False, True),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [160, 256, 384, 512])
+@pytest.mark.parametrize("mode", list(WIDE_MODES))
+def test_plain_matches_pallas_kernel_past_head_dim_128(mode, d, dtype):
+    # The head dims of the CUDA-core kernel's wide instantiation (the
+    # captioner's decoder: D 384), against the JAX mha that ``attention``
+    # runs on the TPU, in interpret mode, at the same tolerances.
+    b, nq, nkv, h, causal, masked = WIDE_MODES[mode]
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.normal(size=(b, n, h, d)).astype(np.float32) for n in (nq, nkv, nkv))
+    mask = None
+    if masked:
+        mask = rng.random((b, nkv)) < 0.7
+        mask[:, 0] = True
+        mask[-1] = False
+    np_dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    want = ref.mha(*(jnp.asarray(a.astype(np_dt)) for a in (q, k, v)), causal=causal,
+                   key_mask=None if mask is None else jnp.asarray(mask), interpret=True)
+    tdt = getattr(torch, dtype)
+    got = vit_attention.mha_plain(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                                  causal=causal,
+                                  key_mask=None if mask is None else torch.from_numpy(mask))
+    assert got.dtype == tdt and vit_attention.route(tdt, d) == "cuda_core"
+    got = got.to(torch.float32).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     q, k, v, causal, mask = _inputs("masked", seed=1)
     args = [torch.from_numpy(a) for a in (q, k, v)]
@@ -287,12 +325,19 @@ def test_kernel_order_key_mask_with_a_fully_masked_row(smem_logits):
 def test_route_follows_dtype_and_head_dim():
     # Decided before a launch, from the dtype and D alone: bf16 with D a
     # multiple of 16 in [32, 128] on the tensor cores; f32 (held to 2e-5)
-    # and the other head dims (p in f32 below 32) on the CUDA cores.
+    # and the other head dims (p in f32 below 32; 128 < D <= 512, the wide
+    # instantiation) on the CUDA cores.
     for d in (32, 48, 64, 80, 96, 112, 128):
         assert vit_attention.route(torch.bfloat16, d) == "tensor_core"
         assert vit_attention.route(torch.float32, d) == "cuda_core"
-    for d in (1, 8, 16, 24, 40, 72, 100):
+    for d in (1, 8, 16, 24, 40, 72, 100, 129, 160, 384, 512):
         assert vit_attention.route(torch.bfloat16, d) == "cuda_core"
+    # Past 512 no kernel takes the head dim: the route raises before any
+    # launch, and mha never falls back to its plain version on the card.
+    for dtype in (torch.bfloat16, torch.float32):
+        assert vit_attention.route(dtype, vit_attention.MAX_HEAD_DIM) == "cuda_core"
+        with pytest.raises(ValueError, match="D <= 512"):
+            vit_attention.route(dtype, vit_attention.MAX_HEAD_DIM + 1)
     from panoptikon_tpu_torch.models import clip
 
     for cfg in clip.CONFIGS.values():
@@ -338,4 +383,7 @@ def test_qkv_fused_fits_is_the_kernels_limit():
     # card's kernel streams keys, so only the head dim bounds it.
     assert not ref.qkv_fused_fits(16, 80, 730)
     assert vit_attention.qkv_fused_fits(80)
+    # mha_qkv keeps the 128 limit past which mha's CUDA-core kernel widens.
+    assert vit_attention.qkv_fused_fits(vit_attention.QKV_MAX_HEAD_DIM)
+    assert not vit_attention.qkv_fused_fits(vit_attention.QKV_MAX_HEAD_DIM + 1)
     assert not vit_attention.qkv_fused_fits(vit_attention.MAX_HEAD_DIM + 1)

@@ -269,7 +269,7 @@ def test_cached_decode_matches_the_rerun_oracle(model):
     tokens = want[0]
     with torch.inference_mode():
         feats = whisper.encode_audio(params, cfg, mel)
-        full = whisper._decoder_logits(params, cfg, tokens, feats)[:, :-1].numpy()
+        full = whisper._decoder_logits(params, cfg, tokens, feats, None)[:, :-1].numpy()
         ck, cv = whisper._cross_heads(params, cfg, feats)
         sk = torch.zeros((cfg.n_text_layers, 3, 12, cfg.n_text_state), dtype=torch.bfloat16)
         sv = torch.zeros_like(sk)
