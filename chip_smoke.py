@@ -1,6 +1,6 @@
 """Drive the PyTorch port's search core, serving embed, PQL pages, text search,
-the index build path, the audio path, the image tag and caption path and the
-OCR path once on one NVIDIA GPU.
+the index build path, the audio path, the image tag and caption path, the
+OCR path and its HTTP server once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -239,9 +239,46 @@ Phases, one JSON line each:
             and 512 (self, causal, cross 48 × 50 and key-masked: the
             captioner decoder's rows; CUDA cores), timed beside SDPA and
             the bound.
+15. serve   serving through the port's HTTP server (ROADMAP A.7): (a)
+            ``python -m panoptikon_tpu_torch.api.server --config`` in a child
+            process, on the card by default, driven through client.py: the
+            seconds to GET /health, /api/accelerator (backend cuda, one
+            device, nvidia-smi's name), 64 WAV files registered by PUT
+            /api/jobs/folders, POST /api/jobs/data/extraction for
+            whisper-base and clap-base, then minilm-l6 over the transcripts
+            (seeded weights at the registry's widths), each job's wall and
+            rate, a similar_to page on the CLAP space (its item first), a
+            text_embeddings page whose text the server embeds and a
+            match_text page on a transcript token, first and repeated ms;
+            SIGTERM, exit 0 within 30 s; then the same data root opened in
+            this process as the server opens it (its index rebuilt from the
+            DB, the server's quant reconcile job) and the three pages
+            through Executor.execute, equal to the served ones (ids, order,
+            counts; distances within 1e-6); the server's own launches come
+            from its process at exit. (b) tools/e2e_server_bench.py's run()
+            through the port's server (AppState on the card over phase
+            10(b)'s 1,000,000-item corpus, kept for this phase; clip/e2e
+            1M × 512 and st/e2e 1M × 768 as its _make_space builds them;
+            widen_default_executor and build_app on the port's AppRunner and
+            TCPSite at 127.0.0.1:0): single-space, two-space RRF, hybrid FTS
+            × embedding, FTS only and the span-cache hit, each warm 3, 32
+            sequential (p50/p95, host clock) and 160 over 16 threads with a
+            keep-alive client.py connection each (QPS, the coalescer's
+            batches from GET /api/search/stats); the same 32 through
+            Executor.execute in process (p50, the HTTP layer's ms), the first
+            8 pages equal; the card's idle share over 8 more; the rescored
+            recall@10 of 16 served single-space queries (page of 40, f32
+            rescore) against the exact top-10 (≥ 0.99), and B1
+            (int8_topk_rescored, k·oversample 40) on the executor's own
+            device codes of that space: its int8 top-10 the served pages'
+            up to ties, its rescored recall ≥ 0.99, its candidates equal to
+            its plain version's. The served PQL leaves score on the
+            grouped-scores surface (as the reference's executor does), so
+            B1 runs there only in this check; the server's B3 launches are
+            its jobs' towers and the text query's embed.
 
-Each main path (phases 4-5, 6, 8, 7, 9, 10, 11, 12, 13 and 14) runs with the launch counters (and
-the attention wrappers' counts by route) set to zero just before it and
+Each main path (phases 4-5, 6, 8, 7, 9, 10, 11, 12, 13, 14 and 15) runs with the launch counters
+(and the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
 the nvidia-smi line,
@@ -255,9 +292,11 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
 import sqlite3
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -399,6 +438,16 @@ WIDE_ATTN_CASES = {
 # time a kernel could take is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
 # over the memory rate.
+# Phase 15: the served folder, its text model, e2e_server_bench's spaces
+# (name, dim, seed; HYBRID_ROWS rows each, over phase 10(b)'s seeded DB) and
+# its run (warm, sequential, concurrency, queries in all); the pages held
+# equal to Executor.execute's, the recall queries, the profiled window; the
+# bounds on the server's start, its jobs and its exit.
+SERVE_FILES, SERVE_TEXT_MODEL = 64, "textembed/minilm-l6"
+SERVE_SPACES = (("clip/e2e", 512, 1), ("st/e2e", 768, 2))
+SERVE_WARM, SERVE_SEQ, SERVE_CONC, SERVE_CONC_TOTAL = 3, 32, 16, 160
+SERVE_PARITY, SERVE_RECALL_Q, SERVE_OVERSAMPLE, SERVE_PROFILE_Q = 8, 16, 4, 8
+SERVE_HEALTH_S, SERVE_JOBS_S, SERVE_STOP_S = 180.0, 600.0, 30.0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 LN_OPS_PER_ELEMENT = 9  # two moments (4), normalize (2), affine (2), quantize (1)
@@ -1636,20 +1685,22 @@ def _bulk_seed(conn, n: int, texts=None, data_offset: int = 0) -> None:
             ((i + data_offset, *text(i), "en", 0.9, 0.8) for i in range(1, n + 1)))
 
 
-def hybrid_path(torch, dev, smi, manager, counters) -> dict:
+def hybrid_path(torch, dev, smi, manager, counters, keep: Path | None = None) -> dict:
     """Phase 10(b): BASELINE #4 through Executor.execute — an AND of a
     match_text RRF leaf on a "tokNNNN" term and a text_embeddings RRF leaf
     whose query is a text, embedded through the model manager, over
     HYBRID_ROWS text chunks (tools/e2e_server_bench.py's hybrid_payload,
     :265-283) in a HYBRID_ROWS × 768 mpnet-base space whose int8 codes are
-    made on the device (as phase 9(a)'s)."""
+    made on the device (as phase 9(a)'s). The DB is seeded as the default
+    database of the data root ``keep`` where given (phase 15(b) serves
+    it), else in a temporary one."""
     import tempfile
 
     from panoptikon_tpu_torch.db.connection import Database
     from panoptikon_tpu_torch.db.writer import IndexWriter
 
     with tempfile.TemporaryDirectory(dir=scratch_dir()) as root:
-        db = Database(root, "hybrid")
+        db = Database(Path(keep or root) / "databases", "default")
         writer = IndexWriter(db)
         try:
             t0 = time.perf_counter()
@@ -3832,6 +3883,591 @@ def ocr_kernels(torch, dev, smi, counters) -> dict:
     return {"part": "e_b3", "card": smi, "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: serving through the port's HTTP server (ROADMAP A.7).
+# ---------------------------------------------------------------------------
+
+# Runs `python -m panoptikon_tpu_torch.api.server ARGS` (runpy, as -m does)
+# and, at the interpreter's exit, writes the five kernel wrappers' launch
+# counts (and the attention ones' by route) to the file named first: the
+# server's launches are its own process's.
+SERVE_LAUNCHER = """
+import atexit, json, runpy, sys
+
+out = sys.argv[1]
+
+
+def dump():
+    from panoptikon_tpu_torch.ops import int8_scan, ln_quant, vit_attention
+
+    fns = (int8_scan.int8_topk, int8_scan.int8_topk_v2, vit_attention.mha,
+           vit_attention.mha_qkv, ln_quant.ln_quant_2d)
+    with open(out, "w") as f:
+        json.dump({"launches": {fn.__name__: fn.launches for fn in fns},
+                   "routes": {fn.__name__: dict(fn.routes) for fn in fns
+                              if hasattr(fn, "routes")}}, f)
+
+
+atexit.register(dump)
+sys.argv = ["panoptikon_tpu_torch.api.server", *sys.argv[2:]]
+runpy.run_module("panoptikon_tpu_torch.api.server", run_name="__main__", alter_sys=True)
+"""
+
+
+def _child_env() -> dict:
+    import os
+
+    repo = str(Path(__file__).resolve().parent)
+    path = os.environ.get("PYTHONPATH")
+    return {**os.environ, "PYTHONPATH": repo + (os.pathsep + path if path else "")}
+
+
+def _wait(what: str, limit_s: float, probe, poll_s: float = 0.25):
+    """``probe()`` until it returns a true value, at most ``limit_s``."""
+    deadline = time.monotonic() + limit_s
+    while time.monotonic() < deadline:
+        value = probe()
+        if value:
+            return value
+        time.sleep(poll_s)
+    raise RuntimeError(f"check failed: {what} within {limit_s} s")
+
+
+def _queue_idle(client) -> bool:
+    status = client.jobs.queue() or {}
+    return status.get("running") is None and not status.get("pending")
+
+
+def _served_page(body: dict):
+    """A served page as the executor's result (count and results)."""
+    import types
+
+    return types.SimpleNamespace(count=body["count"], results=body["results"])
+
+
+def _kinds(results) -> dict:
+    return {"ids": [r["item_id"] for r in results]}
+
+
+def serve_main_path(torch, dev, smi, counters) -> tuple[dict, dict]:
+    """Phase 15(a): the port's server started as a user starts it
+    (``python -m panoptikon_tpu_torch.api.server --config``, on the card by
+    default), driven through ``client.py``: the accelerator report, a folder
+    of SERVE_FILES WAV files made searchable by HTTP job routes (whisper,
+    CLAP, then minilm-l6 over the transcripts), three pages, SIGTERM; then,
+    in this process, the same data root opened as the server opens it and
+    the three pages through ``Executor.execute``, equal to the served ones.
+    Returns (the record, the server process's launch counts)."""
+    import signal
+    import socket
+    import tempfile
+
+    from panoptikon_tpu_torch.api.server import AppState
+    from panoptikon_tpu_torch.client import PanoptikonClient
+    from panoptikon_tpu_torch.jobs.queue import JobType
+    from panoptikon_tpu_torch.pql import model as pql
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        root = Path(tmp)
+        folder = root / "audio"
+        folder.mkdir()
+        clips = write_audio_folder(folder, SERVE_FILES, SEED + 150)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        config = root / "server.toml"
+        config.write_text(f'data_root = "{root / "data"}"\n\n[[listeners]]\n'
+                          f'host = "127.0.0.1"\nport = {port}\n')
+        counts_path = root / "launches.json"
+        out = {"card": smi, "files": len(clips), "audio_seconds": sum(s for _, s, _ in clips)}
+        with open(root / "server.log", "wb") as log:
+            t0 = time.perf_counter()
+            child = subprocess.Popen(
+                [sys.executable, "-c", SERVE_LAUNCHER, str(counts_path), "--config", str(config)],
+                cwd=str(Path(__file__).resolve().parent), env=_child_env(), stdout=log,
+                stderr=subprocess.STDOUT)
+            try:
+                client = PanoptikonClient(f"http://127.0.0.1:{port}", timeout=SERVE_JOBS_S)
+
+                def healthy():
+                    require(child.poll() is None, f"serve: the server exited {child.returncode}")
+                    try:
+                        return client.health()
+                    except OSError:
+                        return None
+
+                health = _wait("serve: GET /health", SERVE_HEALTH_S, healthy)
+                out["start_to_health_s"] = time.perf_counter() - t0
+                out["health_registry_ok"] = health.get("registry_ok")
+                acc = client.accelerator()
+                name = smi.split(",")[0].strip()
+                if dev.type == "cuda":
+                    require(acc["backend"] == "cuda" and acc["device_count"] == 1
+                            and acc["devices"][0]["kind"] == name
+                            and acc["devices"][0]["platform"] == "gpu",
+                            f"serve: /api/accelerator {acc}, nvidia-smi {name!r}")
+                else:
+                    require(acc["backend"] == "cpu", f"serve: /api/accelerator {acc}")
+                out["accelerator"] = acc
+                out["client_config_multi_chip"] = client.client_config()["capabilities"][
+                    "multi_chip"]
+                t0 = time.perf_counter()
+                client.jobs.set_folders(included=[str(folder)])
+                _wait("serve: the rescan", SERVE_JOBS_S, lambda: _queue_idle(client))
+                out["rescan_s"] = time.perf_counter() - t0
+                jobs = {}
+                for batch in ((WHISPER_MODEL, CLAP_MODEL), (SERVE_TEXT_MODEL,)):
+                    for model in batch:
+                        jobs[model] = client.jobs.enqueue_extraction(model)["job_id"]
+                    _wait(f"serve: the jobs {batch}", SERVE_JOBS_S, lambda: _queue_idle(client))
+                history = {h["job_id"]: h for h in client.jobs.queue()["history"]}
+                data_jobs = client.jobs.history_data(limit=10)
+                for model, job_id in jobs.items():
+                    h = history[job_id]
+                    require(h["state"] == "completed", f"serve: job {model} {h}")
+                stats = client.search.stats()
+                for space in (CLAP_MODEL, SERVE_TEXT_MODEL):
+                    require(stats["spaces"].get(space, {}).get("quant_ready"),
+                            f"serve: space {space} {stats['spaces'].get(space)}")
+                out["spaces"] = {s: stats["spaces"][s] for s in (CLAP_MODEL, SERVE_TEXT_MODEL)}
+                conn = sqlite3.connect(f"file:{root / 'data/databases/default/index.db'}?mode=ro",
+                                       uri=True)
+                try:
+                    texts = conn.execute("SELECT COUNT(*) FROM extracted_text").fetchone()[0]
+                    item, text, sha = conn.execute(
+                        """SELECT d.item_id, t.text, i.sha256 FROM extracted_text t
+                           JOIN item_data d ON d.id = t.id JOIN items i ON i.id = d.item_id
+                           WHERE length(trim(t.text)) > 0 ORDER BY d.item_id LIMIT 1""").fetchone()
+                    token = text.split()[0]
+                    holders = {r[0] for r in conn.execute(
+                        "SELECT d.item_id FROM extracted_text t JOIN item_data d ON d.id = t.id"
+                        " WHERE ' ' || t.text || ' ' LIKE ?", (f"% {token} %",))}
+                finally:
+                    conn.close()
+                units = {WHISPER_MODEL: len(clips), CLAP_MODEL: len(clips), SERVE_TEXT_MODEL: texts}
+                out["jobs"] = {model: {
+                    "wall_s": history[job_id]["finished_at"] - history[job_id]["started_at"],
+                    "items": units[model],
+                    "per_s": units[model] / (history[job_id]["finished_at"]
+                                             - history[job_id]["started_at"])}
+                    for model, job_id in jobs.items()}
+                out["data_jobs"] = data_jobs
+                words = " ".join(np.random.default_rng(SEED + 151).choice(WORDS, size=6))
+                bodies = {
+                    "similar_to": {"query": {"similar_to": {"target": sha, "model": CLAP_MODEL},
+                                             "select_as": "distance"}, "page_size": K},
+                    "text_embeddings": {"query": {"text_embeddings": {
+                        "query": words, "model": SERVE_TEXT_MODEL}, "select_as": "distance"},
+                        "page_size": K},
+                    "match_text": {"query": {"match_text": {"match": f'"{token}"'},
+                                             "select_as": "rank"}, "page_size": K},
+                }
+                served, times = {}, {}
+                for label, body in bodies.items():
+                    t0 = time.perf_counter()
+                    served[label] = client.search.pql(body)
+                    first = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    again = client.search.pql(body)
+                    times[label] = {"first_ms": 1e3 * first,
+                                    "repeated_ms": 1e3 * (time.perf_counter() - t0),
+                                    "repeated_cache": again["cache"],
+                                    "count": served[label]["count"]}
+                    require(again["results"] == served[label]["results"],
+                            f"serve: {label} repeated page differs")
+                require(served["similar_to"]["results"][0]["item_id"] == item,
+                        f"serve: similar_to ranks {_kinds(served['similar_to']['results'])}, "
+                        f"not {item} first")
+                require(served["match_text"]["count"] == len(holders) and (
+                    item in {r["item_id"] for r in served["match_text"]["results"]}
+                    or len(holders) > K),
+                    f"serve: match_text {token!r} found {served['match_text']['count']} items, "
+                    f"{len(holders)} hold it")
+                require(len(served["text_embeddings"]["results"]) == min(K, texts),
+                        "serve: text_embeddings page")
+                out["searches"] = times
+                out["match_text_token"], out["match_text_holders"] = token, len(holders)
+                t0 = time.perf_counter()
+                child.send_signal(signal.SIGTERM)
+                code = child.wait(SERVE_STOP_S)
+                out["sigterm_to_exit_s"] = time.perf_counter() - t0
+                require(code == 0, f"serve: the server exited {code} on SIGTERM")
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+        log_tail = (root / "server.log").read_text(errors="replace")[-2000:]
+        require(counts_path.exists(), f"serve: no launch counts from the server; log {log_tail}")
+        child_counts = json.loads(counts_path.read_text())
+
+        # (10) The same data root opened in this process as the server opens
+        # it (index rebuilt from the DB at first use); the server's quant
+        # reconcile job, as its extraction jobs ran it; the three pages
+        # through Executor.execute, the text embedded by this manager.
+        state = AppState.create(root / "data", device=str(dev))
+        try:
+            t0 = time.perf_counter()
+            state.queue.enqueue("default", JobType.VECTOR_QUANT_RECONCILE)
+            require(state.queue.wait_idle("default", timeout=SERVE_JOBS_S), "serve: reconcile")
+            ex = state.executor("default")
+            out["reopen_and_reconcile_s"] = time.perf_counter() - t0
+            for label, body in bodies.items():
+                got = ex.execute(pql.PqlQuery.from_json(body))
+                require(same_pages(got, _served_page(served[label])),
+                        f"serve: {label} page in process {_kinds(got.results)} differs from the "
+                        f"served {_kinds(served[label]['results'])}")
+        finally:
+            state.shutdown()
+        out["served_equals_in_process"] = True
+        out["server_launches"] = child_counts["launches"]
+        out["server_routes"] = child_counts["routes"]
+        return out, child_counts
+
+
+# tools/e2e_server_bench.py's five payloads (:242-299), copied: that tool
+# imports the JAX package.
+def serve_payloads(d1: int, d2: int, seed: int = 7) -> dict:
+    rng = np.random.default_rng(seed)
+
+    def qvec(dd):
+        v = rng.standard_normal(dd).astype(np.float32)
+        return v / np.linalg.norm(v)
+
+    def single(i):
+        return {"query": {"image_embeddings": {
+            "query": _b64(qvec(d1)), "model": "clip/e2e", "embed": None, "index": "quant"}},
+            "page_size": 10}
+
+    def rrf(i):
+        return {"query": {"and_": [
+            {"image_embeddings": {"query": _b64(qvec(d1)), "model": "clip/e2e", "embed": None,
+                                  "index": "quant"},
+             "row_n": True, "priority": 5, "rrf": {"k": 60, "weight": 1.0}},
+            {"text_embeddings": {"query": _b64(qvec(d2)), "model": "st/e2e", "embed": None,
+                                 "index": "quant"},
+             "row_n": True, "priority": 5, "rrf": {"k": 60, "weight": 0.5}}]}, "page_size": 10}
+
+    def hybrid(i):
+        tok = f"tok{(7 + 13 * (i % 997)) % 5000:04d}"
+        return {"query": {"and_": [
+            {"match_text": {"match": f'"{tok}"'}, "order_by": True, "row_n": True,
+             "priority": 5, "rrf": {"k": 60, "weight": 1.0}},
+            {"text_embeddings": {"query": _b64(qvec(d2)), "model": "st/e2e", "embed": None,
+                                 "index": "quant"},
+             "row_n": True, "priority": 5, "rrf": {"k": 60, "weight": 0.5}}]}, "page_size": 10}
+
+    def fts(i):
+        tok = f"tok{(3 + 29 * (i % 997)) % 5000:04d}"
+        return {"query": {"match_text": {"match": f'"{tok}"'}, "order_by": True},
+                "page_size": 10}
+
+    cached = single(0)
+    return {"single_space_1M": single, "rrf_2space": rrf, "hybrid_fts_rrf": hybrid,
+            "fts_only": fts, "cache_hit": lambda i: cached}
+
+
+def _busy(torch, fn) -> tuple[float, float]:
+    """busy_share, where a window with no device work is idle."""
+    try:
+        return busy_share(torch, fn)
+    except RuntimeError as exc:
+        if "saw no device activity" not in str(exc):
+            raise
+        return float("nan"), 0.0
+
+
+def serve_bench_path(torch, dev, smi, counters, root: Path) -> dict:
+    """Phase 15(b): tools/e2e_server_bench.py's run() through the port's
+    server: AppState over HYBRID_ROWS items (phase 10(b)'s seeded DB, kept
+    for this phase: the same _bulk_seed corpus), the spaces clip/e2e and
+    st/e2e as _make_space builds them, widen_default_executor and build_app
+    on the port's AppRunner/TCPSite at 127.0.0.1:0, the five payloads each
+    warm 3, then SERVE_SEQ sequential and SERVE_CONC_TOTAL over SERVE_CONC
+    threads (a keep-alive client.py connection each)."""
+    import asyncio
+    import threading
+
+    from panoptikon_tpu_torch.api import web
+    from panoptikon_tpu_torch.api.server import AppState, build_app, widen_default_executor
+    from panoptikon_tpu_torch.client import PanoptikonClient
+    from panoptikon_tpu_torch.ops import exact
+    from panoptikon_tpu_torch.pql import executor as executor_mod
+    from panoptikon_tpu_torch.pql import fused
+    from panoptikon_tpu_torch.pql import model as pql
+
+    out = {"card": smi, "rows": HYBRID_ROWS,
+           "spaces": {name: [HYBRID_ROWS, d] for name, d, _ in SERVE_SPACES},
+           "scan_coalesce_max": executor_mod.SCAN_COALESCE_MAX, "shallow_kk": fused.SHALLOW_KK,
+           "kk_buckets": list(fused.KK_BUCKETS)}
+    state = AppState.create(root, device=str(dev))
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    runner = None
+    try:
+        index = state.index("default")
+        t0 = time.perf_counter()
+        for name, d, seed in SERVE_SPACES:
+            _make_space(index, name, HYBRID_ROWS, d, seed)
+        out["index_build_s"] = time.perf_counter() - t0
+        thread.start()
+
+        async def start():
+            widen_default_executor()
+            app = build_app(state)
+            run = web.AppRunner(app)
+            await run.setup()
+            await web.TCPSite(run, "127.0.0.1", 0).start()
+            return run
+
+        runner = asyncio.run_coroutine_threadsafe(start(), loop).result(60)
+        port = runner.addresses[0][1]
+        client = PanoptikonClient(f"http://127.0.0.1:{port}", timeout=600)
+        ex = state.executor("default")
+        payloads = serve_payloads(SERVE_SPACES[0][1], SERVE_SPACES[1][1])
+        t0 = time.perf_counter()
+        first = client.search.pql(payloads["single_space_1M"](-1000))
+        out["first_query_s"] = time.perf_counter() - t0  # the codes' upload
+        require(first["count"] is not None and len(first["results"]) == 10,
+                f"serve bench: first page {first.get('count')}")
+        pool = ThreadPoolExecutor(SERVE_CONC)
+        try:
+            for kind, make in payloads.items():
+                out[kind] = _serve_measure(torch, client, ex, pql, pool, make,
+                                           warm=SERVE_WARM if kind != "fts_only" else 2,
+                                           cache="hit" if kind == "cache_hit" else "miss")
+        finally:
+            pool.shutdown()
+        out["one_worker"] = _serve_one_worker(loop, client, payloads)
+        out["recall"] = _serve_recall(torch, dev, client, ex, index, exact, payloads, counters)
+        out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return out
+    finally:
+        if runner is not None:
+            asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        if thread.is_alive():
+            thread.join(10)
+        loop.close()
+        state.shutdown()
+
+
+def _make_space(index, space: str, n: int, d: int, seed: int) -> None:
+    """tools/e2e_server_bench.py's _make_space (:111-126): n seeded unit
+    rows in chunks of 62,500 appended to a reserved space, then its int8
+    arm."""
+    rng = np.random.default_rng(seed)
+    chunk = 62_500
+    index.reserve(space, n, d)
+    scratch = np.empty((chunk, d), dtype=np.float32)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        block = scratch[: hi - lo]
+        rng.standard_normal(out=block, dtype=np.float32)
+        block /= np.sqrt(np.einsum("ij,ij->i", block, block))[:, None]
+        ids = np.arange(lo + 1, hi + 1, dtype=np.int64)
+        index.add(space, ids, ids, block)
+    index.build_quant(space)
+
+
+def _serve_one_worker(loop, client, payloads) -> dict:
+    """The sequential served p50 of three payloads with the loop's default
+    executor at one worker thread (so one SQLite reader connection serves
+    every request) where 15(b)'s run widened it to 32: what spreading
+    requests over the pool's threads, each with its own connection and page
+    cache, adds to a served page."""
+    import asyncio
+
+    from panoptikon_tpu_torch.api.server import widen_default_executor
+
+    async def width(n):
+        widen_default_executor(n)
+
+    out = {}
+    asyncio.run_coroutine_threadsafe(width(1), loop).result(30)
+    try:
+        for kind in ("single_space_1M", "hybrid_fts_rrf", "fts_only"):
+            make = payloads[kind]
+            # Numbers whose FTS terms no earlier request of 15(b) used.
+            for i in range(SERVE_WARM):
+                client.search.pql(make(400 + i))
+            lats = []
+            for i in range(SERVE_SEQ):
+                t0 = time.perf_counter()
+                res = client.search.pql(make(420 + i))
+                lats.append(time.perf_counter() - t0)
+                require(res["cache"] == "miss", f"serve bench: one worker: {kind} {res['cache']}")
+            out[kind] = {"p50_ms": 1e3 * sorted(lats)[len(lats) // 2]}
+    finally:
+        asyncio.run_coroutine_threadsafe(width(32), loop).result(30)
+    return out
+
+
+def _served_window(body: dict) -> dict:
+    """``body`` as search_pql executes a first page on a cache miss: its
+    page_size widened to the span-aligned prefetch window
+    (api/server.py's search_pql)."""
+    from panoptikon_tpu_torch.api.search_cache import SPAN_ROWS
+
+    size = int(body.get("page_size", 10))
+    prefetch = max(size, min(int(body.get("prefetch_rows", 0)), 10_000))
+    return {**body, "page_size": -(-prefetch // SPAN_ROWS) * SPAN_ROWS}
+
+
+def _serve_measure(torch, client, ex, pql, pool, make, warm: int, cache: str) -> dict:
+    """One payload: warm, two concurrent warm rounds, SERVE_SEQ sequential
+    served queries (host clock) and the same queries through
+    Executor.execute in process, at the page size and at the span window
+    the server executes on a cache miss, the first SERVE_PARITY pages
+    equal, the card's busy share over SERVE_PROFILE_Q more, then
+    SERVE_CONC_TOTAL over SERVE_CONC threads with the coalescer's counters
+    around them."""
+    numbers = iter(range(1 << 30))  # 0..SERVE_SEQ + SERVE_PROFILE_Q: the served queries
+
+    def one(body):
+        t0 = time.perf_counter()
+        res = client.search.pql(body)
+        return time.perf_counter() - t0, res
+
+    for i in range(warm):
+        one(make(-1 - i))
+    for r in range(2):
+        list(pool.map(one, [make(-100 - r * SERVE_CONC - j) for j in range(SERVE_CONC)]))
+    seq = [make(next(numbers)) for _ in range(SERVE_SEQ)]
+    lats, paths, served, executes, compiles = [], {}, [], [], []
+    for body in seq:
+        dt, res = one(body)
+        lats.append(dt)
+        metrics = res.get("metrics") or {}
+        path = metrics.get("path") or "cache"
+        paths[path] = paths.get(path, 0) + 1
+        executes.append(float(metrics.get("execute") or 0.0))
+        compiles.append(float(metrics.get("compile") or 0.0))
+        require(res["cache"] == cache, f"serve bench: a sequential page's cache {res['cache']}")
+        served.append(res)
+    for i in range(SERVE_PARITY):
+        got = ex.execute(pql.PqlQuery.from_json(seq[i]))
+        require(same_pages(got, _served_page(served[i])),
+                f"serve bench: page {i} in process differs from the served one")
+    # Timed in process on payloads of their own, whose FTS terms no request
+    # used: the executor caches FTS rows by term, and a repeat of a served
+    # term would time that cache, not the request. The cache-hit payload
+    # repeats one body, as it is served.
+    local, window = [], []
+    for i in range(SERVE_SEQ):
+        body = make(500 + i)
+        t0 = time.perf_counter()
+        ex.execute(pql.PqlQuery.from_json(body))
+        local.append(time.perf_counter() - t0)
+        body = _served_window(make(540 + i))
+        t0 = time.perf_counter()
+        ex.execute(pql.PqlQuery.from_json(body))
+        window.append(time.perf_counter() - t0)
+    profiled = [make(next(numbers)) for _ in range(SERVE_PROFILE_Q)]
+    wall, busy = _busy(torch, lambda: [one(b) for b in profiled])
+    conc = [make(10_000 + i) for i in range(SERVE_CONC_TOTAL)]
+    before = client.search.stats()["coalescer"]
+    t0 = time.perf_counter()
+    list(pool.map(one, conc))
+    qps = SERVE_CONC_TOTAL / (time.perf_counter() - t0)
+    after = client.search.stats()["coalescer"]
+    dd, dq = after["dispatches"] - before["dispatches"], after["queries"] - before["queries"]
+    lats.sort()
+    p50 = lats[len(lats) // 2]
+    local_p50, window_p50, execute_p50, compile_p50 = (
+        sorted(t)[len(t) // 2] for t in (local, window, executes, compiles))
+    return {
+        "p50_ms": 1e3 * p50, "p95_ms": 1e3 * lats[min(len(lats) - 1, int(len(lats) * 0.95))],
+        "qps": qps, "concurrency": SERVE_CONC, "sequential_ms": [1e3 * t for t in lats],
+        "in_process_p50_ms": 1e3 * local_p50, "served_minus_in_process_ms": 1e3 * (p50 - local_p50),
+        # The server executes a miss at the span window (256 rows for a page
+        # of 10): the HTTP layer is the served p50 less that execution's. A
+        # hit executes nothing, so its whole p50 bounds the layer.
+        "in_process_window_p50_ms": 1e3 * window_p50, "window_rows": _served_window(seq[0])[
+            "page_size"], "http_layer_ms": 1e3 * (p50 - window_p50) if cache == "miss" else None,
+        "served_execute_p50_ms": 1e3 * execute_p50, "served_compile_p50_ms": 1e3 * compile_p50,
+        "paths": paths, "pages_equal": SERVE_PARITY,
+        "profiled_queries": SERVE_PROFILE_Q, "profiled_s": wall,
+        "device_busy_share": busy, "device_idle_share": 1 - busy,
+        "coalescer": {"dispatches": dd, "queries": dq,
+                      "mean_batch": dq / dd if dd else 0.0, "max_batch": after["max_batch"]},
+    }
+
+
+def _serve_recall(torch, dev, client, ex, index, exact, payloads, counters) -> dict:
+    """SERVE_RECALL_Q single-space queries served at page_size
+    K·SERVE_OVERSAMPLE on the int8 arm: their candidates rescored in f32
+    against the exact f32 top-10 over all of clip/e2e (≥ 0.99), the served
+    top-10 itself (the int8 ranking) reported. Then B1 on the executor's
+    own device codes of the space (int8_topk_rescored, k·oversample 40):
+    its int8 top-10 equal to the served page's up to ties, its rescored
+    recall ≥ 0.99, its candidates equal to its plain version's."""
+    import base64
+
+    from panoptikon_tpu_torch.ops import codec, int8_scan, scoring
+    from panoptikon_tpu_torch.utils import npy
+
+    snap = index.snapshot("clip/e2e")
+    n = snap.size
+    require(np.array_equal(snap.row_ids[:n], np.arange(1, n + 1)), "serve bench: row ids")
+    x = torch.from_numpy(snap.vectors[:n]).to(dev)
+    bodies = [payloads["single_space_1M"](50_000 + i) for i in range(SERVE_RECALL_Q)]
+    for body in bodies:
+        body["page_size"] = K * SERVE_OVERSAMPLE
+        body["cache"] = False
+        body["query"]["select_as"] = "distance"
+    q = torch.from_numpy(np.stack([npy.parse_npy(base64.standard_b64decode(
+        b["query"]["image_embeddings"]["query"])) for b in bodies]).astype(np.float32)).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    _, want, _ = exact.topk_ascending(exact.pairwise_distance(x, q), valid, K)
+    want = want.cpu().numpy()
+    rescored, page, served_top = [], [], []
+    for i, body in enumerate(bodies):
+        results = client.search.pql(body)["results"]
+        ids = np.array([r["item_id"] for r in results], np.int64)
+        require(len(ids) == K * SERVE_OVERSAMPLE, f"serve bench: {len(ids)} candidates")
+        served_top.append((ids[:K] - 1, [r["extra"]["distance"] for r in results[:K]]))
+        cand = torch.from_numpy(ids - 1).to(dev)
+        dist = exact.pairwise_distance(x[cand], q[i:i + 1])[0]
+        top = ids[dist.argsort(stable=True)[:K].cpu().numpy()] - 1
+        rescored.append(len(set(top) & set(want[i])) / K)
+        page.append(len(set(ids[:K] - 1) & set(want[i])) / K)
+    out = {"queries": SERVE_RECALL_Q, "candidates": K * SERVE_OVERSAMPLE,
+           "rescored_recall_at_10": float(np.mean(rescored)),
+           "served_top10_recall_at_10": float(np.mean(page))}
+    require(out["rescored_recall_at_10"] >= 0.99, f"serve bench: recall {out}")
+
+    arrays = ex._device_arrays("clip/e2e", snap, True)
+    codes, sumsq = arrays["corpus"][:n], arrays["sumsq"][:n]
+    qc = codec.quantize_int8(q, snap.scale)
+    args = (codes, sumsq, valid, x, qc, q)
+    kw = {"k": K, "oversample": SERVE_OVERSAMPLE, "distance": "cosine", "scale": snap.scale}
+    require(scoring.candidate_route(len(q), n, K * SERVE_OVERSAMPLE) == "b1", "serve bench: B1")
+    int8_v, int8_i, _ = scoring.int8_topk_rescored(*args, **kw, rescore=False)
+    require(exact.topk_agree(int8_v.cpu().numpy(), int8_i.cpu().numpy(),
+                             np.array([d for _, d in served_top]),
+                             np.stack([i for i, _ in served_top]), atol=1e-6),
+            "serve bench: B1's int8 top-10 differs from the served pages'")
+    _, b1_rows, _ = scoring.int8_topk_rescored(*args, **kw)
+    b1_rows = b1_rows.cpu().numpy()
+    out["b1_rescored_recall_at_10"] = float(np.mean(
+        [len(set(g) & set(w)) / K for g, w in zip(b1_rows, want)]))
+    require(out["b1_rescored_recall_at_10"] >= 0.99, f"serve bench: B1 recall {out}")
+    with not_counted(counters):
+        scan = (codes, sumsq, valid, qc)
+        gv, gi, gok = int8_scan.int8_topk(*scan, k=K * SERVE_OVERSAMPLE)
+        pv, pi, pok = int8_scan.int8_topk_plain(*scan, k=K * SERVE_OVERSAMPLE)
+        require(torch.equal(gi, pi) and torch.equal(gok, pok), "serve bench: B1 ids differ")
+        out["b1_k40_max_abs_err"] = (gv - pv).abs().max().item()
+        require(out["b1_k40_max_abs_err"] <= 1e-6, f"serve bench: B1 error {out}")
+        out.update(dict(zip(("b1_k40_ms", "b1_k40_plain_ms"), paired_ms(
+            torch, lambda: int8_scan.int8_topk(*scan, k=K * SERVE_OVERSAMPLE),
+            lambda: int8_scan.int8_topk_plain(*scan, k=K * SERVE_OVERSAMPLE), reps=10))))
+        out.update({"b1_k40_" + key: value for key, value in
+                    scan_roofline(scan, K * SERVE_OVERSAMPLE).items()})
+        out["b1_k40_gemm_only_ms"] = gemm_only_ms(torch, scan)
+    return out
+
+
 def cosines(a, b):
     return np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
 
@@ -4427,7 +5063,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     reset_counts(counters)
     text_run, text_mgr = text_embed_path(torch, dev, smi, counters)
-    hybrid = hybrid_path(torch, dev, smi, text_mgr, counters)
+    # Phase 15(b) serves this corpus again: its data root lives until then.
+    serve_root = Path(tempfile.mkdtemp(dir=scratch_dir()))
+    hybrid = hybrid_path(torch, dev, smi, text_mgr, counters, keep=serve_root)
     torch.cuda.empty_cache()
     text_db = text_db_path(torch, dev, smi, text_mgr)
     text_mgr.shutdown()
@@ -4527,10 +5165,43 @@ def main() -> int:
     emit({"phase": "ocr", "part": "launches", "launches": ocr_launches,
           "attention_routes": ocr_routes, "phase_s": time.perf_counter() - t14})
 
+    # 15. Serving: (a) the port's server started as a user starts it, a
+    # folder of WAV files made searchable by HTTP, three pages equal to
+    # Executor.execute's; (b) tools/e2e_server_bench.py's five payloads
+    # through the server over phase 10(b)'s corpus and two 1M spaces.
+    # Counters start at zero here; the server process counts its own.
+    torch.cuda.empty_cache()
+    reset_counts(counters)
+    t15 = time.perf_counter()
+    try:
+        serve_run, server_counts = serve_main_path(torch, dev, smi, counters)
+        emit({"phase": "serve", "part": "a_server", **serve_run})
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        serve_bench = serve_bench_path(torch, dev, smi, counters, serve_root)
+    finally:
+        shutil.rmtree(serve_root, ignore_errors=True)
+    in_process, in_routes = {fn.__name__: fn.launches for fn in counters}, read_routes(counters)
+    serve_launches = {name: n + server_counts["launches"][name] for name, n in in_process.items()}
+    serve_routes = {name: {path: n + server_counts["routes"][name][path] for path, n in r.items()}
+                    for name, r in in_routes.items()}
+    # The server launches B3 (its jobs' towers, the text query's embed); its
+    # PQL leaves score on the grouped-scores surface, as the reference's
+    # executor does, and B1 runs on the served space in 15(b)'s check.
+    require(server_counts["launches"]["mha"] > 0 and in_process["int8_topk"] > 0
+            and in_process["mha"] > 0,
+            f"serve path kernel launches: server {server_counts['launches']}, in process "
+            f"{in_process}")
+    require_tensor_cores(serve_launches, serve_routes, ("mha",), "serve path")
+    emit({"phase": "serve", "part": "b_bench", **serve_bench})
+    emit({"phase": "serve", "part": "launches", "launches": serve_launches,
+          "attention_routes": serve_routes, "server_launches": server_counts["launches"],
+          "in_process_launches": in_process, "phase_s": time.perf_counter() - t15})
+
     runs = ((launches, routes), (batch_launches, batch_routes), (composed_launches, composed_routes),
             (l14_launches, l14_routes), (pql_launches, pql_routes), (text_launches, text_routes),
             (extract_launches, extract_routes), (audio_launches, audio_routes),
-            (tag_launches, tag_routes), (ocr_launches, ocr_routes))
+            (tag_launches, tag_routes), (ocr_launches, ocr_routes), (serve_launches, serve_routes))
     total = {name: sum(run[0][name] for run in runs) for name in launches}
     total_routes = {name: {path: sum(run[1][name][path] for run in runs) for path in routes[name]}
                     for name in routes}
@@ -4542,8 +5213,10 @@ def main() -> int:
                             *(r["b1_k40_max_abs_err"]
                               for r in or3["per_space_recall_at_10_and_b1"].values()),
                             hybrid["recall_at_10_and_b1"]["b1_k40_max_abs_err"],
-                            extract[2]["b1_k40_max_abs_err"], audio_run[2]["b1_k40_max_abs_err"]),
-         "ms": scan_ms, "plain_ms": scan_plain_ms, **scan_bound, "library_ms": None},
+                            extract[2]["b1_k40_max_abs_err"], audio_run[2]["b1_k40_max_abs_err"],
+                            serve_bench["recall"]["b1_k40_max_abs_err"]),
+         "ms": scan_ms, "plain_ms": scan_plain_ms, **scan_bound, "library_ms": None,
+         "serve_launches": serve_launches["int8_topk"]},
         {"name": "int8_topk_v2", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:321", "launches": total["int8_topk_v2"],
          "max_abs_err": max(*v2_err.values(), batch["int8_topk_v2_max_abs_err"]),
@@ -4566,7 +5239,8 @@ def main() -> int:
          "ocr_launches": ocr_launches["mha"], "ocr_shape": ocr_k["shapes"]["ocr_trunk"],
          "wide_head_dim_shapes": {name: r for name, r in ocr_k["shapes"].items()
                                   if name != "ocr_trunk"},
-         "captioner_decoder_logits_d384": tag_pair_rec["decoder_logits_d384"]},
+         "captioner_decoder_logits_d384": tag_pair_rec["decoder_logits_d384"],
+         "serve_launches": serve_launches["mha"]},
         {"name": "mha_qkv", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:296", "launches": total["mha_qkv"],
          "routes": total_routes["mha_qkv"],

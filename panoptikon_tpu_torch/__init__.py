@@ -26,6 +26,23 @@ Layer map:
 - ``index``   — a host ``VectorIndex`` snapshot uploaded to the device and
                 searched through the fused int8 scan.
 - ``_build``  — builds ``csrc/*.cu`` with ``nvcc`` and loads it by ctypes.
+- ``api``     — the HTTP server (the reference's handlers on the port's own
+                stdlib transport, ``api/web.py``), the span cache and the
+                policy layer; ``client`` and ``cli`` drive it.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # Lazy convenience exports, as the reference's: the client and the
+    # query builder are stdlib-only and load no engine.
+    if name in ("PanoptikonClient", "PanoptikonError"):
+        from panoptikon_tpu_torch import client
+
+        return getattr(client, name)
+    if name == "Q":
+        from panoptikon_tpu_torch.pql import build
+
+        return build
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

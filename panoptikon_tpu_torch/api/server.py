@@ -1,0 +1,3115 @@
+"""HTTP serving surface, on the port's own transport (``api/web.py``).
+
+The port's copy of ``panoptikon_tpu/api/server.py``, held to it unit for
+unit by ``tests/test_torch_host_copies.py``. The handlers are the
+reference's text; ``web`` is the port's stdlib transport, which gives the
+subset of ``aiohttp.web`` they use (the card machine has no ``aiohttp``).
+The units that differ name the device: ``AppState`` carries the one device
+its executors run on (``create(device="cuda")``, which raises without
+CUDA), ``accelerator_report`` and ``client_config`` read ``torch.cuda``,
+``serve_all`` and ``main`` refuse what waits for later work (a reverse
+proxy for ``[upstreams].ui``, ROADMAP A.7b; more than one process,
+ROADMAP A.12) and ``main`` takes ``--device``.
+
+The wire-compatible core of the reference's API (SURVEY.md §2a route
+table): PQL search with the epoch-validated span cache, item files/
+thumbnails, bookmarks, job management (queue, folders, quants, cron), and
+the inference surface (/predict, /load, /cache, /metadata, /health).
+
+Blocking work (SQLite, device scoring) runs in worker threads via
+``asyncio.to_thread``; the executor and writer are already thread-safe.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import threading
+import json
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from panoptikon_tpu_torch.api import web
+
+from panoptikon_tpu_torch.api.search_cache import (
+    EpochSnapshot,
+    SPAN_ROWS,
+    SpanCache,
+    query_cache_key,
+)
+from panoptikon_tpu_torch.db import store
+from panoptikon_tpu_torch.db.connection import Database, DatabaseRegistry
+from panoptikon_tpu_torch.db.epochs import EPOCHS
+from panoptikon_tpu_torch.db.writer import WriterRegistry
+from panoptikon_tpu_torch.device import device as select_device
+from panoptikon_tpu_torch.index.vector_index import VectorIndex
+from panoptikon_tpu_torch.jobs import index_sync, reconcile, scan
+from panoptikon_tpu_torch.jobs.cron import CronScheduler
+from panoptikon_tpu_torch.jobs.extraction import run_extraction_job
+from panoptikon_tpu_torch.utils import rootlock
+from panoptikon_tpu_torch.jobs.queue import ChangeSummary, JobQueue, JobType
+from panoptikon_tpu_torch.models.base import PredictionInput
+from panoptikon_tpu_torch.models.impls import IMPL_INDEX
+from panoptikon_tpu_torch.models.manager import ModelManager
+from panoptikon_tpu_torch.models.registry import Registry
+from panoptikon_tpu_torch.pql import model as pql
+from panoptikon_tpu_torch.pql.executor import Executor
+from panoptikon_tpu_torch.pql.preprocess import EMBED_CACHE
+
+
+@dataclass
+class AppState:
+    data_root: Path
+    registry_dirs: tuple[Optional[Path], Optional[Path]] = (None, None)
+    databases: DatabaseRegistry = None
+    writers: WriterRegistry = None
+    indexes: dict[str, VectorIndex] = field(default_factory=dict)
+    executors: dict[str, Executor] = field(default_factory=dict)
+    manager: ModelManager = None
+    model_registry: Registry = None
+    queue: JobQueue = None
+    cron: CronScheduler = None
+    cache: SpanCache = field(default_factory=SpanCache)
+    pool: "InferencePool" = None
+    continuous: "ContinuousManager" = None
+    # Desktop-lifecycle update surface (reference api/desktop.rs): the
+    # configured release-manifest URL plus ribbon state (snooze/dismiss).
+    update_manifest: Optional[str] = None
+    update_ribbon: dict = field(default_factory=dict)
+    # Desktop-managed mode unlocks the /api/desktop/setup-* wizard
+    # (reference desktop.rs is_managed; [desktop].managed in config).
+    desktop_managed: bool = False
+    prewarm: "EagerPrewarm" = None
+    # The one device every executor of this server runs on ("cuda:0" or
+    # "cpu"); create() resolves it, and asking for CUDA without it raises.
+    device: str = "cuda"
+    # Guards first-touch index/executor construction (RLock: executor()
+    # builds its index under the same lock).
+    _init_lock: threading.RLock = field(default_factory=threading.RLock)
+
+    @classmethod
+    def create(
+        cls, data_root: str | Path, registry_dir=None, user_registry_dir=None,
+        inference_upstreams: Optional[list[dict]] = None, device: str = "cuda",
+    ):
+        from panoptikon_tpu_torch.jobs.continuous import ContinuousManager
+        from panoptikon_tpu_torch.models.pool import InferencePool
+
+        # Resolved before anything is opened: a server asked for the card
+        # never carries on on the CPU.
+        state = cls(data_root=Path(data_root), device=str(select_device(device)))
+        # One serving process per root (main.rs RootLock): fail fast before
+        # touching any database another process may be writing.
+        rootlock.acquire(state.data_root)
+        state.databases = DatabaseRegistry(state.data_root / "databases")
+        state.writers = WriterRegistry()
+        state.registry_dirs = (
+            Path(registry_dir) if registry_dir else None,
+            Path(user_registry_dir) if user_registry_dir else None,
+        )
+        state.model_registry = Registry(registry_dir, user_registry_dir)
+        state.manager = ModelManager(state.model_registry, IMPL_INDEX)
+        # Federation (jobs/inference_pool.rs): the local manager is one
+        # upstream; [[inference.upstreams]] adds remote HTTP servers with
+        # smooth-WRR weights + failover. Every job/query inference routes
+        # through the pool (degenerates to the local manager when alone).
+        state.pool = InferencePool()
+        state.pool.add(state.manager, weight=1, name="local")
+        for up in inference_upstreams or []:
+            from panoptikon_tpu_torch.models.http_backend import HttpInferenceBackend
+
+            state.pool.add(
+                HttpInferenceBackend(up["url"]),
+                weight=int(up.get("weight", 1)),
+                name=up.get("name", up["url"]),
+            )
+        if inference_upstreams:
+            # Background health probe heals transiently-failed remotes
+            # (pointless with only the in-process manager).
+            state.pool.start_probe()
+        def _persist_owed(db_name: str, snapshot) -> None:
+            # Durable owed-maintenance marker (job-boundary doc:5-9): owed
+            # ANALYZE/recount work survives a process kill and re-arms at
+            # the next open (see AppState.db seed).
+            owed_db = state.databases.get(db_name)
+            state.writers.get(owed_db).call(
+                lambda c: store.set_config(c, "maintenance_state", snapshot or {})
+            )
+
+        state.queue = JobQueue(
+            persist_owed=_persist_owed,
+            runners={
+                JobType.FOLDER_RESCAN: state._run_rescan,
+                JobType.FOLDER_UPDATE: state._run_folder_update,
+                JobType.DATA_EXTRACTION: state._run_extraction,
+                JobType.DATA_DELETION: state._run_orphan_deletion,
+                JobType.VECTOR_QUANT_RECONCILE: state._run_reconcile,
+                JobType.JOB_DATA_DELETION: state._run_data_deletion,
+                JobType.DB_MAINTENANCE: state._run_maintenance,
+            }
+        )
+        state.cron = CronScheduler(
+            lambda: [state.databases.get(n) for n in state.databases.names()],
+            state.queue,
+        )
+        state.continuous = ContinuousManager(state.queue)
+        return state
+
+    def reconsider_continuous(self) -> None:
+        """(Re)start or stop per-DB continuous-scan supervisors from each
+        DB's ``continuous_scan`` config (reference main.rs:447
+        ensure_continuous_supervisor)."""
+        for name in self.databases.names():
+            try:
+                self.continuous.ensure(self.db(name))
+            except Exception:
+                pass
+
+    # -- per-db accessors ---------------------------------------------------
+
+    def db(self, name: str) -> Database:
+        first_open = name not in self.databases._dbs
+        db = self.databases.get(name)
+        if first_open:
+            # Startup incomplete-job cleanup (extraction.rs:271): a killed
+            # process leaves data_jobs/file_scans rows forever "running";
+            # mark them incomplete before anything reads job history. The
+            # root lock guarantees no other process has live jobs here.
+            try:
+                self.writers.get(db).call(store.remove_incomplete_jobs)
+            except Exception:
+                pass
+            # Hand edits to the per-DB config.toml win at boot
+            # (db/config_file.py; reference system_config.rs load order).
+            try:
+                from panoptikon_tpu_torch.db import config_file
+
+                config_file.import_file(db, self.writers.get(db))
+            except Exception:
+                pass
+            # Re-arm owed maintenance the previous process never repaid.
+            if self.queue is not None:
+                try:
+                    stored = store.get_config(
+                        db.reader(), "maintenance_state", None
+                    )
+                    if stored:
+                        self.queue.seed_owed(
+                            name, ChangeSummary.from_dict(stored)
+                        )
+                except Exception:
+                    pass
+        return db
+
+    def index(self, name: str) -> VectorIndex:
+        # Publish-after-build under a lock: handlers run on a wide thread
+        # pool, and an unsynchronized check-then-set would let a second
+        # first-query see (and serve) the index while sync_all is still
+        # loading embeddings into it.
+        idx = self.indexes.get(name)
+        if idx is None:
+            with self._init_lock:
+                idx = self.indexes.get(name)
+                if idx is None:
+                    idx = VectorIndex()
+                    index_sync.sync_all(self.db(name), idx)
+                    self.indexes[name] = idx
+        return idx
+
+    def executor(self, name: str) -> Executor:
+        ex = self.executors.get(name)
+        if ex is None:
+            with self._init_lock:
+                ex = self.executors.get(name)
+                if ex is None:
+                    # Query embeds ride the federation pool (local-first
+                    # WRR). index() re-enters the same RLock.
+                    ex = Executor(
+                        self.db(name), self.index(name), self.pool, device=self.device
+                    )
+                    self.executors[name] = ex
+        return ex
+
+    def epochs(self, name: str) -> EpochSnapshot:
+        idx, user = EPOCHS.snapshot(name)
+        return EpochSnapshot(index=idx, user_data=user)
+
+    # -- job runners --------------------------------------------------------
+
+    def _run_rescan(self, handle):
+        db = self.db(handle.db_name)
+        writer = self.writers.get(db)
+        counters = scan.rescan_folders(
+            db, writer, folders=handle.params.get("folders"),
+            cancelled=lambda: handle.cancelled,
+        )
+        handle.result = counters.__dict__
+        summary = ChangeSummary(wrote_data=counters.new_files > 0)
+        return summary
+
+    def _run_folder_update(self, handle):
+        """FolderUpdate (files.rs:259 run_folder_update): apply a folder
+        configuration change — add/remove included/excluded roots — then
+        rescan, marking files under removed roots unavailable."""
+        db = self.db(handle.db_name)
+        writer = self.writers.get(db)
+        params = handle.params
+        removed = [str(p) for p in params.get("remove", [])]
+
+        def unit(conn):
+            for path in params.get("included", []):
+                store.add_folder(conn, path, True)
+            for path in params.get("excluded", []):
+                store.add_folder(conn, path, False)
+            for path in removed:
+                conn.execute("DELETE FROM folders WHERE path = ?", (path,))
+
+        writer.call(unit)
+        if removed:
+            import os as _os
+
+            conn = db.reader()
+            # Path-separator boundary: removing /data/foo must not touch
+            # /data/foobar.
+            roots = [r.rstrip(_os.sep) + _os.sep for r in removed]
+            orphaned = [
+                r[0]
+                for r in conn.execute(
+                    "SELECT path FROM files WHERE available = 1"
+                ).fetchall()
+                if any(r[0].startswith(root) for root in roots)
+            ]
+            if orphaned:
+                writer.call(lambda c: store.mark_files_unavailable(c, orphaned))
+        counters = scan.rescan_folders(
+            db, writer, cancelled=lambda: handle.cancelled
+        )
+        handle.result = counters.__dict__
+        return ChangeSummary(wrote_data=True)
+
+    def _run_orphan_deletion(self, handle):
+        """DataDeletion: drop items with no available file plus their
+        derived data (the reference's data-deletion job class)."""
+        db = self.db(handle.db_name)
+        writer = self.writers.get(db)
+
+        def unit(conn):
+            # Set-based deletes over a materialized orphan set: one pass per
+            # table instead of 6 statements per item — at 100k orphans the
+            # per-item loop held the writer for a long stall (VERDICT r2
+            # weak #8).
+            conn.execute("DROP TABLE IF EXISTS temp.orphan_items")
+            conn.execute(
+                """CREATE TEMP TABLE orphan_items AS
+                   SELECT i.id FROM items i
+                   WHERE NOT EXISTS (
+                     SELECT 1 FROM files f
+                     WHERE f.item_id = i.id AND f.available = 1)"""
+            )
+            n = conn.execute("SELECT COUNT(*) FROM temp.orphan_items").fetchall()[0][0]
+            if n:
+                conn.execute(
+                    """DELETE FROM embeddings WHERE id IN
+                       (SELECT id FROM item_data
+                        WHERE item_id IN (SELECT id FROM temp.orphan_items))"""
+                )
+                conn.execute(
+                    """DELETE FROM extracted_text WHERE id IN
+                       (SELECT id FROM item_data
+                        WHERE item_id IN (SELECT id FROM temp.orphan_items))"""
+                )
+                conn.execute(
+                    """DELETE FROM tags_items
+                       WHERE item_id IN (SELECT id FROM temp.orphan_items)"""
+                )
+                conn.execute(
+                    """DELETE FROM item_data
+                       WHERE item_id IN (SELECT id FROM temp.orphan_items)"""
+                )
+                conn.execute(
+                    """DELETE FROM files
+                       WHERE item_id IN (SELECT id FROM temp.orphan_items)"""
+                )
+                conn.execute(
+                    "DELETE FROM items WHERE id IN (SELECT id FROM temp.orphan_items)"
+                )
+            conn.execute("DROP TABLE IF EXISTS temp.orphan_items")
+            return int(n)
+
+        deleted = writer.call(unit)
+        # The device index may hold rows for deleted items; a full re-sync
+        # on next access keeps it coherent (data-is-the-checkpoint).
+        if deleted:
+            self.indexes.pop(handle.db_name, None)
+            self.executors.pop(handle.db_name, None)
+        handle.result = {"deleted_items": deleted}
+        return ChangeSummary(
+            wrote_data=deleted > 0, tags_dirty=deleted > 0,
+            needs_analyze=deleted > 0,
+        )
+
+    def _run_extraction(self, handle):
+        db = self.db(handle.db_name)
+        writer = self.writers.get(db)
+        params = handle.params
+        inference_id = params["inference_id"]
+        group = inference_id.split("/", 1)[0]
+        meta = self.model_registry.group_metadata(group)
+        try:
+            report = self._extraction_body(handle, db, writer, inference_id, meta)
+        except BaseException:
+            # The reference's IncompleteJobCleanup drop guard
+            # (extraction.rs:266): a failed/cancelled job must not show as
+            # forever-running in history. One job runs per DB at a time, so
+            # the DB-wide mark hits exactly this job.
+            try:
+                writer.call(store.remove_incomplete_jobs)
+            except Exception:
+                pass
+            raise
+        handle.result = {
+            "processed": report.processed,
+            "segments": report.segments,
+            "input_errors": report.input_errors,
+            "transient_errors": report.transient_errors,
+        }
+        return report.summary
+
+    def _extraction_body(self, handle, db, writer, inference_id, meta):
+        params = handle.params
+        return run_extraction_job(
+            db=db,
+            writer=writer,
+            index=self.index(handle.db_name),
+            manager=self.pool,
+            inference_id=inference_id,
+            setter_name=params.get("setter_name"),
+            output_type=params.get("output_type") or meta.get("output_type", "clip"),
+            mime_prefixes=tuple(
+                params.get("mime_types") or meta.get("input_mime_types", ["image/"])
+            ),
+            batch_size=int(
+                params.get("batch_size") or meta.get("default_batch_size", 16)
+            ),
+            threshold=params.get("threshold") or meta.get("default_threshold"),
+            target_entity=(
+                "text" if "text" in (meta.get("target_entities") or ["items"]) else "items"
+            ),
+            source_setters=tuple(params.get("source_setters") or ()),
+            input_handler=(meta.get("input_spec") or {}).get("handler"),
+            input_handler_opts=(meta.get("input_spec") or {}).get("opts"),
+            cancelled=lambda: handle.cancelled,
+        )
+
+    def _run_reconcile(self, handle):
+        db = self.db(handle.db_name)
+        report = reconcile.run_reconcile(
+            db, self.writers.get(db), self.index(handle.db_name),
+            cancelled=lambda: handle.cancelled,
+            force_rescale=bool(handle.params.get("force_rescale")),
+        )
+        handle.result = report.__dict__
+        return None
+
+    def _run_data_deletion(self, handle):
+        db = self.db(handle.db_name)
+        writer = self.writers.get(db)
+        setter = handle.params["setter_name"]
+        deleted = writer.call(lambda c: store.delete_setter_data(c, setter))
+        # Keep the device projection coherent: the durable rows are gone,
+        # so the space drops entirely (a later sync rebuilds from scratch).
+        self.index(handle.db_name).drop_space(setter)
+        handle.result = {"deleted": deleted}
+        return ChangeSummary(wrote_data=True, tags_dirty=True, needs_analyze=True)
+
+    def _run_maintenance(self, handle):
+        db = self.db(handle.db_name)
+        writer = self.writers.get(db)
+        summary: ChangeSummary = handle.params.get("summary") or ChangeSummary()
+
+        ex = self.executors.get(handle.db_name)
+        watermark = ex.change_log_watermark() if ex is not None else None
+
+        def unit(conn):
+            if summary.tags_dirty:
+                store.recount_tags(conn)
+            if summary.needs_analyze:
+                conn.execute("ANALYZE")
+            # Prune the base change log up to the lowest seq any cached
+            # snapshot still needs (no executor/snapshot → prune all). The
+            # durable bcl_pruned_to marker closes the race with an in-flight
+            # snapshot build: a refresh whose watermark predates the prune
+            # falls back to a full rebuild instead of missing deltas.
+            if watermark is None:
+                # fetchall: an open cursor on the table would make the
+                # DELETE below fail with "database table is locked".
+                rows = conn.execute("SELECT MAX(seq) FROM base_change_log").fetchall()
+                pruned_to = int(rows[0][0] or 0)
+                conn.execute("DELETE FROM base_change_log")
+            else:
+                pruned_to = int(watermark)
+                conn.execute(
+                    "DELETE FROM base_change_log WHERE seq <= ?", (watermark,)
+                )
+            if pruned_to:
+                store.set_config(conn, "bcl_pruned_to", pruned_to)
+            # wal_checkpoint cannot run inside the unit's open write
+            # transaction ("database table is locked"); commit the
+            # maintenance writes first (the unit's closing commit becomes a
+            # no-op).
+            conn.commit()
+            conn.execute("PRAGMA wal_checkpoint(PASSIVE)")
+
+        writer.call(unit)
+        return None
+
+    def shutdown(self) -> None:
+        if self.prewarm is not None:
+            self.prewarm.stop()
+        if self.pool is not None:
+            self.pool.stop_probe()
+        if self.continuous is not None:
+            self.continuous.stop_all()
+        self.cron.stop()
+        self.queue.shutdown()
+        self.manager.shutdown()
+        self.writers.close_all()
+        rootlock.release(self.data_root)
+
+
+def _valid_db_name(name: str) -> bool:
+    return bool(name) and name.replace("-", "").replace("_", "").isalnum()
+
+
+def _db_name(request) -> str:
+    # A policy's DB pin overrides the caller's selection (policy.rs DB
+    # pinning — the test-listener isolation pattern).
+    pinned = request.get("pinned_index_db")
+    if pinned:
+        return pinned
+    name = request.query.get("index_db", "default")
+    if not _valid_db_name(name):
+        # The registry derives an on-disk path from the name and mkdirs it
+        # — an unvalidated '../..' or absolute name is a filesystem write
+        # anywhere the process can reach.
+        raise web.HTTPBadRequest(
+            reason="database name must be alphanumeric/-/_"
+        )
+    return name
+
+
+def _int_arg(value, name: str) -> int:
+    """Client-supplied integer → 400 (not a 500 traceback) when malformed."""
+    try:
+        return int(value)
+    except (TypeError, ValueError):
+        raise web.HTTPBadRequest(reason=f"{name} must be an integer")
+
+
+def _float_arg(value, name: str) -> float:
+    try:
+        return float(value)
+    except (TypeError, ValueError):
+        raise web.HTTPBadRequest(reason=f"{name} must be a number")
+
+
+def _json_error(status: int, message: str):
+    return web.json_response({"error": message}, status=status)
+
+
+async def _dict_body(request: web.Request) -> dict:
+    """Parse the body as a JSON OBJECT or raise a 400 — '[]' and '\"x\"'
+    are valid JSON but `body.get(...)` on them is a 500 traceback."""
+    try:
+        body = await request.json() if request.can_read_body else {}
+    except Exception:
+        raise web.HTTPBadRequest(reason="invalid JSON body")
+    if body is None:
+        return {}
+    if not isinstance(body, dict):
+        raise web.HTTPBadRequest(reason="body must be a JSON object")
+    return body
+
+
+# ---------------------------------------------------------------------------
+# Handlers
+# ---------------------------------------------------------------------------
+
+
+async def search_pql(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    try:
+        payload = await request.json()
+    except Exception:
+        return _json_error(400, "invalid JSON body")
+
+    def run():
+        query = pql.PqlQuery.from_json(payload)
+        seed, synthesized = query.resolve_seed()
+        use_cache = query.cache and not synthesized
+        cache_payload = dict(payload)
+        if seed is not None:
+            cache_payload["seed"] = seed
+        key = query_cache_key(cache_payload) if use_cache else None
+        epochs = state.epochs(name)
+        ex = state.executor(name)
+        count = None
+        rows = None
+        outcome = "bypass"
+        metrics = {"compile": 0.0, "execute": 0.0}
+        if use_cache:
+            outcome = "miss"
+            if query.count:
+                count = state.cache.lookup_count(key, epochs)
+            if query.results:
+                offset = (query.page - 1) * query.page_size
+                rows = state.cache.lookup_rows(key, offset, query.page_size, epochs)
+            if (not query.count or count is not None) and (
+                not query.results or rows is not None
+            ):
+                outcome = "hit"
+        if outcome != "hit":
+            # Prefetch amortization (model.rs prefetch_rows): execute once
+            # with a span-aligned expanded window and cache every full span.
+            prefetch = max(query.page_size, min(int(query.prefetch_rows), 10_000))
+            offset = (query.page - 1) * query.page_size
+            aligned = (offset // SPAN_ROWS) * SPAN_ROWS
+            span_budget = (offset - aligned) + prefetch
+            # Round up to whole spans so cached spans are always full-width.
+            span_budget = ((span_budget + SPAN_ROWS - 1) // SPAN_ROWS) * SPAN_ROWS
+            exec_query = pql.PqlQuery.from_json(payload)
+            exec_query.seed = seed
+            exec_query.page = 1
+            exec_query.page_size = aligned + span_budget
+            result = ex.execute(exec_query)
+            metrics = {
+                "compile": round(result.metrics.compile_s, 6),
+                "execute": round(result.metrics.execute_s, 6),
+                "path": result.metrics.path,
+            }
+            all_rows = result.results[aligned:]
+            window = all_rows[offset - aligned : offset - aligned + query.page_size]
+            if query.count:
+                count = result.count
+            rows = window if query.results else []
+            if use_cache:
+                terminal = (
+                    result.count is not None
+                    and aligned + len(all_rows) >= result.count
+                )
+                state.cache.insert_rows(key, aligned, all_rows, epochs, terminal)
+                if result.count is not None:
+                    state.cache.insert_count(key, result.count, epochs)
+        # Enrich ALWAYS runs live on clones of the (possibly cached) rows
+        # (search.rs:605-619): check_path drops rows whose file vanished
+        # since indexing; bookmark status annotates for the ?user caller.
+        out_rows = list(rows) if query.results and rows else []
+        if query.check_path and out_rows:
+            import os as _os
+
+            out_rows = [
+                r for r in out_rows if _os.path.exists(r.get("path") or "")
+            ]
+        user = request.query.get("user")
+        if user and out_rows:
+            conn = state.db(name).reader()
+            shas = [r.get("sha256") for r in out_rows if r.get("sha256")]
+            marked = set()
+            # Chunked IN lists: SQLite's bound-variable limit (999 on
+            # older builds) would 500 a large-page_size export.
+            for lo in range(0, len(shas), 500):
+                chunk = shas[lo : lo + 500]
+                qmarks = ",".join("?" * len(chunk))
+                marked.update(
+                    row[0]
+                    for row in conn.execute(
+                        f"""SELECT DISTINCT sha256 FROM user_data.bookmarks
+                            WHERE user IN (?, '*') AND sha256 IN ({qmarks})""",
+                        [user, *chunk],
+                    ).fetchall()
+                )
+            out_rows = [
+                {**r, "bookmarked": r.get("sha256") in marked}
+                for r in out_rows
+            ]
+        # Per-request SearchMetrics ride every response (the reference's
+        # metrics hover card — api/search.rs:130-131).
+        return {
+            "count": count,
+            "results": out_rows,
+            "seed": seed,
+            "cache": outcome,
+            "metrics": metrics,
+        }
+
+    try:
+        out = await asyncio.to_thread(run)
+    except pql.PqlError as exc:
+        return _json_error(400, str(exc))
+    except Exception as exc:  # noqa: BLE001 — query-induced failures are 4xx
+        from panoptikon_tpu_torch.models.manager import ModelLoadError
+        from panoptikon_tpu_torch.models.registry import RegistryError
+
+        if isinstance(exc, (RegistryError, ModelLoadError, KeyError, ValueError)):
+            return _json_error(400, str(exc))
+        return _json_error(500, f"search failed: {exc}")
+    return web.json_response(out)
+
+
+async def search_pql_build(request: web.Request) -> web.Response:
+    """Compile-only: parse + preprocess the query and return the execution
+    plan summary without running it (reference search_pql_build)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    try:
+        payload = await request.json()
+    except Exception:
+        return _json_error(400, "invalid JSON body")
+
+    def run():
+        from panoptikon_tpu_torch.pql import preprocess as prep
+
+        query = pql.PqlQuery.from_json(payload)
+        seed, synthesized = query.resolve_seed()
+        prep.preprocess_query(
+            query, manager=state.manager, index=state.index(name)
+        )
+        filters = []
+        for leaf in pql.walk_filters(query.query):
+            entry = {"filter": type(leaf).__name__}
+            for attr in ("image_embeddings", "text_embeddings", "similar_to"):
+                args = getattr(leaf, attr, None)
+                if args is not None:
+                    entry["model"] = args.model
+                    entry["arm"] = "quant" if args._quant else "exact"
+            filters.append(entry)
+        return {
+            "entity": query.entity,
+            "filters": filters,
+            "order_terms": len(query.order_by),
+            "seed": seed,
+            "seed_synthesized": synthesized,
+            "cacheable": query.cache and not synthesized,
+        }
+
+    try:
+        return web.json_response(await asyncio.to_thread(run))
+    except pql.PqlError as exc:
+        return _json_error(400, str(exc))
+
+
+async def accelerator_report(request: web.Request) -> web.Response:
+    """Device inventory under the reference's keys: the server's CUDA
+    cards (``torch.cuda``), or one CPU device when it serves on the CPU.
+
+    The probe runs OFF the event loop, as the reference's does: the first
+    CUDA call initialises the driver, which can take seconds."""
+    state: AppState = request.app["state"]
+
+    def probe():
+        if torch.device(state.device).type != "cuda":
+            return [{"id": 0, "kind": "cpu", "platform": "cpu", "process": 0}], "cpu"
+        return [
+            {
+                "id": i,
+                "kind": torch.cuda.get_device_name(i),
+                "platform": "gpu",
+                "process": 0,
+            }
+            for i in range(torch.cuda.device_count())
+        ], "cuda"
+
+    devices, backend = await asyncio.to_thread(probe)
+    return web.json_response(
+        {"backend": backend, "device_count": len(devices),
+         "devices": devices}
+    )
+
+
+async def search_stats(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+
+    def run():
+        conn = state.db(name).reader()
+        setters = conn.execute(
+            """SELECT s.name, d.data_type, COUNT(*) FROM setters s
+               JOIN item_data d ON d.setter_id = s.id
+               GROUP BY s.name, d.data_type"""
+        ).fetchall()
+        files = conn.execute("SELECT COUNT(*) FROM files WHERE available=1").fetchone()[0]
+        items = conn.execute("SELECT COUNT(*) FROM items").fetchone()[0]
+        return {
+            "files": files,
+            "items": items,
+            "setters": [
+                {"name": s, "output_type": t, "count": c} for s, t, c in setters
+            ],
+            "spaces": state.index(name).stats(),
+            # Dispatch-window coalescer amortization (queries/dispatches):
+            # how many co-arriving searches each device round-trip carried.
+            "coalescer": state.executor(name)._scan_coalescer.stats(),
+            # Epoch-validated FTS candidate cache (hybrid-path hot terms).
+            "fts_cache": state.executor(name).fts_cache_stats(),
+        }
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def cache_stats(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    return web.json_response(state.cache.stats())
+
+
+async def cache_clear(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    state.cache.clear()
+    return web.json_response({"ok": True})
+
+
+async def cache_resize(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    body = await request.json()
+    state.cache.resize(_int_arg(body.get("byte_budget"), "byte_budget"))
+    return web.json_response(state.cache.stats())
+
+
+async def embed_cache_stats(request: web.Request) -> web.Response:
+    return web.json_response(EMBED_CACHE.stats())
+
+
+async def embed_cache_clear(request: web.Request) -> web.Response:
+    """Clear the query-embedding LRU (reference clear_search_cache on
+    /api/search/embeddings/cache — forces fresh embeds after a model
+    recalibration)."""
+    EMBED_CACHE.clear()
+    return web.json_response(EMBED_CACHE.stats())
+
+
+_ID_TYPE_SQL = {
+    # Every identifier the reference accepts (db/items.rs
+    # ItemIdentifierType:13-20) resolved to the item's sha256. File-level
+    # ids (file_id/path) resolve to their item — all of an item's files
+    # are bit-identical (same sha), so the served content is the same.
+    "item_id": "SELECT sha256 FROM items WHERE id = ?",
+    "file_id": (
+        "SELECT i.sha256 FROM files f JOIN items i ON i.id = f.item_id "
+        "WHERE f.id = ?"
+    ),
+    "data_id": (
+        "SELECT i.sha256 FROM item_data d JOIN items i ON i.id = d.item_id "
+        "WHERE d.id = ?"
+    ),
+    "path": (
+        "SELECT i.sha256 FROM files f JOIN items i ON i.id = f.item_id "
+        "WHERE f.path = ?"
+    ),
+    "md5": "SELECT sha256 FROM items WHERE md5 = ?",
+}
+
+
+def _resolve_item_sha(conn, ident: str, id_type: str) -> Optional[str]:
+    """Item identifier → sha256 per the ``id_type`` query param
+    (reference api/items.rs ItemQuery). Unknown type raises 400."""
+    if id_type in ("sha256", "", None):
+        return ident
+    sql = _ID_TYPE_SQL.get(id_type)
+    if sql is None:
+        raise web.HTTPBadRequest(
+            reason=f"unknown id_type {id_type!r} (expected sha256/item_id/"
+            "file_id/data_id/path/md5)"
+        )
+    if id_type.endswith("_id"):
+        try:
+            ident = int(ident)
+        except ValueError:
+            raise web.HTTPBadRequest(reason=f"{id_type} must be an integer")
+    row = conn.execute(sql, (ident,)).fetchone()
+    return row[0] if row else None
+
+
+async def item_file(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    sha = request.match_info["sha256"]
+
+    id_type = request.query.get("id_type", "sha256")
+
+    def run():
+        conn = state.db(name).reader()
+        resolved = _resolve_item_sha(conn, sha, id_type)
+        if resolved is None:
+            return None
+        row = conn.execute(
+            """SELECT f.path, i.type FROM files f JOIN items i ON i.id=f.item_id
+               WHERE f.sha256 = ? AND f.available = 1 LIMIT 1""",
+            (resolved,),
+        ).fetchone()
+        return row
+
+    row = await asyncio.to_thread(run)
+    if row is None:
+        return _json_error(404, "item not found")
+    path, mime = row
+    if not Path(path).exists():
+        return _json_error(404, "file missing on disk")
+    return web.FileResponse(path, headers={"Content-Type": mime})
+
+
+async def item_thumbnail(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    sha = request.match_info["sha256"]
+
+    id_type = request.query.get("id_type", "sha256")
+
+    def run():
+        conn = state.db(name).reader()
+        resolved = _resolve_item_sha(conn, sha, id_type)
+        if resolved is None:
+            return None
+        return conn.execute(
+            "SELECT thumbnail FROM storage.thumbnails WHERE item_sha256=? ORDER BY idx LIMIT 1",
+            (resolved,),
+        ).fetchone()
+
+    row = await asyncio.to_thread(run)
+    if row is None:
+        return _json_error(404, "no thumbnail")
+    return web.Response(body=row[0], content_type="image/jpeg")
+
+
+async def item_metadata(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    sha = request.match_info["sha256"]
+
+    id_type = request.query.get("id_type", "sha256")
+
+    def run():
+        conn = state.db(name).reader()
+        conn.row_factory = None
+        resolved = _resolve_item_sha(conn, sha, id_type)
+        if resolved is None:
+            return None
+        item = conn.execute("SELECT * FROM items WHERE sha256=?", (resolved,)).fetchone()
+        if item is None:
+            return None
+        cols = [d[0] for d in conn.execute("SELECT * FROM items LIMIT 0").description]
+        meta = dict(zip(cols, item))
+        item_id = meta["id"]
+        meta["files"] = [
+            {"path": p, "available": bool(a)}
+            for p, a in conn.execute(
+                "SELECT path, available FROM files WHERE item_id=?", (item_id,)
+            ).fetchall()
+        ]
+        meta["text"] = [
+            {"setter": s, "text": t, "language": lang, "confidence": c}
+            for s, t, lang, c in conn.execute(
+                """SELECT st.name, t.text, t.language, t.confidence
+                   FROM extracted_text t JOIN item_data d ON d.id = t.id
+                   JOIN setters st ON st.id = d.setter_id
+                   WHERE d.item_id = ?""",
+                (item_id,),
+            ).fetchall()
+        ]
+        meta["tags"] = [
+            {"namespace": ns, "name": n, "confidence": c}
+            for ns, n, c in conn.execute(
+                """SELECT tg.namespace, tg.name, MAX(ti.confidence)
+                   FROM tags_items ti JOIN tags tg ON tg.id = ti.tag_id
+                   WHERE ti.item_id = ? GROUP BY tg.namespace, tg.name""",
+                (item_id,),
+            ).fetchall()
+        ]
+        return meta
+
+    meta = await asyncio.to_thread(run)
+    if meta is None:
+        return _json_error(404, "item not found")
+    return web.json_response(meta)
+
+
+async def tags_top(request: web.Request) -> web.Response:
+    """Most common tags with optional namespace / setter / confidence
+    scoping (reference api/search.rs get_top_tags:399-440): each row
+    carries occurrences and the relative frequency (occurrences / total
+    item-setter pairs), descending by frequency."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    limit = _int_arg(request.query.get("limit", 100), "limit")
+    namespace = request.query.get("namespace")
+    setters = [s for s in request.query.get("setters", "").split(",") if s]
+    threshold = request.query.get("confidence_threshold")
+    if threshold is not None:
+        threshold = _float_arg(threshold, "confidence_threshold")
+        if not (0.0 <= threshold <= 1.0):
+            return _json_error(
+                400, "confidence_threshold must be between 0 and 1"
+            )
+
+    def run():
+        conn = state.db(name).reader()
+        scoped = namespace or setters or threshold is not None
+        if not scoped:
+            # Fast path: the denormalized per-tag item_count.
+            total = conn.execute(
+                "SELECT COUNT(DISTINCT item_id || ':' || "
+                "(SELECT setter_id FROM item_data d WHERE d.id = "
+                "ti.item_data_id)) FROM tags_items ti"
+            ).fetchone()[0] or 1
+            rows = conn.execute(
+                """SELECT namespace, name, item_count FROM tags
+                   WHERE item_count > 0
+                   ORDER BY item_count DESC LIMIT ?""",
+                (limit,),
+            ).fetchall()
+            return [
+                {"namespace": ns, "name": n, "count": c,
+                 "frequency": c / total}
+                for ns, n, c in rows
+            ]
+        where, params = [], []
+        if namespace:
+            where.append("tg.namespace = ?")
+            params.append(namespace)
+        if setters:
+            marks = ",".join("?" * len(setters))
+            where.append(
+                f"d.setter_id IN (SELECT id FROM setters WHERE name IN ({marks}))"
+            )
+            params.extend(setters)
+        if threshold is not None:
+            where.append("ti.confidence >= ?")
+            params.append(threshold)
+        clause = " AND ".join(where) or "1=1"
+        total = conn.execute(
+            f"""SELECT COUNT(DISTINCT ti.item_id || ':' || d.setter_id)
+                FROM tags_items ti
+                JOIN item_data d ON d.id = ti.item_data_id
+                JOIN tags tg ON tg.id = ti.tag_id
+                WHERE {clause}""",
+            params,
+        ).fetchone()[0] or 1
+        rows = conn.execute(
+            f"""SELECT tg.namespace, tg.name, COUNT(DISTINCT ti.item_id) c
+                FROM tags_items ti
+                JOIN item_data d ON d.id = ti.item_data_id
+                JOIN tags tg ON tg.id = ti.tag_id
+                WHERE {clause}
+                GROUP BY tg.namespace, tg.name
+                ORDER BY c DESC LIMIT ?""",
+            [*params, limit],
+        ).fetchall()
+        return [
+            {"namespace": ns, "name": n, "count": c, "frequency": c / total}
+            for ns, n, c in rows
+        ]
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def tags_autocomplete(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    prefix = request.query.get("q", "")
+    limit = _int_arg(request.query.get("limit", 25), "limit")
+
+    def run():
+        conn = state.db(name).reader()
+        return [
+            {"namespace": ns, "name": n, "count": c}
+            for ns, n, c in conn.execute(
+                """SELECT namespace, name, item_count FROM tags
+                   WHERE name LIKE ? ORDER BY item_count DESC LIMIT ?""",
+                (prefix + "%", limit),
+            ).fetchall()
+        ]
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+# -- bookmarks ---------------------------------------------------------------
+
+
+async def bookmarks_list(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    user = request.match_info.get("user", "user")
+    namespace = request.query.get("namespace")
+
+    def run():
+        conn = state.db(name).reader()
+        sql = "SELECT namespace, sha256, time_added, metadata FROM user_data.bookmarks WHERE user IN (?, '*')"
+        params = [user]
+        if namespace:
+            sql += " AND namespace = ?"
+            params.append(namespace)
+        return [
+            {"namespace": ns, "sha256": sha, "time_added": t,
+             "metadata": json.loads(m) if m else None}
+            for ns, sha, t, m in conn.execute(sql, params).fetchall()
+        ]
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def bookmarks_put(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    user = request.match_info["user"]
+    namespace = request.match_info["namespace"]
+    sha = request.match_info["sha256"]
+    body = await request.json() if request.can_read_body else {}
+
+    def run():
+        conn = state.db(name).user_data_write_connection()
+        try:
+            with conn:
+                conn.execute(
+                    """INSERT INTO bookmarks (user, namespace, sha256, time_added, metadata)
+                       VALUES (?,?,?,?,?)
+                       ON CONFLICT(user, namespace, sha256) DO UPDATE SET
+                         metadata=excluded.metadata""",
+                    (user, namespace, sha, store.now_iso(),
+                     json.dumps(body.get("metadata")) if body.get("metadata") else None),
+                )
+        finally:
+            conn.close()
+        EPOCHS.bump_user_data(name)
+
+    await asyncio.to_thread(run)
+    return web.json_response({"ok": True})
+
+
+async def bookmarks_delete(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    user = request.match_info["user"]
+    namespace = request.match_info["namespace"]
+    sha = request.match_info["sha256"]
+
+    def run():
+        conn = state.db(name).user_data_write_connection()
+        try:
+            with conn:
+                cur = conn.execute(
+                    "DELETE FROM bookmarks WHERE user=? AND namespace=? AND sha256=?",
+                    (user, namespace, sha),
+                )
+                return cur.rowcount
+        finally:
+            conn.close()
+
+    deleted = await asyncio.to_thread(run)
+    if deleted:
+        EPOCHS.bump_user_data(name)
+    return web.json_response({"deleted": bool(deleted)})
+
+
+async def bookmarks_delete_namespace(request: web.Request) -> web.Response:
+    """Bulk-delete every bookmark in a user's namespace (reference
+    api/bookmarks.rs delete_bookmarks_by_namespace)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    user = request.match_info["user"]
+    namespace = request.match_info["namespace"]
+
+    def run():
+        conn = state.db(name).user_data_write_connection()
+        try:
+            with conn:
+                return conn.execute(
+                    "DELETE FROM bookmarks WHERE user=? AND namespace=?",
+                    (user, namespace),
+                ).rowcount
+        finally:
+            conn.close()
+
+    deleted = await asyncio.to_thread(run)
+    if deleted:
+        EPOCHS.bump_user_data(name)
+    return web.json_response({"deleted": int(deleted)})
+
+
+async def bookmarks_users(request: web.Request) -> web.Response:
+    """Distinct bookmark owners (reference api/bookmarks.rs bookmark_users,
+    route /api/bookmarks/users)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+
+    def run():
+        conn = state.db(name).reader()
+        return [
+            u for (u,) in conn.execute(
+                "SELECT DISTINCT user FROM user_data.bookmarks ORDER BY user"
+            ).fetchall()
+        ]
+
+    return web.json_response({"users": await asyncio.to_thread(run)})
+
+
+async def bookmarks_namespaces(request: web.Request) -> web.Response:
+    """Distinct namespaces visible to a user — the user's own plus the
+    ``*`` wildcard user's (reference api/bookmarks.rs bookmark_namespaces)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    user = request.match_info["user"]
+
+    def run():
+        conn = state.db(name).reader()
+        return [
+            ns for (ns,) in conn.execute(
+                """SELECT DISTINCT namespace FROM user_data.bookmarks
+                   WHERE user IN (?, '*') ORDER BY namespace""",
+                (user,),
+            ).fetchall()
+        ]
+
+    return web.json_response({"namespaces": await asyncio.to_thread(run)})
+
+
+async def texts_any(request: web.Request) -> web.Response:
+    """Texts by extracted-text ids (reference api/items.rs texts_any,
+    route /api/items/text/any?text_ids=1,2,3)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    raw = request.query.get("text_ids", "")
+    try:
+        ids = [int(x) for x in raw.split(",") if x.strip()]
+    except ValueError:
+        return _json_error(400, "text_ids must be a comma-separated id list")
+
+    def run():
+        conn = state.db(name).reader()
+        out = []
+        for chunk in range(0, len(ids), 500):
+            part = ids[chunk : chunk + 500]
+            marks = ",".join("?" * len(part))
+            out.extend(
+                {"id": tid, "item_id": iid, "setter": setter, "text": text,
+                 "language": lang, "confidence": conf}
+                for tid, iid, setter, text, lang, conf in conn.execute(
+                    f"""SELECT t.id, d.item_id, st.name, t.text, t.language,
+                               t.confidence
+                        FROM extracted_text t
+                        JOIN item_data d ON d.id = t.id
+                        JOIN setters st ON st.id = d.setter_id
+                        WHERE t.id IN ({marks})""",
+                    part,
+                ).fetchall()
+            )
+        return out
+
+    return web.json_response({"text": await asyncio.to_thread(run)})
+
+
+# -- pinboards ---------------------------------------------------------------
+
+
+async def pinboards_list(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    user = request.match_info["user"]
+
+    def run():
+        conn = state.db(name).reader()
+        return [
+            {"id": pid, "name": bname, "head_version_id": head,
+             "time_added": ta, "time_updated": tu}
+            for pid, bname, head, ta, tu in conn.execute(
+                """SELECT id, name, head_version_id, time_added, time_updated
+                   FROM user_data.pinboards WHERE user = ?
+                   ORDER BY time_updated DESC""",
+                (user,),
+            ).fetchall()
+        ]
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def pinboards_create(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    user = request.match_info["user"]
+    body = await request.json()
+
+    def run():
+        conn = state.db(name).user_data_write_connection()
+        try:
+            with conn:
+                now = store.now_iso()
+                return int(
+                    conn.execute(
+                        """INSERT INTO pinboards (user, name, time_added, time_updated)
+                           VALUES (?,?,?,?) RETURNING id""",
+                        (user, body.get("name"), now, now),
+                    ).fetchone()[0]
+                )
+        finally:
+            conn.close()
+
+    pid = await asyncio.to_thread(run)
+    EPOCHS.bump_user_data(name)
+    return web.json_response({"id": pid})
+
+
+async def pinboards_save_version(request: web.Request) -> web.Response:
+    """Append an immutable content snapshot and move the head — the
+    reference's append-only version history (user_data pinboards
+    migration)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    pid = _int_arg(request.match_info["pinboard_id"], "pinboard_id")
+    body = await request.json()
+    layout = body.get("layout")
+    if not isinstance(layout, (list, dict)):
+        return _json_error(400, "layout must be a JSON array/object")
+
+    def run():
+        conn = state.db(name).user_data_write_connection()
+        try:
+            with conn:
+                exists = conn.execute(
+                    "SELECT 1 FROM pinboards WHERE id=?", (pid,)
+                ).fetchone()
+                if not exists:
+                    return None
+                preview = None
+                if body.get("preview_b64"):
+                    preview = base64.b64decode(body["preview_b64"])
+                vid = int(
+                    conn.execute(
+                        """INSERT INTO pinboard_versions
+                           (pinboard_id, layout, name_at_save, preview,
+                            preview_w, preview_h, screenful_h, time_added)
+                           VALUES (?,?,?,?,?,?,?,?) RETURNING id""",
+                        (pid, json.dumps(layout), body.get("name"), preview,
+                         body.get("preview_w"), body.get("preview_h"),
+                         body.get("screenful_h"), store.now_iso()),
+                    ).fetchone()[0]
+                )
+                items = body.get("items")
+                if items is None and isinstance(layout, list):
+                    # Convenience default: a flat layout of sha256 strings
+                    # IS the item set (clients that track layout geometry
+                    # separately send an explicit items list).
+                    items = [
+                        s for s in layout
+                        if isinstance(s, str) and len(s) == 64
+                    ]
+                for sha in set(items or []):
+                    conn.execute(
+                        "INSERT OR IGNORE INTO pinboard_version_items "
+                        "(version_id, sha256) VALUES (?,?)",
+                        (vid, sha),
+                    )
+                conn.execute(
+                    """UPDATE pinboards SET head_version_id=?, time_updated=?,
+                       name=COALESCE(?, name) WHERE id=?""",
+                    (vid, store.now_iso(), body.get("name"), pid),
+                )
+                return vid
+        finally:
+            conn.close()
+
+    vid = await asyncio.to_thread(run)
+    if vid is None:
+        return _json_error(404, "pinboard not found")
+    EPOCHS.bump_user_data(name)
+    return web.json_response({"version_id": vid})
+
+
+async def pinboards_get(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    pid = _int_arg(request.match_info["pinboard_id"], "pinboard_id")
+
+    def run():
+        conn = state.db(name).reader()
+        row = conn.execute(
+            """SELECT p.id, p.user, p.name, p.head_version_id, v.layout,
+                      p.time_added, p.time_updated
+               FROM user_data.pinboards p
+               LEFT JOIN user_data.pinboard_versions v ON v.id = p.head_version_id
+               WHERE p.id = ?""",
+            (pid,),
+        ).fetchone()
+        if row is None:
+            return None
+        versions = [
+            {"version_id": v, "time_added": t}
+            for v, t in conn.execute(
+                "SELECT id, time_added FROM user_data.pinboard_versions "
+                "WHERE pinboard_id=? ORDER BY id DESC",
+                (pid,),
+            ).fetchall()
+        ]
+        items = [
+            r[0]
+            for r in conn.execute(
+                "SELECT sha256 FROM user_data.pinboard_version_items WHERE version_id=?",
+                (row[3],),
+            ).fetchall()
+        ] if row[3] else []
+        return {
+            "id": row[0], "user": row[1], "name": row[2],
+            "head_version_id": row[3],
+            "layout": json.loads(row[4]) if row[4] else None,
+            "items": items, "versions": versions,
+            "time_added": row[5], "time_updated": row[6],
+        }
+
+    board = await asyncio.to_thread(run)
+    if board is None:
+        return _json_error(404, "pinboard not found")
+    return web.json_response(board)
+
+
+async def pinboards_delete(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    pid = _int_arg(request.match_info["pinboard_id"], "pinboard_id")
+
+    def run():
+        conn = state.db(name).user_data_write_connection()
+        try:
+            with conn:
+                conn.execute(
+                    "DELETE FROM pinboard_version_items WHERE version_id IN "
+                    "(SELECT id FROM pinboard_versions WHERE pinboard_id=?)",
+                    (pid,),
+                )
+                conn.execute(
+                    "DELETE FROM pinboard_versions WHERE pinboard_id=?", (pid,)
+                )
+                return conn.execute(
+                    "DELETE FROM pinboards WHERE id=?", (pid,)
+                ).rowcount
+        finally:
+            conn.close()
+
+    deleted = await asyncio.to_thread(run)
+    if deleted:
+        EPOCHS.bump_user_data(name)
+    return web.json_response({"deleted": bool(deleted)})
+
+
+async def pinboards_get_version(request: web.Request) -> web.Response:
+    """One saved version's snapshot (reference api/pinboards.rs
+    list_pinboard_versions/…): layout + metadata, preview served by the
+    sibling /preview route."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    pid = _int_arg(request.match_info["pinboard_id"], "pinboard_id")
+    vid = _int_arg(request.match_info["version_id"], "version_id")
+
+    def run():
+        conn = state.db(name).reader()
+        row = conn.execute(
+            """SELECT id, layout, name_at_save, preview_w, preview_h,
+                      screenful_h, time_added,
+                      preview IS NOT NULL
+               FROM user_data.pinboard_versions
+               WHERE id=? AND pinboard_id=?""",
+            (vid, pid),
+        ).fetchone()
+        if row is None:
+            return None
+        items = [
+            r[0] for r in conn.execute(
+                "SELECT sha256 FROM user_data.pinboard_version_items "
+                "WHERE version_id=?",
+                (vid,),
+            ).fetchall()
+        ]
+        return {
+            "version_id": row[0], "layout": json.loads(row[1]),
+            "name_at_save": row[2], "preview_w": row[3],
+            "preview_h": row[4], "screenful_h": row[5],
+            "time_added": row[6], "has_preview": bool(row[7]),
+            "items": items,
+        }
+
+    version = await asyncio.to_thread(run)
+    if version is None:
+        return _json_error(404, "pinboard version not found")
+    return web.json_response(version)
+
+
+async def pinboards_version_preview(request: web.Request) -> web.Response:
+    """The stored preview blob (reference pinboard_version_preview): bytes
+    as saved by the client, private-cacheable by version id (immutable)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    pid = _int_arg(request.match_info["pinboard_id"], "pinboard_id")
+    vid = _int_arg(request.match_info["version_id"], "version_id")
+
+    def run():
+        conn = state.db(name).reader()
+        row = conn.execute(
+            "SELECT preview FROM user_data.pinboard_versions "
+            "WHERE id=? AND pinboard_id=?",
+            (vid, pid),
+        ).fetchone()
+        return row
+
+    row = await asyncio.to_thread(run)
+    if row is None or row[0] is None:
+        return _json_error(404, "no preview for this version")
+    blob = bytes(row[0])
+    ctype = "image/png" if blob[:8] == b"\x89PNG\r\n\x1a\n" else (
+        "image/jpeg" if blob[:3] == b"\xff\xd8\xff" else
+        "application/octet-stream"
+    )
+    return web.Response(
+        body=blob, content_type=ctype,
+        headers={"Cache-Control": "private, max-age=31536000, immutable"},
+    )
+
+
+async def pinboards_put_version_preview(request: web.Request) -> web.Response:
+    """Late preview upload (reference update_pinboard_version_preview):
+    the UI renders the board after save and PUTs the screenshot."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    pid = _int_arg(request.match_info["pinboard_id"], "pinboard_id")
+    vid = _int_arg(request.match_info["version_id"], "version_id")
+    body = await _dict_body(request)
+    if not body.get("preview_b64"):
+        return _json_error(400, "preview_b64 required")
+    try:
+        blob = base64.b64decode(body["preview_b64"])
+    except Exception:
+        return _json_error(400, "preview_b64 is not valid base64")
+
+    def run():
+        conn = state.db(name).user_data_write_connection()
+        try:
+            with conn:
+                return conn.execute(
+                    """UPDATE pinboard_versions
+                       SET preview=?,
+                           preview_w=COALESCE(?, preview_w),
+                           preview_h=COALESCE(?, preview_h),
+                           screenful_h=COALESCE(?, screenful_h)
+                       WHERE id=? AND pinboard_id=?""",
+                    (blob, body.get("preview_w"), body.get("preview_h"),
+                     body.get("screenful_h"), vid, pid),
+                ).rowcount
+        finally:
+            conn.close()
+
+    updated = await asyncio.to_thread(run)
+    if not updated:
+        return _json_error(404, "pinboard version not found")
+    return web.json_response({"ok": True})
+
+
+async def pinboards_search(request: web.Request) -> web.Response:
+    """Find the pinboards whose images match a PQL search (reference
+    api/search.rs search_pql_pinboards:860-960, routed under the pinboard
+    authz domain — main.rs:490-499 — so search-only policy grants don't
+    leak board names).
+
+    Runs the query the executor way (full ordered row set, no per-row
+    dicts), intersects with every board's HEAD-version pins by sha256,
+    and returns the matching boards unpaginated — ordered by the position
+    of each board's best-ranked matching image, then match fraction, then
+    match count, then recency. ``page``/``page_size``/``partition_by``/
+    ``count``/``results`` in the body are ignored: one result shape."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    user = request.query.get("user", "user")
+    try:
+        payload = await request.json() if request.can_read_body else {}
+    except Exception:
+        return _json_error(400, "invalid JSON body")
+    if payload and not isinstance(payload, dict):
+        return _json_error(400, "body must be a JSON object")
+
+    def run():
+        query = pql.PqlQuery.from_json(payload or {})
+        query.count = True
+        query.results = True
+        query.partition_by = []
+        query.page = 1
+        ex = state.executor(name)
+        # Cover the full corpus in one "page": the intersection needs every
+        # matched row's order position, not a window.
+        query.page_size = max(int(ex.base_snapshot(query.entity).n), 1)
+        r = ex.execute(query, rows_only=True)
+        shas = r.base.col("sha256")[r.rows]
+        # First (best) position per distinct sha.
+        uniq, first_idx = np.unique(shas, return_index=True)
+        best_pos = dict(zip(uniq.tolist(), first_idx.tolist()))
+
+        conn = state.db(name).reader()
+        boards = conn.execute(
+            """SELECT p.id, p.name, p.head_version_id, p.time_added,
+                      p.time_updated, v.preview_w, v.preview_h,
+                      v.screenful_h,
+                      (SELECT COUNT(*) FROM user_data.pinboard_versions pv
+                       WHERE pv.pinboard_id = p.id) AS version_count
+               FROM user_data.pinboards p
+               LEFT JOIN user_data.pinboard_versions v
+                 ON v.id = p.head_version_id
+               WHERE p.user = ?""",
+            (user,),
+        ).fetchall()
+        ranked = []
+        for (pid, bname, head, t_add, t_upd, pw, ph, sh, vcount) in boards:
+            if head is None:
+                continue
+            pins = [
+                row[0] for row in conn.execute(
+                    "SELECT sha256 FROM user_data.pinboard_version_items "
+                    "WHERE version_id=?",
+                    (head,),
+                ).fetchall()
+            ]
+            matched = [p for p in pins if p in best_pos]
+            if not matched:
+                continue
+            best = min(best_pos[p] for p in matched)
+            ranked.append(
+                (
+                    best if r.ordered else 0,
+                    -(len(matched) / max(len(pins), 1)),
+                    -len(matched),
+                    t_upd or "", -pid,
+                    {
+                        "id": pid, "name": bname, "head_version_id": head,
+                        "time_added": t_add, "time_updated": t_upd,
+                        "preview_w": pw, "preview_h": ph,
+                        "screenful_h": sh, "item_count": len(pins),
+                        "version_count": vcount,
+                        "match_count": len(matched),
+                    },
+                )
+            )
+        # best-rank asc, fraction desc, count desc, recency desc, id desc —
+        # stable sorts chained least-significant first (fraction/count are
+        # stored negated so the final ascending pass orders them desc).
+        ranked.sort(key=lambda t: t[4])  # -id ascending == id desc
+        ranked.sort(key=lambda t: t[3], reverse=True)  # ISO recency desc
+        ranked.sort(key=lambda t: (t[0], t[1], t[2]))
+        return [t[5] for t in ranked], r.metrics
+
+    try:
+        matches, metrics = await asyncio.to_thread(run)
+    except pql.PqlError as exc:
+        # Same malformed-query contract as search_pql: 400, not a 500
+        # traceback.
+        return _json_error(400, str(exc))
+    except Exception as exc:  # noqa: BLE001 — query-induced failures are 4xx
+        from panoptikon_tpu_torch.models.manager import ModelLoadError
+        from panoptikon_tpu_torch.models.registry import RegistryError
+
+        if isinstance(
+            exc, (RegistryError, ModelLoadError, KeyError, ValueError)
+        ):
+            return _json_error(400, str(exc))
+        raise
+    return web.json_response(
+        {
+            "pinboards": matches,
+            "metrics": {
+                "compile": round(metrics.compile_s, 6),
+                "execute": round(metrics.execute_s, 6),
+                "path": metrics.path,
+                "cache": "inactive",
+            },
+        }
+    )
+
+
+# -- jobs --------------------------------------------------------------------
+
+
+def _rows_as_dicts(conn, sql: str, params=()) -> list[dict]:
+    cur = conn.execute(sql, params)
+    cols = [d[0] for d in cur.description]
+    return [dict(zip(cols, r)) for r in cur.fetchall()]
+
+
+async def history_scans(request: web.Request) -> web.Response:
+    """File-scan history (reference scan-history endpoint; file_scans
+    carries the persisted phase counters/timings)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    try:
+        limit = int(request.query.get("limit", 50))
+    except ValueError:
+        return _json_error(400, "limit must be an integer")
+
+    def run():
+        return _rows_as_dicts(
+            state.db(name).reader(),
+            "SELECT * FROM file_scans ORDER BY id DESC LIMIT ?", (limit,),
+        )
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def history_data(request: web.Request) -> web.Response:
+    """Extraction-job history (data_log: per-job setter, batch, totals,
+    data_load/inference phase timings)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    try:
+        limit = int(request.query.get("limit", 50))
+    except ValueError:
+        return _json_error(400, "limit must be an integer")
+
+    def run():
+        return _rows_as_dicts(
+            state.db(name).reader(),
+            "SELECT * FROM data_log ORDER BY id DESC LIMIT ?", (limit,),
+        )
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def failures_extraction(request: web.Request) -> web.Response:
+    """The failed-media extraction ledger; ?setter= filters."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    setter = request.query.get("setter")
+
+    def run():
+        conn = state.db(name).reader()
+        if setter:
+            return _rows_as_dicts(
+                conn,
+                "SELECT * FROM extraction_errors WHERE setter_name=?"
+                " ORDER BY last_seen DESC",
+                (setter,),
+            )
+        return _rows_as_dicts(
+            conn, "SELECT * FROM extraction_errors ORDER BY last_seen DESC"
+        )
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def failures_extraction_clear(request: web.Request) -> web.Response:
+    """Clear ledger rows → the next work query retries those items (the
+    reference's retry directive, failed-media-retry-design)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    setter = request.query.get("setter")
+    item_id = request.query.get("item_id")
+    if item_id is not None:
+        try:
+            int(item_id)
+        except ValueError:
+            return _json_error(400, "item_id must be an integer")
+
+    def run():
+        db = state.db(name)
+        writer = state.writers.get(db)
+
+        def unit(c):
+            wheres, params = ["1=1"], []
+            if setter:
+                wheres.append("setter_name=?")
+                params.append(setter)
+            if item_id:
+                wheres.append("item_id=?")
+                params.append(int(item_id))
+            return c.execute(
+                f"DELETE FROM extraction_errors WHERE {' AND '.join(wheres)}",
+                params,
+            ).rowcount
+
+        return writer.call(unit)
+
+    cleared = await asyncio.to_thread(run)
+    return web.json_response({"cleared": cleared})
+
+
+async def failures_scan(request: web.Request) -> web.Response:
+    """The per-path scan-error ledger (stage, class, blocker)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+
+    def run():
+        return _rows_as_dicts(
+            state.db(name).reader(),
+            "SELECT * FROM scan_errors ORDER BY last_seen DESC LIMIT 500",
+        )
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def jobs_status(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    return web.json_response(state.queue.status(_db_name(request)))
+
+
+async def jobs_cancel(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    job_id = _int_arg(request.match_info["job_id"], "job_id")
+    ok = state.queue.cancel(_db_name(request), job_id)
+    return web.json_response({"cancelled": ok})
+
+
+async def jobs_enqueue_extraction(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    body = await request.json()
+    if "inference_id" not in body:
+        return _json_error(400, "inference_id required")
+    handle = state.queue.enqueue(
+        _db_name(request), JobType.DATA_EXTRACTION, body
+    )
+    return web.json_response({"job_id": handle.job_id})
+
+
+async def jobs_delete_setter_data(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    body = await request.json()
+    handle = state.queue.enqueue(
+        _db_name(request), JobType.JOB_DATA_DELETION,
+        {"setter_name": body["setter_name"]},
+    )
+    return web.json_response({"job_id": handle.job_id})
+
+
+async def folders_get(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+
+    def run():
+        return [
+            {"path": p, "included": inc}
+            for p, inc in store.list_folders(state.db(name).reader())
+        ]
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def folders_put(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    body = await request.json()
+
+    def run():
+        db = state.db(name)
+        writer = state.writers.get(db)
+
+        def unit(conn):
+            for path in body.get("included", []):
+                store.add_folder(conn, path, True)
+            for path in body.get("excluded", []):
+                store.add_folder(conn, path, False)
+
+        writer.call(unit)
+
+    await asyncio.to_thread(run)
+    if body.get("rescan", True):
+        state.queue.enqueue(name, JobType.FOLDER_RESCAN)
+    return web.json_response({"ok": True})
+
+
+async def folders_rescan(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    handle = state.queue.enqueue(_db_name(request), JobType.FOLDER_RESCAN)
+    return web.json_response({"job_id": handle.job_id})
+
+
+async def quants_status(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    return web.json_response(
+        await asyncio.to_thread(reconcile.coverage_status, state.db(name))
+    )
+
+
+async def quants_reconcile(request: web.Request) -> web.Response:
+    """Enqueue a reconcile. ``{"force_rescale": true}`` re-derives the
+    artifact (explicit rebuild — the ONLY path that churns frozen codes,
+    mirroring the reference's requant rebuild, vector_quants.rs:585)."""
+    state: AppState = request.app["state"]
+    body = {}
+    if request.can_read_body:
+        try:
+            body = await request.json()
+        except Exception:
+            body = {}
+    handle = state.queue.enqueue(
+        _db_name(request), JobType.VECTOR_QUANT_RECONCILE,
+        params={"force_rescale": bool(body.get("force_rescale"))},
+    )
+    return web.json_response({"job_id": handle.job_id})
+
+
+async def cronjob_run(request: web.Request) -> web.Response:
+    """Manual cron trigger (reference api/jobs.rs manual_trigger_cronjob):
+    enqueue every configured cron entry for this DB now. The queue's
+    dedupe keeps an already-queued duplicate from stacking, matching the
+    reference's 'skipped: still queued or running' outcome."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    from panoptikon_tpu_torch.jobs.cron import CronScheduler
+
+    entries = await asyncio.to_thread(CronScheduler.entries, state.db(name))
+    fired = 0
+    for entry in entries:
+        try:
+            job_type = JobType(entry.job)
+        except ValueError:
+            continue
+        state.queue.enqueue(name, job_type, entry.params)
+        fired += 1
+    detail = (
+        f"Cronjob triggered ({fired} job(s) enqueued)."
+        if fired
+        else "Cronjob skipped: no cron jobs configured for this database."
+    )
+    return web.json_response({"detail": detail})
+
+
+async def cronjob_schedule(request: web.Request) -> web.Response:
+    """Schedule introspection (reference api/jobs.rs get_cronjob_schedule):
+    per configured entry — schedule string, parse validity, and the next
+    automatic run time."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    from panoptikon_tpu_torch.jobs import cron as cron_mod
+
+    def run():
+        out = []
+        for entry in cron_mod.CronScheduler.entries(state.db(name)):
+            nxt = cron_mod.next_match(entry.schedule)
+            out.append(
+                {
+                    "job": entry.job,
+                    "cron_schedule": entry.schedule,
+                    "valid": cron_mod.schedule_valid(entry.schedule),
+                    "next_run": nxt,
+                }
+            )
+        return out
+
+    return web.json_response(
+        {
+            "enabled": state.cron is not None,
+            "schedules": await asyncio.to_thread(run),
+        }
+    )
+
+
+async def maintenance_enqueue(request: web.Request) -> web.Response:
+    """Explicit DB maintenance (reference /api/jobs/maintenance): the same
+    deferred ANALYZE/checkpoint/VACUUM unit the queue synthesizes at batch
+    boundaries, on demand."""
+    state: AppState = request.app["state"]
+    handle = state.queue.enqueue(
+        _db_name(request), JobType.DB_MAINTENANCE, params={}
+    )
+    return web.json_response({"job_id": handle.job_id})
+
+
+async def setters_total(request: web.Request) -> web.Response:
+    """Per-setter extracted-row totals (reference api/jobs.rs
+    get_setter_data_count → db/extraction_log.rs get_setters_total_data)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+
+    def run():
+        conn = state.db(name).reader()
+        return {
+            setter: count
+            for setter, count in conn.execute(
+                """SELECT s.name, COUNT(*) FROM item_data d
+                   JOIN setters s ON s.id = d.setter_id
+                   GROUP BY s.name ORDER BY s.name""",
+            ).fetchall()
+        }
+
+    return web.json_response({"total_counts": await asyncio.to_thread(run)})
+
+
+async def desktop_update_status(request: web.Request) -> web.Response:
+    """Reference /api/desktop/update-status: current vs latest from the
+    configured release manifest, with ribbon snooze/dismiss state. The
+    manifest check is cached for 5 minutes."""
+    state: AppState = request.app["state"]
+    import panoptikon_tpu_torch as _pkg
+    from panoptikon_tpu_torch.utils.version import fetch_manifest, newer_than
+
+    current = _pkg.__version__
+    if not state.update_manifest:
+        return web.json_response({"configured": False, "current": current})
+    cache = state.update_ribbon
+    now = time.time()
+    if cache.get("checked_at", 0) + 300 < now:
+        def check():
+            return fetch_manifest(state.update_manifest)
+
+        try:
+            manifest = await asyncio.to_thread(check)
+            cache["latest"] = str(manifest.get("version", ""))
+            cache["error"] = None
+        except Exception as exc:
+            cache["error"] = str(exc)
+        cache["checked_at"] = now
+    latest = cache.get("latest") or ""
+    snoozed_until = cache.get("snoozed_until")
+    return web.json_response({
+        "configured": True,
+        "current": current,
+        "latest": latest or None,
+        "error": cache.get("error"),
+        "update_available": bool(latest) and newer_than(latest, current),
+        "snoozed": bool(snoozed_until and snoozed_until > now),
+        "dismissed_version": cache.get("dismissed_version"),
+    })
+
+
+async def desktop_ribbon_snooze(request: web.Request) -> web.Response:
+    """Snooze the update ribbon for 24 h; 409 when the available version
+    changed under the client (reference update-ribbon/snooze contract)."""
+    state: AppState = request.app["state"]
+    body = await request.json()
+    latest = state.update_ribbon.get("latest")
+    if latest and body.get("version") != latest:
+        return _json_error(409, "available update version changed")
+    state.update_ribbon["snoozed_until"] = time.time() + 24 * 3600
+    return web.Response(status=204)
+
+
+async def desktop_ribbon_dismiss(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    body = await request.json()
+    latest = state.update_ribbon.get("latest")
+    if latest and body.get("version") != latest:
+        return _json_error(409, "available update version changed")
+    state.update_ribbon["dismissed_version"] = body.get("version")
+    return web.Response(status=204)
+
+
+_EXTERNAL_INPUT_RE = None
+
+
+def _external_input_vars(state: "AppState") -> list[str]:
+    """Env variables referenced as ${VAR}/${VAR:-d} by registry TOML —
+    the reference's external-input declarations (inference.toml:1-36):
+    inputs the operator must supply (API keys, dump paths)."""
+    import re as _re
+
+    global _EXTERNAL_INPUT_RE
+    if _EXTERNAL_INPUT_RE is None:
+        _EXTERNAL_INPUT_RE = _re.compile(r"\$\{([A-Za-z_][A-Za-z0-9_]*)")
+    seen: list[str] = []
+    for d in state.registry_dirs:
+        if not d or not Path(d).is_dir():
+            continue
+        for f in sorted(Path(d).glob("*.toml")):
+            for var in _EXTERNAL_INPUT_RE.findall(f.read_text()):
+                if var not in seen:
+                    seen.append(var)
+    return seen
+
+
+async def desktop_external_inputs(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    import os as _os
+
+    def run():
+        return [
+            {"variable": v, "set": v in _os.environ}
+            for v in _external_input_vars(state)
+        ]
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+_ENV_WRITE_LOCK = asyncio.Lock()
+
+
+async def desktop_external_input_put(request: web.Request) -> web.Response:
+    """Set an external input: updates the process env AND persists to the
+    root .env (load_dotenv reads it on the next boot).
+
+    Only variables DECLARED by the inference registry are settable — the
+    reference rejects undeclared names (api/desktop.rs
+    update_external_inputs), and without that check this endpoint is an
+    arbitrary-code-execution vector (LD_PRELOAD/PYTHONPATH into a process
+    env that children inherit). Writes serialize under a process-wide lock
+    (the reference's ENV_WRITE_LOCK) so concurrent PUTs can't lose lines
+    in the .env read-modify-write.
+    """
+    state: AppState = request.app["state"]
+    import os as _os
+
+    var = request.match_info["variable"]
+    if not var.isidentifier():
+        return _json_error(400, "invalid variable name")
+    declared = await asyncio.to_thread(_external_input_vars, state)
+    if var not in declared:
+        return _json_error(
+            400, f"variable {var!r} is not declared by the inference registry"
+        )
+    body = await request.json()
+    value = str(body.get("value", ""))
+    if "\n" in value or "\r" in value:
+        # A newline in the VALUE would smuggle a second KEY=VALUE line
+        # into the .env (LD_PRELOAD etc.) past the declared-name check.
+        return _json_error(400, "value must not contain newlines")
+
+    def run():
+        _os.environ[var] = value
+        env_path = state.data_root.parent / ".env"
+        lines = []
+        if env_path.exists():
+            lines = env_path.read_text().splitlines()
+        out, replaced = [], False
+        for line in lines:
+            if line.split("=", 1)[0].strip() == var:
+                out.append(f"{var}={value}")
+                replaced = True
+            else:
+                out.append(line)
+        if not replaced:
+            out.append(f"{var}={value}")
+        env_path.write_text("\n".join(out) + "\n")
+
+    async with _ENV_WRITE_LOCK:
+        await asyncio.to_thread(run)
+    return web.Response(status=204)
+
+
+# -- desktop setup wizard ------------------------------------------------
+# Gated on desktop-managed mode (reference api/desktop.rs
+# ensure_desktop_managed:145-151 — unmanaged servers 404 these routes so
+# the wizard surface can't be driven by arbitrary network clients).
+
+
+def _managed_or_404(state: AppState) -> Optional[web.Response]:
+    if not getattr(state, "desktop_managed", False):
+        return _json_error(404, "Desktop lifecycle endpoint not found")
+    return None
+
+
+async def desktop_setup_status(request: web.Request) -> web.Response:
+    """Ready once ≥1 included folder reached the filescan pipeline
+    (reference api/desktop.rs setup_status → db/setup.rs
+    is_ready_for_desktop)."""
+    state: AppState = request.app["state"]
+    if (resp := _managed_or_404(state)) is not None:
+        return resp
+    name = _db_name(request)
+    from panoptikon_tpu_torch.db import setup as dbsetup
+
+    ready = await asyncio.to_thread(
+        lambda: dbsetup.is_ready_for_desktop(state.db(name).reader())
+    )
+    return web.json_response({"index_db": name, "ready": ready})
+
+
+async def desktop_validate_folders(request: web.Request) -> web.Response:
+    """Stage-and-preview folder validation (api/desktop.rs
+    validate_setup_folders): nothing is written."""
+    state: AppState = request.app["state"]
+    if (resp := _managed_or_404(state)) is not None:
+        return resp
+    name = _db_name(request)
+    body = await _dict_body(request)
+    from panoptikon_tpu_torch.db import setup as dbsetup
+
+    def run():
+        conn = None if body.get("new_database") else state.db(name).reader()
+        return dbsetup.validate_folders(
+            conn,
+            body.get("included_folders") or [],
+            body.get("excluded_folders") or [],
+        )
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def desktop_validate_continuous(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    if (resp := _managed_or_404(state)) is not None:
+        return resp
+    name = _db_name(request)
+    body = await _dict_body(request)
+    from panoptikon_tpu_torch.db import setup as dbsetup
+
+    def run():
+        conn = None if body.get("new_database") else state.db(name).reader()
+        return dbsetup.validate_continuous_folders(
+            conn,
+            body.get("included_folders") or [],
+            body.get("excluded_folders") or [],
+            body.get("continuous_folders") or [],
+        )
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def desktop_preview_schedule(request: web.Request) -> web.Response:
+    """Cron-string preview (api/desktop.rs preview_setup_schedule)."""
+    state: AppState = request.app["state"]
+    if (resp := _managed_or_404(state)) is not None:
+        return resp
+    body = await _dict_body(request)
+    from panoptikon_tpu_torch.jobs import cron as cron_mod
+
+    schedule = str(body.get("cron_schedule", ""))
+    if not cron_mod.schedule_valid(schedule):
+        return web.json_response(
+            {"valid": False, "next_run": None,
+             "error": "schedule must be 5 cron fields of ints/*/,-/steps"}
+        )
+    return web.json_response(
+        {"valid": True, "next_run": cron_mod.next_match(schedule),
+         "error": None}
+    )
+
+
+async def desktop_setup_complete(request: web.Request) -> web.Response:
+    """Commit the wizard (api/desktop.rs complete_setup:973-1110): validate
+    everything again against the TARGET database, optionally create it,
+    write folders + per-DB config (continuous scan, scan-type switches,
+    cron), then enqueue the initial scan + extraction jobs."""
+    state: AppState = request.app["state"]
+    if (resp := _managed_or_404(state)) is not None:
+        return resp
+    try:
+        body = await request.json()
+    except Exception:
+        return _json_error(400, "invalid JSON body")
+    if not isinstance(body, dict):
+        return _json_error(400, "body must be a JSON object")
+    from panoptikon_tpu_torch.db import setup as dbsetup
+    from panoptikon_tpu_torch.jobs import cron as cron_mod
+
+    included = body.get("included_folders") or []
+    if not any(str(p).strip() for p in included):
+        return _json_error(400, "At least one included directory is required")
+    new_db = body.get("new_index_db")
+    if new_db is not None:
+        new_db = str(new_db)
+        if not (3 <= len(new_db) <= 32) or not all(
+            c.isalnum() or c == "_" for c in new_db
+        ):
+            return _json_error(
+                400,
+                "Database names must contain 3-32 letters, numbers, or "
+                "underscores",
+            )
+        if new_db in (state.databases.names() or []):
+            return _json_error(400, f"Index database {new_db} already exists")
+    schedule = body.get("cron_schedule")
+    if schedule is not None and not cron_mod.schedule_valid(str(schedule)):
+        return _json_error(400, f"Invalid routine schedule: {schedule!r}")
+    cron_jobs = body.get("cron_jobs") or []
+    seen_models = set()
+    for job in cron_jobs:
+        if not isinstance(job, dict):
+            return _json_error(400, "cron_jobs entries must be objects")
+        iid = job.get("inference_id")
+        if not iid:
+            return _json_error(400, "cron job missing inference_id")
+        if iid in seen_models:
+            return _json_error(
+                400, f"Model {iid} was selected more than once"
+            )
+        seen_models.add(iid)
+        group, _, model = iid.partition("/")
+        try:
+            state.model_registry.resolve(group, model)
+        except Exception:
+            return _json_error(400, f"unknown model {iid!r}")
+        # Client-supplied numerics → 400, not a 500 traceback (the file's
+        # _int_arg convention).
+        bs = job.get("batch_size")
+        try:
+            if bs is not None and int(bs) < 1:
+                raise ValueError
+        except (TypeError, ValueError):
+            return _json_error(400, f"Model {iid} has an invalid batch size")
+        th = job.get("threshold")
+        try:
+            if th is not None and not (0.0 <= float(th) <= 1.0):
+                raise ValueError
+        except (TypeError, ValueError):
+            return _json_error(
+                400, f"Model {iid} has an invalid confidence threshold"
+            )
+
+    target = new_db or _db_name(request)
+
+    def run():
+        db = state.db(target)  # creates + migrates when new
+        conn = db.reader()
+        validation = dbsetup.validate_folders(
+            conn, included, body.get("excluded_folders") or []
+        )
+        if validation["errors"]:
+            issue = validation["errors"][0]
+            raise web.HTTPBadRequest(
+                reason=f"{issue['path']}: {issue['error']}"
+            )
+        continuous = dbsetup.validate_continuous_folders(
+            conn,
+            validation["included_folders"],
+            validation["excluded_folders"],
+            body.get("continuous_filescan_included_folders") or [],
+        )
+        if continuous["errors"]:
+            issue = continuous["errors"][0]
+            raise web.HTTPBadRequest(
+                reason=f"{issue['path']}: {issue['error']}"
+            )
+        writer = state.writers.get(db)
+
+        def unit(c):
+            for path in validation["included_folders"]:
+                store.add_folder(c, path, True)
+            for path in validation["excluded_folders"]:
+                store.add_folder(c, path, False)
+            store.set_config(
+                c, "continuous_scan",
+                {
+                    "enabled": bool(body.get("continuous_filescan_enabled")),
+                    "poll_interval_secs": body.get(
+                        "continuous_filescan_poll_interval_secs"
+                    ),
+                    "included_folders": continuous["included_folders"],
+                },
+            )
+            store.set_config(
+                c, "scan_types",
+                {
+                    "images": bool(body.get("scan_images", True)),
+                    "video": bool(body.get("scan_video", True)),
+                    "audio": bool(body.get("scan_audio", True)),
+                    "pdf": bool(body.get("scan_pdf", True)),
+                    "html": bool(body.get("scan_html", True)),
+                },
+            )
+            if cron_jobs or schedule:
+                entries = [
+                    {
+                        "schedule": str(schedule or "0 3 * * *"),
+                        "job": "data_extraction",
+                        "params": {
+                            "inference_id": j["inference_id"],
+                            **({"batch_size": j["batch_size"]}
+                               if j.get("batch_size") else {}),
+                            **({"threshold": j["threshold"]}
+                               if j.get("threshold") is not None else {}),
+                        },
+                    }
+                    for j in cron_jobs
+                ]
+                store.set_config(c, "cron_jobs", entries)
+
+        writer.call(unit)
+        return validation
+
+    try:
+        await asyncio.to_thread(run)
+    except web.HTTPBadRequest as exc:
+        return _json_error(400, exc.reason)
+    # Initial work: scan now, then the selected models (the reference's
+    # run_initial_cronjob).
+    jobs = [state.queue.enqueue(target, JobType.FOLDER_RESCAN).job_id]
+    for job in cron_jobs:
+        params = {"inference_id": job["inference_id"]}
+        if job.get("batch_size"):
+            params["batch_size"] = job["batch_size"]
+        if job.get("threshold") is not None:
+            params["threshold"] = job["threshold"]
+        jobs.append(
+            state.queue.enqueue(
+                target, JobType.DATA_EXTRACTION, params=params
+            ).job_id
+        )
+    if state.continuous is not None:
+        state.continuous.ensure(state.db(target))
+    return web.json_response({"index_db": target, "jobs": jobs})
+
+
+async def desktop_update_window_open(request: web.Request) -> web.Response:
+    """Reference open_desktop_update_window: asks the managing desktop
+    shell to show its update window. No desktop binary exists here
+    (declared divergence) — record the request so a supervisor can poll
+    it, and acknowledge."""
+    state: AppState = request.app["state"]
+    if (resp := _managed_or_404(state)) is not None:
+        return resp
+    state.update_ribbon["window_requested_at"] = time.time()
+    return web.Response(status=204)
+
+
+async def builtin_ui(request: web.Request) -> web.Response:
+    """Zero-dependency built-in search UI (api/ui.html). The reference's
+    full UI remains a separate supervised app fronted by the reverse proxy
+    ([upstreams].ui); this page makes a bare server usable from a browser
+    — search, thumbnails, paging, job controls."""
+    path = Path(__file__).resolve().parent / "ui.html"
+    return web.Response(text=path.read_text(), content_type="text/html")
+
+
+_SETTABLE_CONFIG_KEYS = ("continuous_scan", "vector_quants", "scan_types")
+
+
+async def db_config_get(request: web.Request) -> web.Response:
+    """Per-DB system config (user-visible keys)."""
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+
+    def run():
+        conn = state.db(name).reader()
+        return {k: store.get_config(conn, k, None) for k in _SETTABLE_CONFIG_KEYS}
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def db_config_put(request: web.Request) -> web.Response:
+    """Set per-DB system config keys. Writes land in the system_config
+    table (source of truth) AND mirror to the per-DB config.toml through
+    the lossless editor — hand-written comments survive programmatic
+    writes, and hand edits to the file win at next boot
+    (db/config_file.py; reference system_config.rs save)."""
+    from panoptikon_tpu_torch.db import config_file
+
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    body = await request.json()
+    unknown = [k for k in body if k not in _SETTABLE_CONFIG_KEYS]
+    if unknown:
+        return _json_error(400, f"unknown config keys: {unknown}")
+
+    def run():
+        db = state.db(name)
+        writer = state.writers.get(db)
+
+        def unit(conn):
+            for k, v in body.items():
+                store.set_config(conn, k, v)
+
+        writer.call(unit)
+        for k, v in body.items():
+            if isinstance(v, dict):
+                config_file.write_key(db, k, v)
+
+    await asyncio.to_thread(run)
+    if "continuous_scan" in body:
+        await asyncio.to_thread(state.reconsider_continuous)
+    return web.json_response({"ok": True})
+
+
+async def cron_get(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+
+    def run():
+        return store.get_config(state.db(name).reader(), "cron_jobs", [])
+
+    return web.json_response(await asyncio.to_thread(run))
+
+
+async def cron_put(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    body = await request.json()
+
+    def run():
+        db = state.db(name)
+        state.writers.get(db).call(lambda c: store.set_config(c, "cron_jobs", body))
+
+    await asyncio.to_thread(run)
+    return web.json_response({"ok": True})
+
+
+async def db_list(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    return web.json_response({"databases": state.databases.names() or ["default"]})
+
+
+async def db_create(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    body = await request.json()
+    name = body.get("name", "")
+    if not name or not name.replace("-", "").replace("_", "").isalnum():
+        return _json_error(400, "database name must be alphanumeric/-/_")
+    await asyncio.to_thread(state.databases.get, name)
+    return web.json_response({"created": name})
+
+
+async def open_file(request: web.Request) -> web.Response:
+    """Host file-manager integration (reference api/open.rs): reveal a file
+    or open its folder on the server's desktop. Gated on a desktop opener
+    being present; never exposed beyond loopback policies by default."""
+    import shutil as _shutil
+    import subprocess
+
+    state: AppState = request.app["state"]
+    name = _db_name(request)
+    sha = request.match_info["sha256"]
+    folder = request.query.get("folder", "0") == "1"
+
+    def run():
+        conn = state.db(name).reader()
+        row = conn.execute(
+            "SELECT path FROM files WHERE sha256=? AND available=1 LIMIT 1", (sha,)
+        ).fetchone()
+        return row
+
+    row = await asyncio.to_thread(run)
+    if row is None:
+        return _json_error(404, "item not found")
+    opener = _shutil.which("xdg-open") or _shutil.which("open")
+    if opener is None:
+        return _json_error(501, "no desktop opener on this host (blocker=xdg-open)")
+    target = str(Path(row[0]).parent) if folder else row[0]
+    try:
+        subprocess.Popen([opener, target], start_new_session=True)
+    except OSError as exc:
+        return _json_error(500, str(exc))
+    return web.json_response({"opened": target})
+
+
+# -- inference surface -------------------------------------------------------
+
+
+async def inferio_predict(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    group = request.match_info["group"]
+    inference_id = request.match_info["inference_id"]
+    cache_key = request.query.get("cache_key", "default")
+    lru_size = _int_arg(request.query.get("lru_size", 1), "lru_size")
+    ttl = _float_arg(request.query.get("ttl_seconds", 3600), "ttl_seconds")
+    max_batch = request.query.get("max_batch")
+    max_batch = _int_arg(max_batch, "max_batch") if max_batch else None
+
+    inputs: list[PredictionInput] = []
+    if request.content_type.startswith("multipart/"):
+        data_items: list = []
+        files: dict[int, bytes] = {}
+        reader = await request.multipart()
+        async for part in reader:
+            if part.name == "data":
+                payload = json.loads(await part.text())
+                data_items = payload.get("inputs", payload) if isinstance(payload, dict) else payload
+            elif part.name and part.name.isdigit():
+                files[int(part.name)] = await part.read()
+        for i, data in enumerate(data_items):
+            inputs.append(PredictionInput(data=data, file=files.get(i)))
+    else:
+        body = await request.json()
+        for entry in body.get("inputs", []):
+            file_bytes = None
+            if isinstance(entry, dict) and "file_b64" in entry:
+                file_bytes = base64.b64decode(entry.pop("file_b64"))
+            if isinstance(entry, dict) and "__data__" in entry:
+                # Sentinel wrap for non-dict payloads riding with a file
+                # (http_backend): unwrap so the impl sees the raw value,
+                # exactly as a local backend would deliver it.
+                entry = entry["__data__"]
+            inputs.append(PredictionInput(data=entry, file=file_bytes))
+
+    def run():
+        return state.manager.predict(
+            f"{group}/{inference_id}", inputs,
+            cache_key=cache_key, lru_size=lru_size, ttl_seconds=ttl,
+            max_batch=max_batch,
+        )
+
+    try:
+        outputs = await asyncio.to_thread(run)
+    except Exception as exc:
+        return _json_error(500, str(exc))
+    encoded = []
+    for out in outputs:
+        if isinstance(out, bytes):
+            encoded.append(
+                {"__type__": "base64", "content": base64.b64encode(out).decode()}
+            )
+        else:
+            encoded.append(out)
+    return web.json_response({"outputs": encoded})
+
+
+async def inferio_load(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    group = request.match_info["group"]
+    inference_id = request.match_info["inference_id"]
+    cache_key = request.query.get("cache_key", "default")
+    lru_size = _int_arg(request.query.get("lru_size", 1), "lru_size")
+    ttl = _float_arg(request.query.get("ttl_seconds", 3600), "ttl_seconds")
+    prewarm = request.query.get("prewarm", "").lower() in ("1", "true", "yes")
+
+    def run():
+        state.manager.load_model(
+            f"{group}/{inference_id}", cache_key=cache_key,
+            lru_size=lru_size, ttl_seconds=ttl, prewarm=prewarm,
+        )
+
+    try:
+        await asyncio.to_thread(run)
+    except Exception as exc:
+        return _json_error(500, str(exc))
+    return web.json_response({"ok": True})
+
+
+async def inferio_unload(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    group = request.match_info["group"]
+    inference_id = request.match_info["inference_id"]
+    cache_key = request.query.get("cache_key")
+    gone = state.manager.unload_model(f"{group}/{inference_id}", cache_key)
+    return web.json_response({"unloaded": gone})
+
+
+async def inferio_metadata(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+
+    def run():
+        meta = state.model_registry.metadata()
+        # Availability overlay (capability.rs:1-10): an impl class may
+        # declare `available(config)`; unknown never filters — ids without
+        # the hook stay visible and unmarked.
+        for group, body in meta.items():
+            for inf_id in body.get("inference_ids", {}):
+                try:
+                    resolved = state.model_registry.resolve(group, inf_id)
+                    impl_cls = IMPL_INDEX.get(resolved.impl_class)
+                    probe = getattr(impl_cls, "available", None)
+                    if probe is not None:
+                        body["inference_ids"][inf_id] = dict(
+                            body["inference_ids"][inf_id] or {},
+                            available=bool(probe(resolved.spawn_kwargs())),
+                        )
+                except Exception:
+                    continue
+        return meta
+
+    try:
+        return web.json_response(await asyncio.to_thread(run))
+    except Exception as exc:
+        return _json_error(500, str(exc))
+
+
+async def inferio_cache_list(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    return web.json_response(state.manager.loaded_models())
+
+
+async def inferio_cache_clear(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    cache_key = request.match_info["cache_key"]
+    state.manager.clear_cache(cache_key)
+    return web.json_response({"ok": True})
+
+
+# -- relay pairing -----------------------------------------------------------
+# Durable policy-scoped pairing registry + two-phase operations: api/relay.py
+# (reference api/relay.rs). Routes are appended from relay.ROUTES below.
+
+
+async def openapi_doc(request: web.Request) -> web.Response:
+    """OpenAPI 3.1 document: paths from the route table, component schemas
+    derived from the PQL dataclasses (the reference serves utoipa-generated
+    docs at /openapi.json — here the dataclasses ARE the wire types)."""
+    from panoptikon_tpu_torch.utils.schema_gen import collect_schemas
+
+    paths: dict = {}
+    for route in request.app.router.routes():
+        info = route.get_info()
+        path = info.get("path") or info.get("formatter")
+        if not path or path in ("/openapi.json",):
+            continue
+        method = route.method.lower()
+        if method == "head":
+            continue
+        entry = paths.setdefault(
+            path.replace("{", "{").replace("}", "}"), {}
+        )
+        op = {
+            "summary": (route.handler.__doc__ or route.handler.__name__).split("\n")[0],
+            "responses": {"200": {"description": "OK"}},
+        }
+        if path == "/api/search/pql" and method == "post":
+            op["requestBody"] = {
+                "content": {
+                    "application/json": {
+                        "schema": {"$ref": "#/components/schemas/PqlQuery"}
+                    }
+                }
+            }
+        entry[method] = op
+    schemas = collect_schemas([
+        pql.PqlQuery, pql.SortableOptions, pql.Rrf, pql.MatchFilter,
+        pql.MatchPath, pql.MatchText, pql.MatchTags, pql.InBookmarks,
+        pql.InPinboard, pql.SemanticTextSearch, pql.SemanticImageSearch,
+        pql.SimilarTo, pql.ProcessedBy, pql.HasUnprocessedData,
+        pql.FailedFor,
+    ])
+    doc = {
+        "openapi": "3.1.0",
+        "info": {
+            "title": "panoptikon_tpu",
+            "version": __import__("panoptikon_tpu_torch").__version__,
+        },
+        "paths": paths,
+        "components": {"schemas": schemas},
+    }
+    return web.json_response(doc)
+
+
+async def docs_page(request: web.Request) -> web.Response:
+    """Self-contained API docs page (no CDN — this image has zero egress;
+    the reference mounts Swagger/Redoc). Renders /openapi.json client-side."""
+    html = """<!doctype html><html><head><meta charset="utf-8">
+<title>panoptikon_tpu API</title>
+<style>
+body{font-family:system-ui,sans-serif;margin:2rem;max-width:70rem}
+h1{font-size:1.4rem} h2{font-size:1.05rem;margin:1.2rem 0 .2rem}
+.m{display:inline-block;min-width:4.5rem;font-weight:700;text-transform:uppercase}
+.get{color:#0a6} .post{color:#06c} .put{color:#a60} .delete{color:#c33}
+.p{font-family:ui-monospace,monospace} .s{color:#555;margin-left:.6rem}
+details{margin:.2rem 0} pre{background:#f6f6f6;padding:.6rem;overflow:auto}
+</style></head><body><h1>panoptikon_tpu API</h1>
+<p>Generated from <a href="/openapi.json">/openapi.json</a>.</p>
+<div id="root">loading…</div>
+<script>
+fetch('/openapi.json').then(r=>r.json()).then(doc=>{
+  const root=document.getElementById('root');root.innerHTML='';
+  const paths=Object.keys(doc.paths).sort();
+  for(const p of paths){for(const m of Object.keys(doc.paths[p])){
+    const op=doc.paths[p][m];
+    const d=document.createElement('details');
+    const s=document.createElement('summary');
+    s.innerHTML='<span class="m '+m+'">'+m+'</span> <span class="p">'+p+
+      '</span><span class="s">'+(op.summary||'')+'</span>';
+    d.appendChild(s);
+    if(op.requestBody){const pre=document.createElement('pre');
+      pre.textContent=JSON.stringify(op.requestBody,null,2);d.appendChild(pre);}
+    root.appendChild(d);
+  }}
+  const h=document.createElement('h2');h.textContent='Schemas';root.appendChild(h);
+  for(const name of Object.keys(doc.components.schemas).sort()){
+    const d=document.createElement('details');
+    const s=document.createElement('summary');s.textContent=name;d.appendChild(s);
+    const pre=document.createElement('pre');
+    pre.textContent=JSON.stringify(doc.components.schemas[name],null,2);
+    d.appendChild(pre);root.appendChild(d);
+  }
+});
+</script></body></html>"""
+    return web.Response(text=html, content_type="text/html")
+
+
+async def client_config(request: web.Request) -> web.Response:
+    """Capability discovery for clients (reference api/client_config.rs).
+    Every capability advertised here is backed by a reachable surface —
+    media capabilities report the host's actual decode ladder."""
+    from panoptikon_tpu_torch.jobs import media
+
+    state: AppState = request.app["state"]
+    # Off-loop: the first CUDA call initialises the driver. The server's
+    # own device count: a CPU server has one device.
+    multi_chip = await asyncio.to_thread(
+        lambda: torch.device(state.device).type == "cuda"
+        and torch.cuda.device_count() > 1
+    )
+    return web.json_response(
+        {
+            "server": "panoptikon_tpu",
+            "version": __import__("panoptikon_tpu_torch").__version__,
+            "capabilities": {
+                "search_pql": True,
+                "semantic_search": True,
+                "quant_index": True,
+                "bookmarks": True,
+                "pinboards": True,
+                "jobs": True,
+                "cron": True,
+                "continuous_scan": state.continuous is not None,
+                "inference": True,
+                "inference_federation": len(state.pool.stats()) > 1,
+                "multi_chip": multi_chip,
+                "media": media.capabilities(),
+            },
+            "continuous_active": sorted(state.continuous.status().keys())
+            if state.continuous is not None
+            else [],
+            "databases": state.databases.names() or ["default"],
+        }
+    )
+
+
+async def continuous_status(request: web.Request) -> web.Response:
+    """Per-DB continuous-scan supervisor status (reference continuous
+    status endpoint, jobs API)."""
+    state: AppState = request.app["state"]
+    state.reconsider_continuous()
+    return web.json_response(state.continuous.status())
+
+
+async def pool_stats(request: web.Request) -> web.Response:
+    """Inference federation upstream health/weights."""
+    state: AppState = request.app["state"]
+    return web.json_response({"upstreams": state.pool.stats()})
+
+
+async def folders_update(request: web.Request) -> web.Response:
+    """Enqueue a FolderUpdate job: config delta + rescan + orphan marking."""
+    state: AppState = request.app["state"]
+    body = await request.json()
+    handle = state.queue.enqueue(
+        _db_name(request), JobType.FOLDER_UPDATE, params=body
+    )
+    return web.json_response({"job_id": handle.job_id})
+
+
+async def data_deletion(request: web.Request) -> web.Response:
+    """Enqueue orphaned-item deletion (items with no available file)."""
+    state: AppState = request.app["state"]
+    handle = state.queue.enqueue(_db_name(request), JobType.DATA_DELETION)
+    return web.json_response({"job_id": handle.job_id})
+
+
+async def health(request: web.Request) -> web.Response:
+    state: AppState = request.app["state"]
+    report = state.manager.health()
+    try:
+        state.model_registry.load()
+        report["registry_ok"] = True
+    except Exception:
+        report["registry_ok"] = False
+    return web.json_response(report)
+
+
+@web.middleware
+async def trace_middleware(request: web.Request, handler):
+    """Request tracing (the reference's tower-http TraceLayer, main.rs:627):
+    per-request duration in an ``X-Response-Time`` header and a structured
+    access-log line at debug level."""
+    import logging
+    import time as _time
+
+    t0 = _time.perf_counter()
+    try:
+        resp = await handler(request)
+    except web.HTTPException as exc:
+        exc.headers["X-Response-Time"] = f"{(_time.perf_counter()-t0)*1000:.2f}ms"
+        raise
+    dt_ms = (_time.perf_counter() - t0) * 1000
+    resp.headers["X-Response-Time"] = f"{dt_ms:.2f}ms"
+    logging.getLogger("panoptikon_tpu_torch.api").debug(
+        "%s %s -> %s %.2fms", request.method, request.rel_url,
+        getattr(resp, "status", "?"), dt_ms,
+    )
+    return resp
+
+
+def build_app(
+    state: AppState,
+    policies=None,
+    listener_policy: str | None = None,
+    token_key=None,
+) -> web.Application:
+    middlewares = [trace_middleware]
+    if policies:
+        from panoptikon_tpu_torch.api.policy import PolicyEngine, policy_middleware
+
+        middlewares.append(
+            policy_middleware(
+                PolicyEngine(policies), listener_policy, token_key=token_key
+            )
+        )
+    app = web.Application(
+        client_max_size=16 * 1024 * 1024, middlewares=middlewares
+    )
+    app["state"] = state
+    # Relay handlers consult the matched policy's relay_enabled switch.
+    app["policies"] = list(policies or [])
+    app.add_routes(
+        [
+            web.post("/api/search/pql", search_pql),
+            web.post("/api/search/pql/build", search_pql_build),
+            web.get("/api/search/stats", search_stats),
+            web.get("/api/accelerator", accelerator_report),
+            web.get("/api/search/cache", cache_stats),
+            web.put("/api/search/cache", cache_resize),
+            web.delete("/api/search/cache", cache_clear),
+            web.get("/api/search/embeddings/cache", embed_cache_stats),
+            web.delete("/api/search/embeddings/cache", embed_cache_clear),
+            web.get("/api/search/tags/top", tags_top),
+            web.get("/api/search/tags", tags_autocomplete),
+            web.get("/api/items/text/any", texts_any),
+            web.get("/api/items/{sha256}/file", item_file),
+            web.get("/api/items/{sha256}/thumbnail", item_thumbnail),
+            web.get("/api/items/{sha256}", item_metadata),
+            # Literal /users before the {user} wildcard or it shadows it.
+            web.get("/api/bookmarks/users", bookmarks_users),
+            web.get("/api/bookmarks/{user}/ns", bookmarks_namespaces),
+            web.get("/api/bookmarks/{user}", bookmarks_list),
+            web.delete("/api/bookmarks/{user}/{namespace}", bookmarks_delete_namespace),
+            web.put("/api/bookmarks/{user}/{namespace}/{sha256}", bookmarks_put),
+            web.delete("/api/bookmarks/{user}/{namespace}/{sha256}", bookmarks_delete),
+            # Literal /search before the {user} wildcard; content search
+            # lives in the pinboard authz domain, not /api/search/
+            # (main.rs:490-499 — search-only ruleset grants must not leak
+            # board names).
+            web.post("/api/pinboards/search", pinboards_search),
+            web.get("/api/pinboards/{user}", pinboards_list),
+            web.post("/api/pinboards/{user}", pinboards_create),
+            web.get("/api/pinboards/{user}/{pinboard_id}", pinboards_get),
+            web.post("/api/pinboards/{user}/{pinboard_id}/versions", pinboards_save_version),
+            web.get(
+                "/api/pinboards/{user}/{pinboard_id}/versions/{version_id}",
+                pinboards_get_version,
+            ),
+            web.get(
+                "/api/pinboards/{user}/{pinboard_id}/versions/{version_id}/preview",
+                pinboards_version_preview,
+            ),
+            web.put(
+                "/api/pinboards/{user}/{pinboard_id}/versions/{version_id}/preview",
+                pinboards_put_version_preview,
+            ),
+            web.delete("/api/pinboards/{user}/{pinboard_id}", pinboards_delete),
+            web.get("/api/jobs/queue", jobs_status),
+            web.delete("/api/jobs/queue/{job_id}", jobs_cancel),
+            web.post("/api/jobs/data/extraction", jobs_enqueue_extraction),
+            web.delete("/api/jobs/data", jobs_delete_setter_data),
+            web.get("/api/jobs/folders", folders_get),
+            web.put("/api/jobs/folders", folders_put),
+            web.post("/api/jobs/folders/rescan", folders_rescan),
+            web.post("/api/jobs/folders/update", folders_update),
+            web.post("/api/jobs/data/deletion", data_deletion),
+            web.get("/api/jobs/continuous", continuous_status),
+            web.get("/api/jobs/history/scans", history_scans),
+            web.get("/api/jobs/history/data", history_data),
+            web.get("/api/jobs/failures/extraction", failures_extraction),
+            web.delete("/api/jobs/failures/extraction", failures_extraction_clear),
+            web.get("/api/jobs/failures/scan", failures_scan),
+            web.get("/api/inference/pool", pool_stats),
+            web.get("/api/jobs/quants", quants_status),
+            web.post("/api/jobs/quants/reconcile", quants_reconcile),
+            web.get("/api/jobs/cron", cron_get),
+            web.put("/api/jobs/cron", cron_put),
+            web.post("/api/jobs/cronjob/run", cronjob_run),
+            web.get("/api/jobs/cronjob/schedule", cronjob_schedule),
+            web.post("/api/jobs/maintenance", maintenance_enqueue),
+            web.get("/api/jobs/data/setters/total", setters_total),
+            web.get("/api/config/system", db_config_get),
+            web.put("/api/config/system", db_config_put),
+            web.get("/api/desktop/update-status", desktop_update_status),
+            web.post("/api/desktop/update-ribbon/snooze", desktop_ribbon_snooze),
+            web.post("/api/desktop/update-ribbon/dismiss", desktop_ribbon_dismiss),
+            web.get("/api/desktop/external-inputs", desktop_external_inputs),
+            web.put("/api/desktop/external-inputs/{variable}", desktop_external_input_put),
+            web.get("/api/desktop/setup-status", desktop_setup_status),
+            web.post("/api/desktop/setup-folders/validate", desktop_validate_folders),
+            web.post("/api/desktop/setup-continuous/validate", desktop_validate_continuous),
+            web.post("/api/desktop/setup-schedule/preview", desktop_preview_schedule),
+            web.post("/api/desktop/setup/complete", desktop_setup_complete),
+            web.post("/api/desktop/update-window/open", desktop_update_window_open),
+            web.get("/ui", builtin_ui),
+            web.get("/api/db", db_list),
+            web.post("/api/db", db_create),
+            web.post("/api/open/{sha256}", open_file),
+            web.post("/predict/{group}/{inference_id}", inferio_predict),
+            web.put("/load/{group}/{inference_id}", inferio_load),
+            web.delete("/load/{group}/{inference_id}", inferio_unload),
+            web.get("/metadata", inferio_metadata),
+            web.get("/cache", inferio_cache_list),
+            web.delete("/cache/{cache_key}", inferio_cache_clear),
+            web.get("/health", health),
+            # The unified server ALSO nests the inference surface under
+            # /api/inference (reference main.rs:356-364 nest_service) —
+            # reference clients and federation peers address it there; the
+            # root mounts above match the standalone inferio port.
+            web.post("/api/inference/predict/{group}/{inference_id}", inferio_predict),
+            web.put("/api/inference/load/{group}/{inference_id}", inferio_load),
+            web.delete("/api/inference/load/{group}/{inference_id}", inferio_unload),
+            web.get("/api/inference/metadata", inferio_metadata),
+            web.get("/api/inference/cache", inferio_cache_list),
+            web.delete("/api/inference/cache/{cache_key}", inferio_cache_clear),
+            web.get("/api/inference/health", health),
+            web.get("/openapi.json", openapi_doc),
+            web.get("/docs", docs_page),
+            web.get("/redoc", docs_page),  # reference mounts both aliases
+            web.get("/api/client-config", client_config),
+        ]
+    )
+    from panoptikon_tpu_torch.api import relay as _relay
+
+    app.add_routes(_relay.ROUTES)
+    return app
+
+
+def widen_default_executor(max_workers: int = 32) -> None:
+    """Widen the running loop's default executor (asyncio.to_thread pool).
+
+    The stdlib default is ``cpu_count + 4`` threads — 5 on a 1-core TPU VM
+    — which caps co-arriving searches below the scan coalescer's dispatch
+    window (SCAN_COALESCE_MAX).  Search threads spend their time blocked on
+    device futures, not the GIL, so a wide pool lets the coalescer drain a
+    full batch per device round-trip."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    asyncio.get_running_loop().set_default_executor(
+        ThreadPoolExecutor(max_workers=max_workers, thread_name_prefix="api")
+    )
+
+
+def refuse_unported(settings) -> None:
+    """Raise for a setting whose serving path the port does not have yet,
+    naming the ROADMAP item it waits for, rather than ignore it."""
+    if settings.ui_upstream:
+        raise RuntimeError(
+            "[upstreams].ui needs the reverse proxy (api/proxy.py, an aiohttp "
+            "client), which the port does not have yet: ROADMAP A.7b"
+        )
+    if (settings.parallel.num_processes or 1) > 1:
+        raise RuntimeError(
+            f"[parallel] num_processes = {settings.parallel.num_processes} needs "
+            "multi-GPU serving, which the port does not have yet: ROADMAP A.12"
+        )
+
+
+async def serve_all(settings, state: AppState) -> list[web.AppRunner]:
+    """Bind ALL configured listeners before serving any (main.rs:637-646),
+    each with its policy-pinned app. The reference's catch-all reverse
+    proxy for [upstreams].ui waits for ROADMAP A.7b: such a setting is
+    refused."""
+    refuse_unported(settings)
+    widen_default_executor()
+    runners = []
+    # One HMAC key per boot shared by every listener: SSR tokens minted on
+    # UI-bound proxies verify at any listener's policy ingress
+    # (policy_token.rs; pinned via [server].policy_token_key).
+    from panoptikon_tpu_torch.api.policy_token import TokenKey
+
+    token_key = TokenKey.from_config(settings.policy_token_key)
+    for listener in settings.listeners:
+        app = build_app(
+            state, settings.policies, listener.policy, token_key=token_key
+        )
+        runner = web.AppRunner(app)
+        await runner.setup()
+        site = web.TCPSite(runner, listener.host, listener.port)
+        await site.start()
+        runners.append(runner)
+    return runners
+
+
+def main(args=None) -> None:
+    import argparse
+    import os
+    import signal
+
+    from panoptikon_tpu_torch.config import Settings
+
+    if args is None:
+        parser = argparse.ArgumentParser(description="panoptikon_tpu server")
+        parser.add_argument("--config", default=None, help="server TOML path")
+        parser.add_argument("--port", type=int, default=None)
+        parser.add_argument("--host", default=None)
+        parser.add_argument("--data-root", default=None)
+        parser.add_argument("--registry-dir", default=None)
+        parser.add_argument("--root", default=".")
+        parser.add_argument(
+            "--device", default="cuda",
+            help="device the executors run on: cuda (default; raises without "
+                 "CUDA), cuda:N or cpu",
+        )
+        args = parser.parse_args()
+
+    root = getattr(args, "root", ".") or "."
+    if root != ".":
+        os.chdir(root)  # --root chdir (main.rs:148-151)
+    settings = Settings.load(args.config, root=root)
+    if args.data_root:
+        settings.data_root = args.data_root
+    if args.port or args.host:
+        settings.listeners[0].port = args.port or settings.listeners[0].port
+        settings.listeners[0].host = args.host or settings.listeners[0].host
+    # Refused before the root lock and the device are taken.
+    refuse_unported(settings)
+
+    registry_dir = args.registry_dir or settings.inference.registry_dir
+    state = AppState.create(
+        settings.data_root, registry_dir, settings.inference.user_registry_dir,
+        inference_upstreams=settings.inference.upstreams,
+        device=getattr(args, "device", None) or "cuda",
+    )
+    state.cache.resize(settings.search.cache_bytes)
+    state.update_manifest = settings.update_manifest
+    state.desktop_managed = settings.desktop_managed
+    state.cron.start()
+    state.reconsider_continuous()
+    if settings.inference.eager_prewarm:
+        from panoptikon_tpu_torch.jobs.prewarm import EagerPrewarm
+
+        state.prewarm = EagerPrewarm(
+            state, interval_s=settings.inference.prewarm_interval_s
+        )
+        state.prewarm.start()
+
+    # Supervised UI process (src/ui.rs): [ui].command runs under bounded
+    # crash restarts; [upstreams].ui fronts it through the reverse proxy.
+    ui_proc = None
+    if settings.ui_command:
+        from panoptikon_tpu_torch.jobs.supervisor import Supervised
+
+        ui_proc = Supervised(
+            argv=settings.ui_command, cwd=settings.ui_cwd, name="ui"
+        )
+        ui_proc.start()
+
+    async def run():
+        runners = await serve_all(settings, state)
+        for listener in settings.listeners:
+            print(f"listening on http://{listener.host}:{listener.port}")
+        # Signal-driven graceful shutdown (shutdown.rs): SIGTERM/SIGINT
+        # stops serving, cancels jobs, flushes writers — bounded cleanup.
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                loop.add_signal_handler(sig, stop.set)
+            except (NotImplementedError, RuntimeError):
+                pass
+        try:
+            while not stop.is_set():
+                # Periodic supervisor reconciliation: picks up per-DB
+                # continuous_scan config changes (main.rs:447 analog).
+                try:
+                    await asyncio.wait_for(stop.wait(), timeout=30)
+                except asyncio.TimeoutError:
+                    await asyncio.to_thread(state.reconsider_continuous)
+        finally:
+            for runner in runners:
+                await runner.cleanup()
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if ui_proc is not None:
+            ui_proc.stop()
+        state.shutdown()
+
+
+if __name__ == "__main__":
+    main()

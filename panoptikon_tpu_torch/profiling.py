@@ -152,6 +152,20 @@ B1_SCAN_SHAPES = {
     "composed_k1024": (256, 500_000, 512, 1024, "cosine"),
     "composed_k1024_d768": (256, 250_000, 768, 1024, "cosine"),
 }
+# (kernel, Q, N, D, k, distance) of the scan rows of PERF.md's kernel table
+# whose plain version had no time: B1 at the search's Q 64, at the int8
+# path's two searches, at the composed spaces' k 1,024 and at the
+# crossover's Q 4,096; B2 at Q 256.
+PLAIN_SHAPES = {
+    "b1_search_q64_k80": ("b1", 64, N_ROWS, 512, 80, "cosine"),
+    "b1_int8_path_q64_k80": ("b1", 64, 262_144, 768, 80, "cosine"),
+    "b1_int8_path_q128_k80_l2": ("b1", 128, 262_144, 768, 80, "l2"),
+    "b1_composed_k1024": ("b1", 256, 500_000, 512, 1024, "cosine"),
+    "b1_composed_k1024_d768": ("b1", 256, 250_000, 768, 1024, "cosine"),
+    "b1_crossover_q4096_k80": ("b1", 4096, N_ROWS, 512, 80, "cosine"),
+    "b2_search_q256_k80": ("b2", 256, N_ROWS, 512, 80, "cosine"),
+}
+PLAIN_SLICE = 256  # queries a call of a plain version (its (Q, N) surfaces)
 # The entry points of B1 before its redesign.
 B1_BEFORE_SIGNATURES = {
     "pk_int8_topk": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
@@ -473,6 +487,46 @@ def _b1_scan(dev, smi: str, libs) -> None:
         torch.cuda.empty_cache()
 
 
+def _plain_probe(dev, smi: str) -> None:
+    """B1 and B2 as built against their plain versions at PLAIN_SHAPES
+    (seeded random codes, every row valid), timed in turns (kernel, plain,
+    plain, kernel); the plain version takes PLAIN_SLICE queries a call.
+    The kernel's ids must equal the plain version's."""
+    from panoptikon_tpu_torch.ops import int8_scan, scoring
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    scans = {"b1": (int8_scan.int8_topk, int8_scan.int8_topk_plain),
+             "b2": (int8_scan.int8_topk_v2, int8_scan.int8_topk_v2_plain)}
+    for shape, (name, q_n, n, d, k, distance) in PLAIN_SHAPES.items():
+        codes = torch.randint(-127, 128, (n, d), generator=gen, device=dev, dtype=torch.int8)
+        q = torch.randint(-127, 128, (q_n, d), generator=gen, device=dev, dtype=torch.int8)
+        sumsq = scoring.row_sumsq_chunked(codes)
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        kernel, plain = scans[name]
+
+        def run_kernel():
+            return kernel(codes, sumsq, valid, q, k=k, distance=distance)
+
+        def run_plain():
+            parts = [plain(codes, sumsq, valid, q[s:s + PLAIN_SLICE], k=k, distance=distance)
+                     for s in range(0, q_n, PLAIN_SLICE)]
+            return tuple(torch.cat(t) for t in zip(*parts))
+
+        got, want = run_kernel(), run_plain()
+        equal = bool(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]))
+        err = (got[0] - want[0]).abs().max().item()
+        times = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            times[which].append(_cuda_ms(run_kernel if which == "kernel" else run_plain, reps=5))
+        print(json.dumps({"card": smi, "probe": "plain", "shape": shape, "kernel": name, "q": q_n,
+                          "rows": n, "d": d, "k": k, "distance": distance, "ids_equal": equal,
+                          "max_abs_err": err, "turns_ms": times,
+                          "ms": sum(times["kernel"]) / 2, "plain_ms": sum(times["plain"]) / 2}),
+              flush=True)
+        del codes, q, sumsq, valid, got, want
+        torch.cuda.empty_cache()
+
+
 def _ln_probe(dev, smi: str, reps: int, out: Path) -> None:
     """The ``embed_int8`` profile of the three programs of
     ``tools/ln_fused_probe.py``: as built, B5 replaced by ``ln_quant_plain``,
@@ -550,6 +604,8 @@ def main(argv=None) -> int:
                              "(commit 63654cc, before B1's redesign)")
     probes.add_argument("--ln", action="store_true",
                         help="the fused-LayerNorm probe: three programs of the int8 embed")
+    probes.add_argument("--plain", action="store_true",
+                        help="B1 and B2 against their plain versions at PLAIN_SHAPES")
     args = parser.parse_args(argv)
     dev = device("cuda")
     args.out.mkdir(parents=True, exist_ok=True)
@@ -565,6 +621,9 @@ def main(argv=None) -> int:
         return 0
     if args.ln:
         _ln_probe(dev, smi, args.reps, args.out)
+        return 0
+    if args.plain:
+        _plain_probe(dev, smi)
         return 0
     if args.attention:
         _attention_variants(dev, smi)

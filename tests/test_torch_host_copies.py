@@ -282,16 +282,49 @@ DEVICE_UNITS = {
     # The derived-data work query with its index hint (the reference's plan
     # is quadratic in a build: test_torch_jobs.py holds the rows equal).
     "jobs/extraction.py": {"ported": {"_unprocessed_text"}, "added": set()},
+    # The server names its device: AppState carries it (a dataclass field)
+    # and create() resolves it, raising without CUDA; its executors run on
+    # it; the accelerator report and client_config's multi_chip read
+    # torch.cuda; serve_all and main refuse [upstreams].ui (A.7b) and more
+    # than one process (A.12) through refuse_unported, and main takes
+    # --device in place of the JAX platform pin and the multi-host join.
+    "api/server.py": {
+        "ported": {"AppState.<body>", "AppState.create", "AppState.executor",
+                   "accelerator_report", "client_config", "serve_all", "main"},
+        "added": {"refuse_unported"},
+    },
+    # The CLI's device report reads torch.cuda; the reference's table of TPU
+    # generations (--env) has no counterpart on the card; serve takes
+    # --device.
+    "cli.py": {"ported": {"cmd_accelerator", "build_parser", "<TPU_ENV_MATRIX>"},
+               "added": set()},
 }
 # Names the port gives otherwise: the port's NumPy quantizer is
 # ``ops.codec.quantize_int8_host`` (its ``quantize_int8`` is the tensor one).
-RENAMED = {"native/__init__.py": {r"\bcodec\.quantize_int8\(": "codec.quantize_int8_host("}}
+# The package's own name where no dot follows it (its version, its
+# resources), and the transport: the port's handlers read
+# ``from aiohttp import web`` as the port's ``api/web.py``.
+_PACKAGE = {r"\bimport panoptikon_tpu\b(?!_)": "import panoptikon_tpu_torch",
+            r"\bfrom panoptikon_tpu import\b": "from panoptikon_tpu_torch import",
+            r'__import__\("panoptikon_tpu"\)': '__import__("panoptikon_tpu_torch")'}
+_WEB = {r"\bfrom aiohttp import web\b": "from panoptikon_tpu_torch.api import web"}
+RENAMED = {"native/__init__.py": {r"\bcodec\.quantize_int8\(": "codec.quantize_int8_host("},
+           "api/server.py": {**_PACKAGE, **_WEB}, "api/policy.py": _WEB, "api/relay.py": _WEB,
+           "cli.py": _PACKAGE, "desktop.py": _PACKAGE}
 JOBS = ("jobs/queue.py", "jobs/index_sync.py", "jobs/reconcile.py", "jobs/extraction.py",
         "jobs/input_handlers.py", "jobs/outro.py", "jobs/media.py", "jobs/scan.py")
+# Serving (A.7) and the host modules it needs (A.16).
+SERVING = ("utils/env_template.py", "utils/rootlock.py", "utils/schema_gen.py",
+           "utils/version.py", "utils/toml_edit.py", "config.py", "db/config_file.py",
+           "db/setup.py", "pql/build.py", "api/policy_token.py", "api/search_cache.py",
+           "api/policy.py", "api/relay.py", "api/server.py", "jobs/cron.py",
+           "jobs/continuous.py", "jobs/supervisor.py", "jobs/prewarm.py", "models/pool.py",
+           "models/http_backend.py", "client.py", "cli.py", "desktop.py")
 HOST_COPIES = ("pql/executor.py", "pql/fused.py", "pql/model.py", "pql/preprocess.py",
                "db/schema.py", "db/connection.py", "db/epochs.py", "db/store.py", "db/writer.py",
                "db/bulk.py", "utils/splitmix.py", "models/registry.py", "models/discovery.py",
-               "models/manager.py", "resources/__init__.py", *JOBS, "native/__init__.py")
+               "models/manager.py", "resources/__init__.py", *JOBS, "native/__init__.py",
+               *SERVING)
 # Modules of the port that copy some of a reference module's units beside
 # device code of their own: the units named here must equal the
 # reference's. ``weights.load_state_dict`` differs: it names the missing
@@ -431,6 +464,14 @@ def test_builtin_registry_is_the_reference_s():
         group, _, name = full.partition("/")
         assert got.resolve(group, name).config == want.resolve(group, name).config
 
+
+
+@pytest.mark.parametrize("rel", ["api/ui.html", "resources/config/server/default.toml"])
+def test_served_files_are_the_reference_s(rel):
+    # The built-in UI the port's /ui serves, and the server TOML template
+    # `cli setup` writes, are the reference's bytes.
+    assert (REPO / "panoptikon_tpu_torch" / rel).read_bytes() == \
+        (REPO / "panoptikon_tpu" / rel).read_bytes()
 
 def test_user_impl_discovery_registers_under_the_port(tmp_path):
     # discovery.py's copy imports a user module under the port's namespace,

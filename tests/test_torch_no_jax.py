@@ -1,5 +1,6 @@
-"""The port imports no JAX and nothing of the JAX package, and never falls
-back from CUDA to the CPU."""
+"""The port imports no JAX, no ``aiohttp`` (the card machine has neither)
+and nothing of the JAX package, and never falls back from CUDA to the
+CPU."""
 
 import ast
 import subprocess
@@ -18,6 +19,7 @@ _IMPORT_ALL = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 sys.modules["panoptikon_tpu"] = None  # and so does any import of the JAX package
+sys.modules["aiohttp"] = None  # and of aiohttp: the port serves on its own transport
 import panoptikon_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(panoptikon_tpu_torch.__path__, "panoptikon_tpu_torch.")]
 for name in names:
@@ -50,7 +52,12 @@ def test_every_port_module_imports_without_jax():
                  "models.discovery", "models.manager", "db.bulk", "resources", "native",
                  "jobs.queue", "jobs.index_sync", "jobs.reconcile", "jobs.extraction",
                  "jobs.input_handlers", "jobs.outro", "jobs.media", "jobs.scan",
-                 "models.whisper", "models.audio", "models.ocr"):
+                 "models.whisper", "models.audio", "models.ocr", "api.web", "api.server",
+                 "api.policy", "api.policy_token", "api.relay", "api.search_cache", "config",
+                 "db.config_file", "db.setup", "pql.build", "jobs.cron", "jobs.continuous",
+                 "jobs.supervisor", "jobs.prewarm", "models.pool", "models.http_backend",
+                 "client", "cli", "desktop", "utils.env_template", "utils.rootlock",
+                 "utils.schema_gen", "utils.version", "utils.toml_edit"):
         assert f"panoptikon_tpu_torch.{name}" in names
 
 
@@ -77,17 +84,17 @@ def test_no_port_source_imports_the_jax_package():
     for path in sources:
         modules = _imported_modules(ast.parse(path.read_text()))
         top = {m.split(".")[0] for m in modules}
-        assert not top & {"jax", "jaxlib", "panoptikon_tpu"}, (path, sorted(modules))
+        assert not top & {"jax", "jaxlib", "panoptikon_tpu", "aiohttp"}, (path, sorted(modules))
         assert not any(m.startswith(".") for m in modules), (path, "relative import")
 
 
 def test_chip_smoke_imports_only_the_port():
-    # chip_smoke.py drives the port: no import of jax or of the JAX package,
+    # chip_smoke.py drives the port: no import of jax, aiohttp or the JAX package,
     # not even of its jax-free modules (the port has its own copies).
     modules = _imported_modules(ast.parse((REPO / "chip_smoke.py").read_text()))
     top = {m.split(".")[0] for m in modules}
     assert "panoptikon_tpu_torch" in top
-    assert not top & {"jax", "jaxlib", "panoptikon_tpu"}, sorted(modules)
+    assert not top & {"jax", "jaxlib", "panoptikon_tpu", "aiohttp"}, sorted(modules)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
