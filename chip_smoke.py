@@ -1,6 +1,6 @@
 """Drive the PyTorch port's search core, serving embed, PQL pages, text search,
 the index build path, the audio path, the image tag and caption path, the
-OCR path and its HTTP server once on one NVIDIA GPU.
+OCR path, its HTTP server and its training once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,7 @@ Phases, one JSON line each:
 
 1. env      the card (nvidia-smi name and power limit), torch, CUDA, nvcc,
             Triton, SQLite and whether it has FTS5;
-2. build    the three kernel sources of panoptikon_tpu_torch/csrc/, one nvcc
+2. build    the four kernel sources of panoptikon_tpu_torch/csrc/, one nvcc
             each, and the native host codec (csrc/host_codec.cpp, g++), all
             started together (ptxas registers and spills); the host codec
             must build and load; the
@@ -277,7 +277,30 @@ Phases, one JSON line each:
             B1 runs there only in this check; the server's B3 launches are
             its jobs' towers and the text query's embed.
 
-Each main path (phases 4-5, 6, 8, 7, 9, 10, 11, 12, 13, 14 and 15) runs with the launch counters
+16. train   training (ROADMAP A.17): (a) B3's backward (csrc/attention_bwd.cu)
+            against mha_backward_plain (bf16 within 1e-2, f32 within 2e-5 of
+            the largest gradient element) at the training shapes (ViT-B/32
+            image B 128 × N 50 × H 12 × D 64 and text B 128 × N 77 × H 8,
+            causal; the OCR trunk B 32 × N 128 × H 4; attn-base's decoder,
+            causal N 63 and cross over 128; caption-base's decoder rows at D
+            384, self, causal and cross; a ragged key mask B 64 × N 128 × H
+            12 × D 32 with a row fully masked; f32 B 4 × N 300 × H 2 × D
+            16), timed beside the backward of F.scaled_dot_product_attention
+            (the library yardstick, never called by the port) and the bound;
+            (b) CLIP ViT-B/32 at full width (seeded random f32 master
+            weights, bf16 matmuls), 20 torch.optim.Adam steps of clip_loss
+            on 128 seeded image and token pairs; (c) crnn-base (ctc_loss) and
+            attn-base (attn_loss), 20 steps each on 32 strips of digit lines
+            drawn as phase 14 draws them. Each run: every loss finite and the
+            mean of the last 5 below the first 5's; at step 0 every leaf's
+            gradient finite and every attention weight's (qkv_w; the
+            decoder's q_w, kv_w) non-zero, which only B3's backward carries;
+            B3 launched forward and backward once a block's attention a step;
+            the card held to the CPU at step 0 on 8 items from the same
+            weights (loss within 1e-2, every leaf's gradient at cosine ≥
+            0.99); step ms, items/s, peak memory, one step's busy share.
+
+Each main path (phases 4-5, 6, 8, 7, 9, 10, 11, 12, 13, 14, 15 and 16) runs with the launch counters
 (and the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
@@ -3434,6 +3457,12 @@ class PgmOcrImpl(OcrImpl):
 '''
 
 
+def _glyph_masks():
+    """DIGIT_GLYPHS as 10 × 6 boolean masks (each stroke 2 × 2 pixels)."""
+    return [np.kron(np.array([[c == "1" for c in row] for row in DIGIT_GLYPHS[str(d)]]),
+                    np.ones((2, 2), bool)) for d in range(10)]
+
+
 def write_page_folder(root: Path, n: int, seed: int):
     """n seeded grayscale pages OCR_PAGE_WIDTH wide under ``root`` as binary
     PGM files written with NumPy: OCR_LINES lines a page of OCR_DIGITS digits
@@ -3441,8 +3470,7 @@ def write_page_folder(root: Path, n: int, seed: int):
     segment_lines' 2 % row threshold), dark ink at a seeded level on a
     seeded light ground. Returns (paths, pages, lines a page)."""
     rng = np.random.default_rng(seed)
-    glyphs = [np.kron(np.array([[c == "1" for c in row] for row in DIGIT_GLYPHS[str(d)]]),
-                      np.ones((2, 2), bool)) for d in range(10)]
+    glyphs = _glyph_masks()
     w = OCR_PAGE_WIDTH
     paths, pages, counts = [], [], []
     for i in range(n):
@@ -4468,6 +4496,289 @@ def _serve_recall(torch, dev, client, ex, index, exact, payloads, counters) -> d
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: training (ROADMAP A.17).
+# ---------------------------------------------------------------------------
+
+# B3's backward (csrc/attention_bwd.cu) against mha_backward_plain at the
+# shapes the training runs give it, and at the other forms and head dims
+# the forward takes. Tolerance relative to the largest gradient element:
+# both compute in f32 and round once to the output dtype.
+BWD_CASES = {
+    # name: (b, n_q, n_kv, h, d, causal, key-masked, dtype)
+    "vit_b32_image": (128, 50, 50, 12, 64, False, False, "bfloat16"),
+    "vit_b32_text_causal": (128, 77, 77, 8, 64, True, False, "bfloat16"),
+    "ocr_trunk": (32, 128, 128, 4, 64, False, False, "bfloat16"),
+    "attn_decoder_causal": (32, 63, 63, 4, 64, True, False, "bfloat16"),
+    "attn_decoder_cross": (32, 63, 128, 4, 64, False, False, "bfloat16"),
+    "caption_decoder_self": (8, 48, 48, 2, 384, False, False, "bfloat16"),
+    "caption_decoder_causal": (8, 48, 48, 2, 384, True, False, "bfloat16"),
+    "caption_decoder_cross": (8, 48, 50, 2, 384, False, False, "bfloat16"),
+    "key_masked_ragged": (64, 128, 128, 12, 32, False, True, "bfloat16"),
+    "f32_head_dim_16": (4, 300, 300, 2, 16, False, False, "float32"),
+}
+BWD_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
+# The training runs: TRAIN_STEPS Adam steps each from seeded random f32
+# master weights at the registry's full widths: CLIP ViT-B/32 (clip_loss) on
+# CLIP_TRAIN_BATCH seeded image and token pairs; crnn-base (ctc_loss) and
+# attn-base (attn_loss) on OCR_TRAIN_STRIPS strips of OCR_TRAIN_DIGITS digits
+# rendered as phase 14 renders its lines. At step 0 the card's gradients
+# on the first TRAIN_PAIR_BATCH items are held to the CPU's from the same
+# weights; TRAIN_BUSY_STEP runs under the profiler.
+TRAIN_STEPS, TRAIN_PAIR_BATCH, TRAIN_BUSY_STEP = 20, 8, 10
+CLIP_TRAIN_BATCH, CLIP_TRAIN_LR = 128, 1e-4
+OCR_TRAIN_STRIPS, OCR_TRAIN_DIGITS, OCR_TRAIN_LR = 32, (4, 13), 1e-3
+TRAIN_COS_FLOOR, TRAIN_LOSS_RTOL = 0.99, 1e-2
+# The leaves whose gradient only B3's backward carries (each feeds nothing
+# but an attention's q, k or v).
+ATTENTION_LEAVES = re.compile(r"(attn\.qkv_w|cross\.q_w|cross\.kv_w)$")
+
+
+def sdpa_backward_ms(torch, q, k, v, dout, causal=False, mask=None) -> float:
+    """The backward of F.scaled_dot_product_attention on the same inputs (one
+    forward, then its backward timed alone): the library yardstick of B3's
+    backward, never called by the port."""
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(torch, qs, ks, vs, causal, mask)
+    return cuda_ms(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True),
+                   reps=10)
+
+
+def backward_roofline(q, k, v, dout, mask, grads, causal=False) -> dict:
+    """B3's backward: five products of 2·B·H·N_q·N_kv·D operations (the
+    logits recomputed from q and k, dP, dV, dK, dQ; half the keys when
+    causal) at the peak of the inputs' type; reads q, k, v, dO and the mask,
+    writes dq, dk, dv."""
+    b, nq, h, d = q.shape
+    frac = (nq + 1) / (2 * nq) if causal else 1
+    ops = 10 * b * h * nq * k.shape[1] * d * frac
+    return roofline(ops, "bf16" if q.element_size() == 2 else "f32",
+                    nbytes(q, k, v, dout, mask, *grads))
+
+
+def backward_kernels(torch, dev, smi, counters) -> dict:
+    """Phase 16(a): B3's backward off the main path's counts, against
+    mha_backward_plain at each BWD_CASES shape (a ragged key mask with one
+    row fully masked), timed kernel/plain/plain/kernel beside SDPA's
+    backward and the bound."""
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 160)
+    shapes = {}
+    with not_counted(counters):
+        for name, (b, nq, nkv, h, d, causal, masked, dtype) in BWD_CASES.items():
+            tdt = getattr(torch, dtype)
+            q, k, v = (torch.randn((b, n, h, d), generator=gen, device=dev).to(tdt)
+                       for n in (nq, nkv, nkv))
+            dout = torch.randn((b, nq, h, d), generator=gen, device=dev).to(tdt)
+            mask = None
+            if masked:
+                lengths = torch.randint(1, nkv + 1, (b, 1), generator=gen, device=dev)
+                lengths[-1] = 0  # a fully masked row: uniform p
+                mask = torch.arange(nkv, device=dev)[None, :] < lengths
+            out = vit_attention.mha(q, k, v, causal=causal, key_mask=mask)
+
+            def kernel():
+                return vit_attention.mha_backward(q, k, v, out, dout, causal=causal, key_mask=mask)
+
+            def plain():
+                return vit_attention.mha_backward_plain(q, k, v, out, dout, causal=causal,
+                                                        key_mask=mask)
+
+            launched = vit_attention.mha_backward.launches
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            require(vit_attention.mha_backward.launches == launched + 1,
+                    f"mha_backward {name}: the kernel was not launched")
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            scale = max(w.float().abs().max().item() for w in want)
+            require(all(torch.isfinite(g.float()).all().item() for g in got)
+                    and err <= BWD_TOL[dtype] * scale,
+                    f"mha_backward {name}: max abs diff {err} > {BWD_TOL[dtype]} x {scale}")
+            ms, plain_ms = paired_ms(torch, kernel, plain, reps=10)
+            shapes[name] = {"shape": [b, nq, nkv, h, d], "dtype": dtype, "causal": causal,
+                            "key_masked": masked, "route": "cuda_core", "max_abs_err": err,
+                            "max_abs_grad": scale, "ms": ms, "plain_ms": plain_ms,
+                            **backward_roofline(q, k, v, dout, mask, got, causal),
+                            "library_ms": sdpa_backward_ms(torch, q, k, v, dout, causal, mask)}
+            shapes[name]["share_of_bound"] = shapes[name]["bound_ms"] / ms
+    return {"part": "a_backward", "card": smi, "tolerance": BWD_TOL, "shapes": shapes}
+
+
+def ocr_train_batch(cfg, n: int, seed: int, width: int):
+    """n strips of one seeded digit line each, drawn as phase 14 draws its
+    lines (the glyphs, a seeded ink level on a seeded light ground) and cut
+    by segment_lines and prepare_strip as OcrImpl cuts them. Returns
+    (strips (n, height, max_width) f32, labels (n, width) int64 of 1-based
+    charset indices padded with 0, lengths (n,) int64)."""
+    from panoptikon_tpu_torch.models import ocr
+
+    rng = np.random.default_rng(seed)
+    glyphs = _glyph_masks()
+    strips, texts = [], []
+    for _ in range(n):
+        digits = rng.integers(0, 10, size=int(rng.integers(*OCR_TRAIN_DIGITS)))
+        gray = np.full((42, 8 * len(digits) + 64), int(rng.integers(220, 256)), np.uint8)
+        ink, x = int(rng.integers(0, 48)), int(rng.integers(8, 48))
+        for d in digits:
+            gray[16:26, x : x + 6][glyphs[d]] = ink
+            x += 8
+        (box,) = ocr.segment_lines(gray)
+        strips.append(ocr.prepare_strip(gray, box, cfg))
+        texts.append("".join(str(d) for d in digits))
+    labels = np.zeros((n, width), np.int64)
+    for i, t in enumerate(texts):
+        labels[i, : len(t)] = [cfg.charset.index(c) + 1 for c in t]
+    return np.stack(strips), labels, np.array([len(t) for t in texts], np.int64)
+
+
+def _step_grads(torch, convert, params, loss_fn, batch):
+    """One loss and backward from zero gradients: (loss, gradients by path)."""
+    for t in convert.named_leaves(params).values():
+        t.grad = None
+    value = loss_fn(params, *batch)
+    value.backward()
+    return value.item(), convert.grads_numpy(params)
+
+
+def train_pair(torch, what: str, params, loss_fn, batch) -> dict:
+    """The card against the CPU at step 0: the same weights (the card's,
+    copied), the first TRAIN_PAIR_BATCH items; the loss within
+    TRAIN_LOSS_RTOL and every leaf's gradient at cosine ≥ TRAIN_COS_FLOOR
+    (a leaf that no path reaches is zero on both)."""
+    from panoptikon_tpu_torch.models import convert
+
+    small = tuple(x[:TRAIN_PAIR_BATCH] for x in batch)
+    card_loss, card = _step_grads(torch, convert, params, loss_fn, small)
+    with torch.no_grad():  # copies with no graph: leaves of their own
+        cpu_params = _tree_to(params, "cpu")
+    convert.trainable(cpu_params)
+    t0 = time.perf_counter()
+    cpu_loss, cpu = _step_grads(torch, convert, cpu_params, loss_fn,
+                                tuple(x.to("cpu") for x in small))
+    cpu_s = time.perf_counter() - t0
+    for t in convert.named_leaves(params).values():
+        t.grad = None
+    cos = {}
+    for path, want in cpu.items():
+        got = card[path]
+        nw, ng = np.linalg.norm(want), np.linalg.norm(got)
+        cos[path] = 1.0 if nw == ng == 0 else float(np.dot(got.ravel(), want.ravel()) / (nw * ng))
+    worst = min(cos, key=cos.get)
+    require(abs(card_loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss),
+            f"train {what}: card loss {card_loss} vs CPU {cpu_loss}")
+    require(cos[worst] >= TRAIN_COS_FLOOR, f"train {what}: gradient of {worst} at cosine "
+                                           f"{cos[worst]} to the CPU's")
+    return {"items": TRAIN_PAIR_BATCH, "card_loss": card_loss, "cpu_loss": cpu_loss,
+            "min_grad_cosine": cos[worst], "min_grad_cosine_leaf": worst,
+            "leaves": len(cos), "cpu_s": cpu_s}
+
+
+def train_run(torch, smi, what: str, params, loss_fn, batch, lr: float) -> dict:
+    """TRAIN_STEPS torch.optim.Adam steps of ``loss_fn`` on ``batch`` over
+    the tree's f32 leaves. At step 0 every leaf's gradient is finite and
+    every attention leaf's (ATTENTION_LEAVES) non-zero; every loss is
+    finite, and the mean of the last 5 is below the mean of the first 5.
+    Records the losses, step ms (host clock to a synchronize), items/s,
+    peak memory, the busy share of step TRAIN_BUSY_STEP, and B3's forward
+    and backward launches a step."""
+    from panoptikon_tpu_torch.models import convert
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    leaves = [t for t in convert.named_leaves(params).values() if t.requires_grad]
+    require(all(t.dtype == torch.float32 for t in leaves), f"train {what}: leaves not f32")
+    opt = torch.optim.Adam(leaves, lr=lr)
+    losses, step_s, busy, per_step = [], [], None, None
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        value = loss_fn(params, *batch)
+        value.backward()
+        return value
+
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        launched = (vit_attention.mha.launches, vit_attention.mha_backward.launches)
+        if i == TRAIN_BUSY_STEP:
+            holder = []
+            wall, share = busy_share(torch, lambda: holder.append(step()))
+            value, busy = holder[0], {"wall_ms": 1e3 * wall, "busy_share": share}
+        else:
+            value = step()
+        if i == 0:
+            grads = convert.grads_numpy(params)
+            bad = [p for p, g in grads.items() if not np.isfinite(g).all()]
+            silent = [p for p, g in grads.items() if ATTENTION_LEAVES.search(p) and not g.any()]
+            attention = [p for p in grads if ATTENTION_LEAVES.search(p)]
+            require(not bad and not silent and attention,
+                    f"train {what}: non-finite gradients {bad}, zero attention gradients {silent}")
+            per_step = {"mha": vit_attention.mha.launches - launched[0],
+                        "mha_backward": vit_attention.mha_backward.launches - launched[1]}
+        opt.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(value.item())
+    require(all(np.isfinite(losses)), f"train {what}: a loss is not finite: {losses}")
+    require(np.mean(losses[-5:]) < np.mean(losses[:5]), f"train {what}: the loss did not fall: "
+                                                        f"{losses}")
+    steady = float(np.median(step_s[1:]))
+    items = len(batch[0])
+    return {"model": what, "card": smi, "steps": TRAIN_STEPS, "items": items, "lr": lr,
+            "losses": losses, "step_ms_first": 1e3 * step_s[0], "step_ms_median": 1e3 * steady,
+            "items_per_s": items / steady, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "profiled_step": busy, "b3_launches_a_step": per_step,
+            "attention_leaves": len(attention), "leaves": len(leaves)}
+
+
+def train_path(torch, dev, smi, counters) -> tuple[list, dict]:
+    """Phase 16(b)-(c): CLIP ViT-B/32, crnn-base and attn-base trained at
+    full width (seeded random f32 master weights), each first held to the
+    CPU at step 0 (not counted), then TRAIN_STEPS Adam steps. Returns the
+    records and B3's expected forward (= backward) launches: one each a
+    block's attention a step."""
+    from panoptikon_tpu_torch.models import clip, convert, ocr
+
+    cfg = clip.CONFIGS["ViT-B-32"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 161)
+    images = torch.randn((CLIP_TRAIN_BATCH, cfg.image_size, cfg.image_size, 3), generator=gen,
+                         device=dev)
+    lengths = torch.randint(4, cfg.text_ctx, (CLIP_TRAIN_BATCH,), generator=gen, device=dev)
+    tokens = torch.randint(1, EOT, (CLIP_TRAIN_BATCH, cfg.text_ctx), generator=gen, device=dev)
+    pos = torch.arange(cfg.text_ctx, device=dev)[None, :]
+    tokens = torch.where(pos < lengths[:, None], tokens, 0)
+    tokens = torch.where(pos == lengths[:, None], EOT, tokens)
+    runs = [("ViT-B-32 clip_loss", clip.init_params(cfg, gen),
+             lambda p, x, t: clip.clip_loss(p, cfg, x, t), (images, tokens), CLIP_TRAIN_LR,
+             cfg.vision_layers + cfg.text_layers)]
+    ocfg, acfg = ocr.CONFIGS["crnn-base"], ocr.ATTN_CONFIGS["attn-base"]
+    # Labels padded to the attention reader's widest (max_chars - 2): its
+    # decoder then runs at its full context, 63 tokens over 128 columns.
+    strips, labels, lens = (torch.from_numpy(a).to(dev) for a in ocr_train_batch(
+        ocfg, OCR_TRAIN_STRIPS, SEED + 162, acfg.max_chars - 2))
+    runs.append(("crnn-base ctc_loss", ocr.init_params(ocfg, gen),
+                 lambda p, x, y, n: ocr.ctc_loss(p, ocfg, x, y, n), (strips, labels, lens),
+                 OCR_TRAIN_LR, ocfg.layers))
+    runs.append(("attn-base attn_loss", ocr.init_attn_params(acfg, gen),
+                 lambda p, x, y, n: ocr.attn_loss(p, acfg, x, y, n), (strips, labels, lens),
+                 OCR_TRAIN_LR, acfg.enc.layers + 2 * acfg.dec_layers))
+    records, expected = [], 0
+    for what, params, loss_fn, batch, lr, attentions in runs:
+        convert.trainable(params)
+        with not_counted(counters):
+            pair = train_pair(torch, what, params, loss_fn, batch)
+        record = train_run(torch, smi, what, params, loss_fn, batch, lr)
+        require(record["b3_launches_a_step"] == {"mha": attentions, "mha_backward": attentions},
+                f"train {what}: B3 launches a step {record['b3_launches_a_step']}, expected "
+                f"{attentions} forward and backward")
+        expected += attentions * TRAIN_STEPS
+        records.append({"part": "b_clip" if what.startswith("ViT") else "c_ocr", **record,
+                        "card_vs_cpu": pair})
+        torch.cuda.empty_cache()
+    return records, {"mha": expected, "mha_backward": expected}
+
+
 def cosines(a, b):
     return np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
 
@@ -4527,9 +4838,9 @@ def main() -> int:
                               "library": _build.host_library_path("host_codec").name}
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         host = pool.submit(build_host_codec)
-        build = dict(pool.map(build_one, ("int8_scan", "attention", "ln_quant")))
+        build = dict(pool.map(build_one, ("int8_scan", "attention", "attention_bwd", "ln_quant")))
         build.update([host.result()])
     build_s = time.perf_counter() - t0
     # The native host codec is required here: the index builds of phases 4
@@ -5198,10 +5509,34 @@ def main() -> int:
           "attention_routes": serve_routes, "server_launches": server_counts["launches"],
           "in_process_launches": in_process, "phase_s": time.perf_counter() - t15})
 
+    # 16. Training: (a) B3's backward against its plain version at the
+    # training shapes (not counted); (b) CLIP ViT-B/32 and (c) crnn-base and
+    # attn-base at full width, TRAIN_STEPS Adam steps each, the card held to
+    # the CPU at step 0 (not counted). Counters, B3's backward among them,
+    # start at zero before (b).
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    train_counters = (*counters, vit_attention.mha_backward)
+    bwd = backward_kernels(torch, dev, smi, train_counters)
+    emit({"phase": "train", **bwd})
+    torch.cuda.empty_cache()
+    reset_counts(train_counters)
+    train_records, train_expected = train_path(torch, dev, smi, train_counters)
+    train_launches = {fn.__name__: fn.launches for fn in train_counters}
+    train_routes = read_routes(train_counters)
+    require(all(train_launches[name] == train_expected.get(name, 0) for name in train_launches),
+            f"train path kernel launches {train_launches}, expected {train_expected}")
+    require_tensor_cores(train_launches, train_routes, ("mha",), "train path")
+    for record in train_records:
+        emit({"phase": "train", **record})
+    emit({"phase": "train", "part": "launches", "launches": train_launches,
+          "attention_routes": train_routes, "phase_s": time.perf_counter() - t16})
+
     runs = ((launches, routes), (batch_launches, batch_routes), (composed_launches, composed_routes),
             (l14_launches, l14_routes), (pql_launches, pql_routes), (text_launches, text_routes),
             (extract_launches, extract_routes), (audio_launches, audio_routes),
-            (tag_launches, tag_routes), (ocr_launches, ocr_routes), (serve_launches, serve_routes))
+            (tag_launches, tag_routes), (ocr_launches, ocr_routes), (serve_launches, serve_routes),
+            (train_launches, train_routes))
     total = {name: sum(run[0][name] for run in runs) for name in launches}
     total_routes = {name: {path: sum(run[1][name][path] for run in runs) for path in routes[name]}
                     for name in routes}
@@ -5240,7 +5575,19 @@ def main() -> int:
          "wide_head_dim_shapes": {name: r for name, r in ocr_k["shapes"].items()
                                   if name != "ocr_trunk"},
          "captioner_decoder_logits_d384": tag_pair_rec["decoder_logits_d384"],
-         "serve_launches": serve_launches["mha"]},
+         "serve_launches": serve_launches["mha"], "train_launches": train_launches["mha"]},
+        {"name": "mha_backward", "route": "cuda",
+         "source": "panoptikon_tpu_torch/csrc/attention_bwd.cu",
+         "replaces": "panoptikon_tpu/ops/vit_attention.py:192 (the gradient of that kernel's "
+                     "function; the Pallas mha has none, and off the TPU XLA computes it)",
+         "launches": train_launches["mha_backward"], "routes": train_routes["mha_backward"],
+         "max_abs_err": max(r["max_abs_err"] for r in bwd["shapes"].values()),
+         "ms": bwd["shapes"]["vit_b32_image"]["ms"],
+         "plain_ms": bwd["shapes"]["vit_b32_image"]["plain_ms"],
+         "bound_ms": bwd["shapes"]["vit_b32_image"]["bound_ms"],
+         "bound_by": bwd["shapes"]["vit_b32_image"]["bound_by"],
+         "library_ms": bwd["shapes"]["vit_b32_image"]["library_ms"],
+         "train_shapes": bwd["shapes"]},
         {"name": "mha_qkv", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:296", "launches": total["mha_qkv"],
          "routes": total_routes["mha_qkv"],

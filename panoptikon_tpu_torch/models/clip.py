@@ -24,6 +24,11 @@ int32 GEMMs through ``torch._int_mm``, per-output-channel weight scales):
   attention over the unsplit qkv with int8 out (``ops.vit_attention.mha_qkv``,
   kernel B4);
 - without scales, each linear quantizes its activations per token.
+
+:func:`clip_loss` is the reference's contrastive objective over
+:func:`encode_image` and :func:`encode_text`; with f32 leaves requiring grad
+it trains them (every matmul casts its weight to bf16, so the leaves stay
+f32 masters), B3's backward carrying the gradient through attention.
 """
 
 from __future__ import annotations
@@ -376,6 +381,26 @@ def encode_text(params: Params, cfg: ClipConfig, token_ids, normalize: bool = Tr
     x = x[torch.arange(x.shape[0], device=x.device), eot]
     feats = (x @ t["proj"].to(x.dtype)).to(torch.float32)
     return _normalize(feats) if normalize else feats
+
+
+# ---------------------------------------------------------------------------
+# Contrastive training step (finetuning support; beyond-reference)
+# ---------------------------------------------------------------------------
+
+
+def clip_loss(params: Params, cfg: ClipConfig, images, token_ids):
+    img = encode_image(params, cfg, images)
+    txt = encode_text(params, cfg, token_ids)
+    scale = torch.exp(torch.clamp(params["logit_scale"], max=math.log(100.0)))
+    logits = scale * img @ txt.T
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    li = torch.mean(
+        -F.log_softmax(logits, dim=-1)[torch.arange(len(labels), device=labels.device), labels]
+    )
+    lt = torch.mean(
+        -F.log_softmax(logits.T, dim=-1)[torch.arange(len(labels), device=labels.device), labels]
+    )
+    return 0.5 * (li + lt)
 
 
 @torch.inference_mode()

@@ -9,6 +9,10 @@ blocks are a list; whisper's are under ``encoder`` and ``decoder``). The tree
 arrives as
 NumPy arrays (``jax.tree.map(np.asarray, params)``), which keeps this module
 free of JAX.
+
+For training, :func:`trainable` sets ``requires_grad`` on a tree's floating
+leaves and :func:`grads_numpy` reads their gradients back by path
+(:func:`named_leaves`), as the tests hold them to ``jax.grad``'s.
 """
 
 from __future__ import annotations
@@ -47,3 +51,37 @@ def _convert(tree, device: torch.device, dtype: torch.dtype | None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t
+
+
+def named_leaves(tree, prefix: str = "") -> dict:
+    """Every leaf of a nested dict/list tree by its dotted path
+    (``visual.blocks.0.attn.qkv_w``), in the tree's order: the same paths
+    for a tensor tree and for the NumPy tree it came from."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, sub in items:
+        out.update(named_leaves(sub, f"{prefix}.{key}" if prefix else str(key)))
+    return out
+
+
+def trainable(tree) -> list:
+    """Set ``requires_grad`` on every floating leaf of a tensor tree (in
+    place) and return those leaves, in the tree's order: an optimizer's
+    parameter list. Leaves keep their dtype, so f32 masters stay f32."""
+    leaves = [t for t in named_leaves(tree).values() if t.is_floating_point()]
+    for t in leaves:
+        t.requires_grad_(True)
+    return leaves
+
+
+def grads_numpy(tree) -> dict:
+    """The gradient of every leaf that requires grad, by path, as f32 NumPy
+    arrays (zeros where backward reached none of it)."""
+    return {path: (t.grad if t.grad is not None else torch.zeros_like(t))
+            .detach().to("cpu", torch.float32).numpy()
+            for path, t in named_leaves(tree).items() if t.requires_grad}

@@ -24,8 +24,13 @@ Parameters are the JAX package's tree with its keys and layouts, so
 ``models.convert.params_from_jax`` carries a trained JAX tree over
 unchanged. The rounding follows the reference: the strips, the patch
 matmul, the positions and the blocks in bf16; LayerNorm in f32; the head a
-bf16 matmul, then f32, then the f32 bias. The training objectives
-(``ctc_loss``, ``attn_loss``) are not ported.
+bf16 matmul, then f32, then the f32 bias.
+
+The training objectives: :func:`ctc_loss` (optax's CTC recursion, written
+out in :func:`ctc_loss_per_sequence`) over :func:`logits`, and
+:func:`attn_loss` (teacher-forced cross-entropy) over whisper's
+``_decoder_logits``; on f32 leaves requiring grad, B3's backward carries
+the gradient through every attention.
 """
 
 from __future__ import annotations
@@ -142,6 +147,64 @@ def recognize(params: Params, cfg: OcrConfig, strips):
     lg = logits(params, cfg, strips)
     probs = torch.softmax(lg, dim=-1)
     return torch.argmax(lg, dim=-1), probs.amax(dim=-1).mean(dim=-1)
+
+
+def ctc_loss_per_sequence(logits, logit_paddings, labels, label_paddings, blank_id: int = 0,
+                          log_epsilon: float = -1e5):
+    """The CTC loss of each sequence (B,) f32: the recursion of
+    ``optax.ctc_loss`` (``optax/losses/_classification.py``'s
+    ``ctc_loss_with_forward_probs``) step for step, so values and gradients
+    match it. logits (B, T, K); logit_paddings (B, T) and label_paddings
+    (B, N), 1.0 where padded, labels right-padded; log(0) is
+    ``log_epsilon``, so a label the frames cannot emit (too long for them)
+    gives a large finite loss where ``F.ctc_loss`` gives inf."""
+    b, t, _ = logits.shape
+    n = labels.shape[1]
+    logprobs = torch.log_softmax(logits, dim=-1)
+    labellens = n - label_paddings.sum(dim=1).to(torch.int64)
+    # repeat[b, n] = 1 where label[b, n] == label[b, n + 1].
+    repeat = torch.nn.functional.pad((labels[:, :-1] == labels[:, 1:]).to(torch.float32), (0, 1))
+    logprobs_phi = logprobs[:, :, blank_id].transpose(0, 1)[..., None]  # (T, B, 1)
+    gather = labels.to(torch.int64)[:, None, :].expand(b, t, n)
+    logprobs_emit = torch.gather(logprobs, 2, gather).transpose(0, 1)  # (T, B, N)
+    phi = torch.full((b, n + 1), log_epsilon, device=logits.device)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), log_epsilon, device=logits.device)
+
+    def update_phi_score(phi, added_score):
+        # phi[:, 1:] with added_score added in log space.
+        return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], added_score)], dim=-1)
+
+    for step in range(t):
+        prev_phi_orig = phi
+        # emit-to-phi epsilon transition, except where the next label repeats
+        prev_phi = update_phi_score(phi, emit + log_epsilon * repeat)
+        lp_emit, lp_phi = logprobs_emit[step], logprobs_phi[step]
+        pad = logit_paddings[:, step].reshape(b, 1)
+        # phi-to-emit transition
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + lp_emit, emit + lp_emit)
+        # self-loop transition
+        next_phi = prev_phi + lp_phi
+        # emit-to-phi blank transition only where the next label repeats
+        next_phi = update_phi_score(next_phi, emit + lp_phi + log_epsilon * (1.0 - repeat))
+        emit = pad * emit + (1.0 - pad) * next_emit
+        phi = pad * prev_phi_orig + (1.0 - pad) * next_phi
+    # the last row takes the last epsilon transition
+    phi_last = update_phi_score(phi, emit)
+    return -torch.gather(phi_last, 1, labellens[:, None])[:, 0]
+
+
+def ctc_loss(params: Params, cfg: OcrConfig, strips, labels, label_lengths):
+    """CTC training objective (optax.ctc_loss; blank=0). ``labels`` are
+    1-based charset indices padded with 0."""
+    lg = logits(params, cfg, strips)
+    b, t, _ = lg.shape
+    logit_pad = torch.zeros((b, t), device=lg.device)
+    label_pad = (
+        torch.arange(labels.shape[1], device=lg.device)[None, :] >= label_lengths[:, None]
+    ).to(torch.float32)
+    per = ctc_loss_per_sequence(lg, logit_pad, labels, label_pad, blank_id=0)
+    return torch.mean(per)
 
 
 def ctc_collapse(ids: np.ndarray, charset: str) -> str:
@@ -284,6 +347,32 @@ def attn_read(params: Params, cfg: AttnOcrConfig, strips):
     tokens, lengths, avg_logp = whisper.decode_from_feats(
         params, cfg.decoder_cfg(), memory, prompt, cfg.max_chars)
     return tokens, lengths, torch.exp(avg_logp)
+
+
+def attn_loss(params: Params, cfg: AttnOcrConfig, strips, labels, label_lengths):
+    """Teacher-forced cross-entropy. ``labels``: (B, L) CTC-convention ids
+    (0 = pad, chars 1-based), L ≤ max_chars - 2. The decoder input is
+    [SOT, chars…]; the target appends EOT at each row's length."""
+    b, ll = labels.shape
+    dev = strips.device
+    memory = encode_strips(params, cfg.enc, strips)
+    sot_col = torch.full((b, 1), cfg.sot, dtype=torch.int64, device=dev)
+    dec_in = torch.cat([sot_col, labels.to(torch.int64)], dim=1)
+    lg = whisper._decoder_logits(params, cfg.decoder_cfg(), dec_in, memory, None)
+    # Target at position i is the token AFTER dec_in[i]: the chars shifted
+    # left, with EOT at each row's end.
+    pos = torch.arange(ll + 1, device=dev)[None]
+    lens = label_lengths.to(torch.int64)[:, None]
+    targets = torch.where(
+        pos < lens,
+        torch.cat([labels.to(torch.int64), torch.zeros((b, 1), dtype=torch.int64, device=dev)],
+                  dim=1),
+        torch.where(pos == lens, cfg.eot, 0),
+    )
+    valid = (pos <= lens).to(torch.float32)
+    logp = torch.log_softmax(lg.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
 
 
 def attn_collapse(tokens: np.ndarray, length: int, charset: str) -> str:

@@ -25,7 +25,9 @@ through one dot stage.
 them (``scoring.candidate_route``).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version for CPU tensors; any other device raises. The plain versions
+version for CPU tensors; any other device raises. Neither kernel has a
+backward: on the card each raises ``ValueError`` under grad (of their inputs
+only a tensor ``scale`` can require it). The plain versions
 compute the same values bit for bit (exact dots, correctly rounded
 ``rsqrt`` and ``sqrt``, the same f32 roundings) and are what the tests and
 ``chip_smoke.py`` hold the kernels against.
@@ -39,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from panoptikon_tpu_torch import _build
+from panoptikon_tpu_torch.ops import refuse_grad
 from panoptikon_tpu_torch.ops.exact import (
     INF, int8_dots, pack_keys, row_sumsq, smallest_k, unpack_keys,
 )
@@ -163,6 +166,7 @@ def int8_topk(codes, sumsq, row_valid, q_codes, *, k: int = 10,
                                scale=scale)
     if codes.device.type != "cuda":
         raise ValueError(f"int8_topk: unsupported device {codes.device}")
+    refuse_grad("int8_topk", codes, sumsq, row_valid, q_codes, scale)
     _check(codes, sumsq, row_valid, q_codes, k, distance)
     n, d = codes.shape
     q = q_codes.shape[0]
@@ -257,6 +261,7 @@ def int8_topk_v2(codes, sumsq, row_valid, q_codes, *, k: int = 80, k_tile: int =
                                   tile_n=tile_n, distance=distance, scale=scale)
     if codes.device.type != "cuda":
         raise ValueError(f"int8_topk_v2: unsupported device {codes.device}")
+    refuse_grad("int8_topk_v2", codes, sumsq, row_valid, q_codes, scale)
     _check_v2(codes, sumsq, row_valid, q_codes, k, k_tile, tile_n, distance)
     n, d = codes.shape
     q = q_codes.shape[0]

@@ -13,7 +13,8 @@ float.
 :func:`ln_quant_2d` launches the kernel for CUDA tensors and takes
 :func:`ln_quant_plain` (the arithmetic of the reference's ``_ln_quant_ref``)
 for CPU tensors; any other device raises. :func:`ln_quant` is the N-d
-wrapper the CLIP block calls. The JAX package's production path calls the
+wrapper the CLIP block calls. Both raise ``ValueError`` on the card under
+grad (an input requiring it): the kernel has no backward. The JAX package's production path calls the
 ``jnp`` form because on the TPU the Pallas boundary cost more than the pass
 it saved; that was a TPU measurement, so on the card the port calls the
 kernel, and ``chip_smoke.py`` times the two.
@@ -26,6 +27,7 @@ import ctypes
 import torch
 
 from panoptikon_tpu_torch import _build
+from panoptikon_tpu_torch.ops import refuse_grad
 from panoptikon_tpu_torch.ops.codec import quantize_static
 
 _SIGNATURES = {
@@ -69,6 +71,7 @@ def ln_quant_2d(x, gamma, beta, act_scale):
         return ln_quant_plain(x, gamma, beta, act_scale)
     if x.device.type != "cuda":
         raise ValueError(f"ln_quant_2d: unsupported device {x.device}")
+    refuse_grad("ln_quant_2d", x, gamma, beta, act_scale)
     _check(x, gamma, beta)
     r, w = x.shape
     if w > MAX_WIDTH or w % GROUP:
@@ -111,7 +114,10 @@ def check_quant_code(act_scales: torch.Tensor) -> torch.Tensor:
 
 
 def ln_quant(x, ln_params, act_scale):
-    """(…, W) -> int8 of the same shape, through :func:`ln_quant_2d`."""
+    """(…, W) -> int8 of the same shape, through :func:`ln_quant_2d` (which,
+    on the card, raises under grad: B5 has no backward)."""
+    if x.device.type == "cuda":
+        refuse_grad("ln_quant", x, ln_params["scale"], ln_params["bias"], act_scale)
     w = x.shape[-1]
     out = ln_quant_2d(x.reshape(-1, w), ln_params["scale"], ln_params["bias"], act_scale)
     return out.reshape(x.shape)

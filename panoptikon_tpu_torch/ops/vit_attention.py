@@ -40,6 +40,16 @@ the kernel reads them in place, with no split copies.
 
 Each wrapper counts its launches (``.launches``) and its launches by route
 (``.routes``).
+
+:func:`mha` is differentiable. Where grad mode is on and q, k or v requires
+grad it runs as a ``torch.autograd.Function``: the same forward launch (or
+plain version on the CPU), then :func:`mha_backward`, B3's backward
+(``csrc/attention_bwd.cu`` on the card, :func:`mha_backward_plain` on the
+CPU), for dq, dk and dv; ``key_mask`` and ``causal`` take no gradient. The
+Function saves q, k, v as given: views of a fused qkv keep the qkv alive,
+which holds exactly their bytes. Inference calls launch directly and save
+nothing. :func:`mha_qkv` (B4) has no backward: on the card it raises
+``ValueError`` under grad rather than drop the gradient.
 """
 
 from __future__ import annotations
@@ -47,8 +57,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from panoptikon_tpu_torch import _build
+from panoptikon_tpu_torch.ops import refuse_grad
 from panoptikon_tpu_torch.ops.codec import quantize_static
 
 _SIGNATURES = {
@@ -57,6 +69,9 @@ _SIGNATURES = {
     "pk_mha_tc": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "pk_check_div_rn": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+}
+_BACKWARD_SIGNATURES = {
+    "pk_mha_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
 }
 MAX_HEAD_DIM = 512  # mha's: the CUDA-core kernel's wide instantiation
 QKV_MAX_HEAD_DIM = 128  # mha_qkv's, and the tensor-core kernel's
@@ -135,9 +150,9 @@ def _check(q, k, v, causal, key_mask):
         raise ValueError(f"key_mask must be (B, N_kv) = {(b, n_kv)} on {q.device}")
 
 
-def _attend(q, k, v, causal, key_mask):
-    """The attention output in f32, before its final cast, in the reference's
-    arithmetic."""
+def _probs(q, k, causal, key_mask):
+    """The softmax probabilities (B, H, N_q, N_kv) in f32, unrounded, in the
+    reference's arithmetic."""
     n_q, n_kv, d = q.shape[1], k.shape[1], q.shape[3]
     lt = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32)) * (float(d) ** -0.5)
     if causal:
@@ -147,10 +162,19 @@ def _attend(q, k, v, causal, key_mask):
         valid = (key_mask.to(torch.float32) > 0)[:, None, None, :]
         lt = torch.where(valid, lt, lt - 1e9)
     e = torch.exp(lt - lt.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    if d >= 32:
-        p = p.to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p.to(torch.float32), v.to(torch.float32))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _rounded(p, v):
+    """p as the AV product takes it: rounded to V's dtype at D ≥ 32."""
+    return p.to(v.dtype).to(torch.float32) if v.shape[3] >= 32 else p
+
+
+def _attend(q, k, v, causal, key_mask):
+    """The attention output in f32, before its final cast, in the reference's
+    arithmetic."""
+    p = _rounded(_probs(q, k, causal, key_mask), v)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
 
 
 def row_stride(q, k, v):
@@ -190,27 +214,16 @@ def mha_plain(q, k, v, *, causal: bool = False, key_mask=None):
     return _attend(q, k, v, causal, key_mask).to(q.dtype)
 
 
-def mha(q, k, v, *, causal: bool = False, key_mask=None):
-    """Fused multi-head attention. q (B, N_q, H, D); k, v (B, N_kv, H, D),
-    f32 or bf16, D ≤ 512; ``key_mask`` (B, N_kv), truthy for valid keys;
-    ``causal`` needs N_q == N_kv. Returns (B, N_q, H, D) in q's dtype. On
-    CUDA q, k, v are contiguous or views sharing one row stride
-    (:func:`row_stride`); past D 512 it raises and launches nothing."""
+def _forward(q, k, v, causal, key_mask):
+    """One forward call: the plain version on the CPU, else the kernel."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, causal=causal, key_mask=key_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"mha: unsupported device {q.device}")
     _check(q, k, v, causal, key_mask)
     b, n_q, h, d = q.shape
     n_kv = k.shape[1]
     path = route(q.dtype, d)
-    ld = row_stride(q, k, v)
-    if ld is None:
-        raise ValueError("mha kernel needs contiguous q, k, v or views that share one row "
-                         "stride, such as the split of a fused qkv")
-    mask = None
-    if key_mask is not None:
-        mask = (key_mask.to(torch.float32) > 0).to(torch.uint8).contiguous()
+    ld = _launch_stride(q, k, v)
+    mask = _mask_bytes(key_mask)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if path == "tensor_core":
         err = _tensor_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask, out, None, ld,
@@ -229,8 +242,126 @@ def mha(q, k, v, *, causal: bool = False, key_mask=None):
     return out
 
 
+def _launch_stride(q, k, v):
+    ld = row_stride(q, k, v)
+    if ld is None:
+        raise ValueError("mha kernel needs contiguous q, k, v or views that share one row "
+                         "stride, such as the split of a fused qkv")
+    return ld
+
+
+def _mask_bytes(key_mask):
+    """The key mask as the kernels read it: (B, N_kv) uint8, 1 for a valid key."""
+    if key_mask is None:
+        return None
+    return (key_mask.to(torch.float32) > 0).to(torch.uint8).contiguous()
+
+
+class _Mha(torch.autograd.Function):
+    """:func:`mha` with B3's backward (:func:`mha_backward`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, key_mask):
+        out = _forward(q, k, v, causal, key_mask)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, key_mask)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, key_mask = ctx.saved_tensors
+        dq, dk, dv = mha_backward(q, k, v, out, dout, causal=ctx.causal, key_mask=key_mask)
+        return dq, dk, dv, None, None
+
+
+def mha(q, k, v, *, causal: bool = False, key_mask=None):
+    """Fused multi-head attention. q (B, N_q, H, D); k, v (B, N_kv, H, D),
+    f32 or bf16, D ≤ 512; ``key_mask`` (B, N_kv), truthy for valid keys;
+    ``causal`` needs N_q == N_kv. Returns (B, N_q, H, D) in q's dtype. On
+    CUDA q, k, v are contiguous or views sharing one row stride
+    (:func:`row_stride`); past D 512 it raises and launches nothing. Under
+    grad (grad mode on, q, k or v requiring it) the call is differentiable
+    in q, k and v through :func:`mha_backward`."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mha: unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Mha.apply(q, k, v, causal, key_mask)
+    return _forward(q, k, v, causal, key_mask)
+
+
 mha.launches = 0
 mha.routes = dict.fromkeys(ROUTES, 0)
+
+
+def _check_backward(q, out, dout):
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be (B, N_q, H, D) = {tuple(q.shape)} in {q.dtype} on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def mha_backward_plain(q, k, v, out, dout, *, causal: bool = False, key_mask=None):
+    """Plain PyTorch version of :func:`mha_backward`: (dq, dk, dv) in q's
+    dtype, computed in f32 in the kernel's form. With p the forward's
+    unrounded probabilities and p̃ p rounded to V's dtype (at D ≥ 32, as
+    the forward rounds it): dV = p̃ᵀ·dO, dP = dO·Vᵀ, delta = rowsum(p∘dP),
+    dS = p∘(dP − delta), dQ = dS·K·D^-½, dK = dSᵀ·Q·D^-½ — the gradient
+    straight through the rounding of p, with delta from p∘dP in f32 (not
+    from dO∘O, whose O is rounded to q's dtype). ``out`` is the forward's
+    output; this form does not read it beyond checking its shape."""
+    _check(q, k, v, causal, key_mask)
+    _check_backward(q, out, dout)
+    scale = float(q.shape[3]) ** -0.5
+    qf, kf, vf, df = (t.to(torch.float32) for t in (q, k, v, dout))
+    p = _probs(q, k, causal, key_mask)
+    dv = torch.einsum("bhqk,bqhd->bkhd", _rounded(p, v), df)
+    dp = torch.einsum("bqhd,bkhd->bhqk", df, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def mha_backward(q, k, v, out, dout, *, causal: bool = False, key_mask=None):
+    """B3's backward: the gradient of :func:`mha` with respect to q, k and v,
+    given the forward's inputs, its output ``out`` and ``dout`` (B, N_q, H,
+    D) in q's dtype. Returns (dq, dk, dv), contiguous, in q's dtype. On
+    CUDA it launches ``pk_mha_bwd`` (``csrc/attention_bwd.cu``: every form
+    and head dim :func:`mha` takes, q, k, v read in place at one row
+    stride); on the CPU it takes :func:`mha_backward_plain`."""
+    if q.device.type == "cpu":
+        return mha_backward_plain(q, k, v, out, dout, causal=causal, key_mask=key_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_backward: unsupported device {q.device}")
+    _check(q, k, v, causal, key_mask)
+    _check_backward(q, out, dout)
+    b, n_q, h, d = q.shape
+    n_kv = k.shape[1]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"mha_backward kernel supports D <= {MAX_HEAD_DIM}, got {d}")
+    ld = _launch_stride(q, k, v)
+    mask = _mask_bytes(key_mask)
+    dout = dout.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    stats = torch.empty((3, b, h, n_q), dtype=torch.float32, device=q.device)
+    lib = _build.load("attention_bwd", _BACKWARD_SIGNATURES)
+    err = lib.pk_mha_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), ld,
+        b, n_q, n_kv, h, d, int(causal), int(q.dtype == torch.bfloat16), float(d) ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "mha_backward")
+    mha_backward.launches += 1
+    mha_backward.routes["cuda_core"] += 1
+    return dq, dk, dv
+
+
+mha_backward.launches = 0
+mha_backward.routes = {"cuda_core": 0}  # one route: the CUDA cores, up to D 512
 
 
 def attention(q, k, v, *, causal: bool = False):
@@ -285,6 +416,7 @@ def mha_qkv(qkv, *, heads: int, causal: bool = False, out_scale=None):
         return mha_qkv_plain(qkv, heads=heads, causal=causal, out_scale=out_scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"mha_qkv: unsupported device {qkv.device}")
+    refuse_grad("mha_qkv", qkv, out_scale)
     _check_qkv(qkv, heads)
     b, n, w3 = qkv.shape
     w = w3 // 3

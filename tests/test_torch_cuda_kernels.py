@@ -662,3 +662,107 @@ def test_int8_topk_v2_kernel_rejects_d_past_its_limit(cuda_device):
     with pytest.raises(ValueError, match="D <="):
         int8_scan.int8_topk_v2(codes, scoring.row_sumsq(codes), valid, q_codes)
     assert int8_scan.int8_topk_v2.launches == before
+
+
+# B3's backward (csrc/attention_bwd.cu) against mha_backward_plain: one shape
+# per form and instantiation. Tolerance relative to the largest gradient
+# element: both compute in f32 from the same inputs and round once to the
+# output dtype, so bf16 results sit within two bf16 ulps of it (1e-2) and
+# f32 within the sums' order (2e-5).
+BACKWARD_SHAPES = {
+    # name: (b, n_q, n_kv, h, d, causal, masked)
+    "vit_b32_image": (4, 50, 50, 12, 64, False, False),
+    "clip_text_causal": (4, 77, 77, 8, 64, True, False),
+    "cross": (2, 63, 128, 4, 64, False, False),
+    "key_masked": (3, 128, 128, 4, 32, False, True),
+    "head_dim_16": (4, 300, 300, 2, 16, False, False),
+    "wide_self": (2, 48, 48, 2, 384, False, False),
+    "wide_causal": (2, 48, 48, 2, 384, True, False),
+    "wide_cross": (2, 48, 50, 2, 384, False, False),
+    "wide_masked_512": (3, 40, 40, 2, 512, False, True),
+    "n_1": (3, 1, 1, 4, 64, False, False),
+}
+BACKWARD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+
+
+def backward_inputs(shape, dtype, device, seed=0):
+    b, nq, nkv, h, d, causal, masked = BACKWARD_SHAPES[shape]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device=device).to(tdt)
+               for n in (nq, nkv, nkv))
+    dout = torch.randn((b, nq, h, d), generator=gen, device=device).to(tdt)
+    mask = None
+    if masked:
+        mask = torch.rand((b, nkv), generator=gen, device=device) < 0.7
+        mask[-1] = False  # a fully masked row: uniform p, gradients through every key
+    return q, k, v, dout, causal, mask
+
+
+def assert_grads_close(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g.float()).all()
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= BACKWARD_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(BACKWARD_SHAPES))
+def test_mha_backward_kernel_matches_plain(cuda_device, shape, dtype):
+    q, k, v, dout, causal, mask = backward_inputs(shape, dtype, cuda_device)
+    out = vit_attention.mha(q, k, v, causal=causal, key_mask=mask)
+    before = vit_attention.mha_backward.launches
+    got = vit_attention.mha_backward(q, k, v, out, dout, causal=causal, key_mask=mask)
+    want = vit_attention.mha_backward_plain(q, k, v, out, dout, causal=causal, key_mask=mask)
+    torch.cuda.synchronize()
+    assert vit_attention.mha_backward.launches == before + 1
+    assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("d", [64, 384])
+def test_mha_under_grad_launches_the_backward_on_fused_qkv_views(cuda_device, d):
+    # whisper's self-attention hands B3 the three views of one fused qkv;
+    # under grad the forward and backward read them in place, and the
+    # gradient of the fused projection is the plain version's.
+    b, n, h = 3, 40, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=cuda_device).to(torch.bfloat16)
+    qkv.requires_grad_()
+    dout = torch.randn((b, n, h, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+    views = [t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1)]
+    fwd, bwd = vit_attention.mha.launches, vit_attention.mha_backward.launches
+    out = vit_attention.mha(*views, causal=True)
+    assert out.grad_fn is not None
+    (grad,) = torch.autograd.grad(out, qkv, dout)
+    torch.cuda.synchronize()
+    assert (vit_attention.mha.launches, vit_attention.mha_backward.launches) == (fwd + 1, bwd + 1)
+    plain = vit_attention.mha_backward_plain(*(t.detach() for t in views), out.detach(), dout,
+                                             causal=True)
+    want = torch.cat([g.reshape(b, n, h * d) for g in plain], dim=-1)
+    assert_grads_close([grad], [want], "bfloat16")
+    with torch.no_grad():  # inference: the direct launch, nothing saved
+        assert vit_attention.mha(*views, causal=True).grad_fn is None
+
+
+def test_kernels_with_no_backward_refuse_grad(cuda_device):
+    # B1, B2, B4 and B5 have no backward: under grad each raises, naming
+    # itself, instead of returning an output that drops the gradient.
+    qkv = torch.randn((2, 8, 3 * 64), device=cuda_device, requires_grad=True)
+    with pytest.raises(ValueError, match="mha_qkv"):
+        vit_attention.mha_qkv(qkv, heads=1)
+    x = torch.randn((8, 64), device=cuda_device, requires_grad=True)
+    g, bta = torch.ones(64, device=cuda_device), torch.zeros(64, device=cuda_device)
+    with pytest.raises(ValueError, match="ln_quant_2d"):
+        ln_quant.ln_quant_2d(x, g, bta, 4.0)
+    with pytest.raises(ValueError, match="ln_quant"):
+        ln_quant.ln_quant(x.view(2, 4, 64), {"scale": g, "bias": bta}, 4.0)
+    codes, q_codes, valid, _ = _b1_inputs(cuda_device, 1000, 64, 4)
+    scale = torch.tensor(1.0, device=cuda_device, requires_grad=True)
+    sumsq = scoring.row_sumsq(codes)
+    with pytest.raises(ValueError, match="int8_topk"):
+        int8_scan.int8_topk(codes, sumsq, valid, q_codes, distance="l2", scale=scale)
+    with pytest.raises(ValueError, match="int8_topk_v2"):
+        int8_scan.int8_topk_v2(codes, sumsq, valid, q_codes, distance="l2", scale=scale)
+    with torch.no_grad():
+        assert vit_attention.mha_qkv(qkv, heads=1).shape == (2, 8, 64)
+        assert ln_quant.ln_quant_2d(x, g, bta, 4.0).dtype == torch.int8

@@ -9,8 +9,9 @@ impls (md5 lookup, the embedding and tag APIs), the tagger's mcut threshold,
 the VLM tagger's caption parse, the WAV decoder, the audio towers'
 configs, log-mel and mel preparation, and OCR's configs, segmentation,
 strip preparation and decodes to text), the native
-codec's bindings, and the built-in registry TOML; ``csrc/host_codec.cpp``
-text for text.
+codec's bindings, the logging module (``utils/logging.py``, whose logger
+tree is the port's), and the built-in registry TOML;
+``csrc/host_codec.cpp`` text for text.
 The port imports nothing of ``panoptikon_tpu``; only this test imports
 both."""
 
@@ -309,6 +310,8 @@ _PACKAGE = {r"\bimport panoptikon_tpu\b(?!_)": "import panoptikon_tpu_torch",
             r'__import__\("panoptikon_tpu"\)': '__import__("panoptikon_tpu_torch")'}
 _WEB = {r"\bfrom aiohttp import web\b": "from panoptikon_tpu_torch.api import web"}
 RENAMED = {"native/__init__.py": {r"\bcodec\.quantize_int8\(": "codec.quantize_int8_host("},
+           # The port's logging configures its own logger tree.
+           "utils/logging.py": {r'getLogger\("panoptikon_tpu"\)': 'getLogger("panoptikon_tpu_torch")'},
            "api/server.py": {**_PACKAGE, **_WEB}, "api/policy.py": _WEB, "api/relay.py": _WEB,
            "cli.py": _PACKAGE, "desktop.py": _PACKAGE}
 JOBS = ("jobs/queue.py", "jobs/index_sync.py", "jobs/reconcile.py", "jobs/extraction.py",
@@ -324,7 +327,7 @@ HOST_COPIES = ("pql/executor.py", "pql/fused.py", "pql/model.py", "pql/preproces
                "db/schema.py", "db/connection.py", "db/epochs.py", "db/store.py", "db/writer.py",
                "db/bulk.py", "utils/splitmix.py", "models/registry.py", "models/discovery.py",
                "models/manager.py", "resources/__init__.py", *JOBS, "native/__init__.py",
-               *SERVING)
+               *SERVING, "utils/logging.py")
 # Modules of the port that copy some of a reference module's units beside
 # device code of their own: the units named here must equal the
 # reference's. ``weights.load_state_dict`` differs: it names the missing
@@ -802,3 +805,46 @@ def test_native_build_is_keyed_and_falls_back_without_a_compiler(natives, monkey
     x = np.array([[0.5, -1.5, np.nan, 300.0]], np.float32)
     np.testing.assert_array_equal(native.quantize_int8(x, 1.0), [[0, -2, 0, 127]])
     assert native.absmax(x) == 300.0
+
+
+def test_logging_copy_times_phases_and_configures_the_port_logger(monkeypatch):
+    # The copy's PhaseTimer reports what the reference's does for the same
+    # spans, and init_logging sets the port's logger tree (the level from
+    # PANOPTIKON_LOG over the config's, one console handler however often
+    # it is called).
+    import logging
+    import threading
+
+    from panoptikon_tpu.utils import logging as ref_logging
+    from panoptikon_tpu_torch.utils import logging as port_logging
+
+    reports = []
+    for mod in (ref_logging, port_logging):
+        timer = mod.PhaseTimer()
+        gate = threading.Barrier(3)
+
+        def work(timer=timer, gate=gate):
+            with timer.span("inference"):
+                gate.wait()
+        threads = [threading.Thread(target=work) for _ in range(2)]
+        with timer.span("load"):
+            for t in threads:
+                t.start()
+            gate.wait()
+        for t in threads:
+            t.join()
+        reports.append(timer.report())
+    assert [set(r) for r in reports] == [{"load", "inference"}] * 2
+    for r in reports:
+        assert r["inference"]["parallelism"] >= 1.0 and r["load"]["parallelism"] == 1.0
+    logger = logging.getLogger("panoptikon_tpu_torch")
+    saved = (logger.level, list(logger.handlers))
+    try:
+        logger.handlers.clear()
+        monkeypatch.setenv("PANOPTIKON_LOG", "debug")
+        port_logging.init_logging("error")
+        port_logging.init_logging("error")
+        assert logger.level == logging.DEBUG and len(logger.handlers) == 1
+    finally:
+        logger.setLevel(saved[0])
+        logger.handlers[:] = saved[1]

@@ -387,3 +387,42 @@ def test_qkv_fused_fits_is_the_kernels_limit():
     assert vit_attention.qkv_fused_fits(vit_attention.QKV_MAX_HEAD_DIM)
     assert not vit_attention.qkv_fused_fits(vit_attention.QKV_MAX_HEAD_DIM + 1)
     assert not vit_attention.qkv_fused_fits(vit_attention.MAX_HEAD_DIM + 1)
+
+
+def test_mha_under_grad_on_the_cpu_gives_the_plain_gradients():
+    # On the CPU mha under grad runs the Function the card runs: mha_plain
+    # forward, mha_backward_plain backward. In f32 its gradients are
+    # autograd's of mha_plain (within the sums' order); q, k, v may be the
+    # views of one fused projection, as whisper passes them.
+    b, n, h, d = 2, 24, 2, 64
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * d)).astype(np.float32))
+    dout = torch.from_numpy(rng.normal(size=(b, n, h, d)).astype(np.float32))
+    grads = []
+    for fn in (vit_attention.mha, vit_attention.mha_plain):
+        x = qkv.clone().requires_grad_()
+        views = [t.view(b, n, h, d) for t in x.split(h * d, dim=-1)]
+        before = vit_attention.mha_backward.launches
+        (grad,) = torch.autograd.grad(fn(*views, causal=True), x, dout)
+        assert vit_attention.mha_backward.launches == before  # the CPU launches nothing
+        grads.append(grad.numpy())
+    scale = np.abs(grads[1]).max()
+    assert np.abs(grads[0] - grads[1]).max() <= 2e-5 * scale
+    with torch.no_grad():  # inference: no Function, nothing saved
+        x = qkv.clone().requires_grad_()
+        assert vit_attention.mha(*[t.view(b, n, h, d) for t in x.split(h * d, dim=-1)]
+                                 ).grad_fn is None
+
+
+def test_refuse_grad_names_the_kernel():
+    # The guard of the kernels with no backward (B1, B2, B4, B5 on the card):
+    # under grad a tensor that requires it raises, naming the kernel; under
+    # no_grad, or with no such tensor, nothing happens.
+    from panoptikon_tpu_torch.ops import refuse_grad
+
+    x = torch.ones(3, requires_grad=True)
+    with pytest.raises(ValueError, match="mha_qkv"):
+        refuse_grad("mha_qkv", x, 2.0)
+    refuse_grad("mha_qkv", x.detach(), None, 2.0)
+    with torch.no_grad():
+        refuse_grad("mha_qkv", x)
