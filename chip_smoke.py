@@ -277,15 +277,18 @@ Phases, one JSON line each:
             B1 runs there only in this check; the server's B3 launches are
             its jobs' towers and the text query's embed.
 
-16. train   training (ROADMAP A.17): (a) B3's backward (csrc/attention_bwd.cu)
-            against mha_backward_plain (bf16 within 1e-2, f32 within 2e-5 of
-            the largest gradient element) at the training shapes (ViT-B/32
-            image B 128 × N 50 × H 12 × D 64 and text B 128 × N 77 × H 8,
-            causal; the OCR trunk B 32 × N 128 × H 4; attn-base's decoder,
-            causal N 63 and cross over 128; caption-base's decoder rows at D
-            384, self, causal and cross; a ragged key mask B 64 × N 128 × H
-            12 × D 32 with a row fully masked; f32 B 4 × N 300 × H 2 × D
-            16), timed beside the backward of F.scaled_dot_product_attention
+16. train   training (ROADMAP A.17): (a) B3's backward (csrc/attention_bwd.cu,
+            on the route vit_attention.backward_route picks and, where that
+            is the tensor cores, on the CUDA cores too, timed in turns; at
+            ViT-B/32's image and text shapes the tensor-core route at least
+            3x faster) against mha_backward_plain (bf16 within 1e-2, f32
+            within 2e-5 of the largest gradient element) at the training
+            shapes (ViT-B/32 image B 128 × N 50 × H 12 × D 64 and text B
+            128 × N 77 × H 8, causal; the OCR trunk B 32 × N 128 × H 4;
+            attn-base's decoder, causal N 63 and cross over 128;
+            caption-base's decoder rows at D 384, self, causal and cross; a
+            ragged key mask B 64 × N 128 × H 12 × D 32 with a row fully
+            masked; f32 B 4 × N 300 × H 2 × D 16), timed beside the backward of F.scaled_dot_product_attention
             (the library yardstick, never called by the port) and the bound;
             (b) CLIP ViT-B/32 at full width (seeded random f32 master
             weights, bf16 matmuls), 20 torch.optim.Adam steps of clip_loss
@@ -295,7 +298,8 @@ Phases, one JSON line each:
             mean of the last 5 below the first 5's; at step 0 every leaf's
             gradient finite and every attention weight's (qkv_w; the
             decoder's q_w, kv_w) non-zero, which only B3's backward carries;
-            B3 launched forward and backward once a block's attention a step;
+            B3 launched forward and backward once a block's attention a step,
+            every launch of either on the tensor cores;
             the card held to the CPU at step 0 on 8 items from the same
             weights (loss within 1e-2, every leaf's gradient at cosine ≥
             0.99); step ms, items/s, peak memory, one step's busy share.
@@ -4503,7 +4507,10 @@ def _serve_recall(torch, dev, client, ex, index, exact, payloads, counters) -> d
 # B3's backward (csrc/attention_bwd.cu) against mha_backward_plain at the
 # shapes the training runs give it, and at the other forms and head dims
 # the forward takes. Tolerance relative to the largest gradient element:
-# both compute in f32 and round once to the output dtype.
+# both compute in f32 and round once to the output dtype (the tensor-core
+# route also rounds dS to bf16 for dQ and dK). At BWD_TC_SPEEDUP_SHAPES the
+# tensor-core route is required to take at most a BWD_TC_SPEEDUP-th of the
+# CUDA-core route's time, timed in turns.
 BWD_CASES = {
     # name: (b, n_q, n_kv, h, d, causal, key-masked, dtype)
     "vit_b32_image": (128, 50, 50, 12, 64, False, False, "bfloat16"),
@@ -4518,6 +4525,7 @@ BWD_CASES = {
     "f32_head_dim_16": (4, 300, 300, 2, 16, False, False, "float32"),
 }
 BWD_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
+BWD_TC_SPEEDUP, BWD_TC_SPEEDUP_SHAPES = 3.0, ("vit_b32_image", "vit_b32_text_causal")
 # The training runs: TRAIN_STEPS Adam steps each from seeded random f32
 # master weights at the registry's full widths: CLIP ViT-B/32 (clip_loss) on
 # CLIP_TRAIN_BATCH seeded image and token pairs; crnn-base (ctc_loss) and
@@ -4560,7 +4568,9 @@ def backward_kernels(torch, dev, smi, counters) -> dict:
     """Phase 16(a): B3's backward off the main path's counts, against
     mha_backward_plain at each BWD_CASES shape (a ragged key mask with one
     row fully masked), timed kernel/plain/plain/kernel beside SDPA's
-    backward and the bound."""
+    backward and the bound. Where backward_route picks the tensor cores,
+    the CUDA-core kernel is held to the plain version too and the two are
+    timed tensor/CUDA/CUDA/tensor."""
     from panoptikon_tpu_torch.ops import vit_attention
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 160)
@@ -4585,23 +4595,46 @@ def backward_kernels(torch, dev, smi, counters) -> dict:
                 return vit_attention.mha_backward_plain(q, k, v, out, dout, causal=causal,
                                                         key_mask=mask)
 
-            launched = vit_attention.mha_backward.launches
+            def cuda_core():
+                return vit_attention.mha_backward_cuda_core(q, k, v, dout, causal=causal,
+                                                            key_mask=mask)
+
+            path = vit_attention.backward_route(q.dtype, d, nq, nkv)
+            launched, routes = (vit_attention.mha_backward.launches,
+                                dict(vit_attention.mha_backward.routes))
             got, want = kernel(), plain()
             torch.cuda.synchronize()
-            require(vit_attention.mha_backward.launches == launched + 1,
-                    f"mha_backward {name}: the kernel was not launched")
-            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            require(vit_attention.mha_backward.launches == launched + 1
+                    and vit_attention.mha_backward.routes[path] == routes[path] + 1,
+                    f"mha_backward {name}: the {path} kernel was not launched")
             scale = max(w.float().abs().max().item() for w in want)
-            require(all(torch.isfinite(g.float()).all().item() for g in got)
-                    and err <= BWD_TOL[dtype] * scale,
-                    f"mha_backward {name}: max abs diff {err} > {BWD_TOL[dtype]} x {scale}")
+
+            def error(grads, what):
+                err = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, want))
+                require(all(torch.isfinite(g.float()).all().item() for g in grads)
+                        and err <= BWD_TOL[dtype] * scale,
+                        f"mha_backward {name} ({what}): max abs diff {err} > {BWD_TOL[dtype]} "
+                        f"x {scale}")
+                return err
+
+            err = error(got, path)
             ms, plain_ms = paired_ms(torch, kernel, plain, reps=10)
             shapes[name] = {"shape": [b, nq, nkv, h, d], "dtype": dtype, "causal": causal,
-                            "key_masked": masked, "route": "cuda_core", "max_abs_err": err,
+                            "key_masked": masked, "route": path, "max_abs_err": err,
                             "max_abs_grad": scale, "ms": ms, "plain_ms": plain_ms,
                             **backward_roofline(q, k, v, dout, mask, got, causal),
                             "library_ms": sdpa_backward_ms(torch, q, k, v, dout, causal, mask)}
             shapes[name]["share_of_bound"] = shapes[name]["bound_ms"] / ms
+            if path == "tensor_core":
+                cc_err = error(cuda_core(), "cuda_core")
+                tc_ms, cc_ms = paired_ms(torch, kernel, cuda_core, reps=10)
+                shapes[name].update({"cuda_core_max_abs_err": cc_err, "tensor_core_ms": tc_ms,
+                                     "cuda_core_ms": cc_ms, "cuda_core_over_tensor_core":
+                                     cc_ms / tc_ms})
+                if name in BWD_TC_SPEEDUP_SHAPES:
+                    require(cc_ms >= BWD_TC_SPEEDUP * tc_ms,
+                            f"mha_backward {name}: tensor cores {tc_ms} ms, CUDA cores {cc_ms} "
+                            f"ms, under {BWD_TC_SPEEDUP}x apart")
     return {"part": "a_backward", "card": smi, "tolerance": BWD_TOL, "shapes": shapes}
 
 
@@ -5526,7 +5559,7 @@ def main() -> int:
     train_routes = read_routes(train_counters)
     require(all(train_launches[name] == train_expected.get(name, 0) for name in train_launches),
             f"train path kernel launches {train_launches}, expected {train_expected}")
-    require_tensor_cores(train_launches, train_routes, ("mha",), "train path")
+    require_tensor_cores(train_launches, train_routes, ("mha", "mha_backward"), "train path")
     for record in train_records:
         emit({"phase": "train", **record})
     emit({"phase": "train", "part": "launches", "launches": train_launches,
@@ -5581,8 +5614,10 @@ def main() -> int:
          "replaces": "panoptikon_tpu/ops/vit_attention.py:192 (the gradient of that kernel's "
                      "function; the Pallas mha has none, and off the TPU XLA computes it)",
          "launches": train_launches["mha_backward"], "routes": train_routes["mha_backward"],
-         "max_abs_err": max(r["max_abs_err"] for r in bwd["shapes"].values()),
+         "max_abs_err": max(r.get(key, 0.0) for r in bwd["shapes"].values()
+                            for key in ("max_abs_err", "cuda_core_max_abs_err")),
          "ms": bwd["shapes"]["vit_b32_image"]["ms"],
+         "cuda_core_ms": bwd["shapes"]["vit_b32_image"]["cuda_core_ms"],
          "plain_ms": bwd["shapes"]["vit_b32_image"]["plain_ms"],
          "bound_ms": bwd["shapes"]["vit_b32_image"]["bound_ms"],
          "bound_by": bwd["shapes"]["vit_b32_image"]["bound_by"],

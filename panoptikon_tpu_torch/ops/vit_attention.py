@@ -45,9 +45,15 @@ Each wrapper counts its launches (``.launches``) and its launches by route
 grad it runs as a ``torch.autograd.Function``: the same forward launch (or
 plain version on the CPU), then :func:`mha_backward`, B3's backward
 (``csrc/attention_bwd.cu`` on the card, :func:`mha_backward_plain` on the
-CPU), for dq, dk and dv; ``key_mask`` and ``causal`` take no gradient. The
-Function saves q, k, v as given: views of a fused qkv keep the qkv alive,
-which holds exactly their bytes. Inference calls launch directly and save
+CPU), for dq, dk and dv. On the card :func:`backward_route` picks its
+kernel as :func:`route` picks the forward's: ``"tensor_core"``
+(:func:`mha_backward_tensor_core`, one block a (batch row, head), the five
+products on ``mma.sync``) where the forward's test holds and N_q, N_kv ≤
+:data:`BWD_TC_MAX_ROWS`, else ``"cuda_core"``
+(:func:`mha_backward_cuda_core`, f32 arithmetic, up to D 512).
+``key_mask`` and ``causal`` take no gradient. The Function saves q, k, v
+as given: views of a fused qkv keep the qkv alive, which holds exactly
+their bytes. Inference calls launch directly and save
 nothing. :func:`mha_qkv` (B4) has no backward: on the card it raises
 ``ValueError`` under grad rather than drop the gradient.
 """
@@ -72,6 +78,7 @@ _SIGNATURES = {
 }
 _BACKWARD_SIGNATURES = {
     "pk_mha_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
+    "pk_mha_bwd_tc": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 }
 MAX_HEAD_DIM = 512  # mha's: the CUDA-core kernel's wide instantiation
 QKV_MAX_HEAD_DIM = 128  # mha_qkv's, and the tensor-core kernel's
@@ -84,6 +91,10 @@ ROUTES = ("tensor_core", "cuda_core")
 # tiles, take at most 132 KB of a block's 227 KB, at D = 128.
 TC_QUERY_ROWS = 64
 TC_LOGITS_MAX_KEYS = 320
+# The tensor-core backward holds one (batch row, head)'s q, K, V, dO, p~ and
+# dS whole in a block's shared memory: N_q and N_kv up to this many rows
+# (208,896 bytes at D 128, of the H100's 232,448 a block).
+BWD_TC_MAX_ROWS = 128
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -98,12 +109,27 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     return "cuda_core"
 
 
+def backward_route(dtype: torch.dtype, head_dim: int, n_q: int, n_kv: int) -> str:
+    """The kernel a CUDA call of :func:`mha_backward` launches:
+    ``"tensor_core"`` where the forward's own test holds (:func:`route`:
+    bf16, 32 ≤ D ≤ 128, D % 16 == 0) and N_q, N_kv ≤ :data:`BWD_TC_MAX_ROWS`
+    — every shape training gives B3 — else ``"cuda_core"``. Past
+    :data:`MAX_HEAD_DIM` it raises ``ValueError``, as :func:`route` does."""
+    if route(dtype, head_dim) == "tensor_core" and max(n_q, n_kv) <= BWD_TC_MAX_ROWS:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _check_aligned(ptrs, ld, what, names="q, k, v"):
+    if any(ptr % 16 for ptr in ptrs) or ld % 8:
+        raise ValueError(f"the tensor-core {what} kernel needs 16-byte aligned {names} rows")
+
+
 def _tensor_core(q_ptr, k_ptr, v_ptr, mask, out, scale_t, ld, b, n_q, n_kv, h, d, causal,
                  device):
     """Launch ``pk_mha_tc`` on bf16 operands given by base pointer and row
     stride ``ld`` (elements)."""
-    if any(ptr % 16 for ptr in (q_ptr, k_ptr, v_ptr)) or ld % 8:
-        raise ValueError("the tensor-core attention kernel needs 16-byte aligned q, k, v rows")
+    _check_aligned((q_ptr, k_ptr, v_ptr), ld, "attention")
     lib = _build.load("attention", _SIGNATURES)
     return lib.pk_mha_tc(
         q_ptr, k_ptr, v_ptr, None if mask is None else mask.data_ptr(), out.data_ptr(),
@@ -296,6 +322,8 @@ mha.routes = dict.fromkeys(ROUTES, 0)
 
 def _check_backward(q, out, dout):
     for name, t in (("out", out), ("dout", dout)):
+        if t is None:  # the kernels' launchers take no out
+            continue
         if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must be (B, N_q, H, D) = {tuple(q.shape)} in {q.dtype} on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
@@ -327,25 +355,71 @@ def mha_backward(q, k, v, out, dout, *, causal: bool = False, key_mask=None):
     """B3's backward: the gradient of :func:`mha` with respect to q, k and v,
     given the forward's inputs, its output ``out`` and ``dout`` (B, N_q, H,
     D) in q's dtype. Returns (dq, dk, dv), contiguous, in q's dtype. On
-    CUDA it launches ``pk_mha_bwd`` (``csrc/attention_bwd.cu``: every form
-    and head dim :func:`mha` takes, q, k, v read in place at one row
-    stride); on the CPU it takes :func:`mha_backward_plain`."""
+    CUDA it launches the kernel :func:`backward_route` picks
+    (:func:`mha_backward_tensor_core` or :func:`mha_backward_cuda_core`,
+    ``csrc/attention_bwd.cu``; q, k, v read in place at one row stride); on
+    the CPU it takes :func:`mha_backward_plain`."""
     if q.device.type == "cpu":
         return mha_backward_plain(q, k, v, out, dout, causal=causal, key_mask=key_mask)
     if q.device.type != "cuda":
         raise ValueError(f"mha_backward: unsupported device {q.device}")
     _check(q, k, v, causal, key_mask)
     _check_backward(q, out, dout)
+    path = backward_route(q.dtype, q.shape[3], q.shape[1], k.shape[1])
+    launch = mha_backward_tensor_core if path == "tensor_core" else mha_backward_cuda_core
+    return launch(q, k, v, dout, causal=causal, key_mask=key_mask)
+
+
+def _backward_operands(q, k, v, dout, causal, key_mask):
+    """The checked launch operands of a backward kernel: (ld, mask bytes,
+    contiguous dout, empty dq, dk, dv)."""
+    _check(q, k, v, causal, key_mask)
+    _check_backward(q, None, dout)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_backward kernels take CUDA tensors, got {q.device}")
+    if q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"mha_backward kernel supports D <= {MAX_HEAD_DIM}, got {q.shape[3]}")
+    grads = tuple(torch.empty(t.shape, dtype=q.dtype, device=q.device) for t in (q, k, v))
+    return _launch_stride(q, k, v), _mask_bytes(key_mask), dout.contiguous(), grads
+
+
+def _count_backward(path):
+    mha_backward.launches += 1
+    mha_backward.routes[path] += 1
+
+
+def mha_backward_tensor_core(q, k, v, dout, *, causal: bool = False, key_mask=None):
+    """Launch ``pk_mha_bwd_tc``: one block a (head, batch row), the five
+    products on the tensor cores. Takes what :func:`backward_route` sends to
+    ``"tensor_core"`` and 16-byte aligned q, k, v and dout rows (``ld % 8 ==
+    0``), else raises ``ValueError``; it never falls back to the other
+    kernel."""
+    ld, mask, dout, (dq, dk, dv) = _backward_operands(q, k, v, dout, causal, key_mask)
     b, n_q, h, d = q.shape
     n_kv = k.shape[1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"mha_backward kernel supports D <= {MAX_HEAD_DIM}, got {d}")
-    ld = _launch_stride(q, k, v)
-    mask = _mask_bytes(key_mask)
-    dout = dout.contiguous()
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    if backward_route(q.dtype, d, n_q, n_kv) != "tensor_core":
+        raise ValueError(f"the tensor-core backward takes bf16, D in 32..128 (a multiple of 16) "
+                         f"and N_q, N_kv <= {BWD_TC_MAX_ROWS}; got {q.dtype}, D {d}, "
+                         f"N_q {n_q}, N_kv {n_kv}")
+    _check_aligned((q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr()), ld,
+                   "attention backward", "q, k, v and dout")
+    lib = _build.load("attention_bwd", _BACKWARD_SIGNATURES)
+    err = lib.pk_mha_bwd_tc(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ld, b, n_q, n_kv, h, d,
+        int(causal), float(d) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "mha_backward")
+    _count_backward("tensor_core")
+    return dq, dk, dv
+
+
+def mha_backward_cuda_core(q, k, v, dout, *, causal: bool = False, key_mask=None):
+    """Launch ``pk_mha_bwd``: three kernels on the CUDA cores in f32, every
+    form, dtype and head dim (≤ :data:`MAX_HEAD_DIM`) :func:`mha` takes."""
+    ld, mask, dout, (dq, dk, dv) = _backward_operands(q, k, v, dout, causal, key_mask)
+    b, n_q, h, d = q.shape
+    n_kv = k.shape[1]
     stats = torch.empty((3, b, h, n_q), dtype=torch.float32, device=q.device)
     lib = _build.load("attention_bwd", _BACKWARD_SIGNATURES)
     err = lib.pk_mha_bwd(
@@ -355,13 +429,12 @@ def mha_backward(q, k, v, out, dout, *, causal: bool = False, key_mask=None):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "mha_backward")
-    mha_backward.launches += 1
-    mha_backward.routes["cuda_core"] += 1
+    _count_backward("cuda_core")
     return dq, dk, dv
 
 
 mha_backward.launches = 0
-mha_backward.routes = {"cuda_core": 0}  # one route: the CUDA cores, up to D 512
+mha_backward.routes = dict.fromkeys(ROUTES, 0)
 
 
 def attention(q, k, v, *, causal: bool = False):

@@ -1,7 +1,8 @@
 """Where the device time goes on the port's main path, on one NVIDIA GPU.
 
     python3 -m panoptikon_tpu_torch.profiling [--out DIR] [--reps N]
-                                              [--attention | --scan [--b1-before DIR] | --ln]
+                                              [--attention | --scan [--b1-before DIR] | --ln
+                                               | --backward [--bwd-before DIR] | --train]
 
 Four operations, each called ``reps`` times back to back under
 ``torch.profiler`` (CPU and CUDA activity), after three warm-up calls:
@@ -61,6 +62,24 @@ with device ms and img/s each: as built (kernel B5); B5 replaced by the
 unfused ``ln_quant_plain``, the probe's baseline; and the probe's GEMM-chain
 floor, LayerNorm scale-only (``x·γ + β``, then the static quantize) and the
 attention core passed through (``v`` quantized in place of ``mha_qkv``).
+
+``--backward`` is the probe of B3's backward on the CUDA cores past D 128:
+``csrc/attention_bwd.cu`` as built and with the wide instantiation's other
+form (``kWideSplit``: each 8 × 8 tile entry's dot products on one lane, or
+split over two so that all four warps form them), each built alone with its
+``nvcc`` seconds and ``ptxas`` registers, timed in turns at
+``BWD_WIDE_SHAPES``; with ``--bwd-before DIR``, also the ``attention_bwd.cu``
+of a checkout at DIR (the parent commit), built alone for its seconds and
+timed in the same turns.
+
+``--train`` is the probe of a training step: CLIP ViT-B/32 at full width
+(seeded random f32 master weights) on ``TRAIN_PAIRS`` seeded image and
+token pairs, ``clip_loss``, backward and a ``torch.optim.Adam`` step. The
+step's host time (to a synchronize) with B3's backward on each of its two
+routes, in turns (tensor cores, CUDA cores, CUDA cores, tensor cores;
+``TRAIN_STEPS`` steps each, the CUDA cores forced by patching
+``backward_route``), then the step profiled on the route the port picks:
+device time by part (B3, B3's backward, GEMMs, the optimizer, the rest).
 """
 
 from __future__ import annotations
@@ -113,6 +132,15 @@ ABLATIONS = {
     "fast_exp": [("expf(", "__expf(")],
 }
 _OTHER_DIMS = [f"    PK_TC_CASE({d})\n" for d in (32, 48, 80, 96, 112, 128)]
+# B3's backward past D 128 (--backward): caption-base's decoder rows, (b, n_q,
+# n_kv, h, d, causal), and the widest head.
+BWD_WIDE_SHAPES = {
+    "caption_decoder_self": (8, 48, 48, 2, 384, False),
+    "caption_decoder_causal": (8, 48, 48, 2, 384, True),
+    "caption_decoder_cross": (8, 48, 50, 2, 384, False),
+    "head_dim_512": (8, 48, 48, 2, 512, False),
+}
+TRAIN_PAIRS, TRAIN_STEPS = 128, 10
 SCAN_PROBE = (4096, 512, 32_768)  # Q, D, C of tools/pallas_int8_gemm_probe.py
 # B2's fold as built, and in its place a sum that keeps every dot live.
 _FOLD_BODY = """  const float d = scan_distance(dot, xx, qq, kL2, scale);
@@ -305,11 +333,163 @@ def _ablation_lib(source: str, name: str, edits, signatures, csrc: Path | None =
                            str(build / f"{source}.cu")], capture_output=True, text=True, timeout=600)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for ablation {name}:\n{proc.stderr[-4000:]}")
+    (build / f"{source}.log").write_text(proc.stdout + proc.stderr)
     lib = ctypes.CDLL(str(so))
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def wide_split_edit(text: str) -> tuple[str, str]:
+    """The edit of ``csrc/attention_bwd.cu`` that gives its wide
+    instantiation the other form: ``kWideSplit`` 2 where it is 1, else 1."""
+    for built, other in ((1, 2), (2, 1)):
+        line = f"constexpr int kWideSplit = {built};"
+        if line in text:
+            return line, f"constexpr int kWideSplit = {other};"
+    raise RuntimeError("csrc/attention_bwd.cu sets no kWideSplit of 1 or 2")
+
+
+def _ptxas_wide(log: Path) -> dict:
+    """The register and spill lines of ``ptxas -v`` for the wide
+    instantiation's kernels (8 × 8 tiles), by mangled kernel name."""
+    out, kernel = {}, None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and "Li8ELi8E" in kernel and ("registers" in line or "spill" in line):
+            out.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def _backward_probe(dev, smi: str, before: Path | None) -> None:
+    """B3's backward past D 128: as built, the wide form's other split, and
+    with ``before`` the parent's source, each built alone (seconds,
+    registers), then timed in turns at ``BWD_WIDE_SHAPES``."""
+    from panoptikon_tpu_torch import _build
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    edit = wide_split_edit((_build.CSRC / "attention_bwd.cu").read_text())
+    sig = {"pk_mha_bwd": vit_attention._BACKWARD_SIGNATURES["pk_mha_bwd"]}
+    builds = {"as_built": ([], None), f"wide_split_{edit[1][-2]}": ([edit], None)}
+    if before is not None:
+        builds["before"] = ([], before / "panoptikon_tpu_torch" / "csrc")
+    libs, record = {}, {}
+    for name, (edits, csrc) in builds.items():
+        t0 = time.perf_counter()
+        libs[name] = _ablation_lib("attention_bwd", name, edits, sig, csrc)
+        record[name] = {"nvcc_s": time.perf_counter() - t0, "ptxas_wide": _ptxas_wide(
+            _build.BUILD_DIR / "ablation" / f"attention_bwd_{name}" / "attention_bwd.log")}
+    print(json.dumps({"card": smi, "probe": "backward_build", "builds": record}), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for shape, (b, nq, nkv, h, d, causal) in BWD_WIDE_SHAPES.items():
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for n in (nq, nkv, nkv))
+        dout = torch.randn((b, nq, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        stats = torch.empty((3, b, h, nq), dtype=torch.float32, device=dev)
+        want = vit_attention.mha_backward_plain(q, k, v, dout, dout, causal=causal)
+        times, errs = {}, {}
+        for name in (*libs, *reversed(libs)):
+            lib = libs[name]
+
+            def call():
+                return lib.pk_mha_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                      dout.data_ptr(), *(g.data_ptr() for g in grads),
+                                      stats.data_ptr(), h * d, b, nq, nkv, h, d, int(causal), 1,
+                                      float(d) ** -0.5, stream)
+
+            _build.check(call(), f"backward probe {name}")
+            torch.cuda.synchronize()
+            errs[name] = max((g.float() - w.float()).abs().max().item()
+                             for g, w in zip(grads, want))
+            times.setdefault(name, []).append(_cuda_ms(call))
+        print(json.dumps({"card": smi, "probe": "backward_wide", "shape": shape,
+                          "ms": {n: sum(t) / len(t) for n, t in times.items()},
+                          "ms_each_turn": times, "max_abs_err": errs,
+                          "max_abs_grad": max(w.float().abs().max().item() for w in want)}),
+              flush=True)
+
+
+# Kernel names by part of a training step's device time (first match).
+_TRAIN_PARTS = (("b3_backward", ("mha_bwd",)), ("b3", ("mha_",)),
+                ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+                ("optimizer", ("multi_tensor", "adam", "foreach")))
+
+
+def _train_probe(dev, smi: str, reps: int, out: Path) -> None:
+    """``--train``: a CLIP ViT-B/32 training step timed with B3's backward on
+    each route in turns, then profiled (device time by ``_TRAIN_PARTS``)."""
+    from panoptikon_tpu_torch.models import convert
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    cfg = clip.CONFIGS["ViT-B-32"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    images = torch.randn((TRAIN_PAIRS, cfg.image_size, cfg.image_size, 3), generator=gen,
+                         device=dev)
+    lengths = torch.randint(4, cfg.text_ctx, (TRAIN_PAIRS, 1), generator=gen, device=dev)
+    tokens = torch.randint(1, 49407, (TRAIN_PAIRS, cfg.text_ctx), generator=gen, device=dev)
+    pos = torch.arange(cfg.text_ctx, device=dev)[None, :]
+    tokens = torch.where(pos < lengths, tokens, 0)
+    tokens = torch.where(pos == lengths, 49407, tokens)  # EOT
+    params = clip.init_params(cfg, gen)
+    leaves = convert.trainable(params)
+    opt = torch.optim.Adam(leaves, lr=1e-4)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        clip.clip_loss(params, cfg, images, tokens).backward()
+        opt.step()
+
+    def on(path):
+        """B3's backward on ``path``: the port's pick, or the CUDA cores forced."""
+        if path == "tensor_core":
+            return contextlib.nullcontext()
+        return mock.patch.object(vit_attention, "backward_route", lambda *args: "cuda_core")
+
+    def device_parts():
+        step()  # the first step on a route warms it
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        parts = dict.fromkeys([name for name, _ in _TRAIN_PARTS] + ["other"], 0.0)
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            key = e.key.lower()
+            part = next((name for name, marks in _TRAIN_PARTS if any(m in key for m in marks)),
+                        "other")
+            parts[part] += e.self_device_time_total / 1e3
+        return parts
+
+    for _ in range(3):
+        step()
+    times, parts = {}, {}
+    for path in ("tensor_core", "cuda_core", "cuda_core", "tensor_core"):
+        with on(path):
+            routes = dict(vit_attention.mha_backward.routes)
+            step()
+            ms = []
+            for _ in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            grew = {r: vit_attention.mha_backward.routes[r] - routes[r] for r in routes}
+            if grew[path] != (TRAIN_STEPS + 1) * (cfg.vision_layers + cfg.text_layers) or \
+                    sum(grew.values()) != grew[path]:
+                raise RuntimeError(f"train probe: B3's backward launches by route {grew} on {path}")
+            if path not in parts:
+                parts[path] = device_parts()
+        times.setdefault(path, []).append(float(np.median(ms)))
+    print(json.dumps({"card": smi, "probe": "train_step_by_backward_route", "pairs": TRAIN_PAIRS,
+                      "steps_a_turn": TRAIN_STEPS, "median_step_ms_each_turn": times,
+                      "one_step_device_ms_by_part": parts}), flush=True)
+    record = _profile("train_clip_step", step, reps, out)
+    print(json.dumps({"card": smi, "probe": "train_clip_step", **record}), flush=True)
 
 
 def _attention_ablation(dev, smi: str) -> None:
@@ -606,6 +786,13 @@ def main(argv=None) -> int:
                         help="the fused-LayerNorm probe: three programs of the int8 embed")
     probes.add_argument("--plain", action="store_true",
                         help="B1 and B2 against their plain versions at PLAIN_SHAPES")
+    probes.add_argument("--train", action="store_true",
+                        help="a CLIP ViT-B/32 training step on each route of B3's backward")
+    probes.add_argument("--backward", action="store_true",
+                        help="B3's backward past D 128: its wide form's two splits")
+    parser.add_argument("--bwd-before", type=Path, default=None, metavar="DIR",
+                        help="with --backward, also build and time attention_bwd.cu of the "
+                             "checkout at DIR")
     args = parser.parse_args(argv)
     dev = device("cuda")
     args.out.mkdir(parents=True, exist_ok=True)
@@ -624,6 +811,12 @@ def main(argv=None) -> int:
         return 0
     if args.plain:
         _plain_probe(dev, smi)
+        return 0
+    if args.backward:
+        _backward_probe(dev, smi, args.bwd_before)
+        return 0
+    if args.train:
+        _train_probe(dev, smi, args.reps, args.out)
         return 0
     if args.attention:
         _attention_variants(dev, smi)

@@ -665,10 +665,12 @@ def test_int8_topk_v2_kernel_rejects_d_past_its_limit(cuda_device):
 
 
 # B3's backward (csrc/attention_bwd.cu) against mha_backward_plain: one shape
-# per form and instantiation. Tolerance relative to the largest gradient
-# element: both compute in f32 from the same inputs and round once to the
-# output dtype, so bf16 results sit within two bf16 ulps of it (1e-2) and
-# f32 within the sums' order (2e-5).
+# per form and instantiation, and the tensor-core route's edges (N 1, 63-65,
+# 128; cross 1 x 128 and 63 x 128; causal 63; D 32 to 128). Tolerance
+# relative to the largest gradient element: both compute in f32 from the
+# same inputs and round once to the output dtype (the tensor-core route also
+# rounds dS to bf16 for dQ and dK), so bf16 results sit within two bf16 ulps
+# of it (1e-2) and f32 within the sums' order (2e-5).
 BACKWARD_SHAPES = {
     # name: (b, n_q, n_kv, h, d, causal, masked)
     "vit_b32_image": (4, 50, 50, 12, 64, False, False),
@@ -681,6 +683,18 @@ BACKWARD_SHAPES = {
     "wide_cross": (2, 48, 50, 2, 384, False, False),
     "wide_masked_512": (3, 40, 40, 2, 512, False, True),
     "n_1": (3, 1, 1, 4, 64, False, False),
+    "n_63": (2, 63, 63, 4, 64, False, False),
+    "n_64": (2, 64, 64, 4, 64, False, False),
+    "n_65": (2, 65, 65, 4, 64, False, False),
+    "n_128": (2, 128, 128, 4, 64, False, False),
+    "cross_1x128": (3, 1, 128, 4, 64, False, False),
+    "causal_63": (2, 63, 63, 4, 64, True, False),
+    "head_dim_32": (2, 77, 77, 4, 32, True, False),
+    "head_dim_48": (2, 50, 50, 4, 48, False, False),
+    "head_dim_80": (2, 65, 65, 2, 80, False, True),
+    "head_dim_128": (2, 128, 128, 2, 128, True, False),
+    "head_dim_128_cross": (2, 100, 128, 2, 128, False, False),
+    "n_129": (2, 129, 129, 2, 64, False, False),
 }
 BACKWARD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 
@@ -711,12 +725,94 @@ def assert_grads_close(got, want, dtype):
 def test_mha_backward_kernel_matches_plain(cuda_device, shape, dtype):
     q, k, v, dout, causal, mask = backward_inputs(shape, dtype, cuda_device)
     out = vit_attention.mha(q, k, v, causal=causal, key_mask=mask)
-    before = vit_attention.mha_backward.launches
+    before, routes = vit_attention.mha_backward.launches, dict(vit_attention.mha_backward.routes)
     got = vit_attention.mha_backward(q, k, v, out, dout, causal=causal, key_mask=mask)
     want = vit_attention.mha_backward_plain(q, k, v, out, dout, causal=causal, key_mask=mask)
     torch.cuda.synchronize()
     assert vit_attention.mha_backward.launches == before + 1
+    path = vit_attention.backward_route(q.dtype, q.shape[3], q.shape[1], k.shape[1])
+    assert vit_attention.mha_backward.routes == {**routes, path: routes[path] + 1}
     assert_grads_close(got, want, dtype)
+
+
+TC_BACKWARD_SHAPES = [name for name, (b, nq, nkv, h, d, _, _) in BACKWARD_SHAPES.items()
+                      if vit_attention.backward_route(torch.bfloat16, d, nq, nkv) == "tensor_core"]
+
+
+@pytest.mark.parametrize("shape", TC_BACKWARD_SHAPES)
+def test_mha_backward_both_routes_match_plain(cuda_device, shape):
+    # Where the tensor-core route takes a shape, both kernels launch on it
+    # and each is held to the plain version; each counts on its own route.
+    q, k, v, dout, causal, mask = backward_inputs(shape, "bfloat16", cuda_device)
+    out = vit_attention.mha(q, k, v, causal=causal, key_mask=mask)
+    want = vit_attention.mha_backward_plain(q, k, v, out, dout, causal=causal, key_mask=mask)
+    for path, launch in (("tensor_core", vit_attention.mha_backward_tensor_core),
+                         ("cuda_core", vit_attention.mha_backward_cuda_core)):
+        before, routes = vit_attention.mha_backward.launches, dict(vit_attention.mha_backward.routes)
+        got = launch(q, k, v, dout, causal=causal, key_mask=mask)
+        torch.cuda.synchronize()
+        assert vit_attention.mha_backward.launches == before + 1
+        assert vit_attention.mha_backward.routes == {**routes, path: routes[path] + 1}
+        assert_grads_close(got, want, "bfloat16")
+    # No atomics: the tensor-core route gives the same bits run after run.
+    again = vit_attention.mha_backward_tensor_core(q, k, v, dout, causal=causal, key_mask=mask)
+    first = vit_attention.mha_backward_tensor_core(q, k, v, dout, causal=causal, key_mask=mask)
+    assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("shape", [(4, 50, 50, 12, 64, False, False),
+                                   (2, 63, 63, 4, 64, True, False),
+                                   (3, 64, 64, 2, 64, False, True),
+                                   (2, 100, 128, 2, 128, False, False),
+                                   (2, 128, 128, 2, 128, True, False)])
+def test_tensor_core_backward_p_is_the_forwards_bit_for_bit(cuda_device, shape):
+    # With V and dO one-hot (V[j, c] = [c == j], dO[i, c] = [c == i]; N_q,
+    # N_kv <= D) the forward's output is its p~ (out[i, j] = p~[i, j]) and
+    # the backward's dV is the backward's p~ transposed (dV[j, i] =
+    # p~[i, j]), each a single exact product rounded from a bf16 value: the
+    # two kernels form the same p~ bit for bit.
+    b, nq, nkv, h, d, causal, masked = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn((b, nq, h, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+    k = torch.randn((b, nkv, h, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+    eye = torch.eye(d, device=cuda_device, dtype=torch.bfloat16)
+    v = eye[:nkv][None, :, None, :].expand(b, nkv, h, d).contiguous()
+    dout = eye[:nq][None, :, None, :].expand(b, nq, h, d).contiguous()
+    mask = None
+    if masked:
+        mask = torch.rand((b, nkv), generator=gen, device=cuda_device) < 0.7
+        mask[-1] = False
+    out = vit_attention.mha(q, k, v, causal=causal, key_mask=mask)
+    _, _, dv = vit_attention.mha_backward_tensor_core(q, k, v, dout, causal=causal, key_mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out[..., :nkv], dv[..., :nq].permute(0, 3, 2, 1))
+    assert out.float().sum(dim=-1).sub(1).abs().max().item() < 0.05  # rows of p~ sum to ~1
+
+
+def test_tensor_core_backward_refuses_what_it_does_not_take(cuda_device):
+    # Misaligned q or dO rows raise on the tensor-core route (no fallback
+    # to the other kernel), as do shapes backward_route sends elsewhere;
+    # nothing is counted.
+    b, n, h, d = 2, 50, 4, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    flat = torch.randn(b * n * h * d + 1, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q = flat[1:].view(b, n, h, d)  # contiguous, 2 bytes past an aligned base
+    k, v, dout = (torch.randn((b, n, h, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+                  for _ in range(3))
+    before, routes = vit_attention.mha_backward.launches, dict(vit_attention.mha_backward.routes)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        vit_attention.mha_backward_tensor_core(q, k, v, dout)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        vit_attention.mha_backward(q, k, v, dout, dout)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # dO read by cp.async too
+        vit_attention.mha_backward_tensor_core(k, k, v, q)
+    long = torch.randn((1, 129, 1, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="tensor-core backward"):
+        vit_attention.mha_backward_tensor_core(long, long, long, long)
+    with pytest.raises(ValueError, match="tensor-core backward"):
+        vit_attention.mha_backward_tensor_core(*(t.float() for t in (k, k, v, dout)))
+    assert vit_attention.mha_backward.launches == before
+    assert vit_attention.mha_backward.routes == routes
 
 
 @pytest.mark.parametrize("d", [64, 384])
@@ -731,11 +827,14 @@ def test_mha_under_grad_launches_the_backward_on_fused_qkv_views(cuda_device, d)
     dout = torch.randn((b, n, h, d), generator=gen, device=cuda_device).to(torch.bfloat16)
     views = [t.view(b, n, h, d) for t in qkv.split(h * d, dim=-1)]
     fwd, bwd = vit_attention.mha.launches, vit_attention.mha_backward.launches
+    routes = dict(vit_attention.mha_backward.routes)
     out = vit_attention.mha(*views, causal=True)
     assert out.grad_fn is not None
     (grad,) = torch.autograd.grad(out, qkv, dout)
     torch.cuda.synchronize()
     assert (vit_attention.mha.launches, vit_attention.mha_backward.launches) == (fwd + 1, bwd + 1)
+    path = "tensor_core" if d == 64 else "cuda_core"  # ld = 3·H·D: read in place on both
+    assert vit_attention.mha_backward.routes == {**routes, path: routes[path] + 1}
     plain = vit_attention.mha_backward_plain(*(t.detach() for t in views), out.detach(), dout,
                                              causal=True)
     want = torch.cat([g.reshape(b, n, h * d) for g in plain], dim=-1)

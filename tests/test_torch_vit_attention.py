@@ -292,6 +292,18 @@ def test_attention_ablation_edits_apply_to_the_kernel_source():
             assert old in text, (name, old)
 
 
+def test_backward_probe_edit_applies_to_the_kernel_source():
+    # profiling --backward builds csrc/attention_bwd.cu with its wide
+    # instantiation's other form: the edit must find its one line, and
+    # applied, give back the form as built.
+    from panoptikon_tpu_torch import _build, profiling
+
+    text = (_build.CSRC / "attention_bwd.cu").read_text()
+    old, new = profiling.wide_split_edit(text)
+    assert text.count(old) == 1 and old != new
+    assert profiling.wide_split_edit(text.replace(old, new)) == (new, old)
+
+
 @pytest.mark.parametrize("smem_logits", [True, False])
 @pytest.mark.parametrize("case", ["image", "text_causal"])
 def test_kernel_order_matches_pallas_kernel(case, smem_logits):
@@ -346,6 +358,73 @@ def test_route_follows_dtype_and_head_dim():
                 == "tensor_core"
     assert set(vit_attention.mha.routes) == set(vit_attention.mha_qkv.routes) == \
         set(vit_attention.ROUTES)
+
+
+# B3's backward routes: (dtype, D, N_q, N_kv) -> the kernel a CUDA call
+# launches. The tensor cores take the forward's head dims in bf16 up to
+# BWD_TC_MAX_ROWS (128) query rows and keys; the CUDA cores take f32, the
+# other head dims and longer rows.
+BACKWARD_ROUTE_EDGES = {
+    "n_1": (torch.bfloat16, 64, 1, 1, "tensor_core"),
+    "n_63": (torch.bfloat16, 64, 63, 63, "tensor_core"),
+    "n_64": (torch.bfloat16, 64, 64, 64, "tensor_core"),
+    "n_65": (torch.bfloat16, 64, 65, 65, "tensor_core"),
+    "n_128": (torch.bfloat16, 64, 128, 128, "tensor_core"),
+    "n_129": (torch.bfloat16, 64, 129, 129, "cuda_core"),
+    "cross_1x128": (torch.bfloat16, 64, 1, 128, "tensor_core"),
+    "cross_63x128": (torch.bfloat16, 64, 63, 128, "tensor_core"),
+    "cross_63x129": (torch.bfloat16, 64, 63, 129, "cuda_core"),
+    "cross_129x1": (torch.bfloat16, 64, 129, 1, "cuda_core"),
+    "d_32": (torch.bfloat16, 32, 128, 128, "tensor_core"),
+    "d_48": (torch.bfloat16, 48, 50, 50, "tensor_core"),
+    "d_80": (torch.bfloat16, 80, 50, 50, "tensor_core"),
+    "d_128": (torch.bfloat16, 128, 128, 128, "tensor_core"),
+    "d_16": (torch.bfloat16, 16, 50, 50, "cuda_core"),
+    "d_40": (torch.bfloat16, 40, 50, 50, "cuda_core"),
+    "d_144": (torch.bfloat16, 144, 50, 50, "cuda_core"),
+    "d_384": (torch.bfloat16, 384, 48, 48, "cuda_core"),
+    "f32_d64": (torch.float32, 64, 50, 50, "cuda_core"),
+    "f32_d16": (torch.float32, 16, 300, 300, "cuda_core"),
+}
+
+
+def _phase_16_shapes():
+    from chip_smoke import BWD_CASES
+
+    return {name: (getattr(torch, dtype), d, nq, nkv)
+            for name, (_, nq, nkv, _, d, _, _, dtype) in BWD_CASES.items()}
+
+
+@pytest.mark.parametrize("case", [*_phase_16_shapes(), *BACKWARD_ROUTE_EDGES])
+def test_backward_route_follows_dtype_head_dim_and_rows(case):
+    # Decided before a launch, as the forward's route: the forward's own
+    # test (bf16, D a multiple of 16 in [32, 128]) and N_q, N_kv <= 128.
+    # Every shape training gives B3 (phase 16's bf16 shapes at D 64 and the
+    # key-masked D 32) takes the tensor cores; D 384 and f32 do not.
+    if case in BACKWARD_ROUTE_EDGES:
+        dtype, d, nq, nkv, want = BACKWARD_ROUTE_EDGES[case]
+    else:
+        dtype, d, nq, nkv = _phase_16_shapes()[case]
+        want = ("tensor_core" if dtype == torch.bfloat16 and d in (32, 64) else "cuda_core")
+    assert vit_attention.backward_route(dtype, d, nq, nkv) == want
+    assert vit_attention.BWD_TC_MAX_ROWS == 128
+    if want == "tensor_core":
+        assert vit_attention.route(dtype, d) == "tensor_core"
+    with pytest.raises(ValueError, match="D <= 512"):
+        vit_attention.backward_route(dtype, vit_attention.MAX_HEAD_DIM + 1, nq, nkv)
+
+
+def test_backward_launchers_take_only_cuda_tensors():
+    # On the CPU mha_backward takes the plain version; each kernel's
+    # launcher raises there (and counts nothing) rather than fall back.
+    q, k, v, _, _ = _inputs("self")
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    before = (vit_attention.mha_backward.launches, dict(vit_attention.mha_backward.routes))
+    for launch in (vit_attention.mha_backward_tensor_core, vit_attention.mha_backward_cuda_core):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(tq, tk, tv, tq)
+    assert (vit_attention.mha_backward.launches, vit_attention.mha_backward.routes) == before
+    assert set(vit_attention.mha_backward.routes) == set(vit_attention.ROUTES)
 
 
 @pytest.mark.parametrize("b, n", [(4, 1), (1, 1), (1, 5), (4, 5), (3, 1500)])
