@@ -1,6 +1,7 @@
 """Drive the PyTorch port's search core, serving embed, PQL pages, text search,
 the index build path, the audio path, the image tag and caption path, the
-OCR path, its HTTP server and its training once on one NVIDIA GPU.
+OCR path, its HTTP server, its training and its sharded index once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -130,7 +131,7 @@ Phases, one JSON line each:
             shapes whose text leaves are embedded once on the card, their
             vectors then handed to an Executor on the card and one on the
             CPU, with equal pages;
-11. extract the build path (BASELINE #3's text half): (a) 32,768 items with
+11. extract the build path (BASELINE #3's text half): (a) 16,384 items with
             OCR text rows (seeded words, log-uniform 4-1,024 a text, so most
             windows of 64 hold a text past mpnet-base's 512-token context)
             seeded under bulk_ingest, textembed/mpnet-base loaded through
@@ -303,8 +304,33 @@ Phases, one JSON line each:
             the card held to the CPU at step 0 on 8 items from the same
             weights (loss within 1e-2, every leaf's gradient at cosine ≥
             0.99); step ms, items/s, peak memory, one step's busy share.
+17. sharded the sharded index (ROADMAP A.12) on the one card: (a), run after
+            phase 6, phase 4's 1,048,576 × 512 snapshot through
+            index/sharded.py's build_sharded over parallel/mesh.py's mesh
+            of 4 entries of cuda:0 (set_devices), each shard a slab of its
+            own: the int8 and f32 arms' host seconds; sharded_search at Q
+            256 and Q 1, k 10, cosine and L2: B1 launched 4 times a sharded
+            int8 call, ids equal to one unsharded B1's over the whole index
+            and distances within 1e-6 (the f32 arm: one streaming_topk's),
+            the ms beside unsharded B1's in turns; the snapshot regrouped
+            at 3 rows an item through sharded_grouped_scores at Q 16 (MIN,
+            MAX, AVG, weighted, and a row_valid override) equal to one
+            grouped_scores (MIN and MAX exact, the averages within 1e-6);
+            (b), run after 15(b) over its AppState (data root and spaces),
+            e2e_server_bench's five payloads, 8 bodies each after 2 warm,
+            through Executor.execute on one shard and then on the 4-entry
+            mesh (whose executor raises if it takes the one-shard path):
+            every page equal, p50 of each; (c), run after phase 16, two
+            processes (this script with --multihost-worker) joined by
+            parallel/multihost.py's initialize over gloo at 127.0.0.1, 2
+            shards each on cuda:0, 262,144 × 512: in hosts_replica_mesh and
+            hosts_shard_mesh, sharded_search (int8 and f32, Q 16, k 10)
+            equal to one unsharded B1 / streaming_topk in the process (ids
+            exact, distances within 1e-6) and the f32 arm to the exact f32
+            top-10 up to ties; a child's failure fails the phase.
 
-Each main path (phases 4-5, 6, 8, 7, 9, 10, 11, 12, 13, 14, 15 and 16) runs with the launch counters
+Each main path (phases 4-5, 6, 17(a), 8, 7, 9, 10, 11, 12, 13, 14, 15, 17(b),
+16 and 17(c)) runs with the launch counters
 (and the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
@@ -406,7 +432,7 @@ TEXT_DB_ITEMS, TEXT_DB_LONG_WORDS = 2000, 2200
 # chunks: the card machine's CPU encodes mpnet-base at a few hundred
 # tokens/s).
 BUILD_MODEL, BUILD_CACHE_KEY = "textembed/mpnet-base", "build"
-N_BUILD, BUILD_WORDS, BUILD_DATA_OFFSET = 32_768, (4, 1024), 1_000_000
+N_BUILD, BUILD_WORDS, BUILD_DATA_OFFSET = 16_384, (4, 1024), 1_000_000
 BUILD_QUERIES, BUILD_PAIR_ROWS, BUILD_PAIR_WORDS, BUILD_PAIR_LONG = 32, 256, (4, 32), 600
 # Phase 12 (audio, ROADMAP A.11): AUDIO_FILES seeded WAV files (seconds
 # log-uniform in AUDIO_SECONDS, one in AUDIO_STEREO_EVERY at 44.1 kHz stereo)
@@ -4208,19 +4234,37 @@ def _busy(torch, fn) -> tuple[float, float]:
         return float("nan"), 0.0
 
 
-def serve_bench_path(torch, dev, smi, counters, root: Path) -> dict:
+def serve_bench_state(dev, root: Path):
+    """15(b)'s AppState over ``root`` (phase 10(b)'s seeded DB of
+    HYBRID_ROWS items, kept for this phase: the same _bulk_seed corpus) with
+    the spaces clip/e2e and st/e2e as _make_space builds them, and the
+    spaces' build s. Phase 17(b) runs over the same state; the caller shuts
+    it down."""
+    from panoptikon_tpu_torch.api.server import AppState
+
+    state = AppState.create(root, device=str(dev))
+    try:
+        index = state.index("default")
+        t0 = time.perf_counter()
+        for name, d, seed in SERVE_SPACES:
+            _make_space(index, name, HYBRID_ROWS, d, seed)
+        return state, time.perf_counter() - t0
+    except BaseException:
+        state.shutdown()
+        raise
+
+
+def serve_bench_path(torch, dev, smi, counters, state) -> dict:
     """Phase 15(b): tools/e2e_server_bench.py's run() through the port's
-    server: AppState over HYBRID_ROWS items (phase 10(b)'s seeded DB, kept
-    for this phase: the same _bulk_seed corpus), the spaces clip/e2e and
-    st/e2e as _make_space builds them, widen_default_executor and build_app
-    on the port's AppRunner/TCPSite at 127.0.0.1:0, the five payloads each
-    warm 3, then SERVE_SEQ sequential and SERVE_CONC_TOTAL over SERVE_CONC
-    threads (a keep-alive client.py connection each)."""
+    server over serve_bench_state's AppState: widen_default_executor and
+    build_app on the port's AppRunner/TCPSite at 127.0.0.1:0, the five
+    payloads each warm 3, then SERVE_SEQ sequential and SERVE_CONC_TOTAL
+    over SERVE_CONC threads (a keep-alive client.py connection each)."""
     import asyncio
     import threading
 
     from panoptikon_tpu_torch.api import web
-    from panoptikon_tpu_torch.api.server import AppState, build_app, widen_default_executor
+    from panoptikon_tpu_torch.api.server import build_app, widen_default_executor
     from panoptikon_tpu_torch.client import PanoptikonClient
     from panoptikon_tpu_torch.ops import exact
     from panoptikon_tpu_torch.pql import executor as executor_mod
@@ -4231,16 +4275,11 @@ def serve_bench_path(torch, dev, smi, counters, root: Path) -> dict:
            "spaces": {name: [HYBRID_ROWS, d] for name, d, _ in SERVE_SPACES},
            "scan_coalesce_max": executor_mod.SCAN_COALESCE_MAX, "shallow_kk": fused.SHALLOW_KK,
            "kk_buckets": list(fused.KK_BUCKETS)}
-    state = AppState.create(root, device=str(dev))
     loop = asyncio.new_event_loop()
     thread = threading.Thread(target=loop.run_forever, daemon=True)
     runner = None
     try:
         index = state.index("default")
-        t0 = time.perf_counter()
-        for name, d, seed in SERVE_SPACES:
-            _make_space(index, name, HYBRID_ROWS, d, seed)
-        out["index_build_s"] = time.perf_counter() - t0
         thread.start()
 
         async def start():
@@ -4280,7 +4319,6 @@ def serve_bench_path(torch, dev, smi, counters, root: Path) -> dict:
         if thread.is_alive():
             thread.join(10)
         loop.close()
-        state.shutdown()
 
 
 def _make_space(index, space: str, n: int, d: int, seed: int) -> None:
@@ -4810,6 +4848,343 @@ def train_path(torch, dev, smi, counters) -> tuple[list, dict]:
                         "card_vs_cpu": pair})
         torch.cuda.empty_cache()
     return records, {"mha": expected, "mha_backward": expected}
+
+
+# Phase 17 (the sharded index, ROADMAP A.12): SHARDS shards of phase 4's
+# snapshot on the one card, each a slab with its own B1 launch; the
+# executor over them; MULTI_PROCS processes over gloo with MULTI_SHARDS
+# shards each on the card.
+SHARDS, SHARD_Q, SHARD_GROUP_Q, SHARD_ROWS_PER_ITEM = 4, (256, 1), 16, 3
+SHARD_EXEC_Q, SHARD_EXEC_WARM = 8, 2
+MULTI_PROCS, MULTI_SHARDS, MULTI_ROWS, MULTI_Q = 2, 2, 262_144, 16
+MULTI_TIMEOUT_S = 300.0
+
+
+def _unit_queries(torch, dev, n: int, dim: int, seed: int):
+    q = torch.randn((n, dim), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return q / torch.linalg.norm(q, dim=1, keepdim=True)
+
+
+def _unpack_surface(space, surfaces, num_groups: int) -> tuple:
+    """(Q, S·G) packed-slot surfaces → (Q, num_groups) NumPy arrays in
+    snapshot group slots (dist +inf, valid False, count 0 where absent)."""
+    d, v, c = (t.cpu().numpy() for t in surfaces)
+    out = (np.full((d.shape[0], num_groups), np.inf, np.float32),
+           np.zeros((d.shape[0], num_groups), bool), np.zeros((d.shape[0], num_groups), np.float32))
+    sel = space.item_ids >= 0
+    for o, x in zip(out, (d, v, c)):
+        o[:, space.item_ids[sel]] = x[:, sel]
+    return out
+
+
+def sharded_index_path(torch, dev, smi, counters, index, dindex) -> dict:
+    """Phase 17(a): phase 4's snapshot through build_sharded over SHARDS
+    entries of the card (int8 and f32 arms), sharded_search at each of
+    SHARD_Q queries, k = K, cosine and L2 (B1 SHARDS times a sharded int8
+    call; ids equal to one unsharded B1's, distances within 1e-6; the f32
+    arm equal to one streaming_topk over the whole space), then the same
+    snapshot regrouped at SHARD_ROWS_PER_ITEM rows an item through
+    sharded_grouped_scores against one grouped_scores (MIN and MAX exact,
+    the averages within 1e-6), and the times."""
+    import dataclasses as dc
+
+    from panoptikon_tpu_torch.index import sharded
+    from panoptikon_tpu_torch.ops import codec, int8_scan, scoring
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+
+    snap = index.snapshot("clip")
+    out = {"card": smi, "shards": SHARDS, "rows": snap.size, "dim": snap.dim, "k": K}
+    meshlib.set_devices([dev] * SHARDS)
+    try:
+        mesh = meshlib.index_mesh()
+        require(meshlib.num_shards(mesh) == SHARDS, f"sharded: mesh {mesh.shape}")
+        spaces, build_s = {}, {}
+        for arm in ("int8", "f32"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            spaces[arm] = sharded.build_sharded(snap, mesh, use_quant=arm == "int8")
+            torch.cuda.synchronize()
+            build_s[arm] = time.perf_counter() - t0
+        out["build_sharded_s"] = build_s
+        out["rows_per_shard"] = spaces["int8"].rows_per_shard
+        gq = _unit_queries(torch, dev, max(SHARD_Q), snap.dim, SEED + 17)
+        q_codes = codec.quantize_int8(gq, snap.scale)
+        sumsq_f32 = scoring.row_sumsq_chunked(dindex.vectors)
+        checks, err = {}, 0.0
+        for arm in ("int8", "f32"):
+            for q in SHARD_Q:
+                for distance in ("cosine", "l2"):
+                    qs = (q_codes if arm == "int8" else gq)[:q]
+                    before = int8_scan.int8_topk.launches
+                    sv, si, sok, grouped = sharded.sharded_search(spaces[arm], qs, k=K,
+                                                                  distance=distance)
+                    torch.cuda.synchronize()
+                    launched = int8_scan.int8_topk.launches - before
+                    require(not grouped and launched == (SHARDS if arm == "int8" else 0),
+                            f"sharded {arm} Q {q} {distance}: B1 launched {launched} times")
+                    with not_counted(counters):
+                        if arm == "int8":
+                            ov, orow, ook = int8_scan.int8_topk(
+                                dindex.codes, dindex.sumsq, dindex.row_valid, qs, k=K,
+                                distance=distance, scale=snap.scale)
+                        else:
+                            ov, orow, ook = scoring.streaming_topk(
+                                dindex.vectors, sumsq_f32, dindex.row_valid, qs, k=K,
+                                distance=distance)
+                    got = spaces[arm].item_ids[si.cpu().numpy()]
+                    want = snap.group_ids[orow.cpu().numpy()]
+                    e = (sv - ov).abs().max().item()
+                    require(np.array_equal(got, want) and torch.equal(sok, ook),
+                            f"sharded {arm} Q {q} {distance}: ids differ from one device")
+                    require(e <= 1e-6, f"sharded {arm} Q {q} {distance}: max abs dist diff {e}")
+                    checks[f"{arm}_q{q}_{distance}"] = {"b1_launches": launched,
+                                                        "max_abs_err": e}
+                    if arm == "int8":
+                        err = max(err, e)
+        out["search"] = checks
+        out["b1_max_abs_err"] = err
+        with not_counted(counters):
+            for q in SHARD_Q:
+                qs = q_codes[:q]
+                sharded_ms, one_ms = paired_ms(
+                    torch, lambda: sharded.sharded_search(spaces["int8"], qs, k=K),
+                    lambda: int8_scan.int8_topk(dindex.codes, dindex.sumsq, dindex.row_valid, qs,
+                                                k=K, scale=snap.scale), reps=10)
+                out[f"int8_q{q}_ms"] = {"sharded": sharded_ms, "one_b1": one_ms}
+                out[f"f32_q{q}_ms"] = cuda_ms(
+                    torch, lambda: sharded.sharded_search(spaces["f32"], gq[:q], k=K), reps=3)
+            # One shard's B1 launch against its plain version, its bound and
+            # the GEMM alone (the kernel table's row).
+            sp = spaces["int8"]
+            shard_args = (sp.corpus[0], sp.sumsq[0], sp.row_valid[0], q_codes)
+            out["b1_one_shard_q256_ms"], out["b1_one_shard_q256_plain_ms"] = paired_ms(
+                torch, lambda: int8_scan.int8_topk(*shard_args, k=K, scale=snap.scale),
+                lambda: int8_scan.int8_topk_plain(*shard_args, k=K, scale=snap.scale), reps=5)
+            out["b1_one_shard_q256"] = {**scan_roofline(shard_args, K),
+                                        "gemm_only_ms": gemm_only_ms(torch, shard_args)}
+        del spaces
+
+        # The snapshot regrouped at SHARD_ROWS_PER_ITEM rows an item.
+        cap = snap.capacity
+        gids = (np.arange(cap) // SHARD_ROWS_PER_ITEM).astype(np.int32)
+        regrouped = dc.replace(snap, group_ids=gids, num_groups=-(-cap // SHARD_ROWS_PER_ITEM))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gspace = sharded.build_sharded(regrouped, mesh, use_quant=True)
+        torch.cuda.synchronize()
+        out["build_sharded_s"]["int8_grouped"] = time.perf_counter() - t0
+        require(not gspace.one_row_per_item, "sharded: the regrouped space is one row an item")
+        rng = np.random.default_rng(SEED + 18)
+        row_weights = rng.uniform(0.1, 1.0, size=cap).astype(np.float32)
+        row_mask = snap.row_valid & (rng.uniform(size=cap) > 0.3)
+        sel = gspace.row_perm >= 0
+        packed_w = np.ones(gspace.row_perm.shape, np.float32)
+        packed_w[sel] = row_weights[gspace.row_perm[sel]]
+        packed_v = np.zeros(gspace.row_perm.shape, bool)
+        packed_v[sel] = row_mask[gspace.row_perm[sel]]
+        gids_dev = torch.from_numpy(gids).to(dev)
+        qg = q_codes[:SHARD_GROUP_Q]
+        grouped_checks = {}
+        for name, agg, weighted, override in (("min", "min", False, False),
+                                              ("max", "max", False, False),
+                                              ("avg", "avg", False, False),
+                                              ("weighted", "avg", True, False),
+                                              ("min_row_valid", "min", False, True)):
+            kw = dict(distance="cosine", aggregation=agg, weighted=weighted)
+            got = _unpack_surface(gspace, sharded.sharded_grouped_scores(
+                gspace, qg, **kw, row_valid=packed_v if override else None,
+                weights=packed_w if weighted else None), regrouped.num_groups)
+            one = scoring.grouped_scores(
+                dindex.codes, dindex.sumsq,
+                torch.from_numpy(row_mask).to(dev) if override else dindex.row_valid, gids_dev,
+                qg, num_groups=regrouped.num_groups, scale=snap.scale, **kw,
+                weights=torch.from_numpy(row_weights).to(dev) if weighted else None)
+            one = tuple(t.cpu().numpy() for t in one)
+            require(np.array_equal(got[1], one[1]), f"sharded surface {name}: validity differs")
+            if agg in ("min", "max") and not weighted:
+                require(np.array_equal(got[0], one[0]) and np.array_equal(got[2], one[2]),
+                        f"sharded surface {name}: not equal to one device")
+                e = 0.0
+            else:
+                fin = one[1]
+                e = float(max(np.abs(got[0][fin] - one[0][fin]).max(),
+                              np.abs(got[2] - one[2]).max()))
+                require(e <= 1e-6, f"sharded surface {name}: max abs diff {e}")
+            grouped_checks[name] = {"max_abs_err": e, "groups": regrouped.num_groups}
+        out["grouped_scores"] = grouped_checks
+        out["grouped_scores_min_ms"] = {
+            "sharded": cuda_ms(torch, lambda: sharded.sharded_grouped_scores(gspace, qg), reps=3),
+            "one_device": cuda_ms(torch, lambda: scoring.grouped_scores(
+                dindex.codes, dindex.sumsq, dindex.row_valid, gids_dev, qg,
+                num_groups=regrouped.num_groups, scale=snap.scale), reps=3)}
+        del gspace
+    finally:
+        meshlib.set_devices(None)
+    return out
+
+
+def sharded_executor_path(torch, dev, smi, state) -> dict:
+    """Phase 17(b): e2e_server_bench's five payloads (SHARD_EXEC_Q bodies
+    each) through Executor.execute over 15(b)'s data root and spaces, first
+    on one shard (the card's one device) and then on a mesh of SHARDS
+    entries of the card, whose executor never takes the one-shard path:
+    every page equal (ids, order and counts; scores within 1e-6); p50 of
+    each."""
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+    from panoptikon_tpu_torch.pql import model as pql
+    from panoptikon_tpu_torch.pql.executor import Executor
+
+    payloads = serve_payloads(SERVE_SPACES[0][1], SERVE_SPACES[1][1], seed=17)
+    bodies = {kind: [make(2000 + i) for i in range(SHARD_EXEC_WARM + SHARD_EXEC_Q)]
+              for kind, make in payloads.items()}
+
+    def run(ex):
+        pages, p50 = {}, {}
+        for kind, group in bodies.items():
+            times, got = [], []
+            for i, body in enumerate(group):
+                t0 = time.perf_counter()
+                got.append(ex.execute(pql.PqlQuery.from_json(body)))
+                if i >= SHARD_EXEC_WARM:
+                    times.append(time.perf_counter() - t0)
+            pages[kind] = got
+            p50[kind] = 1e3 * sorted(times)[len(times) // 2]
+        return pages, p50
+
+    out = {"card": smi, "shards": SHARDS, "queries_a_payload": SHARD_EXEC_Q}
+    db, index = state.db("default"), state.index("default")
+    require(meshlib.serving_shards() == 1, "sharded: no installed mesh is one shard")
+    one_pages, out["one_shard_p50_ms"] = run(Executor(db, index, state.pool, device=dev))
+    ex = Executor(db, index, state.pool, device=dev)
+
+    def one_shard_path(*a, **kw):
+        raise RuntimeError("a mesh of more than one shard took the one-shard path")
+
+    ex._device_arrays = one_shard_path
+    meshlib.set_devices([dev] * SHARDS)
+    try:
+        t0 = time.perf_counter()
+        pages, out["sharded_p50_ms"] = run(ex)
+        out["sharded_run_s"] = time.perf_counter() - t0
+    finally:
+        meshlib.set_devices(None)
+    for kind in bodies:
+        for i, (got, want) in enumerate(zip(pages[kind], one_pages[kind])):
+            require(same_pages(got, want), f"sharded executor: {kind} page {i} differs")
+    out["pages_equal"] = sum(len(p) for p in pages.values())
+    out["sharded_spaces"] = sorted(
+        f"{key[0]}:{'int8' if key[2] else 'f32'}" for key in ex._device_cache
+        if len(key) == 4 and key[3] == "sharded")
+    require(out["sharded_spaces"], "sharded executor: no sharded space was built")
+    return out
+
+
+def multihost_worker(rank: int, coord: str) -> dict:
+    """Phase 17(c)'s process ``rank``: joins the gloo group at ``coord``,
+    holds MULTI_SHARDS shards on the card in each layout (hosts_replica_mesh,
+    hosts_shard_mesh), and checks sharded_search (int8 and f32, MULTI_Q
+    queries, k = K) against one unsharded B1 / streaming_topk over the whole
+    corpus (ids exact, distances within 1e-6) and the f32 arm against the
+    exact f32 top-k (up to ties)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from panoptikon_tpu_torch.device import device
+    from panoptikon_tpu_torch.index import VectorIndex, sharded
+    from panoptikon_tpu_torch.ops import codec, exact, int8_scan, scoring
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+    from panoptikon_tpu_torch.parallel import multihost
+
+    dev = device("cuda")
+    require(multihost.initialize(coord, MULTI_PROCS, rank), "multihost: no process group")
+    meshlib.set_devices([dev] * MULTI_SHARDS)
+    rng = np.random.default_rng(SEED + 19)
+    vectors = rng.standard_normal((MULTI_ROWS, DIM), dtype=np.float32)
+    vectors /= np.linalg.norm(vectors, axis=1, keepdims=True)
+    index = VectorIndex()
+    index.add("s", np.arange(MULTI_ROWS) + 1, np.arange(MULTI_ROWS), vectors)
+    index.build_quant("s")
+    snap = index.snapshot("s")
+    queries = _unit_queries(torch, dev, MULTI_Q, DIM, SEED + 20)
+    q_codes = codec.quantize_int8(queries, snap.scale)
+    codes = torch.from_numpy(snap.codes).to(dev)
+    vecs = torch.from_numpy(snap.vectors).to(dev)
+    valid = torch.from_numpy(snap.row_valid).to(dev)
+    one = {"int8": int8_scan.int8_topk(codes, scoring.row_sumsq_chunked(codes), valid, q_codes,
+                                       k=K, scale=snap.scale),
+           "f32": scoring.streaming_topk(vecs, scoring.row_sumsq_chunked(vecs), valid, queries,
+                                         k=K)}
+    ev, ei, _ = exact.exact_search(vecs, valid, torch.from_numpy(snap.group_ids).to(dev), queries,
+                                   num_groups=snap.num_groups, k=K)
+    out = {"rank": rank, "processes": multihost.process_count(), "rows": MULTI_ROWS}
+    for layout in ("replica", "shard"):
+        meshlib.set_multihost_layout(layout)
+        mesh = meshlib.index_mesh()
+        want_shape = ({"replica": MULTI_PROCS, "shard": MULTI_SHARDS} if layout == "replica"
+                      else {"shard": MULTI_PROCS * MULTI_SHARDS})
+        require(mesh.shape == want_shape, f"multihost {layout}: mesh {mesh.shape}")
+        for arm in ("int8", "f32"):
+            space = sharded.build_sharded(snap, mesh, use_quant=arm == "int8")
+            before = int8_scan.int8_topk.launches
+            sv, si, sok, _ = sharded.sharded_search(space, q_codes if arm == "int8" else queries,
+                                                    k=K)
+            torch.cuda.synchronize()
+            launched = int8_scan.int8_topk.launches - before
+            require(launched == (MULTI_SHARDS if arm == "int8" else 0),
+                    f"multihost {layout} {arm}: B1 launched {launched} times")
+            ov, orow, _ = one[arm]
+            slots = space.item_ids[si.cpu().numpy()]
+            e = (sv - ov).abs().max().item()
+            require(np.array_equal(slots, snap.group_ids[orow.cpu().numpy()]) and e <= 1e-6,
+                    f"multihost {layout} {arm}: not the one-process result (err {e})")
+            if arm == "f32":
+                require(exact.topk_agree(sv.cpu().numpy(), slots, ev.cpu().numpy(),
+                                         ei.cpu().numpy(), atol=1e-5),
+                        f"multihost {layout}: f32 top-{K} is not the exact oracle's")
+            out[f"{layout}_{arm}"] = {"mesh": mesh.shape, "b1_launches": launched,
+                                      "max_abs_err": e}
+    dist.destroy_process_group()
+    return out
+
+
+def multihost_path(torch, dev, smi) -> dict:
+    """Phase 17(c): MULTI_PROCS processes (this script with
+    --multihost-worker) joined by multihost.initialize over gloo at
+    127.0.0.1 and a free port, on the one card; each must exit 0 within
+    MULTI_TIMEOUT_S. Returns their records and B1 launches."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    root = Path(__file__).resolve().parent
+    env = _child_env()
+    env.pop("MASTER_ADDR", None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--multihost-worker",
+                               str(rank), coord], cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for rank in range(MULTI_PROCS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MULTI_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = []
+    for rank, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"multihost: process {rank} exited {p.returncode}: "
+                                   f"{stderr[-3000:]}")
+        records.append(json.loads(stdout.strip().splitlines()[-1]))
+    return {"card": smi, "processes": MULTI_PROCS, "shards_a_process": MULTI_SHARDS,
+            "rows": MULTI_ROWS, "queries": MULTI_Q, "seconds": time.perf_counter() - t0,
+            "records": records,
+            "b1_launches": sum(r[f"{layout}_int8"]["b1_launches"] for r in records
+                               for layout in ("replica", "shard"))}
 
 
 def cosines(a, b):
@@ -5358,6 +5733,19 @@ def main() -> int:
     batch_launches = batch.pop("launches")
     batch_routes = read_routes(counters)
     emit({"phase": "batch", "launches": batch_launches, **batch})
+
+    # 17(a). The sharded index: phase 4's snapshot over SHARDS entries of
+    # the card, B1 a shard. Counters start at zero here.
+    reset_counts(counters)
+    t17 = time.perf_counter()
+    shard_a = sharded_index_path(torch, dev, smi, counters, index, dindex)
+    shard_a_launches, shard_a_routes = ({fn.__name__: fn.launches for fn in counters},
+                                        read_routes(counters))
+    require(shard_a_launches["int8_topk"] == SHARDS * 2 * len(SHARD_Q)
+            and sum(shard_a_launches.values()) == shard_a_launches["int8_topk"],
+            f"sharded index path kernel launches {shard_a_launches}")
+    shard_a["phase_s"] = time.perf_counter() - t17
+    emit({"phase": "sharded", "part": "a_index", "launches": shard_a_launches, **shard_a})
     del index, dindex, group_ids, gq
     torch.cuda.empty_cache()
 
@@ -5514,18 +5902,34 @@ def main() -> int:
     # Executor.execute's; (b) tools/e2e_server_bench.py's five payloads
     # through the server over phase 10(b)'s corpus and two 1M spaces.
     # Counters start at zero here; the server process counts its own.
+    # 17(b), the executor on SHARDS shards, runs after 15(b) over its
+    # AppState (data root and spaces): phase 15's in-process counts are
+    # read before it, and 17(b)'s start from zero.
     torch.cuda.empty_cache()
     reset_counts(counters)
     t15 = time.perf_counter()
+    shard_b = {}
     try:
         serve_run, server_counts = serve_main_path(torch, dev, smi, counters)
         emit({"phase": "serve", "part": "a_server", **serve_run})
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        serve_bench = serve_bench_path(torch, dev, smi, counters, serve_root)
+        state, index_build_s = serve_bench_state(dev, serve_root)
+        try:
+            serve_bench = serve_bench_path(torch, dev, smi, counters, state)
+            serve_bench["index_build_s"] = index_build_s
+            in_process = {fn.__name__: fn.launches for fn in counters}
+            in_routes = read_routes(counters)
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            shard_b["record"] = sharded_executor_path(torch, dev, smi, state)
+            shard_b["record"]["phase_s"] = time.perf_counter() - t0
+            shard_b["launches"] = {fn.__name__: fn.launches for fn in counters}
+            shard_b["routes"] = read_routes(counters)
+        finally:
+            state.shutdown()
     finally:
         shutil.rmtree(serve_root, ignore_errors=True)
-    in_process, in_routes = {fn.__name__: fn.launches for fn in counters}, read_routes(counters)
     serve_launches = {name: n + server_counts["launches"][name] for name, n in in_process.items()}
     serve_routes = {name: {path: n + server_counts["routes"][name][path] for path, n in r.items()}
                     for name, r in in_routes.items()}
@@ -5541,6 +5945,8 @@ def main() -> int:
     emit({"phase": "serve", "part": "launches", "launches": serve_launches,
           "attention_routes": serve_routes, "server_launches": server_counts["launches"],
           "in_process_launches": in_process, "phase_s": time.perf_counter() - t15})
+    emit({"phase": "sharded", "part": "b_executor", "launches": shard_b["launches"],
+          **shard_b["record"]})
 
     # 16. Training: (a) B3's backward against its plain version at the
     # training shapes (not counted); (b) CLIP ViT-B/32 and (c) crnn-base and
@@ -5565,11 +5971,25 @@ def main() -> int:
     emit({"phase": "train", "part": "launches", "launches": train_launches,
           "attention_routes": train_routes, "phase_s": time.perf_counter() - t16})
 
+    # 17(c). Two processes on the one card over gloo; their B1 launches
+    # come back in their records. Phase 17's launches: (a), (b) and (c).
+    torch.cuda.empty_cache()
+    shard_c = multihost_path(torch, dev, smi)
+    emit({"phase": "sharded", "part": "c_multihost", **shard_c})
+    sharded_launches = {name: shard_a_launches[name] + shard_b["launches"][name]
+                        + (shard_c["b1_launches"] if name == "int8_topk" else 0)
+                        for name in launches}
+    sharded_routes = {name: {path: shard_a_routes[name][path] + shard_b["routes"][name][path]
+                             for path in r} for name, r in shard_a_routes.items()}
+    require(sharded_launches["int8_topk"] > 0, f"sharded path kernel launches {sharded_launches}")
+    emit({"phase": "sharded", "part": "launches", "launches": sharded_launches,
+          "phase_s": shard_a["phase_s"] + shard_b["record"]["phase_s"] + shard_c["seconds"]})
+
     runs = ((launches, routes), (batch_launches, batch_routes), (composed_launches, composed_routes),
             (l14_launches, l14_routes), (pql_launches, pql_routes), (text_launches, text_routes),
             (extract_launches, extract_routes), (audio_launches, audio_routes),
             (tag_launches, tag_routes), (ocr_launches, ocr_routes), (serve_launches, serve_routes),
-            (train_launches, train_routes))
+            (train_launches, train_routes), (sharded_launches, sharded_routes))
     total = {name: sum(run[0][name] for run in runs) for name in launches}
     total_routes = {name: {path: sum(run[1][name][path] for run in runs) for path in routes[name]}
                     for name in routes}
@@ -5582,9 +6002,13 @@ def main() -> int:
                               for r in or3["per_space_recall_at_10_and_b1"].values()),
                             hybrid["recall_at_10_and_b1"]["b1_k40_max_abs_err"],
                             extract[2]["b1_k40_max_abs_err"], audio_run[2]["b1_k40_max_abs_err"],
-                            serve_bench["recall"]["b1_k40_max_abs_err"]),
+                            serve_bench["recall"]["b1_k40_max_abs_err"],
+                            shard_a["b1_max_abs_err"],
+                            *(r[f"{layout}_int8"]["max_abs_err"] for r in shard_c["records"]
+                              for layout in ("replica", "shard"))),
          "ms": scan_ms, "plain_ms": scan_plain_ms, **scan_bound, "library_ms": None,
-         "serve_launches": serve_launches["int8_topk"]},
+         "serve_launches": serve_launches["int8_topk"],
+         "sharded_launches": sharded_launches["int8_topk"]},
         {"name": "int8_topk_v2", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/int8_scan.cu",
          "replaces": "panoptikon_tpu/ops/pallas_scan.py:321", "launches": total["int8_topk_v2"],
          "max_abs_err": max(*v2_err.values(), batch["int8_topk_v2_max_abs_err"]),
@@ -5645,4 +6069,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--multihost-worker" in sys.argv:
+        at = sys.argv.index("--multihost-worker")
+        emit(multihost_worker(int(sys.argv[at + 1]), sys.argv[at + 2]))
+        sys.exit(0)
     sys.exit(main())

@@ -2721,12 +2721,12 @@ async def client_config(request: web.Request) -> web.Response:
     from panoptikon_tpu_torch.jobs import media
 
     state: AppState = request.app["state"]
-    # Off-loop: the first CUDA call initialises the driver. The server's
-    # own device count: a CPU server has one device.
-    multi_chip = await asyncio.to_thread(
-        lambda: torch.device(state.device).type == "cuda"
-        and torch.cuda.device_count() > 1
-    )
+    # Off-loop: the first CUDA call initialises CUDA. More than one shard
+    # in the serving mesh main installed (its --device list, every
+    # process's in a multi-process runtime).
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+
+    multi_chip = await asyncio.to_thread(lambda: meshlib.serving_shards() > 1)
     return web.json_response(
         {
             "server": "panoptikon_tpu",
@@ -2979,10 +2979,24 @@ def refuse_unported(settings) -> None:
             "[upstreams].ui needs the reverse proxy (api/proxy.py, an aiohttp "
             "client), which the port does not have yet: ROADMAP A.7b"
         )
-    if (settings.parallel.num_processes or 1) > 1:
+
+
+def refuse_lockstep() -> None:
+    """Refuse a mesh of more than one shard across processes. Each search
+    over it is a collective that every process must enter with the same
+    queries, and the server answers each process's own requests: until
+    requests are broadcast, processes serve only in the replica layout with
+    one shard each (each a full corpus, no collective)."""
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+    from panoptikon_tpu_torch.parallel import multihost
+
+    if multihost.process_count() > 1 and meshlib.serving_shards() > 1:
         raise RuntimeError(
-            f"[parallel] num_processes = {settings.parallel.num_processes} needs "
-            "multi-GPU serving, which the port does not have yet: ROADMAP A.12"
+            f"a serving mesh of {meshlib.serving_shards()} shards over "
+            f"{multihost.process_count()} processes needs every process to run "
+            "each search in lockstep, and the server does not broadcast its "
+            "requests: serve multihost_layout = 'replica' with one --device a "
+            "process"
         )
 
 
@@ -3030,7 +3044,9 @@ def main(args=None) -> None:
         parser.add_argument(
             "--device", default="cuda",
             help="device the executors run on: cuda (default; raises without "
-                 "CUDA), cuda:N or cpu",
+                 "CUDA), cuda:N or cpu; a comma-separated list (cuda:0,cuda:1) "
+                 "shards every space over those devices, the executors on the "
+                 "first",
         )
         args = parser.parse_args()
 
@@ -3045,12 +3061,29 @@ def main(args=None) -> None:
         settings.listeners[0].host = args.host or settings.listeners[0].host
     # Refused before the root lock and the device are taken.
     refuse_unported(settings)
+    # Join the multi-process runtime before the device is taken (a
+    # deployment over several processes forms its process group here;
+    # without a coordinator this is a no-op). The serving mesh layout
+    # follows [parallel].multihost_layout, its devices --device: one shard
+    # unless a list is given.
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+    from panoptikon_tpu_torch.parallel import multihost
+
+    multihost.initialize(
+        coordinator=settings.parallel.coordinator,
+        num_processes=settings.parallel.num_processes,
+        process_id=settings.parallel.process_id,
+    )
+    meshlib.set_multihost_layout(settings.parallel.multihost_layout)
+    devices = (getattr(args, "device", None) or "cuda").split(",")
+    meshlib.set_devices(devices)
+    refuse_lockstep()
 
     registry_dir = args.registry_dir or settings.inference.registry_dir
     state = AppState.create(
         settings.data_root, registry_dir, settings.inference.user_registry_dir,
         inference_upstreams=settings.inference.upstreams,
-        device=getattr(args, "device", None) or "cuda",
+        device=devices[0],
     )
     state.cache.resize(settings.search.cache_bytes)
     state.update_manifest = settings.update_manifest

@@ -89,7 +89,14 @@ def cmd_accelerator(args) -> int:
         print(json.dumps({
             "generation": None,
             "recommended": {},
-            "multihost": {},
+            # Consumed by parallel.multihost.initialize() when [parallel]
+            # names no coordinator (torchrun sets them).
+            "multihost": {
+                "MASTER_ADDR": "<host0>",
+                "MASTER_PORT": "<port>",
+                "WORLD_SIZE": "<n_processes>",
+                "RANK": "<0..n_processes-1>",
+            },
             "notes": "no recommended environment for CUDA devices: the TPU "
                      "generation table has no counterpart on the card",
         }))
@@ -272,7 +279,8 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--root", default=".", help="working root (chdir)")
         p.add_argument("--device", default="cuda",
                        help="device the executors run on: cuda (default), "
-                            "cuda:N or cpu")
+                            "cuda:N or cpu; a comma-separated list shards "
+                            "every space over those devices")
 
     setup = sub.add_parser("setup", help="materialize default configs")
     setup.add_argument("--root", default=".", help="target root directory")

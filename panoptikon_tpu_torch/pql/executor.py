@@ -97,6 +97,16 @@ def _host_get(dev) -> tuple:
     return _collect_host(_prefetch_host(dev))
 
 
+def _sharded() -> bool:
+    """Whether the installed serving mesh has more than one shard: the
+    reference's test of more than one device. Without an installed mesh
+    (``meshlib.set_devices``), or with one shard, the executor runs on its
+    own device, as the reference's does on one device."""
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+
+    return meshlib.serving_shards() > 1
+
+
 class _ScanCoalescer:
     """Dispatch-time batching for concurrent single-query device scans.
 
@@ -1711,6 +1721,40 @@ class Executor:
 
     # -- vector leaves ------------------------------------------------------
 
+    def _sharded_space(self, space: str, snap, use_quant: bool):
+        """Mesh-resident sharded layout, cached per (space, generation, arm).
+        The shards' results gather to the mesh's first device of this
+        process, which must be the executor's own."""
+        from panoptikon_tpu_torch.index import sharded as shlib
+        from panoptikon_tpu_torch.parallel import mesh as meshlib
+
+        key = (space, snap.generation, use_quant, "sharded")
+        with self._cache_lock:
+            cached = self._device_cache.get(key)
+            if cached is not None:
+                self._device_cache[key] = self._device_cache.pop(key)
+                self._device_cache_bytes[key] = self._device_cache_bytes.pop(key)
+                return cached
+        mesh = meshlib.index_mesh()
+        sp = shlib.build_sharded(snap, mesh, use_quant=use_quant, chunk_rows=8192)
+        first = next(t.device for t in sp.corpus if t is not None)
+        if first != self.device:
+            raise ValueError(
+                f"the serving mesh gathers to {first}, the executor runs on {self.device}"
+            )
+        nbytes = sp.nbytes
+        with self._cache_lock:
+            for old in [
+                k for k in self._device_cache
+                if k[0] == space and k[1] != snap.generation
+            ]:
+                self._device_cache.pop(old, None)
+                self._device_cache_bytes.pop(old, None)
+            self._device_cache[key] = sp
+            self._device_cache_bytes[key] = nbytes
+            self._evict_over_budget(keep=key)
+        return sp
+
     # -- static per-generation artifacts (the fused path's host side) -------
 
     def _static_get(self, key, builder):
@@ -1899,10 +1943,11 @@ class Executor:
 
     def _deferred_surface(self, d: DeferredScore):
         """Device score surface for a deferred leaf: (dist (1, M), valid
-        (1, M)) on the executor's device. The SAME grouped-scores program as
-        the full path produces it, so candidate values are bit-identical by
-        construction. Surfaces are UNMASKED (static validity only) — no
-        per-query upload beyond the query vector."""
+        (1, M), packed→snapshot-slot map or None) on the executor's device.
+        The SAME grouped-scores program as the full path produces it, so
+        candidate values are bit-identical by construction. Surfaces are
+        UNMASKED (static validity only) — no per-query upload beyond the
+        query vector."""
         q = (
             prep.codec.compute_query_quant(d.queries, d.snap.scale)
             if d.use_quant
@@ -1913,11 +1958,18 @@ class Executor:
     def _scan_surface_batched(self, d: DeferredScore, qs: np.ndarray, use_quant: bool = True):
         """The deferred leaf's grouped-scores program at (B, d) — the
         identity gate of ``_space_scores`` at Q=1, the space's scale on the
-        int8 arm, the same chunking — so each batched row is the solo
-        program's row. Returns (dist, valid). The executor runs on its one
-        device: there is no sharded program (a machine with more GPUs
-        behaves as one with one)."""
+        int8 arm, the same chunking (and the same sharded program on more
+        than one shard) — so each batched row is the solo program's row.
+        Returns (dist, valid, packed→snapshot slot map or None)."""
         snap = d.snap
+        if _sharded():
+            from panoptikon_tpu_torch.index import sharded as shlib
+
+            sp = self._sharded_space(d.space, snap, use_quant)
+            dist, valid, _cnt = shlib.sharded_grouped_scores(
+                sp, qs, distance=d.distance, aggregation=d.aggregation,
+            )
+            return dist, valid, sp.item_ids
         dev = self._device_arrays(d.space, snap, use_quant)
         ident = (
             self._identity_groups(d.space, snap)
@@ -1938,7 +1990,7 @@ class Executor:
             weights=dev["weights"],
             identity=ident,
         )
-        return dist, valid
+        return dist, valid, None
 
     def _deferred_candidates(
         self, d: DeferredScore, *, kk: int, largest: bool,
@@ -1969,19 +2021,27 @@ class Executor:
                     ),
                 )
         else:
-            dist, valid = self._deferred_surface(d)
+            dist, valid, packed_map = self._deferred_surface(d)
             if group_mask is None:
                 dev = scoring.topk_of_scores(
                     dist, valid, kk=kk_eff, largest=largest
                 )
             else:
+                mask = group_mask
+                if packed_map is not None:
+                    mask = np.where(
+                        packed_map >= 0,
+                        group_mask[np.clip(packed_map, 0, None)], False,
+                    )
                 dev = scoring.masked_topk_of_scores(
-                    dist, valid, self._upload(group_mask[None, :]),
+                    dist, valid, self._upload(mask[None, :]),
                     kk=kk_eff, largest=largest,
                 )
             # ONE read of the three results.
             vals, slots, fin = _host_get(dev)
             vals, slots, fin = vals[0], slots[0], fin[0]
+            if packed_map is not None:
+                slots = packed_map[slots]  # packed global slot → snapshot slot
         nvalid = int(fin.sum())
         complete = nvalid < kk_eff or kk_eff >= snap.num_groups
         return vals[:nvalid], slots[:nvalid].astype(np.int64), complete
@@ -2041,7 +2101,7 @@ class Executor:
                     qs = self._pad_batch([q for q, _ in chunk])
                 else:
                     qs = self._pad_batch(chunk)
-                dist, valid = self._scan_surface_batched(d, qs)
+                dist, valid, packed_map = self._scan_surface_batched(d, qs)
                 if not masked:
                     dev = scoring.topk_of_scores(
                         dist, valid, kk=kk_eff, largest=largest
@@ -2051,16 +2111,23 @@ class Executor:
                     m = np.stack(
                         mchunk + [mchunk[0]] * (qs.shape[0] - len(chunk))
                     )
+                    if packed_map is not None:
+                        m = np.where(
+                            packed_map[None, :] >= 0,
+                            m[:, np.clip(packed_map, 0, None)], False,
+                        )
                     dev = scoring.masked_topk_of_scores(
                         dist, valid, self._upload(m), kk=kk_eff, largest=largest
                     )
-                toks.append((_prefetch_host(dev), len(chunk)))
+                toks.append((_prefetch_host(dev), len(chunk), packed_map))
             return toks
 
         def collect(toks):
             out = []
-            for tok, nc in toks:
+            for tok, nc, packed_map in toks:
                 vals, slots, fin = _collect_host(tok)
+                if packed_map is not None:
+                    slots = packed_map[slots]  # packed global → snapshot slot
                 out.extend((vals[i], slots[i], fin[i]) for i in range(nc))
             return out
 
@@ -2098,17 +2165,39 @@ class Executor:
         bucket = 256
         while bucket < s:
             bucket *= 2
-        padded = np.full(bucket, -1, dtype=np.int64)
-        padded[:s] = slots
         if self._coalesce_eligible(d):
+            if _sharded():
+                # The coalesced surface is in PACKED order on a mesh;
+                # translate snapshot slots up front so the runner's gather
+                # needs no per-payload map.
+                sp = self._sharded_space(d.space, snap, True)
+                rev = self._static_get(
+                    ("packedrev", d.space, snap.generation),
+                    lambda: _invert_packed(sp.item_ids, snap.num_groups),
+                )
+                okr = (slots >= 0) & (slots < len(rev))
+                slots = np.where(okr, rev[np.clip(slots, 0, None)], -1)
             key = ("gather", d.space, snap.generation, d.distance,
                    d.aggregation, bucket)
+            padded = np.full(bucket, -1, dtype=np.int64)
+            padded[:s] = slots
             q = prep.codec.compute_query_quant(d.queries, snap.scale)
             vals, ok = self._scan_coalescer.run(
                 key, (q, padded), self._coalesced_gather(d, bucket),
             )
             return vals[:s], ok[:s]
-        dist, valid = self._deferred_surface(d)
+        dist, valid, packed_map = self._deferred_surface(d)
+        if packed_map is not None:
+            # The sharded surface is keyed by PACKED global slot; translate
+            # snapshot slots through the per-generation reverse map.
+            rev = self._static_get(
+                ("packedrev", d.space, snap.generation),
+                lambda: _invert_packed(packed_map, snap.num_groups),
+            )
+            ok = (slots >= 0) & (slots < len(rev))
+            slots = np.where(ok, rev[np.clip(slots, 0, None)], -1)
+        padded = np.full(bucket, -1, dtype=np.int64)
+        padded[:s] = slots
         vals, ok = _host_get(
             scoring.gather_of_scores(dist, valid, self._upload(padded))
         )
@@ -2128,7 +2217,7 @@ class Executor:
                     [i for _, i in chunk]
                     + [chunk[0][1]] * (qs.shape[0] - len(chunk))
                 )
-                dist, valid = self._scan_surface_batched(d, qs)
+                dist, valid, _packed_map = self._scan_surface_batched(d, qs)
                 dev = scoring.gather_rows_of_scores(dist, valid, self._upload(idx))
                 toks.append((_prefetch_host(dev), len(chunk)))
             return toks
@@ -2142,14 +2231,21 @@ class Executor:
 
         return dispatch, collect
 
-    def _rrf_item_index(self, d: DeferredScore, n_items: int):
+    def _rrf_item_index(self, d: DeferredScore, packed: bool, n_items: int):
         """Device-resident slot→item-id map for the rank join, cached per
-        (space, generation, domain). Entries ≥ n_items or < 0 scatter to
-        the scrap slot inside the join."""
-        key = ("rrfidx", d.space, d.snap.generation, n_items)
+        (space, generation, layout, domain). Entries ≥ n_items or < 0
+        scatter to the scrap slot inside the join."""
+        key = ("rrfidx", d.space, d.snap.generation, packed, n_items)
 
         def build():
-            mapped = self._slot_item_ids(d.space, d.snap)
+            slot_items = self._slot_item_ids(d.space, d.snap)
+            if packed:
+                sp = self._sharded_space(d.space, d.snap, d.use_quant)
+                mapped = np.where(
+                    sp.item_ids >= 0, slot_items[np.clip(sp.item_ids, 0, None)], -1
+                )
+            else:
+                mapped = slot_items
             mapped = np.where(
                 (mapped >= 0) & (mapped < n_items), mapped, -1
             ).astype(np.int32)
@@ -2173,13 +2269,14 @@ class Executor:
         absent, totals_f32 (kk,))."""
         from panoptikon_tpu_torch.ops import fusion
 
+        multi = _sharded()
         surfs, valids, idxs, offs, ws, ks = [], [], [], [], [], []
         for e in group:
             d = e.deferred
-            dist, valid = self._deferred_surface(d)
+            dist, valid, _packed = self._deferred_surface(d)
             surfs.append(dist[0])
             valids.append(valid[0])
-            idx_dev, off = self._rrf_item_index(d, n_items)
+            idx_dev, off = self._rrf_item_index(d, multi, n_items)
             idxs.append(idx_dev)
             offs.append(off)
             rrf = e.rrf or pql.Rrf()
@@ -2246,6 +2343,8 @@ class Executor:
         query codes and RRF params."""
         from panoptikon_tpu_torch.ops import fusion
 
+        multi = _sharded()
+
         def dispatch(payloads):
             toks = []
             for s0 in range(0, len(payloads), SCAN_COALESCE_MAX):
@@ -2254,10 +2353,10 @@ class Executor:
                 for si, e in enumerate(group):
                     d = e.deferred
                     qb = self._pad_batch([p[0][si] for p in chunk])
-                    dist, valid = self._scan_surface_batched(d, qb)
+                    dist, valid, _packed = self._scan_surface_batched(d, qb)
                     surfs.append(dist)
                     valids.append(valid)
-                    idx_dev, off = self._rrf_item_index(d, n_items)
+                    idx_dev, off = self._rrf_item_index(d, multi, n_items)
                     idxs.append(idx_dev)
                     offs.append(off)
                 b = surfs[0].shape[0]
@@ -2306,8 +2405,11 @@ class Executor:
         a concurrent index refresh commits mid-query (the deferred
         full-readback path); by default the current snapshot is taken.
 
-        The surface comes from ``scoring.grouped_scores`` on the executor's
-        device and is read back whole.
+        On more than one shard this routes through the sharded index
+        (``index/sharded.py``): each shard's surface on its device, gathered
+        to the executor's; one device is the degenerate mesh, where the
+        surface comes from ``scoring.grouped_scores`` on the executor's
+        device. Either is read back whole.
         """
         if snap is None:
             try:
@@ -2341,37 +2443,70 @@ class Executor:
         else:
             q = queries.astype(np.float32)
 
-        # The executor runs on its one device: no sharded program (a
-        # machine with more GPUs behaves as one with one).
-        scale = float(snap.scale) if use_quant else 1.0
-        dev = self._device_arrays(space, snap, use_quant)
-        # Identity layout check + device-cached validity when unmasked:
-        # shared with the fused candidate path so both run the same
-        # program (value bit-parity by construction). The identity fast
-        # path materializes (Q, N) — gate it to small query batches.
-        ident = (
-            self._identity_groups(space, snap)
-            and q.shape[0] * max(snap.capacity, 1) <= (1 << 25)
-            and not weighted
-        )
-        dist, valid, counts = scoring.grouped_scores(
-            dev["corpus"],
-            dev["sumsq"],
-            dev["row_valid"] if not src_filtered else self._upload(row_valid),
-            dev["group_ids"],
-            self._upload(q),
-            num_groups=snap.num_groups,
-            distance=distance,
-            aggregation=aggregation,
-            scale=scale,
-            chunk_rows=min(32768, snap.capacity),
-            weighted=weighted,
-            weights=self._upload(query_weights)
-            if query_weights is not None
-            else dev["weights"],
-            identity=ident,
-        )
-        dist, valid, counts = _host_get((dist, valid, counts))
+        if _sharded():
+            from panoptikon_tpu_torch.index import sharded as shlib
+
+            sp = self._sharded_space(space, snap, use_quant)
+            extra_valid = None
+            if src_filtered:
+                # The sharded layout permutes rows; carry the per-query
+                # validity into packed order via the stored permutation.
+                pv = np.zeros(sp.row_perm.shape, dtype=bool)
+                sel = sp.row_perm >= 0
+                pv[sel] = row_valid[sp.row_perm[sel]]
+                extra_valid = pv
+            extra_weights = None
+            if query_weights is not None:
+                pw = np.ones(sp.row_perm.shape, dtype=np.float32)
+                sel = sp.row_perm >= 0
+                pw[sel] = query_weights[sp.row_perm[sel]]
+                extra_weights = pw
+            d, v, c = shlib.sharded_grouped_scores(
+                sp, q, distance=distance, aggregation=aggregation,
+                weighted=weighted, row_valid=extra_valid,
+                weights=extra_weights,
+            )
+            d, v, c = _host_get((d, v, c))
+            # Packed global slots → snapshot group slots.
+            m = snap.num_groups
+            dist = np.full((d.shape[0], m), np.inf, dtype=np.float32)
+            valid = np.zeros((d.shape[0], m), dtype=bool)
+            counts = np.zeros((d.shape[0], m), dtype=np.float32)
+            sel = sp.item_ids >= 0
+            slots = sp.item_ids[sel]
+            dist[:, slots] = d[:, sel]
+            valid[:, slots] = v[:, sel]
+            counts[:, slots] = c[:, sel]
+        else:
+            scale = float(snap.scale) if use_quant else 1.0
+            dev = self._device_arrays(space, snap, use_quant)
+            # Identity layout check + device-cached validity when unmasked:
+            # shared with the fused candidate path so both run the same
+            # program (value bit-parity by construction). The identity fast
+            # path materializes (Q, N) — gate it to small query batches.
+            ident = (
+                self._identity_groups(space, snap)
+                and q.shape[0] * max(snap.capacity, 1) <= (1 << 25)
+                and not weighted
+            )
+            dist, valid, counts = scoring.grouped_scores(
+                dev["corpus"],
+                dev["sumsq"],
+                dev["row_valid"] if not src_filtered else self._upload(row_valid),
+                dev["group_ids"],
+                self._upload(q),
+                num_groups=snap.num_groups,
+                distance=distance,
+                aggregation=aggregation,
+                scale=scale,
+                chunk_rows=min(32768, snap.capacity),
+                weighted=weighted,
+                weights=self._upload(query_weights)
+                if query_weights is not None
+                else dev["weights"],
+                identity=ident,
+            )
+            dist, valid, counts = _host_get((dist, valid, counts))
 
         agg = aggregation
         if dist.shape[0] > 1:
@@ -2748,3 +2883,11 @@ _LEAF_HANDLERS = {
     pql.SemanticTextSearch: Executor._leaf_semantic_text,
     pql.SimilarTo: Executor._leaf_similar_to,
 }
+
+
+def _invert_packed(packed_map: np.ndarray, num_groups: int) -> np.ndarray:
+    """snapshot slot → packed global slot (−1 where absent)."""
+    rev = np.full(num_groups, -1, dtype=np.int64)
+    ok = (packed_map >= 0) & (packed_map < num_groups)
+    rev[packed_map[ok]] = np.flatnonzero(ok)
+    return rev

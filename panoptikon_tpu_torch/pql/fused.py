@@ -143,8 +143,10 @@ def _rrf_device_eligible(ex, base, group) -> Optional[int]:
     base rows are one-per-item in ascending item order and each space's
     slot order is ascending item order. Rank domains must coincide: every
     valid slot must own exactly one base row (else device slot-ranks ≠
-    host row-ranks). The executor runs on its one device, so the slots
-    are the snapshot's own (no sharded packing)."""
+    host row-ranks). On more than one shard the slots are packed: their
+    order is checked through the sharded layout's slot map."""
+    from panoptikon_tpu_torch.pql.executor import _sharded
+
     for e in group:
         s = e.deferred.sort
         if not s.row_n or s.row_n_direction != "asc":
@@ -157,6 +159,7 @@ def _rrf_device_eligible(ex, base, group) -> Optional[int]:
     if not mono or base.n == 0:
         return None
     n_items = int(base.col("item_id")[base.n - 1]) + 1
+    multi = _sharded()
     for e in group:
         d = e.deferred
         hit = ex._static_hit_rows(d.space, d.snap, base)
@@ -169,9 +172,16 @@ def _rrf_device_eligible(ex, base, group) -> Optional[int]:
         if int(np.count_nonzero(hit)) != nvalid:
             return None  # orphan slots or multi-file items in scope
         slot_items = ex._slot_item_ids(d.space, d.snap)
+
+        def build(d=d, slot_items=slot_items):
+            if multi:
+                sp = ex._sharded_space(d.space, d.snap, d.use_quant)
+                mapped = slot_items[np.clip(sp.item_ids, 0, None)]
+                return _mono_increasing(mapped[sp.item_ids >= 0])
+            return _mono_increasing(slot_items)
+
         if not ex._static_get(
-            ("slotmono", d.space, d.snap.generation),
-            lambda slot_items=slot_items: _mono_increasing(slot_items),
+            ("slotmono", d.space, d.snap.generation, multi), build
         ):
             return None
         if len(slot_items) and int(slot_items.max()) >= n_items:

@@ -663,6 +663,8 @@ class TestAcceleratorEnvMatrix:
         out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert out["generation"] is None and out["recommended"] == {}
         assert "no counterpart" in out["notes"]
+        # The variables parallel.multihost.initialize() reads.
+        assert set(out["multihost"]) == {"MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"}
 
 
 def test_openapi_document_is_the_reference_s(tmp_path):
@@ -704,21 +706,97 @@ def test_openapi_document_is_the_reference_s(tmp_path):
     assert got == want
 
 
+@pytest.mark.parametrize("processes,layout,device,refused", [
+    (2, "replica", "cpu", False), (2, "replica", "cpu,cpu", True), (2, "shard", "cpu", True),
+    (1, "shard", "cpu,cpu", False),
+])
+def test_cli_serve_refuses_a_mesh_across_processes(tmp_path, monkeypatch, processes, layout,
+                                                    device, refused):
+    # A --device list is the serving mesh, its executors on the first entry.
+    # Across processes a mesh of more than one shard makes every search a
+    # collective that each process must enter with the same queries, and the
+    # server answers its own requests: it serves only the replica layout
+    # with one shard a process, and refuses the rest before the device is
+    # taken.
+    from panoptikon_tpu_torch import cli
+    from panoptikon_tpu_torch.api import server as port_server
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+    from panoptikon_tpu_torch.parallel import multihost
+
+    class Stop(Exception):
+        pass
+
+    created = []
+
+    def create(*a, **kw):
+        created.append((kw["device"], meshlib.serving_shards()))
+        raise Stop
+
+    monkeypatch.setattr(multihost, "initialize", lambda **kw: processes > 1)
+    monkeypatch.setattr(multihost, "process_count", lambda: processes)
+    monkeypatch.setattr(port_server.AppState, "create", create)
+    cfg = tmp_path / "parallel.toml"
+    cfg.write_text(f"data_root = '{tmp_path / 'data'}'\n"
+                   f"[parallel]\nmultihost_layout = '{layout}'\n")
+    try:
+        with pytest.raises(RuntimeError if refused else Stop, match="lockstep" if refused else None):
+            cli.main(["serve", "--config", str(cfg), "--device", device])
+    finally:
+        meshlib.set_devices(None)
+        meshlib.set_multihost_layout("replica")
+    shards = len(device.split(",")) * (processes if layout == "shard" else 1)
+    assert created == ([] if refused else [("cpu", shards)])
+    assert not (tmp_path / "data").exists()
+
+
 def test_cli_serve_refuses_what_waits(tmp_path, monkeypatch):
-    # A [parallel] section asking for more than one process (ROADMAP A.12)
-    # and an [upstreams].ui (A.7b) are refused at startup, before the root
-    # lock or a device is taken; --device cuda without CUDA raises.
+    # An [upstreams].ui (ROADMAP A.7b) is refused at startup, before the
+    # root lock or a device is taken. A [parallel] section is the
+    # reference's: main joins the runtime it names and sets the mesh layout
+    # before the device is taken, and without a coordinator the join does
+    # nothing. --device cuda without CUDA raises.
     import torch
+    import torch.distributed as dist
 
     from panoptikon_tpu_torch import cli
+    from panoptikon_tpu_torch.api import server as port_server
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+    from panoptikon_tpu_torch.parallel import multihost
 
-    for extra, item in (("[parallel]\nnum_processes = 2\n", "A.12"),
-                        ("[upstreams]\nui = 'http://127.0.0.1:1'\n", "A.7b")):
-        cfg = tmp_path / f"{item}.toml"
-        cfg.write_text(f"data_root = '{tmp_path / 'data'}'\n{extra}")
-        with pytest.raises(RuntimeError, match=item):
+    cfg = tmp_path / "A.7b.toml"
+    cfg.write_text(f"data_root = '{tmp_path / 'data'}'\n[upstreams]\nui = 'http://127.0.0.1:1'\n")
+    with pytest.raises(RuntimeError, match="A.7b"):
+        cli.main(["serve", "--config", str(cfg), "--device", "cpu"])
+    assert not (tmp_path / "data").exists()
+
+    joined, layouts = [], []
+    real_initialize = multihost.initialize
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.setattr(multihost, "initialize",
+                        lambda **kw: joined.append(kw) or real_initialize(**kw))
+    monkeypatch.setattr(meshlib, "set_multihost_layout", layouts.append)
+
+    class Stop(Exception):
+        pass
+
+    def create(*a, **kw):
+        raise Stop
+
+    monkeypatch.setattr(port_server.AppState, "create", create)
+    cfg = tmp_path / "parallel.toml"
+    cfg.write_text(f"data_root = '{tmp_path / 'data'}'\n"
+                   "[parallel]\nnum_processes = 2\nprocess_id = 1\nmultihost_layout = 'shard'\n")
+    try:
+        with pytest.raises(Stop):
             cli.main(["serve", "--config", str(cfg), "--device", "cpu"])
-        assert not (tmp_path / "data").exists()
+        # One process: its mesh is the one --device, one shard.
+        assert meshlib.devices() == [torch.device("cpu")] and meshlib.serving_shards() == 1
+    finally:
+        meshlib.set_devices(None)
+    assert joined == [{"coordinator": None, "num_processes": 2, "process_id": 1}]
+    assert layouts == ["shard"] and not dist.is_initialized()
+    assert not (tmp_path / "data").exists()
+    monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         AppState.create(tmp_path / "data-cuda")

@@ -537,6 +537,44 @@ def test_int8_topk_kernel_all_rows_invalid_but_three(cuda_device, k, distance):
 
 
 @pytest.mark.parametrize("distance", ["cosine", "l2"])
+@pytest.mark.parametrize("q", [1, 64])
+def test_four_shard_search_on_one_card_is_unsharded_b1(cuda_device, q, distance):
+    # Four shards on cuda:0, each a slab with its own B1 launch, merged on
+    # the card: the ids and distances of one B1 over the whole corpus (the
+    # planted equal rows in different shards resolve to the lowest row).
+    from panoptikon_tpu_torch.index import VectorIndex, sharded
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+
+    n, d = 70_000, 128
+    codes, q_codes, valid, scale = _b1_inputs(torch.device("cpu"), n, d, q)
+    idx = VectorIndex(chunk_rows=8192)
+    idx.add("s", np.arange(n) + 1, np.arange(n), codes.numpy().astype(np.float32) * scale)
+    idx.build_quant("s", scale=scale)
+    snap = idx.snapshot("s")
+    assert np.array_equal(snap.codes[:n], codes.numpy())
+    rows_valid = valid.numpy()
+    idx.remove_items("s", np.flatnonzero(~rows_valid) + 1)
+    snap = idx.snapshot("s")
+    meshlib.set_devices([cuda_device] * 4)
+    try:
+        space = sharded.build_sharded(snap, meshlib.index_mesh(), use_quant=True)
+        before = int8_scan.int8_topk.launches
+        sv, si, sok, grouped = sharded.sharded_search(space, q_codes.to(cuda_device), k=80,
+                                                      distance=distance)
+        torch.cuda.synchronize()
+        assert int8_scan.int8_topk.launches == before + 4 and not grouped
+    finally:
+        meshlib.set_devices(None)
+    dev_codes = torch.from_numpy(snap.codes[:n]).to(cuda_device)
+    args = (dev_codes, scoring.row_sumsq(dev_codes), torch.from_numpy(snap.row_valid[:n]).to(
+        cuda_device), q_codes.to(cuda_device))
+    gv, gi, gok = int8_scan.int8_topk(*args, k=80, distance=distance, scale=snap.scale)
+    assert np.array_equal(space.item_ids[si.cpu().numpy()], snap.group_ids[gi.cpu().numpy()])
+    assert torch.equal(sok.cpu(), gok.cpu())
+    assert (sv - gv).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("distance", ["cosine", "l2"])
 def test_surface_topk_matches_plain(cuda_device, distance):
     # The exact surface on the card (torch._int_mm) against B1's plain
     # version at k <= 1,024, and against its own CPU form past it.

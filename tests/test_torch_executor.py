@@ -12,9 +12,12 @@ Values may differ by ulps: XLA on the CPU rewrites the cosine epilogue's
 ``d / sqrt(x)`` into ``d * rsqrt(x)``, which is not correctly rounded; the
 port rounds every step correctly and matches the oracle's NumPy epilogue
 instead. The JAX executor runs here on the 8 virtual CPU devices of
-``tests/conftest.py``, so it takes its sharded path and the port its one
-device. The fused path must equal the full-readback path, and coalesced
-concurrent queries their solo runs."""
+``tests/conftest.py``, so it takes its sharded path; the port's executor
+takes its one device (also where the process sees two CUDA devices but
+installed no mesh), and again its sharded path on 8 logical CPU shards
+(``meshlib.set_devices([cpu] * 8)``), whose pages must be the JAX
+executor's too. The fused path must equal the full-readback path, and
+coalesced concurrent queries their solo runs."""
 
 import json
 import sys
@@ -38,6 +41,7 @@ from panoptikon_tpu.pql import model as ref_pql  # noqa: E402
 from panoptikon_tpu.pql.executor import Executor as RefExecutor  # noqa: E402
 from panoptikon_tpu_torch.db.connection import Database  # noqa: E402
 from panoptikon_tpu_torch.index import VectorIndex  # noqa: E402
+from panoptikon_tpu_torch.parallel import mesh as meshlib  # noqa: E402
 from panoptikon_tpu_torch.pql import model as pql  # noqa: E402
 from panoptikon_tpu_torch.pql.executor import Executor  # noqa: E402
 
@@ -62,6 +66,7 @@ def world(tmp_path_factory):
         db=db, spaces=spaces, rows=rows,
         shapes=pe.build_shapes(db, rows, spaces, board_id, rng),
         ref=RefExecutor(db, index), port=Executor(port_db, port_index, device="cpu"),
+        sharded=Executor(port_db, port_index, device="cpu"),
         full=full, solo=solo, results={},
     )
     writer.close()
@@ -114,6 +119,51 @@ def test_shape_matches_oracle_reference_and_full_path(world, i):
     assert same_pages(got, _run(world.ref, shape["payload"], ref_pql))
     full = _run(world.full, shape["payload"])
     assert full.count == got.count and full.results == got.results, shape["name"]
+
+
+@pytest.fixture
+def eight_shards(world, monkeypatch):
+    """The port's executor on a mesh of 8 logical CPU shards; its one-shard
+    path raises."""
+    def one_shard(*a, **kw):
+        raise AssertionError("an 8-shard mesh took the one-shard path")
+
+    monkeypatch.setattr(world.sharded, "_device_arrays", one_shard)
+    meshlib.set_devices([torch.device("cpu")] * 8)
+    yield world.sharded
+    meshlib.set_devices(None)
+
+
+@pytest.mark.parametrize("i", range(N_SHAPES))
+def test_sharded_shape_matches_the_reference_and_one_device(world, eight_shards, i):
+    shape = world.shapes[i]
+    got = _run(eight_shards, shape["payload"])
+    assert _oracle_problems(shape, got) == [], shape["name"]
+    assert same_pages(got, _run(world.ref, shape["payload"], ref_pql))
+    assert same_pages(got, world.results.get(shape["name"]) or _run(world.solo, shape["payload"]))
+
+
+@pytest.fixture
+def two_cards(world, monkeypatch):
+    """A process that sees two CUDA devices and installed no mesh: the
+    port's CPU executor keeps to its one device; its sharded path raises."""
+    def sharded(*a, **kw):
+        raise AssertionError("an executor with no installed mesh took the sharded path")
+
+    meshlib.set_devices(None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(world.solo, "_sharded_space", sharded)
+    assert len(meshlib.devices()) == 2
+    return world.solo
+
+
+@pytest.mark.parametrize("i", range(N_SHAPES))
+def test_two_card_host_keeps_the_executor_s_device(world, two_cards, i):
+    shape = world.shapes[i]
+    got = _run(two_cards, shape["payload"])
+    assert _oracle_problems(shape, got) == [], shape["name"]
+    assert same_pages(got, _run(world.ref, shape["payload"], ref_pql))
 
 
 def test_exact_and_quant_arms_keep_membership(world):
@@ -170,6 +220,17 @@ def _concurrent(ex, payloads):
 
 @pytest.mark.parametrize("kind", ["single", "rrf3", "scoped"])
 def test_coalesced_queries_equal_their_solo_runs(world, kind):
+    _coalesced_equal_solo(world, world.port, kind)
+
+
+@pytest.mark.parametrize("kind", ["single", "rrf3", "scoped"])
+def test_sharded_coalesced_queries_equal_their_solo_runs(world, eight_shards, kind):
+    # The coalesced surfaces and joins in packed slots, against the
+    # one-device solo runs.
+    _coalesced_equal_solo(world, eight_shards, kind)
+
+
+def _coalesced_equal_solo(world, ex, kind):
     rng = np.random.default_rng({"single": 1, "rrf3": 2, "scoped": 3}[kind])
     clip, st = world.spaces["clip/test"], world.spaces["st/test"]
 
@@ -193,8 +254,8 @@ def test_coalesced_queries_equal_their_solo_runs(world, kind):
             q = {"and_": [{"match": {"eq": {"type": "image/png"}}},
                           leaf("image_embeddings", "clip/test", clip)]}
         payloads.append({"query": q, "page_size": 12})
-    before = world.port._scan_coalescer.stats()
-    got, after = _concurrent(world.port, payloads)
+    before = ex._scan_coalescer.stats()
+    got, after = _concurrent(ex, payloads)
     queries = after["queries"] - before["queries"]
     assert queries >= len(payloads) and after["dispatches"] - before["dispatches"] < queries
     for res, payload in zip(got, payloads):

@@ -260,9 +260,9 @@ REPO = Path(__file__).resolve().parent.parent
 # resources, the native codec's build and load, which find the port's own
 # library (built from csrc/host_codec.cpp into build/torch_kernels/), and
 # the extraction job's text work query, which the port repairs.
-# ``ported`` are the reference's units the port rewrote or left out (the
-# sharded program waits for multi-GPU); ``added`` the port's own. A
-# module-level assignment is named ``<target>``.
+# ``ported`` are the reference's units the port rewrote or left out (of
+# the executor's none is left out: its sharded program is ported);
+# ``added`` the port's own. A module-level assignment is named ``<target>``.
 DEVICE_UNITS = {
     "pql/executor.py": {
         "ported": {
@@ -274,7 +274,8 @@ DEVICE_UNITS = {
             "Executor._rrf_join_candidates", "Executor._coalesced_rrf_join",
             "Executor._space_scores",
         },
-        "added": {"_HostCopy.<body>", "_collect_host", "_host_get", "Executor._upload"},
+        "added": {"_HostCopy.<body>", "_collect_host", "_host_get", "_sharded",
+                  "Executor._upload"},
     },
     "pql/fused.py": {"ported": {"_rrf_device_eligible"}, "added": set()},
     "models/registry.py": {"ported": {"packaged_builtin_dir"}, "added": set()},
@@ -285,14 +286,16 @@ DEVICE_UNITS = {
     "jobs/extraction.py": {"ported": {"_unprocessed_text"}, "added": set()},
     # The server names its device: AppState carries it (a dataclass field)
     # and create() resolves it, raising without CUDA; its executors run on
-    # it; the accelerator report and client_config's multi_chip read
-    # torch.cuda; serve_all and main refuse [upstreams].ui (A.7b) and more
-    # than one process (A.12) through refuse_unported, and main takes
-    # --device in place of the JAX platform pin and the multi-host join.
+    # it; the accelerator report reads torch.cuda and client_config's
+    # multi_chip the port's mesh; serve_all and main refuse [upstreams].ui
+    # (A.7b) through refuse_unported, and main takes --device in place of
+    # the JAX platform pin (a list of devices: the serving mesh), joins the
+    # port's multi-process runtime and refuses a mesh of more than one shard
+    # across processes through refuse_lockstep.
     "api/server.py": {
         "ported": {"AppState.<body>", "AppState.create", "AppState.executor",
                    "accelerator_report", "client_config", "serve_all", "main"},
-        "added": {"refuse_unported"},
+        "added": {"refuse_unported", "refuse_lockstep"},
     },
     # The CLI's device report reads torch.cuda; the reference's table of TPU
     # generations (--env) has no counterpart on the card; serve takes
@@ -358,6 +361,11 @@ PARTIAL_COPIES = {
                           "log_mel_spectrogram"),
     "models/audio.py": ("<Params>", "AudioConfig", "<CONFIGS>", "prepare_mels", "_bert_block",
                         "load_ast_checkpoint"),
+    # The sharded index's and the mesh's host units (build_sharded's host
+    # packing is held statement by statement below).
+    "index/sharded.py": ("_round_up",),
+    "parallel/mesh.py": ("<SHARD_AXIS>", "<REPLICA_AXIS>", "<DATA_AXIS>", "<MODEL_AXIS>",
+                         "<_MULTIHOST_LAYOUT>", "set_multihost_layout"),
 }
 
 
@@ -421,6 +429,8 @@ def test_host_code_is_the_reference_s(rel):
     got = _units((REPO / "panoptikon_tpu_torch" / rel).read_text())
     device = DEVICE_UNITS.get(rel, {"ported": set(), "added": set()})
     assert device["ported"] <= want.keys() and not device["added"] & want.keys()
+    if rel.startswith("pql/"):
+        assert device["ported"] <= got.keys(), f"{rel}: a ported unit is missing"
     assert set(want) - device["ported"] == set(got) - device["added"] - device["ported"]
     for name in set(want) - device["ported"]:
         assert got[name] == want[name], f"{rel}: {name} differs from the reference"
@@ -436,6 +446,23 @@ def test_copied_units_are_the_reference_s(rel):
     assert len(names) >= len(PARTIAL_COPIES[rel])
     for name in names:
         assert got.get(name) == want[name], f"{rel}: {name} differs from the reference"
+
+
+def test_build_sharded_packs_as_the_reference():
+    # index/sharded.py's build_sharded is the reference's text up to the
+    # packed row permutation; only the device ends that follow (one slab a
+    # mesh entry in place of device_put over a NamedSharding) differ.
+    def body(root):
+        tree = ast.parse((REPO / root / "index/sharded.py").read_text())
+        fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                  and n.name == "build_sharded")
+        return [ast.dump(stmt) for stmt in fn.body]
+
+    want, got = body("panoptikon_tpu"), body("panoptikon_tpu_torch")
+    cut = next(i for i, stmt in enumerate(want) if "row_perm" in stmt and "reshape" in stmt
+               and stmt.startswith("Assign"))
+    assert len(want) > cut > 10 and got[:cut + 1] == want[:cut + 1]
+    assert any("NamedSharding" in stmt for stmt in want[cut + 1:])
 
 
 @pytest.mark.parametrize("rel", list(PARTIAL_DIVERGENCES))
@@ -549,9 +576,11 @@ def test_bulk_ingest_gives_the_reference_s_tables(tmp_path):
 
 
 def test_port_executor_and_fused_touch_no_jax_or_mesh():
+    # The sharded branches are ported (over the port's own mesh); the
+    # sources name no JAX.
     for rel in ("pql/executor.py", "pql/fused.py"):
         src = (REPO / "panoptikon_tpu_torch" / rel).read_text()
-        assert "jax" not in src and "_sharded_space" not in src and "device_count" not in src
+        assert "jax" not in src
 
 
 def test_splitmix_matches():

@@ -57,7 +57,8 @@ def test_every_port_module_imports_without_jax():
                  "db.config_file", "db.setup", "pql.build", "jobs.cron", "jobs.continuous",
                  "jobs.supervisor", "jobs.prewarm", "models.pool", "models.http_backend",
                  "client", "cli", "desktop", "utils.env_template", "utils.rootlock",
-                 "utils.schema_gen", "utils.version", "utils.toml_edit"):
+                 "utils.schema_gen", "utils.version", "utils.toml_edit", "index.sharded",
+                 "parallel.mesh", "parallel.multihost"):
         assert f"panoptikon_tpu_torch.{name}" in names
 
 
@@ -79,7 +80,8 @@ def test_no_port_source_imports_the_jax_package():
     assert len(sources) >= 27
     assert {"models/text_embed.py", "models/weights.py", "models/registry.py",
             "models/discovery.py", "models/manager.py", "db/bulk.py", "resources/__init__.py",
-            "models/whisper.py", "models/audio.py", "models/ocr.py"} <= {
+            "models/whisper.py", "models/audio.py", "models/ocr.py", "index/sharded.py",
+            "parallel/mesh.py", "parallel/multihost.py"} <= {
         str(p.relative_to(REPO / "panoptikon_tpu_torch")) for p in sources}
     for path in sources:
         modules = _imported_modules(ast.parse(path.read_text()))
