@@ -1,7 +1,7 @@
 """Drive the PyTorch port's search core, serving embed, PQL pages, text search,
 the index build path, the audio path, the image tag and caption path, the
-OCR path, its HTTP server, its training and its sharded index once on one
-NVIDIA GPU.
+OCR path, its HTTP server, its training, its sharded index and its
+sharded train step once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -328,9 +328,31 @@ Phases, one JSON line each:
             equal to one unsharded B1 / streaming_topk in the process (ids
             exact, distances within 1e-6) and the f32 arm to the exact f32
             top-10 up to ties; a child's failure fails the phase.
+18. sharded_train  the dp × tp CLIP train step (ROADMAP A.12b,
+            parallel/train.py), run after phase 17(c): (a) one process,
+            train_mesh(2, 2) over 4 entries of cuda:0, CLIP ViT-B/32 at full
+            width from phase 16's seeded f32 weights and 128 pairs (64 a
+            data shard): at step 0 the loss within 1e-2 of the one-device
+            step's (clip_loss, torch.optim.AdamW at the same settings) and
+            every gathered leaf's gradient at cosine ≥ 0.99 with its norm
+            within 5 % (logit_scale, the LayerNorm gains, token_emb, qkv_b
+            and out_b named in the record); 5 AdamW steps, each loss finite
+            and within 2e-2 of the one-device run's at that step, the last
+            below the first; B3 and its backward launched data · model ·
+            (12 + 12) = 96 times each a step, all on the tensor cores; step
+            ms beside the one-device step's (this phase's and phase 16's),
+            peak memory, a profiled step's busy share, a step's ms in the
+            collectives (synchronized around each) and bytes; B3 and its
+            backward at the entries' shapes (B 64 × N 50 × H 6 × D 64, text
+            N 77 × H 4, causal) against their plain versions, SDPA and the
+            bound (not counted); (b) 4 processes (this script with
+            --sharded-train-worker) over gloo, one entry each on cuda:0, the
+            same mesh, weights and batch, 2 steps: each process's loss and
+            its entry's gradients at step 0 equal to (a)'s within 1e-6
+            (relative, by norm), start-up s, step ms, gloo bytes a step.
 
 Each main path (phases 4-5, 6, 17(a), 8, 7, 9, 10, 11, 12, 13, 14, 15, 17(b),
-16 and 17(c)) runs with the launch counters
+16, 17(c) and 18) runs with the launch counters
 (and the attention wrappers' counts by route) set to zero just before it and
 read just after. Then a line with every kernel's record (launches, the
 attention kernels' launches by route, error, times, bound, library time),
@@ -4803,13 +4825,12 @@ def train_run(torch, smi, what: str, params, loss_fn, batch, lr: float) -> dict:
             "attention_leaves": len(attention), "leaves": len(leaves)}
 
 
-def train_path(torch, dev, smi, counters) -> tuple[list, dict]:
-    """Phase 16(b)-(c): CLIP ViT-B/32, crnn-base and attn-base trained at
-    full width (seeded random f32 master weights), each first held to the
-    CPU at step 0 (not counted), then TRAIN_STEPS Adam steps. Returns the
-    records and B3's expected forward (= backward) launches: one each a
-    block's attention a step."""
-    from panoptikon_tpu_torch.models import clip, convert, ocr
+def clip_train_setup(torch, dev):
+    """CLIP ViT-B/32's training inputs on ``dev``: CLIP_TRAIN_BATCH seeded
+    images and token rows (EOT after a seeded length), then seeded random
+    f32 master weights, drawn in that order from one generator. Returns
+    (cfg, the generator, params, images, tokens)."""
+    from panoptikon_tpu_torch.models import clip
 
     cfg = clip.CONFIGS["ViT-B-32"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 161)
@@ -4820,7 +4841,19 @@ def train_path(torch, dev, smi, counters) -> tuple[list, dict]:
     pos = torch.arange(cfg.text_ctx, device=dev)[None, :]
     tokens = torch.where(pos < lengths[:, None], tokens, 0)
     tokens = torch.where(pos == lengths[:, None], EOT, tokens)
-    runs = [("ViT-B-32 clip_loss", clip.init_params(cfg, gen),
+    return cfg, gen, clip.init_params(cfg, gen), images, tokens
+
+
+def train_path(torch, dev, smi, counters) -> tuple[list, dict]:
+    """Phase 16(b)-(c): CLIP ViT-B/32, crnn-base and attn-base trained at
+    full width (seeded random f32 master weights), each first held to the
+    CPU at step 0 (not counted), then TRAIN_STEPS Adam steps. Returns the
+    records and B3's expected forward (= backward) launches: one each a
+    block's attention a step."""
+    from panoptikon_tpu_torch.models import clip, convert, ocr
+
+    cfg, gen, clip_params, images, tokens = clip_train_setup(torch, dev)
+    runs = [("ViT-B-32 clip_loss", clip_params,
              lambda p, x, t: clip.clip_loss(p, cfg, x, t), (images, tokens), CLIP_TRAIN_LR,
              cfg.vision_layers + cfg.text_layers)]
     ocfg, acfg = ocr.CONFIGS["crnn-base"], ocr.ATTN_CONFIGS["attn-base"]
@@ -5148,11 +5181,11 @@ def multihost_worker(rank: int, coord: str) -> dict:
     return out
 
 
-def multihost_path(torch, dev, smi) -> dict:
-    """Phase 17(c): MULTI_PROCS processes (this script with
-    --multihost-worker) joined by multihost.initialize over gloo at
-    127.0.0.1 and a free port, on the one card; each must exit 0 within
-    MULTI_TIMEOUT_S. Returns their records and B1 launches."""
+def run_workers(flag: str, n: int, timeout_s: float, *args) -> list:
+    """``n`` processes of this script with ``flag RANK COORD *args``, COORD
+    127.0.0.1 and a free port for gloo; each must exit 0 within
+    ``timeout_s`` (any left running are killed). Returns each one's record,
+    the JSON of its last stdout line, in rank order."""
     import socket
 
     with socket.socket() as s:
@@ -5161,15 +5194,14 @@ def multihost_path(torch, dev, smi) -> dict:
     root = Path(__file__).resolve().parent
     env = _child_env()
     env.pop("MASTER_ADDR", None)
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--multihost-worker",
-                               str(rank), coord], cwd=root, env=env, stdout=subprocess.PIPE,
+    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), flag, str(rank), coord,
+                               *args], cwd=root, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for rank in range(MULTI_PROCS)]
+             for rank in range(n)]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=MULTI_TIMEOUT_S))
+            outs.append(p.communicate(timeout=timeout_s))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5177,14 +5209,298 @@ def multihost_path(torch, dev, smi) -> dict:
                 p.wait()
     records = []
     for rank, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
-        require(p.returncode == 0, f"multihost: process {rank} exited {p.returncode}: "
+        require(p.returncode == 0, f"{flag}: process {rank} exited {p.returncode}: "
                                    f"{stderr[-3000:]}")
         records.append(json.loads(stdout.strip().splitlines()[-1]))
+    return records
+
+
+def multihost_path(torch, dev, smi) -> dict:
+    """Phase 17(c): MULTI_PROCS processes (this script with
+    --multihost-worker) joined by multihost.initialize over gloo on the one
+    card (run_workers). Returns their records and B1 launches."""
+    t0 = time.perf_counter()
+    records = run_workers("--multihost-worker", MULTI_PROCS, MULTI_TIMEOUT_S)
     return {"card": smi, "processes": MULTI_PROCS, "shards_a_process": MULTI_SHARDS,
             "rows": MULTI_ROWS, "queries": MULTI_Q, "seconds": time.perf_counter() - t0,
             "records": records,
             "b1_launches": sum(r[f"{layout}_int8"]["b1_launches"] for r in records
                                for layout in ("replica", "shard"))}
+
+
+# Phase 18 (the dp × tp CLIP train step, ROADMAP A.12b): parallel/train.py
+# over train_mesh(*SHARDED_MESH) on the one card, from phase 16's CLIP
+# weights and pairs. SHARDED_STEPS AdamW steps are held to the one-device
+# run's; then one more step under the profiler and one with the
+# collectives timed. The gloo form runs SHARDED_GLOO_STEPS steps in data ·
+# model processes, one entry each.
+SHARDED_MESH, SHARDED_STEPS, SHARDED_GLOO_STEPS = (2, 2), 5, 2
+SHARDED_LOSS_RTOL, SHARDED_STEP_RTOL, SHARDED_NORM_RTOL, SHARDED_GLOO_RTOL = 1e-2, 2e-2, 0.05, 1e-6
+SHARDED_GLOO_TIMEOUT_S = 300.0
+# The leaves the record names: those only a right scheme of collectives
+# gets right (used after the gather, replicated beside split ones).
+SHARDED_NAMED = re.compile(r"^(logit_scale|text\.token_emb|.*\.ln_\w+\.scale|.*attn\.(qkv_b|out_b))$")
+# B3 and its backward at the shapes an entry gives them (ViT-B/32's towers,
+# 64 rows a data shard, half the heads a model shard): (b, n, h, d, causal).
+SHARDED_ATTN_CASES = {"vision": (64, 50, 6, 64, False), "text": (64, 77, 4, 64, True)}
+
+
+def _gradient_agreement(torch, got: dict, want: dict) -> dict:
+    """path -> (cosine, norm ratio) of each gathered gradient against the
+    one-device one, in f64 on the card."""
+    out = {}
+    for path, w in want.items():
+        g, w = got[path].double(), w.double()
+        ng, nw = g.norm().item(), w.norm().item()
+        cos = 1.0 if ng == nw == 0 else (g * w).sum().item() / (ng * nw)
+        out[path] = (cos, ng / nw if nw else float(ng == 0))
+    return out
+
+
+def sharded_train_path(torch, dev, smi, counters, phase16_step_ms: float):
+    """Phase 18(a): the sharded step in one process over SHARDED_MESH
+    entries of ``dev``, held at step 0 and over SHARDED_STEPS steps to the
+    one-device run from the same weights (not counted). Returns (the record,
+    the sharded losses, each entry's step-0 gradients on the host, in
+    mesh.local_entries order)."""
+    from panoptikon_tpu_torch.models import clip, convert
+    from panoptikon_tpu_torch.ops import vit_attention
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+    from panoptikon_tpu_torch.parallel import train
+
+    data, model = SHARDED_MESH
+    cfg, _, params, images, tokens = clip_train_setup(torch, dev)
+    mesh = meshlib.train_mesh(data, model, devs=[dev] * (data * model))
+    rules = clip.param_shard_rules(cfg, model)
+    shards = convert.shard_params(params, mesh, rules)
+    opts = train.adamw(shards)
+    with not_counted(counters):
+        opt = torch.optim.AdamW(convert.trainable(params), lr=train.LR, betas=train.BETAS,
+                                eps=train.EPS, weight_decay=train.WEIGHT_DECAY)
+        one_losses, one_s = [], []
+        for i in range(SHARDED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = clip.clip_loss(params, cfg, images, tokens)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            one_s.append(time.perf_counter() - t0)
+            one_losses.append(loss.item())
+            if i == 0:
+                one_grads = {p: t.grad.clone() for p, t in convert.named_leaves(params).items()}
+        del params, opt
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = data * model * (cfg.vision_layers + cfg.text_layers)
+    losses, step_s, launches = [], [], []
+    for i in range(SHARDED_STEPS + 2):
+        launched = (vit_attention.mha.launches, vit_attention.mha_backward.launches)
+        train.traffic.reset(timed=i == SHARDED_STEPS + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == SHARDED_STEPS:
+            holder = []
+            wall, share = busy_share(torch, lambda: holder.append(
+                train.train_step(shards, cfg, mesh, opts, images, tokens)))
+            loss, busy = holder[0], {"wall_ms": 1e3 * wall, "busy_share": share}
+        else:
+            loss = train.train_step(shards, cfg, mesh, opts, images, tokens)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        launches.append((vit_attention.mha.launches - launched[0],
+                         vit_attention.mha_backward.launches - launched[1]))
+        if i == 1:
+            traffic = {"calls": train.traffic.calls, "bytes": train.traffic.bytes}
+        if i == SHARDED_STEPS + 1:
+            timed = {"collective_ms": 1e3 * train.traffic.seconds,
+                     "step_ms_synchronized": 1e3 * step_s[-1]}
+        if i == 0:
+            agree = _gradient_agreement(
+                torch, convert.named_leaves(convert.gather_grads(shards, mesh, rules)), one_grads)
+            entry_grads = [{p: t.grad.detach().cpu() for p, t in convert.named_leaves(s).items()}
+                           for s in shards]
+            del one_grads
+    train.traffic.reset()
+    busy["seconds_with_trace"] = step_s[SHARDED_STEPS]
+    worst = min(agree, key=lambda p: agree[p][0])
+    off = max(agree, key=lambda p: abs(agree[p][1] - 1))
+    require(abs(losses[0] - one_losses[0]) <= SHARDED_LOSS_RTOL * abs(one_losses[0]),
+            f"sharded train: step-0 loss {losses[0]} vs one device {one_losses[0]}")
+    require(agree[worst][0] >= TRAIN_COS_FLOOR and abs(agree[off][1] - 1) <= SHARDED_NORM_RTOL,
+            f"sharded train: gradient of {worst} at cosine {agree[worst][0]}, of {off} at "
+            f"{agree[off][1]} times the one-device norm")
+    require(all(np.isfinite(losses)) and losses[SHARDED_STEPS - 1] < losses[0]
+            and all(abs(a - b) <= SHARDED_STEP_RTOL * abs(b)
+                    for a, b in zip(losses, one_losses)),
+            f"sharded train: losses {losses} against one device {one_losses}")
+    require(all(n == (per_step, per_step) for n in launches),
+            f"sharded train: B3 launches a step (forward, backward) {launches}, expected "
+            f"{per_step} each")
+    steady = float(np.median(step_s[1:SHARDED_STEPS]))
+    record = {
+        "part": "a_one_process", "card": smi, "mesh": mesh.shape, "devices": str(dev),
+        "config": "ViT-B-32, phase 16's seeded f32 weights", "items": len(images),
+        "items_a_data_shard": len(images) // data, "lr": train.LR,
+        "weight_decay": train.WEIGHT_DECAY, "losses": losses[:SHARDED_STEPS],
+        "one_device_losses": one_losses, "losses_after": losses[SHARDED_STEPS:],
+        "step0": {"loss": losses[0], "one_device_loss": one_losses[0],
+                  "min_grad_cosine": agree[worst][0], "min_grad_cosine_leaf": worst,
+                  "worst_norm_ratio": agree[off][1], "worst_norm_ratio_leaf": off,
+                  "leaves": len(agree),
+                  "named": {p: a for p, a in agree.items() if SHARDED_NAMED.match(p)}},
+        "step_ms_first": 1e3 * step_s[0], "step_ms_median": 1e3 * steady,
+        "items_per_s": len(images) / steady,
+        "one_device_step_ms_median": 1e3 * float(np.median(one_s[1:])),
+        "phase16_one_device_adam_step_ms_median": phase16_step_ms,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "profiled_step": busy, "collectives_a_step": {**traffic, **timed},
+        "b3_launches_a_step": {"mha": per_step, "mha_backward": per_step},
+        "steps": len(losses)}
+    return record, losses, entry_grads
+
+
+def sharded_attention_kernels(torch, dev, smi, counters) -> dict:
+    """Phase 18(a): B3 and its backward at SHARDED_ATTN_CASES, off the
+    main path's counts: against mha_plain (≤ 2e-2 max abs) and
+    mha_backward_plain (BWD_TOL of the largest gradient element), timed in
+    turns beside SDPA (forward; backward) and the bound."""
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 180)
+    shapes = {}
+    with not_counted(counters):
+        for name, (b, n, h, d, causal) in SHARDED_ATTN_CASES.items():
+            q, k, v, dout = (torch.randn((b, n, h, d), generator=gen, device=dev)
+                             .to(torch.bfloat16) for _ in range(4))
+            out = vit_attention.mha(q, k, v, causal=causal)
+            f_err = (out.float() - vit_attention.mha_plain(q, k, v, causal=causal).float()
+                     ).abs().max().item()
+            require(f_err <= 2e-2, f"sharded train B3 {name}: max abs diff {f_err} > 2e-2")
+            grads = vit_attention.mha_backward(q, k, v, out, dout, causal=causal)
+            want = vit_attention.mha_backward_plain(q, k, v, out, dout, causal=causal)
+            scale = max(w.float().abs().max().item() for w in want)
+            b_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, want))
+            require(b_err <= BWD_TOL["bfloat16"] * scale,
+                    f"sharded train B3 backward {name}: max abs diff {b_err} > "
+                    f"{BWD_TOL['bfloat16']} x {scale}")
+            f_ms, f_plain = paired_ms(torch, lambda: vit_attention.mha(q, k, v, causal=causal),
+                                      lambda: vit_attention.mha_plain(q, k, v, causal=causal))
+            b_ms, b_plain = paired_ms(
+                torch, lambda: vit_attention.mha_backward(q, k, v, out, dout, causal=causal),
+                lambda: vit_attention.mha_backward_plain(q, k, v, out, dout, causal=causal),
+                reps=10)
+            shapes[name] = {
+                "shape": [b, n, h, d], "causal": causal,
+                "forward": {"route": vit_attention.route(q.dtype, d), "max_abs_err": f_err,
+                            "ms": f_ms, "plain_ms": f_plain,
+                            **attention_roofline(q, k, v, out, causal),
+                            "library_ms": cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal))},
+                "backward": {"route": vit_attention.backward_route(q.dtype, d, n, n),
+                             "max_abs_err": b_err, "max_abs_grad": scale, "ms": b_ms,
+                             "plain_ms": b_plain,
+                             **backward_roofline(q, k, v, dout, None, grads, causal),
+                             "library_ms": sdpa_backward_ms(torch, q, k, v, dout, causal)}}
+    return {"part": "a_kernels", "card": smi, "shapes": shapes}
+
+
+def sharded_train_worker(rank: int, coord: str, out: str) -> dict:
+    """Phase 18(b)'s process ``rank``: joins the gloo group at ``coord``,
+    holds its one entry of train_mesh(*SHARDED_MESH) on the card, from the
+    same weights and batch as (a), and takes SHARDED_GLOO_STEPS steps; its
+    entry's step-0 gradients go to ``out``/RANK.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from panoptikon_tpu_torch.device import device
+    from panoptikon_tpu_torch.models import clip, convert
+    from panoptikon_tpu_torch.ops import vit_attention
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+    from panoptikon_tpu_torch.parallel import multihost, train
+
+    data, model = SHARDED_MESH
+    dev = device("cuda")
+    require(multihost.initialize(coord, data * model, rank), "sharded train: no process group")
+    meshlib.set_devices([dev])
+    mesh = meshlib.train_mesh(data, model)
+    cfg, _, params, images, tokens = clip_train_setup(torch, dev)
+    (shard,) = convert.shard_params(params, mesh, clip.param_shard_rules(cfg, model))
+    del params
+    opts = train.adamw([shard])
+    ready = time.time()
+    losses, step_ms, gloo_bytes, launches = [], [], [], []
+    for i in range(SHARDED_GLOO_STEPS):
+        train.traffic.reset()
+        launched = (vit_attention.mha.launches, vit_attention.mha_backward.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train.train_step([shard], cfg, mesh, opts, images, tokens)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+        gloo_bytes.append(train.traffic.bytes)
+        launches.append([vit_attention.mha.launches - launched[0],
+                         vit_attention.mha_backward.launches - launched[1]])
+        if i == 0:
+            torch.save({p: t.grad.detach().cpu() for p, t in convert.named_leaves(shard).items()},
+                       Path(out) / f"{rank}.pt")
+    (entry, _), = meshlib.local_entries(mesh)
+    dist.destroy_process_group()
+    return {"rank": rank, "entry": entry, "ready_at": ready,
+            "losses": losses, "step_ms": step_ms, "gloo_bytes": gloo_bytes,
+            "launches": launches,
+            "routes": {"mha": dict(vit_attention.mha.routes),
+                       "mha_backward": dict(vit_attention.mha_backward.routes)}}
+
+
+def sharded_gloo_path(torch, dev, smi, want_losses, want_grads) -> dict:
+    """Phase 18(b): data · model processes (this script with
+    --sharded-train-worker) over gloo at 127.0.0.1 on the one card, each
+    held at step 0 to (a)'s entry of the same position: the loss, and each
+    gradient by the norm of the difference, within SHARDED_GLOO_RTOL; each
+    must exit 0 within SHARDED_GLOO_TIMEOUT_S (run_workers). Returns the
+    record and B3's forward and backward launches in the processes."""
+    from panoptikon_tpu_torch.models import clip
+
+    cfg = clip.CONFIGS["ViT-B-32"]
+    layers = cfg.vision_layers + cfg.text_layers  # one entry's attentions a step
+    data, model = SHARDED_MESH
+    out = Path(tempfile.mkdtemp(prefix="sharded_train_", dir=scratch_dir()))
+    spawned = time.time()
+    try:
+        records, worst = [], 0.0
+        for rank, rec in enumerate(run_workers("--sharded-train-worker", data * model,
+                                               SHARDED_GLOO_TIMEOUT_S, str(out))):
+            got = torch.load(out / f"{rank}.pt")
+            require(set(got) == set(want_grads[rank]), f"sharded train: process {rank}'s leaves")
+            for path, w in want_grads[rank].items():
+                diff, scale = (got[path] - w).norm().item(), w.norm().item()
+                require(diff <= SHARDED_GLOO_RTOL * scale,
+                        f"sharded train: process {rank}'s gradient of {path} {diff} from (a)'s "
+                        f"(norm {scale})")
+                worst = max(worst, diff / scale if scale else 0.0)
+            rel = abs(rec["losses"][0] - want_losses[0]) / abs(want_losses[0])
+            require(rel <= SHARDED_GLOO_RTOL, f"sharded train: process {rank}'s loss "
+                                              f"{rec['losses'][0]} vs (a)'s {want_losses[0]}")
+            require(all(n == [layers, layers] for n in rec["launches"])
+                    and rec["routes"]["mha"]["cuda_core"] == 0
+                    and rec["routes"]["mha_backward"]["cuda_core"] == 0,
+                    f"sharded train: process {rank}'s B3 launches {rec['launches']}, routes "
+                    f"{rec['routes']}, expected {layers} a step each on the tensor cores")
+            startup = rec.pop("ready_at") - spawned
+            records.append({**rec, "startup_s": startup, "loss_rel_diff": rel,
+                            "step1_loss_rel_diff": abs(rec["losses"][1] - want_losses[1])
+                            / abs(want_losses[1])})
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return {"part": "b_gloo", "card": smi, "processes": data * model,
+            "mesh": {"data": data, "model": model}, "steps": SHARDED_GLOO_STEPS,
+            "seconds": time.time() - spawned, "max_grad_rel_diff": worst, "records": records,
+            "launches": {name: sum(sum(n[i] for n in r["launches"]) for r in records)
+                         for i, name in enumerate(("mha", "mha_backward"))}}
 
 
 def cosines(a, b):
@@ -5985,11 +6301,44 @@ def main() -> int:
     emit({"phase": "sharded", "part": "launches", "launches": sharded_launches,
           "phase_s": shard_a["phase_s"] + shard_b["record"]["phase_s"] + shard_c["seconds"]})
 
+    # 18. The dp × tp CLIP train step: (a) one process over 4 entries of the
+    # card, counters (B3's backward among them) zeroed before it, then B3
+    # and its backward at the entries' shapes (not counted); (b) 4
+    # processes over gloo, whose launches come back in their records.
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    reset_counts(train_counters)
+    st_run, st_losses, st_grads = sharded_train_path(torch, dev, smi, train_counters,
+                                                     train_records[0]["step_ms_median"])
+    st_launches = {fn.__name__: fn.launches for fn in train_counters}
+    st_routes = read_routes(train_counters)
+    st_expected = {name: n * st_run["steps"] for name, n in st_run["b3_launches_a_step"].items()}
+    require(all(st_launches[name] == st_expected.get(name, 0) for name in st_launches),
+            f"sharded train path kernel launches {st_launches}, expected {st_expected}")
+    require_tensor_cores(st_launches, st_routes, ("mha", "mha_backward"), "sharded train path")
+    emit({"phase": "sharded_train", **st_run})
+    st_k = sharded_attention_kernels(torch, dev, smi, train_counters)
+    emit({"phase": "sharded_train", **st_k})
+    torch.cuda.empty_cache()
+    st_gloo = sharded_gloo_path(torch, dev, smi, st_losses, st_grads)
+    del st_grads
+    emit({"phase": "sharded_train", **st_gloo})
+    sharded_train_launches = {name: st_launches[name] + st_gloo["launches"].get(name, 0)
+                              for name in st_launches}
+    sharded_train_routes = {name: {path: n + sum(r["routes"][name][path]
+                                                 for r in st_gloo["records"])
+                                   if name in st_gloo["launches"] else n
+                                   for path, n in by_route.items()}
+                            for name, by_route in st_routes.items()}
+    emit({"phase": "sharded_train", "part": "launches", "launches": sharded_train_launches,
+          "attention_routes": sharded_train_routes, "phase_s": time.perf_counter() - t18})
+
     runs = ((launches, routes), (batch_launches, batch_routes), (composed_launches, composed_routes),
             (l14_launches, l14_routes), (pql_launches, pql_routes), (text_launches, text_routes),
             (extract_launches, extract_routes), (audio_launches, audio_routes),
             (tag_launches, tag_routes), (ocr_launches, ocr_routes), (serve_launches, serve_routes),
-            (train_launches, train_routes), (sharded_launches, sharded_routes))
+            (train_launches, train_routes), (sharded_launches, sharded_routes),
+            (sharded_train_launches, sharded_train_routes))
     total = {name: sum(run[0][name] for run in runs) for name in launches}
     total_routes = {name: {path: sum(run[1][name][path] for run in runs) for path in routes[name]}
                     for name in routes}
@@ -6020,7 +6369,8 @@ def main() -> int:
          "max_abs_err": max(*attn_err.values(),
                             *(r["max_abs_err"] for r in audio_b3["shapes"].values()),
                             tag_k["mha"]["max_abs_err"],
-                            *(r["max_abs_err"] for r in ocr_k["shapes"].values())),
+                            *(r["max_abs_err"] for r in ocr_k["shapes"].values()),
+                            *(r["forward"]["max_abs_err"] for r in st_k["shapes"].values())),
          "ms": attn_ms["vit_b32_image"][0], "plain_ms": attn_ms["vit_b32_image"][1],
          **bounds["vit_b32_image"], "library_ms": library_ms["vit_b32_image"],
          "text_shapes": {name: {"ms": attn_ms[name][0], "plain_ms": attn_ms[name][1],
@@ -6032,21 +6382,28 @@ def main() -> int:
          "wide_head_dim_shapes": {name: r for name, r in ocr_k["shapes"].items()
                                   if name != "ocr_trunk"},
          "captioner_decoder_logits_d384": tag_pair_rec["decoder_logits_d384"],
-         "serve_launches": serve_launches["mha"], "train_launches": train_launches["mha"]},
+         "serve_launches": serve_launches["mha"], "train_launches": train_launches["mha"],
+         "sharded_train_launches": sharded_train_launches["mha"],
+         "sharded_train_shapes": {name: r["forward"] for name, r in st_k["shapes"].items()}},
         {"name": "mha_backward", "route": "cuda",
          "source": "panoptikon_tpu_torch/csrc/attention_bwd.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:192 (the gradient of that kernel's "
                      "function; the Pallas mha has none, and off the TPU XLA computes it)",
-         "launches": train_launches["mha_backward"], "routes": train_routes["mha_backward"],
-         "max_abs_err": max(r.get(key, 0.0) for r in bwd["shapes"].values()
-                            for key in ("max_abs_err", "cuda_core_max_abs_err")),
+         "launches": train_launches["mha_backward"] + sharded_train_launches["mha_backward"],
+         "routes": {path: n + sharded_train_routes["mha_backward"][path]
+                    for path, n in train_routes["mha_backward"].items()},
+         "max_abs_err": max(*(r.get(key, 0.0) for r in bwd["shapes"].values()
+                              for key in ("max_abs_err", "cuda_core_max_abs_err")),
+                            *(r["backward"]["max_abs_err"] for r in st_k["shapes"].values())),
          "ms": bwd["shapes"]["vit_b32_image"]["ms"],
          "cuda_core_ms": bwd["shapes"]["vit_b32_image"]["cuda_core_ms"],
          "plain_ms": bwd["shapes"]["vit_b32_image"]["plain_ms"],
          "bound_ms": bwd["shapes"]["vit_b32_image"]["bound_ms"],
          "bound_by": bwd["shapes"]["vit_b32_image"]["bound_by"],
          "library_ms": bwd["shapes"]["vit_b32_image"]["library_ms"],
-         "train_shapes": bwd["shapes"]},
+         "train_shapes": bwd["shapes"], "train_launches": train_launches["mha_backward"],
+         "sharded_train_launches": sharded_train_launches["mha_backward"],
+         "sharded_train_shapes": {name: r["backward"] for name, r in st_k["shapes"].items()}},
         {"name": "mha_qkv", "route": "cuda", "source": "panoptikon_tpu_torch/csrc/attention.cu",
          "replaces": "panoptikon_tpu/ops/vit_attention.py:296", "launches": total["mha_qkv"],
          "routes": total_routes["mha_qkv"],
@@ -6072,5 +6429,9 @@ if __name__ == "__main__":
     if "--multihost-worker" in sys.argv:
         at = sys.argv.index("--multihost-worker")
         emit(multihost_worker(int(sys.argv[at + 1]), sys.argv[at + 2]))
+        sys.exit(0)
+    if "--sharded-train-worker" in sys.argv:
+        at = sys.argv.index("--sharded-train-worker")
+        emit(sharded_train_worker(int(sys.argv[at + 1]), sys.argv[at + 2], sys.argv[at + 3]))
         sys.exit(0)
     sys.exit(main())

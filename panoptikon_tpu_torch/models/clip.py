@@ -29,6 +29,8 @@ int32 GEMMs through ``torch._int_mm``, per-output-channel weight scales):
 :func:`encode_image` and :func:`encode_text`; with f32 leaves requiring grad
 it trains them (every matmul casts its weight to bf16, so the leaves stay
 f32 masters), B3's backward carrying the gradient through attention.
+:func:`param_shard_rules` places the parameters over a ``data × model``
+mesh for ``parallel/train.py``'s sharded step.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch.nn.functional as F
 from panoptikon_tpu_torch.ops import ln_quant, vit_attention
 from panoptikon_tpu_torch.ops.codec import quantize_static, static_step
 from panoptikon_tpu_torch.ops.exact import int_mm as _int_mm
+from panoptikon_tpu_torch.parallel.mesh import MODEL_AXIS, Split
 
 Params = dict[str, Any]
 
@@ -258,16 +261,21 @@ def quantize_block_weights(params: Params) -> Params:
     return out
 
 
-def _attention(x, p, heads: int, causal: bool, precision: str = "bf16", scales=None,
-               collector=None):
-    b, n, w = x.shape
-    qkv = _linear(x, p["qkv_w"], p["qkv_b"], precision,
-                  scales[0] if scales is not None else None, collector)
+def _attend(qkv, heads: int, causal: bool):
+    """(B, N, 3·W) q | k | v, each ``heads`` heads wide -> (B, N, W)."""
+    b, n, w3 = qkv.shape
+    w = w3 // 3
     # The kernel reads contiguous (B, N, H, D) operands, so each split is
     # one copy (XLA materializes the same three splits in the JAX package).
     q, k, v = (t.reshape(b, n, heads, w // heads).contiguous() for t in qkv.split(w, dim=-1))
-    out = vit_attention.attention(q, k, v, causal=causal)
-    return _linear(out.reshape(b, n, w), p["out_w"], p["out_b"], precision,
+    return vit_attention.attention(q, k, v, causal=causal).reshape(b, n, w)
+
+
+def _attention(x, p, heads: int, causal: bool, precision: str = "bf16", scales=None,
+               collector=None):
+    qkv = _linear(x, p["qkv_w"], p["qkv_b"], precision,
+                  scales[0] if scales is not None else None, collector)
+    return _linear(_attend(qkv, heads, causal), p["out_w"], p["out_b"], precision,
                    scales[1] if scales is not None else None, collector)
 
 
@@ -321,10 +329,9 @@ def _normalize(feats):
     return feats / torch.clamp(torch.linalg.norm(feats, dim=-1, keepdim=True), min=1e-8)
 
 
-def _visual_trunk(params: Params, cfg: ClipConfig, images, act_scales=None, collector=None):
-    """The patch embedding, positions, ``ln_pre`` and every block: (B, 1 +
-    grid², vision_width) in bf16."""
-    v = params["visual"]
+def _embed_patches(v: Params, cfg: ClipConfig, images):
+    """The patch embedding, the class token, positions and ``ln_pre`` of
+    the visual tower ``v``: (B, 1 + grid², vision_width) in bf16."""
     b = images.shape[0]
     p, g = cfg.patch_size, cfg.grid
     x = images.to(torch.bfloat16)
@@ -335,7 +342,41 @@ def _visual_trunk(params: Params, cfg: ClipConfig, images, act_scales=None, coll
         x = x + v["patch_b"].to(x.dtype)
     cls = v["class_emb"].to(x.dtype).expand(b, 1, cfg.vision_width)
     x = torch.cat([cls, x], dim=1) + v["pos_emb"].to(x.dtype)[None]
-    x = _layernorm(x, v["ln_pre"])
+    return _layernorm(x, v["ln_pre"])
+
+
+def _pool_image(v: Params, x):
+    """``ln_post`` of the class token, then ``proj``: (B, embed_dim) f32."""
+    x = _layernorm(x[:, 0], v["ln_post"])
+    return (x @ v["proj"].to(x.dtype)).to(torch.float32)
+
+
+def _embed_tokens(t: Params, token_ids):
+    """Token embeddings plus positions of the text tower ``t``, in bf16."""
+    x = t["token_emb"][token_ids].to(torch.bfloat16)
+    return x + t["pos_emb"].to(x.dtype)[None]
+
+
+def _pool_text(t: Params, x, token_ids):
+    """``ln_final`` at each row's EOT (the argmax id), then ``proj``:
+    (B, embed_dim) f32."""
+    x = _layernorm(x, t["ln_final"])
+    # torch.argmax, like jnp.argmax, returns the first maximal position.
+    eot = torch.argmax(token_ids, dim=-1)
+    x = x[torch.arange(x.shape[0], device=x.device), eot]
+    return (x @ t["proj"].to(x.dtype)).to(torch.float32)
+
+
+def logit_scale(log_scale):
+    """The contrastive temperature: exp of the learned log scale, capped at 100."""
+    return torch.exp(torch.clamp(log_scale, max=math.log(100.0)))
+
+
+def _visual_trunk(params: Params, cfg: ClipConfig, images, act_scales=None, collector=None):
+    """The patch embedding, positions, ``ln_pre`` and every block: (B, 1 +
+    grid², vision_width) in bf16."""
+    v = params["visual"]
+    x = _embed_patches(v, cfg, images)
     for i, blk in enumerate(v["blocks"]):
         x = _block(x, blk, cfg.vision_heads, causal=False, precision=cfg.matmul_precision,
                    scales=act_scales[i] if act_scales is not None else None,
@@ -350,10 +391,8 @@ def encode_image(params: Params, cfg: ClipConfig, images, normalize: bool = True
     ``act_scales`` — (vision_layers, 4) calibrated per-tensor activation
     absmax (:func:`calibrate_image_scales`); with ``cfg.matmul_precision ==
     "int8"`` and prequantized weights it selects the static-int8 block."""
-    v = params["visual"]
     x = _visual_trunk(params, cfg, images, act_scales, _collector)
-    x = _layernorm(x[:, 0], v["ln_post"])
-    feats = (x @ v["proj"].to(x.dtype)).to(torch.float32)
+    feats = _pool_image(params["visual"], x)
     return _normalize(feats) if normalize else feats
 
 
@@ -369,17 +408,12 @@ def encode_text(params: Params, cfg: ClipConfig, token_ids, normalize: bool = Tr
     """token_ids (B, ctx) int, EOT at the argmax position -> (B, embed_dim) f32.
     ``act_scales`` — (text_layers, 4), as in :func:`encode_image`."""
     t = params["text"]
-    x = t["token_emb"][token_ids].to(torch.bfloat16)
-    x = x + t["pos_emb"].to(x.dtype)[None]
+    x = _embed_tokens(t, token_ids)
     for i, blk in enumerate(t["blocks"]):
         x = _block(x, blk, cfg.text_heads, causal=True, precision=cfg.matmul_precision,
                    scales=act_scales[i] if act_scales is not None else None,
                    collector=_collector)
-    x = _layernorm(x, t["ln_final"])
-    # torch.argmax, like jnp.argmax, returns the first maximal position.
-    eot = torch.argmax(token_ids, dim=-1)
-    x = x[torch.arange(x.shape[0], device=x.device), eot]
-    feats = (x @ t["proj"].to(x.dtype)).to(torch.float32)
+    feats = _pool_text(t, x, token_ids)
     return _normalize(feats) if normalize else feats
 
 
@@ -391,8 +425,7 @@ def encode_text(params: Params, cfg: ClipConfig, token_ids, normalize: bool = Tr
 def clip_loss(params: Params, cfg: ClipConfig, images, token_ids):
     img = encode_image(params, cfg, images)
     txt = encode_text(params, cfg, token_ids)
-    scale = torch.exp(torch.clamp(params["logit_scale"], max=math.log(100.0)))
-    logits = scale * img @ txt.T
+    logits = logit_scale(params["logit_scale"]) * img @ txt.T
     labels = torch.arange(logits.shape[0], device=logits.device)
     li = torch.mean(
         -F.log_softmax(logits, dim=-1)[torch.arange(len(labels), device=labels.device), labels]
@@ -401,6 +434,45 @@ def clip_loss(params: Params, cfg: ClipConfig, images, token_ids):
         -F.log_softmax(logits.T, dim=-1)[torch.arange(len(labels), device=labels.device), labels]
     )
     return 0.5 * (li + lt)
+
+
+def param_shard_rules(cfg: ClipConfig, model: int):
+    """The placement of each parameter over a mesh's ``model`` axis (tensor
+    parallelism), as the JAX package's ``param_shard_rules``: a callable
+    from a leaf's path (dotted, or slash-joined as the reference's dryrun
+    names it) to a spec for ``parallel.mesh.Placement``. qkv and the MLP's
+    fc split on their output axis, the blocks' out and the MLP's proj on
+    their input axis; every other leaf (token embeddings, LayerNorms,
+    positions, out_b, proj_b, the towers' proj, logit_scale) is replicated.
+
+    One difference: the reference's ``P(None, "model")`` cuts qkv's 3·W
+    columns into contiguous halves, so no head is whole on a shard; here
+    ``qkv_w`` and ``qkv_b`` split per head (``Split(MODEL_AXIS, 3)``: block
+    m of each of q, k and v), so each shard attends over heads of its own.
+    Raises ``ValueError`` where ``model`` does not divide a tower's heads or
+    MLP width."""
+    for tower, heads, width in (("vision", cfg.vision_heads, cfg.vision_width),
+                                ("text", cfg.text_heads, cfg.text_width)):
+        if heads % model or (cfg.mlp_ratio * width) % model:
+            raise ValueError(f"a model axis of {model} does not divide the {tower} tower's "
+                             f"{heads} heads and {cfg.mlp_ratio * width}-wide MLP")
+
+    def rule(path: str) -> tuple:
+        if path.endswith("qkv_w"):
+            return (None, Split(MODEL_AXIS, 3))
+        if path.endswith("qkv_b"):
+            return (Split(MODEL_AXIS, 3),)
+        if path.endswith("fc_w"):
+            return (None, MODEL_AXIS)
+        if path.endswith("fc_b"):
+            return (MODEL_AXIS,)
+        if path.endswith("out_w") or path.endswith("proj_w"):
+            return (MODEL_AXIS, None)
+        if path.endswith("token_emb"):
+            return (None, None)
+        return ()
+
+    return rule
 
 
 @torch.inference_mode()

@@ -12,7 +12,11 @@ free of JAX.
 
 For training, :func:`trainable` sets ``requires_grad`` on a tree's floating
 leaves and :func:`grads_numpy` reads their gradients back by path
-(:func:`named_leaves`), as the tests hold them to ``jax.grad``'s.
+(:func:`named_leaves`), as the tests hold them to ``jax.grad``'s. For the
+sharded step (``parallel/train.py``), :func:`shard_params` cuts a tree into
+one tree a mesh entry by a placement rule (``clip.param_shard_rules``), and
+:func:`gather_params` / :func:`gather_grads` put the reference's full
+layout back together.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from panoptikon_tpu_torch.device import device as resolve_device
+from panoptikon_tpu_torch.parallel.mesh import Placement, local_entries
 
 
 def params_from_jax(tree, device="cuda", dtype: torch.dtype | None = None):
@@ -85,3 +90,49 @@ def grads_numpy(tree) -> dict:
     return {path: (t.grad if t.grad is not None else torch.zeros_like(t))
             .detach().to("cpu", torch.float32).numpy()
             for path, t in named_leaves(tree).items() if t.requires_grad}
+
+
+def _map_leaves(fn, tree, prefix: str = ""):
+    """The same nesting with ``fn(path, leaf)`` at each leaf (paths as in
+    :func:`named_leaves`)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, f"{prefix}.{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v, f"{prefix}.{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
+def shard_params(tree, mesh, rules) -> list:
+    """One tree a mesh entry this process holds (``mesh.local_entries``
+    order), on the entry's device: each leaf the block its placement
+    (``rules(path)``, a ``Placement`` spec) gives that entry, a copy of its
+    own; a replicated leaf is one copy an entry."""
+    return [_map_leaves(lambda path, t, c=coords, d=dev: Placement(mesh, rules(path)).block(t, c)
+                        .to(d, copy=True).contiguous(), tree)
+            for coords, dev in local_entries(mesh)]
+
+
+def _gather(shards, mesh, rules, leaf_of):
+    entries = local_entries(mesh)
+    if len(entries) != mesh.size or len(shards) != mesh.size:
+        raise ValueError("gathering needs every mesh entry's shard in this process")
+    index = {tuple(c.values()): i for i, (c, _) in enumerate(entries)}
+    leaves = [named_leaves(tree) for tree in shards]
+    return _map_leaves(lambda path, _t: Placement(mesh, rules(path)).assemble(
+        lambda coords: leaf_of(leaves[index[tuple(coords.values())]][path])), shards[0])
+
+
+def gather_params(shards, mesh, rules):
+    """The full tree, in the reference's layout, from every entry's shard
+    (:func:`shard_params`' inverse; replicated leaves from entry 0), on the
+    first entry's device."""
+    return _gather(shards, mesh, rules, lambda t: t.detach())
+
+
+def gather_grads(shards, mesh, rules):
+    """:func:`gather_params` of the leaves' gradients (zeros where a leaf
+    has none)."""
+    return _gather(shards, mesh, rules,
+                   lambda t: t.grad if t.grad is not None else torch.zeros_like(t))

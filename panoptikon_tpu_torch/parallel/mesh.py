@@ -13,7 +13,14 @@ tests do with ``set_devices([cpu] * 8)``).
 
 Across processes (``multihost.initialize``) a mesh spans every process's
 devices in process order; each entry also records its process, and only
-this process's entries hold tensors (``index/sharded.py``).
+this process's entries hold tensors (``index/sharded.py``,
+``parallel/train.py``).
+
+:func:`train_mesh` is the ``data × model`` mesh of training. A
+:class:`Placement` is the port's ``NamedSharding``: a mesh and a spec, one
+entry a tensor axis (None, a mesh axis name, or a :class:`Split`), saying
+which block of a tensor each mesh entry holds (:func:`corpus_sharding`,
+:func:`replicated`, ``models.clip.param_shard_rules``).
 """
 
 from __future__ import annotations
@@ -81,11 +88,14 @@ class Mesh:
     devices: np.ndarray
     axis_names: tuple
     processes: Optional[np.ndarray] = field(default=None)
+    # Across processes, this process's gloo group along each axis
+    # (``multihost.axis_groups``; train_mesh joins them).
+    groups: dict = field(default_factory=dict)
 
     def __post_init__(self):
         grid = np.empty(np.shape(self.devices), dtype=object)
         for pos, dev in np.ndenumerate(np.asarray(self.devices, dtype=object)):
-            grid[pos] = torch.device(dev)
+            grid[pos] = _named(dev)
         self.devices = grid
         if grid.ndim != len(self.axis_names):
             raise ValueError(f"a {grid.ndim}-D grid for axes {self.axis_names}")
@@ -133,6 +143,118 @@ def serving_mesh(replicas: int, devs=None) -> Mesh:
     if n % replicas != 0:
         raise ValueError(f"{replicas} replicas do not divide {n} devices")
     return Mesh(_grid(devs, (replicas, n // replicas)), (REPLICA_AXIS, SHARD_AXIS))
+
+
+def train_mesh(data: Optional[int] = None, model: int = 1, devs=None) -> Mesh:
+    """2-D ``data × model`` mesh for encoder training: the batch splits over
+    ``data``, the block linears over ``model`` (``parallel/train.py``). An
+    entry may repeat a device. Without ``devs``: :func:`devices` in one
+    process (never the CPU unasked); across processes every process's
+    devices in process order, one entry a process, with the gloo group of
+    each axis joined here (every process calls this at the same point)."""
+    from panoptikon_tpu_torch.parallel import multihost
+
+    procs = None
+    if devs is None and multihost.process_count() > 1:
+        devs, procs = multihost.global_devices()
+    devs = devices() if devs is None else devs
+    n = len(devs)
+    if not n:
+        raise ValueError("a train mesh needs devices: none installed and no CUDA device")
+    if data is None:
+        data = n // model
+    if data * model != n:
+        raise ValueError(f"mesh {data}x{model} != {n} devices")
+    mesh = Mesh(_grid(devs, (data, model)), (DATA_AXIS, MODEL_AXIS),
+                None if procs is None else np.asarray(procs).reshape(data, model))
+    if procs is not None:
+        mesh.groups = multihost.axis_groups(mesh)
+    return mesh
+
+
+def local_entries(mesh: Mesh) -> list:
+    """(coordinates by axis name, device) of each entry this process holds,
+    in grid order: every entry without ``processes``."""
+    from panoptikon_tpu_torch.parallel import multihost
+
+    rank = multihost.process_index()
+    out = []
+    for pos, dev in np.ndenumerate(mesh.devices):
+        if mesh.processes is None or int(mesh.processes[pos]) == rank:
+            out.append((dict(zip(mesh.axis_names, pos)), dev))
+    return out
+
+
+@dataclass(frozen=True)
+class Split:
+    """A tensor axis split over mesh axis ``axis`` inside each of ``parts``
+    equal parts: entry c holds block c of every part, the parts in order.
+    ``parts`` 3 splits a fused q | k | v axis per head."""
+
+    axis: str
+    parts: int = 1
+
+
+@dataclass(frozen=True, eq=False)
+class Placement:
+    """Which block of a tensor each mesh entry holds: ``spec`` gives each
+    leading tensor axis None (whole), a mesh axis name (contiguous blocks)
+    or a :class:`Split`; axes past the spec are whole. At most one tensor
+    axis is split."""
+
+    mesh: Mesh
+    spec: tuple = ()
+
+    def _split(self):
+        splits = [(dim, e if isinstance(e, Split) else Split(e))
+                  for dim, e in enumerate(self.spec) if e is not None]
+        if len(splits) > 1:
+            raise ValueError(f"spec {self.spec} splits more than one axis")
+        if splits and splits[0][1].axis not in self.mesh.axis_names:
+            raise ValueError(f"spec {self.spec}: no axis {splits[0][1].axis!r} in "
+                             f"{self.mesh.axis_names}")
+        return splits[0] if splits else (None, None)
+
+    def block(self, tensor: torch.Tensor, coords: dict) -> torch.Tensor:
+        """The block of ``tensor`` the entry at ``coords`` holds (a view
+        unless the split has several parts)."""
+        dim, split = self._split()
+        if split is None:
+            return tensor
+        n = self.mesh.shape[split.axis]
+        if tensor.shape[dim] % (n * split.parts):
+            raise ValueError(f"axis {dim} of {tuple(tensor.shape)} does not split into "
+                             f"{split.parts} parts of {n} blocks")
+        c = coords[split.axis]
+        blocks = [part.chunk(n, dim=dim)[c] for part in tensor.chunk(split.parts, dim=dim)]
+        return blocks[0] if split.parts == 1 else torch.cat(blocks, dim=dim)
+
+    def assemble(self, block_of) -> torch.Tensor:
+        """The whole tensor from ``block_of(coords)``, the block of each
+        entry (coordinate 0 on the axes the spec does not split), on the
+        first block's device: the inverse of :meth:`block`."""
+        dim, split = self._split()
+        zero = dict.fromkeys(self.mesh.axis_names, 0)
+        if split is None:
+            return block_of(zero)
+        blocks = [block_of({**zero, split.axis: c}) for c in range(self.mesh.shape[split.axis])]
+        dev = blocks[0].device
+        parts = [torch.cat([b.chunk(split.parts, dim=dim)[j].to(dev) for b in blocks], dim=dim)
+                 for j in range(split.parts)]
+        return torch.cat(parts, dim=dim)
+
+
+def corpus_sharding(mesh: Mesh) -> Placement:
+    """Rows sharded over the mesh; feature axis replicated."""
+    return Placement(mesh, (SHARD_AXIS, None))
+
+
+def replicated(mesh: Mesh) -> Placement:
+    return Placement(mesh, ())
+
+
+def pad_to_multiple(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
 
 
 def num_shards(mesh: Mesh) -> int:

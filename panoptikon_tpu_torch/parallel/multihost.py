@@ -8,7 +8,10 @@ process (``hosts_replica_mesh``), or spans one corpus over every device of
 every process (``hosts_shard_mesh``). Only candidates cross processes:
 (Q, k) values and slots a shard, kilobytes, which gloo moves through host
 memory on the CPU and on the card alike (NCCL refuses two ranks on one GPU,
-so gloo is also the one backend a one-card run can test).
+so gloo is also the one backend a one-card run can test). A training mesh
+(``mesh.train_mesh``) across processes holds one entry a process and joins
+a gloo group along each of its axes (:func:`axis_groups`), over which
+``parallel/train.py`` sums and gathers activations and gradients.
 
 ``initialize()`` is a no-op without a coordinator, as the reference's.
 """
@@ -66,7 +69,7 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
-def _global_devices() -> tuple[list, list]:
+def global_devices() -> tuple[list, list]:
     """Every process's devices in process order, and each one's process.
     Every process holds as many devices as this one (the reference's
     ``len(jax.devices()) // process_count()``); a remote entry carries this
@@ -76,12 +79,34 @@ def _global_devices() -> tuple[list, list]:
     return local * n_proc, [p for p in range(n_proc) for _ in local]
 
 
+def axis_groups(mesh: Mesh) -> dict:
+    """This process's gloo group along each axis of ``mesh``, a mesh across
+    processes with one entry a process: for every axis, one group a line
+    of entries along it, created in grid order by every process (as
+    ``torch.distributed.new_group`` requires); the groups of this process's
+    lines are returned by axis name."""
+    import torch.distributed as dist
+
+    procs = mesh.processes
+    if procs is None or len(np.unique(procs)) != procs.size or procs.size != process_count():
+        raise ValueError("a mesh across processes needs exactly one entry a process")
+    rank = process_index()
+    groups = {}
+    for axis, name in enumerate(mesh.axis_names):
+        lines = np.moveaxis(procs, axis, -1).reshape(-1, procs.shape[axis])
+        for line in lines:
+            group = dist.new_group([int(r) for r in line], backend="gloo")
+            if rank in line:
+                groups[name] = group
+    return groups
+
+
 def hosts_replica_mesh() -> Mesh:
     """``replica × shard`` with replica == process count: each process holds
     one full corpus replica sharded over its own devices. The shard merge
     stays inside a process; only the query split and the (Q/R, k) results
     cross processes."""
-    devs, procs = _global_devices()
+    devs, procs = global_devices()
     n_proc = process_count()
     per_host = len(devs) // n_proc
     grid = np.empty(len(devs), dtype=object)
@@ -94,7 +119,7 @@ def hosts_shard_mesh() -> Mesh:
     """1-D global shard mesh across every device of every process — for a
     corpus too large for one process's devices. The top-k merge gathers
     (k · shards) candidates a query across processes once a batch."""
-    devs, procs = _global_devices()
+    devs, procs = global_devices()
     grid = np.empty(len(devs), dtype=object)
     grid[:] = devs
     return Mesh(grid, (SHARD_AXIS,), np.asarray(procs))

@@ -881,6 +881,40 @@ def test_mha_under_grad_launches_the_backward_on_fused_qkv_views(cuda_device, d)
         assert vit_attention.mha(*views, causal=True).grad_fn is None
 
 
+def test_sharded_train_step_launches_b3_and_its_backward_on_the_tensor_cores(cuda_device):
+    # The dp × tp step (parallel/train.py) on a 2 × 2 mesh of cuda:0 at
+    # test-tiny: each entry attends over its one head (D 32) forward and
+    # backward on the tensor cores, a block's attention an entry, and the
+    # loss is the CPU mesh's within 1e-2.
+    from panoptikon_tpu_torch.models import clip, convert
+    from panoptikon_tpu_torch.parallel import mesh as meshlib
+    from panoptikon_tpu_torch.parallel import train
+
+    cfg = clip.CONFIGS["test-tiny"]
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randn((8, cfg.image_size, cfg.image_size, 3), generator=gen)
+    tokens = torch.randint(1, cfg.text_vocab - 1, (8, cfg.text_ctx), generator=gen)
+    tokens[:, -1] = cfg.text_vocab - 1
+    tree = clip.init_params(cfg, gen)
+    rules = clip.param_shard_rules(cfg, 2)
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        mesh = meshlib.train_mesh(2, 2, devs=[torch.device(dev)] * 4)
+        shards = convert.shard_params(tree, mesh, rules)
+        opts = train.adamw(shards)
+        fwd, bwd = vit_attention.mha.launches, vit_attention.mha_backward.launches
+        routes = dict(vit_attention.mha_backward.routes)
+        losses[str(dev)] = train.train_step(shards, cfg, mesh, opts, images, tokens).item()
+    torch.cuda.synchronize()
+    per_step = 4 * (cfg.vision_layers + cfg.text_layers)
+    assert vit_attention.mha.launches - fwd == per_step
+    assert vit_attention.mha_backward.launches - bwd == per_step
+    assert vit_attention.mha_backward.routes["tensor_core"] - routes["tensor_core"] == per_step
+    assert vit_attention.route(torch.bfloat16, cfg.vision_width // cfg.vision_heads) == \
+        "tensor_core"
+    assert abs(losses[str(cuda_device)] - losses["cpu"]) <= 1e-2 * abs(losses["cpu"])
+
+
 def test_kernels_with_no_backward_refuse_grad(cuda_device):
     # B1, B2, B4 and B5 have no backward: under grad each raises, naming
     # itself, instead of returning an output that drops the gradient.

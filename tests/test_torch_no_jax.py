@@ -58,7 +58,7 @@ def test_every_port_module_imports_without_jax():
                  "jobs.supervisor", "jobs.prewarm", "models.pool", "models.http_backend",
                  "client", "cli", "desktop", "utils.env_template", "utils.rootlock",
                  "utils.schema_gen", "utils.version", "utils.toml_edit", "index.sharded",
-                 "parallel.mesh", "parallel.multihost"):
+                 "parallel.mesh", "parallel.multihost", "parallel.train"):
         assert f"panoptikon_tpu_torch.{name}" in names
 
 
