@@ -276,7 +276,34 @@ Phases, one JSON line each:
             its plain version's. The served PQL leaves score on the
             grouped-scores surface (as the reference's executor does), so
             B1 runs there only in this check; the server's B3 launches are
-            its jobs' towers and the text query's embed.
+            its jobs' towers and the text queries' embeds. (c), inside
+            (a)'s server lifetime: the reverse proxy (ROADMAP A.7b). The
+            server.toml of (a) also pins a seeded policy_token_key and an
+            open policy to its listener, starts a UI stand-in (the port's
+            web.py, UI_STANDIN) as [ui].command under Supervised and names
+            it as [upstreams].ui; through the port's own client
+            (api/web_client.py): hop 1 and a token the key verifies to the
+            listener's policy while a forged client token is stripped, two
+            Cookie and two Set-Cookie headers, GET /api/search/pql to the
+            stand-in and POST to the API, hop 3 answered 508, /big's head
+            read before /release is sent and then its whole body, a 64 MiB
+            upload relayed intact (length and sha256) while the API at its
+            16 MiB client_max_size answers the same body 413 (search_pql,
+            as the reference's, its 400), text, binary and 1 MiB messages
+            through the WebSocket bridge under the subprotocol, closed
+            before SIGTERM, and the stand-in gone with the server; then
+            AsyncPanoptikonClient on one loop: (a)'s three bodies (the text
+            one with a fresh text, embedded on B3 in the server), each page
+            equal to the sync client's, /api/accelerator naming
+            nvidia-smi's card, a 404 as PanoptikonError. Recorded: the p50
+            of 100 GETs through the server and direct, /big's first byte,
+            the relay's MB/s, the p50 of 100 WebSocket round trips. (d) on
+            (b)'s server before its cleanup: AsyncPanoptikonClient as
+            e2e_server_bench's _measure drives aiohttp (one client, 16
+            coroutines, 160 requests; warm 3, two rounds of 16, 32
+            sequential) for single_space_1M and hybrid_fts_rrf on fresh
+            payloads, every page a miss and equal to the sync client's;
+            QPS and p50/p95 beside (b)'s 16 threads.
 
 16. train   training (ROADMAP A.17): (a) B3's backward (csrc/attention_bwd.cu,
             on the route vit_attention.backward_route picks and, where that
@@ -523,6 +550,12 @@ SERVE_SPACES = (("clip/e2e", 512, 1), ("st/e2e", 768, 2))
 SERVE_WARM, SERVE_SEQ, SERVE_CONC, SERVE_CONC_TOTAL = 3, 32, 16, 160
 SERVE_PARITY, SERVE_RECALL_Q, SERVE_OVERSAMPLE, SERVE_PROFILE_Q = 8, 16, 4, 8
 SERVE_HEALTH_S, SERVE_JOBS_S, SERVE_STOP_S = 180.0, 600.0, 30.0
+# Phase 15(c): the UI stand-in's streamed head (and tail), the upload relayed
+# past the server's 16 MiB client_max_size, the timed GETs and WebSocket
+# round trips, the large WebSocket message; 15(d) reuses SERVE_CONC and
+# SERVE_CONC_TOTAL (16 coroutines, 160 requests) and SERVE_SEQ.
+PROXY_HEAD_BYTES, PROXY_UPLOAD_BYTES, PROXY_WS_BYTES = 65536, 64 << 20, 1 << 20
+PROXY_PINGS, PROXY_WS_ROUNDS, PROXY_HEAD_S = 100, 100, 5.0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 LN_OPS_PER_ELEMENT = 9  # two moments (4), normalize (2), affine (2), quantize (1)
@@ -3993,6 +4026,96 @@ sys.argv = ["panoptikon_tpu_torch.api.server", *sys.argv[2:]]
 runpy.run_module("panoptikon_tpu_torch.api.server", run_name="__main__", alter_sys=True)
 """
 
+# Phase 15(c)'s UI stand-in, which the server starts itself from [ui].command
+# (under jobs/supervisor.py's Supervised) and fronts through [upstreams].ui:
+# the port's web.py on 127.0.0.1:PORT (argv 1), its pid written to argv 2.
+# GET /big streams PROXY_HEAD_BYTES, waits (at most 10 s) for GET /release,
+# then streams as many more; POST /echo streams back the length and sha256 of
+# what it read; GET /ws echoes text with a prefix and reverses binary, under
+# the subprotocol "chat"; any other path answers JSON of its target, hop
+# header, policy token and Cookie values, with two Set-Cookie.
+UI_STANDIN = """
+import asyncio, hashlib, json, os, signal, sys
+
+from panoptikon_tpu_torch.api import web
+from panoptikon_tpu_torch.api.policy_token import POLICY_TOKEN_HEADER
+from panoptikon_tpu_torch.api.proxy import LOOP_GUARD_HEADER
+
+HEAD = %d
+port, pidfile = int(sys.argv[1]), sys.argv[2]
+released = asyncio.Event()
+
+
+async def view(request):
+    seen = {"target": request.raw_path, "method": request.method,
+            "hop": request.headers.get(LOOP_GUARD_HEADER),
+            "token": request.headers.get(POLICY_TOKEN_HEADER),
+            "cookies": request.headers.getall("Cookie", [])}
+    return web.Response(text=json.dumps(seen), content_type="application/json",
+                        headers=[("Set-Cookie", "ui_a=1; Path=/"), ("Set-Cookie", "ui_b=2; Path=/")])
+
+
+async def big(request):
+    released.clear()
+    resp = web.StreamResponse(headers={"Content-Type": "application/octet-stream"})
+    await resp.prepare(request)
+    await resp.write(b"A" * HEAD)
+    try:
+        await asyncio.wait_for(released.wait(), 10)
+    except asyncio.TimeoutError:
+        pass
+    await resp.write(b"B" * HEAD)
+    await resp.write_eof()
+    return resp
+
+
+async def release(request):
+    released.set()
+    return web.json_response({"released": True})
+
+
+async def echo(request):
+    digest, n = hashlib.sha256(), 0
+    async for chunk in request.content.iter_chunked(1 << 16):
+        digest.update(chunk)
+        n += len(chunk)
+    resp = web.StreamResponse(headers={"Content-Type": "application/json"})
+    await resp.prepare(request)
+    await resp.write(json.dumps({"length": n, "sha256": digest.hexdigest()}).encode())
+    await resp.write_eof()
+    return resp
+
+
+async def ws(request):
+    sock = web.WebSocketResponse(protocols=("chat",))
+    await sock.prepare(request)
+    async for msg in sock:
+        if msg.type == web.WSMsgType.TEXT:
+            await sock.send_str("ui:" + msg.data)
+        elif msg.type == web.WSMsgType.BINARY:
+            await sock.send_bytes(msg.data[::-1])
+    return sock
+
+
+async def main():
+    app = web.Application(client_max_size=1 << 30)
+    app.add_routes([web.get("/big", big), web.get("/release", release), web.post("/echo", echo),
+                    web.get("/ws", ws)])
+    app.router.add_route("*", "/{tail:.*}", view)
+    runner = web.AppRunner(app, shutdown_timeout=5)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    with open(pidfile, "w") as f:
+        f.write(str(os.getpid()))
+    stop = asyncio.Event()
+    asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
+    await stop.wait()
+    await runner.cleanup()
+
+
+asyncio.run(main())
+""" % PROXY_HEAD_BYTES
+
 
 def _child_env() -> dict:
     import os
@@ -4052,12 +4175,24 @@ def serve_main_path(torch, dev, smi, counters) -> tuple[dict, dict]:
         folder = root / "audio"
         folder.mkdir()
         clips = write_audio_folder(folder, SERVE_FILES, SEED + 150)
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
+        ports = []
+        for _ in range(2):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                ports.append(s.getsockname()[1])
+        port, ui_port = ports
+        # 15(c): a seeded token key, an open policy pinned to the listener,
+        # the UI stand-in as [ui].command and its address as [upstreams].ui.
+        key_hex = np.random.default_rng(SEED + 152).bytes(32).hex()
+        ui_pid = root / "ui.pid"
+        ui_argv = [sys.executable, "-c", UI_STANDIN, str(ui_port), str(ui_pid)]
         config = root / "server.toml"
-        config.write_text(f'data_root = "{root / "data"}"\n\n[[listeners]]\n'
-                          f'host = "127.0.0.1"\nport = {port}\n')
+        config.write_text(
+            f'data_root = "{root / "data"}"\n\n[server]\npolicy_token_key = "{key_hex}"\n\n'
+            f'[[policies]]\nname = "open"\nallow = ["* /"]\n\n'
+            f'[[listeners]]\nhost = "127.0.0.1"\nport = {port}\npolicy = "open"\n\n'
+            f'[ui]\ncommand = [{", ".join(json.dumps(a) for a in ui_argv)}]\n\n'
+            f'[upstreams]\nui = "http://127.0.0.1:{ui_port}"\n')
         counts_path = root / "launches.json"
         out = {"card": smi, "files": len(clips), "audio_seconds": sum(s for _, s, _ in clips)}
         with open(root / "server.log", "wb") as log:
@@ -4167,11 +4302,20 @@ def serve_main_path(torch, dev, smi, counters) -> tuple[dict, dict]:
                         "serve: text_embeddings page")
                 out["searches"] = times
                 out["match_text_token"], out["match_text_holders"] = token, len(holders)
+                # 15(c): the proxy to the UI stand-in and the async client,
+                # inside this server's lifetime.
+                t0 = time.perf_counter()
+                out["proxy"] = serve_proxy_path(dev, smi, client, f"http://127.0.0.1:{port}",
+                                                f"http://127.0.0.1:{ui_port}", key_hex, bodies)
+                out["proxy"]["part_s"] = time.perf_counter() - t0
                 t0 = time.perf_counter()
                 child.send_signal(signal.SIGTERM)
                 code = child.wait(SERVE_STOP_S)
                 out["sigterm_to_exit_s"] = time.perf_counter() - t0
                 require(code == 0, f"serve: the server exited {code} on SIGTERM")
+                pid = int(ui_pid.read_text())
+                _wait("serve: the UI stand-in's exit", 5.0, lambda: not _alive(pid), poll_s=0.05)
+                out["proxy"]["ui_exited_with_the_server"] = True
             finally:
                 if child.poll() is None:
                     child.kill()
@@ -4202,6 +4346,275 @@ def serve_main_path(torch, dev, smi, counters) -> tuple[dict, dict]:
         out["server_launches"] = child_counts["launches"]
         out["server_routes"] = child_counts["routes"]
         return out, child_counts
+
+
+def _alive(pid: int) -> bool:
+    import os
+
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _p50(xs) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def _p95(xs) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * 0.95))]
+
+
+def serve_proxy_path(dev, smi, client, base: str, ui_base: str, key_hex: str,
+                     bodies: dict) -> dict:
+    """Phase 15(c): the server's reverse proxy (api/proxy.py) in front of
+    the UI stand-in it supervises, through the port's own client
+    (api/web_client.py): a hop of 1 and a policy token that the seeded key
+    verifies to the listener's policy while a forged client token is
+    stripped; two Cookie and two Set-Cookie headers; GET /api/search/pql to
+    the stand-in and POST to the API; hop 3 answered 508; /big's head read
+    before /release is sent, then the whole body; a PROXY_UPLOAD_BYTES POST
+    relayed intact while the API, at its 16 MiB client_max_size, answers the
+    same body 413 (PUT /api/bookmarks/...; POST /api/search/pql gives its
+    handler's 400, as the reference's does); text, binary and
+    a PROXY_WS_BYTES message through the WebSocket bridge under its
+    subprotocol, closed before the server stops. Then AsyncPanoptikonClient
+    on one loop: 15(a)'s three bodies (the text one with a fresh text, which
+    the server embeds on B3), each page equal to the sync client's;
+    /api/accelerator naming nvidia-smi's card; a 404 as PanoptikonError.
+    Timed: PROXY_PINGS GETs through the server and direct, /big's first
+    byte, the relay's MB/s, PROXY_WS_ROUNDS WebSocket round trips."""
+    import asyncio
+    import hashlib
+
+    from panoptikon_tpu_torch.aclient import AsyncPanoptikonClient
+    from panoptikon_tpu_torch.api import web_client
+    from panoptikon_tpu_torch.api.policy_token import POLICY_TOKEN_HEADER, TokenKey
+    from panoptikon_tpu_torch.api.proxy import LOOP_GUARD_HEADER
+    from panoptikon_tpu_torch.api.web import CIMultiDict
+    from panoptikon_tpu_torch.client import PanoptikonError
+
+    def up():
+        try:
+            return client.request("GET", "/ui/ping") is not None
+        except (OSError, PanoptikonError):
+            return False
+
+    t0 = time.perf_counter()
+    _wait("proxy: GET /ui/ping through the server", SERVE_HEALTH_S, up)
+    out = {"card": smi, "ui_up_s": time.perf_counter() - t0}
+    key = TokenKey.from_config(key_hex)
+    rng = np.random.default_rng(SEED + 154)
+    upload = rng.integers(0, 256, PROXY_UPLOAD_BYTES, dtype=np.uint8).tobytes()
+    ws_big = rng.integers(0, 256, PROXY_WS_BYTES, dtype=np.uint8).tobytes()
+    words = " ".join(np.random.default_rng(SEED + 155).choice(WORDS, size=6))
+    async_bodies = {**bodies, "text_embeddings": {**bodies["text_embeddings"], "query": {
+        "text_embeddings": {**bodies["text_embeddings"]["query"]["text_embeddings"],
+                            "query": words}, "select_as": "distance"}}}
+
+    async def proxied():
+        async with web_client.ClientSession(
+                timeout=web_client.ClientTimeout(total=SERVE_JOBS_S)) as s:
+            forged = TokenKey.from_config(None).mint("open")
+            headers = CIMultiDict([(POLICY_TOKEN_HEADER, forged), ("Cookie", "c_a=1"),
+                                   ("Cookie", "c_b=2")])
+            async with s.get(base + "/ui/check?x=1", headers=headers) as r:
+                view, set_cookie = await r.json(), r.headers.getall("Set-Cookie", [])
+                require(r.status == 200, f"proxy: GET /ui/check {r.status}")
+            require(view["target"] == "/ui/check?x=1" and view["hop"] == "1",
+                    f"proxy: the stand-in saw {view}")
+            require(view["token"] not in (None, forged) and key.verify(view["token"]) == "open",
+                    f"proxy: the stand-in's token {view['token']!r}")
+            require(view["cookies"] == ["c_a=1", "c_b=2"]
+                    and set_cookie == ["ui_a=1; Path=/", "ui_b=2; Path=/"],
+                    f"proxy: cookies up {view['cookies']}, down {set_cookie}")
+            async with s.get(base + "/api/search/pql") as r:
+                routed = (r.status, await r.json())
+            require(routed[0] == 200 and routed[1].get("target") == "/api/search/pql",
+                    f"proxy: GET /api/search/pql {routed}")
+            async with s.post(base + "/api/search/pql", json={"page_size": 1}) as r:
+                api = (r.status, await r.json())
+            require(api[0] == 200 and "results" in api[1] and "target" not in api[1],
+                    f"proxy: POST /api/search/pql {api[0]}")
+            async with s.get(base + "/ui/loop", headers={LOOP_GUARD_HEADER: "3"}) as r:
+                loop = (r.status, await r.json())
+            require(loop == (508, {"error": "proxy loop detected"}), f"proxy: hop 3 {loop}")
+            t0 = time.perf_counter()
+            async with s.get(base + "/big") as r:
+                head, first = bytearray(), None
+                while len(head) < PROXY_HEAD_BYTES:
+                    chunk = await r.content.readany()
+                    if not chunk:
+                        break
+                    first = first or time.perf_counter() - t0
+                    head += chunk
+                head_s = time.perf_counter() - t0
+                require(len(head) == PROXY_HEAD_BYTES and head_s < PROXY_HEAD_S,
+                        f"proxy: /big's head {len(head)} bytes in {head_s} s before /release")
+                async with s.get(base + "/release") as rr:
+                    require(rr.status == 200, f"proxy: /release {rr.status}")
+                whole = bytes(head) + await r.read()
+            require(whole == b"A" * PROXY_HEAD_BYTES + b"B" * PROXY_HEAD_BYTES,
+                    f"proxy: /big's body ({len(whole)} bytes)")
+            t0 = time.perf_counter()
+            async with s.post(base + "/echo", data=upload) as r:
+                echo = await r.json()
+            relay_s = time.perf_counter() - t0
+            want = {"length": len(upload), "sha256": hashlib.sha256(upload).hexdigest()}
+            require(echo == want, f"proxy: the relayed upload {echo}, sent {want}")
+            # The API keeps its 16 MiB client_max_size: a route whose handler
+            # reads the body whole answers 413; search_pql turns any failed
+            # read into its 400 "invalid JSON body", as the reference's does.
+            refused = {}
+            for method, path in (("PUT", f"/api/bookmarks/u/ns/{'ab' * 32}"),
+                                 ("POST", "/api/search/pql")):
+                async with s.request(method, base + path, data=upload,
+                                     headers={"Content-Type": "application/json"}) as r:
+                    refused[f"{method} {path.split('/')[2]}"] = (r.status, (await r.read())[:60])
+            require([v[0] for v in refused.values()] == [413, 400]
+                    and b"invalid JSON body" in refused["POST search"][1],
+                    f"proxy: {len(upload)}-byte API requests answered {refused}")
+            via, direct = [], []
+            for _ in range(PROXY_PINGS):
+                for url, lats in ((base, via), (ui_base, direct)):
+                    t0 = time.perf_counter()
+                    async with s.get(url + "/ui/ping") as r:
+                        await r.read()
+                    lats.append(time.perf_counter() - t0)
+            async with s.ws_connect(base + "/ws", protocols=("chat",)) as ws:
+                protocol = ws.protocol
+                await ws.send_str("hi")
+                text = (await ws.receive(timeout=30)).data
+                await ws.send_bytes(b"\x01\x02\x03")
+                binary = (await ws.receive(timeout=30)).data
+                await ws.send_bytes(ws_big)
+                large = (await ws.receive(timeout=60)).data
+                rtts = []
+                for i in range(PROXY_WS_ROUNDS):
+                    t0 = time.perf_counter()
+                    await ws.send_str(f"m{i}")
+                    msg = await ws.receive(timeout=30)
+                    rtts.append(time.perf_counter() - t0)
+                    require(msg.data == f"ui:m{i}", f"proxy: WebSocket round trip {i} {msg}")
+            require(protocol == "chat" and text == "ui:hi" and binary == b"\x03\x02\x01"
+                    and large == ws_big[::-1],
+                    f"proxy: WebSocket protocol {protocol}, text {text!r}, binary {binary!r}, "
+                    f"large {len(large) if isinstance(large, bytes) else large}")
+            require(ws.closed and ws.close_code == 1000, f"proxy: WebSocket close {ws.close_code}")
+        return {"hop": view["hop"], "token_policy": "open", "forged_token_stripped": True,
+                "cookies_up": view["cookies"], "set_cookie_down": set_cookie,
+                "get_pql_to_ui": True, "post_pql_to_api": True, "hop3_status": loop[0],
+                "big_first_byte_ms": 1e3 * first, "big_head_ms": 1e3 * head_s,
+                "relay_bytes": len(upload), "relay_s": relay_s,
+                "relay_mb_per_s": len(upload) / relay_s / 1e6,
+                "api_refusals": {k: v[0] for k, v in refused.items()},
+                "ping_p50_ms": 1e3 * _p50(via), "ping_direct_p50_ms": 1e3 * _p50(direct),
+                "proxy_added_p50_ms": 1e3 * (_p50(via) - _p50(direct)),
+                "ws_protocol": protocol, "ws_large_bytes": len(ws_big),
+                "ws_rtt_p50_ms": 1e3 * _p50(rtts), "ws_rtt_p95_ms": 1e3 * _p95(rtts),
+                "ws_close_code": ws.close_code}
+
+    async def asynchronous():
+        async with AsyncPanoptikonClient(base, timeout=SERVE_JOBS_S) as c:
+            acc = await c.accelerator()
+            pages = {}
+            for label, body in async_bodies.items():
+                t0 = time.perf_counter()
+                pages[label] = (await c.search.pql(body), time.perf_counter() - t0)
+            try:
+                await c.items.metadata("0" * 64)
+                missing = None
+            except PanoptikonError as exc:
+                missing = exc.status
+        return acc, pages, missing
+
+    out.update(asyncio.run(proxied()))
+    acc, pages, missing = asyncio.run(asynchronous())
+    name = smi.split(",")[0].strip()
+    require(dev.type != "cuda" or acc["devices"][0]["kind"] == name,
+            f"aclient: /api/accelerator {acc}, nvidia-smi {name!r}")
+    require(missing == 404, f"aclient: a missing item raised {missing}")
+    for label, body in async_bodies.items():
+        page, _ = pages[label]
+        want = client.search.pql(body)
+        require(page["count"] == want["count"] and page["results"] == want["results"],
+                f"aclient: the {label} page differs from the sync client's")
+    out["aclient"] = {"accelerator_kind": acc["devices"][0]["kind"], "missing_item_status": missing,
+                      "fresh_text": words,
+                      "pages": {label: {"count": page["count"], "cache": page["cache"],
+                                        "ms": 1e3 * dt} for label, (page, dt) in pages.items()}}
+    return out
+
+
+def serve_async_path(base: str, client, payloads) -> dict:
+    """Phase 15(d): AsyncPanoptikonClient at 15(b)'s shape, as
+    tools/e2e_server_bench.py's _measure drives aiohttp: one client on one
+    loop, SERVE_WARM warm queries, two concurrent warm rounds of SERVE_CONC,
+    SERVE_SEQ sequential (p50/p95), then SERVE_CONC_TOTAL over SERVE_CONC
+    coroutines (QPS, their p50/p95, the coalescer's batches); fresh payload
+    vectors, every page a span-cache miss and equal to the sync client's
+    page for the same body."""
+    import asyncio
+
+    from panoptikon_tpu_torch.aclient import AsyncPanoptikonClient
+
+    out = {}
+    # Payload numbers 600 and up: their FTS terms (tok of i % 997) are ones
+    # no earlier request of phase 15 used, as 15(b)'s concurrent block's
+    # mostly were, so the executor's FTS rows, cached by term, miss alike.
+    numbers = range(600, 600 + SERVE_WARM + 2 * SERVE_CONC + SERVE_SEQ + SERVE_CONC_TOTAL)
+    require(numbers[-1] < 866, "aclient bench: payload numbers past the ones no request used")
+    a, b = SERVE_WARM, SERVE_WARM + 2 * SERVE_CONC
+    for kind in ("single_space_1M", "hybrid_fts_rrf"):
+        bodies = [payloads[kind](i) for i in numbers]
+        warm, rounds, seq, conc = bodies[:a], bodies[a:b], bodies[b:b + SERVE_SEQ], bodies[b + SERVE_SEQ:]
+
+        async def drive():
+            async with AsyncPanoptikonClient(base, timeout=SERVE_JOBS_S) as c:
+                for body in warm:
+                    await c.search.pql(body)
+                for r in range(2):
+                    await asyncio.gather(*[c.search.pql(b)
+                                           for b in rounds[r * SERVE_CONC:(r + 1) * SERVE_CONC]])
+                seq_lats, pages = [], []
+                for body in seq:
+                    t0 = time.perf_counter()
+                    pages.append(await c.search.pql(body))
+                    seq_lats.append(time.perf_counter() - t0)
+                sem = asyncio.Semaphore(SERVE_CONC)
+                conc_lats = [0.0] * len(conc)
+                conc_pages = [None] * len(conc)
+
+                async def bounded(i):
+                    async with sem:
+                        t0 = time.perf_counter()
+                        conc_pages[i] = await c.search.pql(conc[i])
+                        conc_lats[i] = time.perf_counter() - t0
+
+                before = (await c.search.stats())["coalescer"]
+                t0 = time.perf_counter()
+                await asyncio.gather(*[bounded(i) for i in range(len(conc))])
+                wall = time.perf_counter() - t0
+                after = (await c.search.stats())["coalescer"]
+                return seq_lats, pages + conc_pages, conc_lats, wall, before, after
+
+        seq_lats, pages, conc_lats, wall, before, after = asyncio.run(drive())
+        for i, (body, page) in enumerate(zip(seq + conc, pages)):
+            require(page["cache"] == "miss", f"aclient bench: {kind} page {i} cache {page['cache']}")
+            want = client.search.pql(body)
+            require(page["count"] == want["count"] and page["results"] == want["results"],
+                    f"aclient bench: {kind} page {i} differs from the sync client's")
+        dd, dq = after["dispatches"] - before["dispatches"], after["queries"] - before["queries"]
+        out[kind] = {"p50_ms": 1e3 * _p50(seq_lats), "p95_ms": 1e3 * _p95(seq_lats),
+                     "qps": len(conc) / wall, "concurrency": SERVE_CONC, "requests": len(conc),
+                     "concurrent_p50_ms": 1e3 * _p50(conc_lats),
+                     "concurrent_p95_ms": 1e3 * _p95(conc_lats),
+                     "pages_equal": len(pages),
+                     "coalescer": {"dispatches": dd, "queries": dq,
+                                   "mean_batch": dq / dd if dd else 0.0}}
+    return out
 
 
 # tools/e2e_server_bench.py's five payloads (:242-299), copied: that tool
@@ -4331,6 +4744,12 @@ def serve_bench_path(torch, dev, smi, counters, state) -> dict:
         finally:
             pool.shutdown()
         out["one_worker"] = _serve_one_worker(loop, client, payloads)
+        t0 = time.perf_counter()
+        out["async_client"] = serve_async_path(f"http://127.0.0.1:{port}", client, payloads)
+        out["async_client"]["part_s"] = time.perf_counter() - t0
+        out["async_client"]["threads"] = {kind: {m: out[kind][m] for m in ("qps", "p50_ms",
+                                                                         "p95_ms")}
+                                          for kind in ("single_space_1M", "hybrid_fts_rrf")}
         out["recall"] = _serve_recall(torch, dev, client, ex, index, exact, payloads, counters)
         out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
         return out
@@ -6227,7 +6646,9 @@ def main() -> int:
     shard_b = {}
     try:
         serve_run, server_counts = serve_main_path(torch, dev, smi, counters)
+        serve_proxy = serve_run.pop("proxy")
         emit({"phase": "serve", "part": "a_server", **serve_run})
+        emit({"phase": "serve", "part": "c_proxy", **serve_proxy})
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         state, index_build_s = serve_bench_state(dev, serve_root)
@@ -6257,7 +6678,9 @@ def main() -> int:
             f"serve path kernel launches: server {server_counts['launches']}, in process "
             f"{in_process}")
     require_tensor_cores(serve_launches, serve_routes, ("mha",), "serve path")
+    serve_async = serve_bench.pop("async_client")
     emit({"phase": "serve", "part": "b_bench", **serve_bench})
+    emit({"phase": "serve", "part": "d_aclient", **serve_async})
     emit({"phase": "serve", "part": "launches", "launches": serve_launches,
           "attention_routes": serve_routes, "server_launches": server_counts["launches"],
           "in_process_launches": in_process, "phase_s": time.perf_counter() - t15})

@@ -27,8 +27,10 @@ Layer map:
                 searched through the fused int8 scan.
 - ``_build``  — builds ``csrc/*.cu`` with ``nvcc`` and loads it by ctypes.
 - ``api``     — the HTTP server (the reference's handlers on the port's own
-                stdlib transport, ``api/web.py``), the span cache and the
-                policy layer; ``client`` and ``cli`` drive it.
+                stdlib transport, ``api/web.py``, and its client half
+                ``api/web_client.py``), the span cache, the policy layer
+                and the reverse proxy for a UI upstream; ``client``,
+                ``aclient`` (async) and ``cli`` drive it.
 """
 
 __version__ = "0.1.0"
@@ -41,6 +43,10 @@ def __getattr__(name):
         from panoptikon_tpu_torch import client
 
         return getattr(client, name)
+    if name == "AsyncPanoptikonClient":
+        from panoptikon_tpu_torch.aclient import AsyncPanoptikonClient
+
+        return AsyncPanoptikonClient
     if name == "Q":
         from panoptikon_tpu_torch.pql import build
 

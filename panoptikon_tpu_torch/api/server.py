@@ -6,10 +6,13 @@ reference's text; ``web`` is the port's stdlib transport, which gives the
 subset of ``aiohttp.web`` they use (the card machine has no ``aiohttp``).
 The units that differ name the device: ``AppState`` carries the one device
 its executors run on (``create(device="cuda")``, which raises without
-CUDA), ``accelerator_report`` and ``client_config`` read ``torch.cuda``,
-``serve_all`` and ``main`` refuse what waits for later work (a reverse
-proxy for ``[upstreams].ui``, ROADMAP A.7b; more than one process,
-ROADMAP A.12) and ``main`` takes ``--device``.
+CUDA), ``accelerator_report`` and ``client_config`` read ``torch.cuda`` and the
+port's mesh, and ``main`` takes ``--device`` (a list: the serving mesh),
+joins the port's multi-process runtime and refuses a mesh of more than one
+shard across processes. ``serve_all`` is the reference's: with
+``[upstreams].ui`` it mounts the reverse proxy (``api/proxy.py``, on the
+port's transport and its client half ``api/web_client.py``) after the API
+routes of every listener.
 
 The wire-compatible core of the reference's API (SURVEY.md §2a route
 table): PQL search with the epoch-validated span cache, item files/
@@ -2971,16 +2974,6 @@ def widen_default_executor(max_workers: int = 32) -> None:
     )
 
 
-def refuse_unported(settings) -> None:
-    """Raise for a setting whose serving path the port does not have yet,
-    naming the ROADMAP item it waits for, rather than ignore it."""
-    if settings.ui_upstream:
-        raise RuntimeError(
-            "[upstreams].ui needs the reverse proxy (api/proxy.py, an aiohttp "
-            "client), which the port does not have yet: ROADMAP A.7b"
-        )
-
-
 def refuse_lockstep() -> None:
     """Refuse a mesh of more than one shard across processes. Each search
     over it is a collective that every process must enter with the same
@@ -3002,10 +2995,8 @@ def refuse_lockstep() -> None:
 
 async def serve_all(settings, state: AppState) -> list[web.AppRunner]:
     """Bind ALL configured listeners before serving any (main.rs:637-646),
-    each with its policy-pinned app. The reference's catch-all reverse
-    proxy for [upstreams].ui waits for ROADMAP A.7b: such a setting is
-    refused."""
-    refuse_unported(settings)
+    each with its policy-pinned app. When [upstreams].ui is configured, a
+    catch-all reverse proxy mounts AFTER the API routes (proxy.rs)."""
     widen_default_executor()
     runners = []
     # One HMAC key per boot shared by every listener: SSR tokens minted on
@@ -3018,6 +3009,14 @@ async def serve_all(settings, state: AppState) -> list[web.AppRunner]:
         app = build_app(
             state, settings.policies, listener.policy, token_key=token_key
         )
+        if settings.ui_upstream:
+            from panoptikon_tpu_torch.api.proxy import make_upstream_handler
+
+            app.router.add_route(
+                "*",
+                "/{tail:.*}",
+                make_upstream_handler(settings.ui_upstream, token_key=token_key),
+            )
         runner = web.AppRunner(app)
         await runner.setup()
         site = web.TCPSite(runner, listener.host, listener.port)
@@ -3059,8 +3058,6 @@ def main(args=None) -> None:
     if args.port or args.host:
         settings.listeners[0].port = args.port or settings.listeners[0].port
         settings.listeners[0].host = args.host or settings.listeners[0].host
-    # Refused before the root lock and the device are taken.
-    refuse_unported(settings)
     # Join the multi-process runtime before the device is taken (a
     # deployment over several processes forms its process group here;
     # without a coordinator this is a no-op). The serving mesh layout

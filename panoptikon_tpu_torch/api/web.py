@@ -1,31 +1,46 @@
 """The port's HTTP transport: the subset of ``aiohttp.web`` that the server's
-handlers use, on ``asyncio.start_server``.
+handlers and the reverse proxy use, on ``asyncio.start_server``.
 
 The card machine has no ``aiohttp``, and nothing may be installed there, so
 the port serves its API through this module on the card and in the CPU
 tests alike. It keeps ``aiohttp.web``'s names and signatures, so that the
-copied handlers (``api/server.py``, ``api/policy.py``, ``api/relay.py``)
-read as the reference's text:
+copied handlers (``api/server.py``, ``api/policy.py``, ``api/relay.py``,
+``api/proxy.py``) read as the reference's text:
 
+- ``CIMultiDict``: case-insensitive headers that keep every value of a
+  repeated name (``add``, ``getall``, ``items()``), for requests and
+  responses alike;
 - ``Request``: ``.app``, ``.match_info``, ``.query`` (``get`` gives the
-  first value, as ``MultiDict`` does), ``.json()`` (raises on a bad or
-  empty body), ``.read()``, ``.text()``, ``.can_read_body``,
-  ``.content_type``, ``.headers`` (case-insensitive), ``.method``,
-  ``.path``, ``.rel_url``, ``.multipart()`` and per-request keys;
-- ``Response``, ``json_response`` and ``FileResponse`` (single byte ranges,
-  ``206``/``416``);
-- ``get``/``post``/``put``/``delete`` routes with ``{name}`` and
-  ``{name:regex}`` parameters, matched in the order they were added
-  (``404``, or ``405`` when only the method differs);
-- ``Application`` with ``client_max_size`` (``413`` past it) and
-  ``middlewares`` (the first listed is the outermost, as in ``aiohttp``),
-  and ``middleware``;
+  first value, as ``MultiDict`` does), ``.content`` (the body as it
+  arrives: ``readany``, ``read(n)``, ``iter_chunked``), ``.read()``,
+  ``.text()``, ``.json()`` (raises on a bad or empty body) and
+  ``.multipart()``, which read it whole and answer ``413`` past the
+  application's ``client_max_size``, ``.can_read_body``, ``.content_type``,
+  ``.headers``, ``.method``, ``.path``, ``.raw_path``, ``.rel_url`` and
+  per-request keys. No body is read before the route is known;
+- ``StreamResponse`` (``prepare``, ``write``, ``write_eof``; chunked to an
+  HTTP/1.1 client), ``Response``, ``json_response`` and ``FileResponse``
+  (single byte ranges, ``206``/``416``);
+- ``WebSocketResponse`` with ``WSMsgType`` and ``WSMessage`` (RFC 6455:
+  the accept handshake and a subprotocol from the client's offer; text,
+  binary, fragments, ping and close; masked client frames), over the frame
+  codec that ``api/web_client.py``'s client end shares;
+- ``get``/``post``/``put``/``delete`` routes and ``router.add_route``
+  (``"*"``: every method) with ``{name}`` and ``{name:regex}`` parameters,
+  matched in the order they were added; a path that matched only under
+  other methods falls through to a later route (``404``, or ``405`` when
+  nothing later matches and only the method differs);
+- ``Application`` with ``client_max_size`` and ``middlewares`` (the first
+  listed is the outermost, as in ``aiohttp``), and ``middleware``;
 - ``HTTPException`` and its subclasses, whose ``headers`` a middleware may
   write before the server turns the exception into its status and body;
 - ``AppRunner`` and ``TCPSite``: HTTP/1.1 with keep-alive and
-  ``Content-Length`` (or chunked) request bodies. ``AppRunner.cleanup``
-  closes the listeners, then idle keep-alive connections at once, and lets
-  a request in flight finish (up to ``shutdown_timeout``).
+  ``Content-Length`` (or chunked) request bodies; a body a handler left
+  unread is drained (up to ``DRAIN_LIMIT``) or the connection closes, and
+  a connection closed on a body still arriving lingers so that the answer
+  is read. ``AppRunner.cleanup`` closes the listeners, then idle
+  keep-alive connections at once, and lets a request in flight (an open
+  WebSocket too) finish, up to ``shutdown_timeout``.
 
 Bodies and statuses follow ``aiohttp``'s where a client could tell:
 ``"{status}: {reason}"`` for an exception without a text, and ``500
@@ -36,52 +51,103 @@ closed) for a handler that raised anything else.
 from __future__ import annotations
 
 import asyncio
+import base64
 import email.parser
 import email.policy
 import email.utils
+import enum
+import hashlib
 import json
 import logging
 import mimetypes
 import os
 import re
+import struct
 from collections.abc import MutableMapping
 from http import HTTPStatus
 from pathlib import Path
-from typing import Any, Awaitable, Callable, Iterator, Optional
+from typing import Any, Awaitable, Callable, Iterator, NamedTuple, Optional
 from urllib.parse import parse_qsl, unquote
 
 log = logging.getLogger(__name__)
 
 MAX_LINE = 8190
 MAX_HEADERS = 128
+_MISSING = object()
 
 
-class CIDict(MutableMapping):
-    """Case-insensitive header mapping, one value a name, keeping the name's
-    spelling as first set (the handlers read and write single headers)."""
+class CIMultiDict(MutableMapping):
+    """Case-insensitive header mapping that keeps every value of a name
+    (``multidict.CIMultiDict``'s surface): ``[]`` and ``get`` give a name's
+    first value, ``add`` appends one, ``getall`` gives them all and
+    ``items()`` every pair in order; setting a name replaces all its values
+    in the place of its first, keeping that one's spelling."""
 
-    def __init__(self, data=None):
-        self._items: dict[str, tuple[str, str]] = {}
-        self.update(data or {})
+    def __init__(self, data=None, **kwargs):
+        self._pairs: list[tuple[str, str, str]] = []  # (lower, name, value)
+        self.extend(data or ())
+        self.extend(kwargs)
+
+    def extend(self, data) -> None:
+        for name, value in (data.items() if hasattr(data, "items") else data):
+            self.add(name, value)
+
+    def add(self, key: str, value) -> None:
+        self._pairs.append((key.lower(), key, str(value)))
+
+    def getall(self, key: str, default=_MISSING) -> list[str]:
+        low = key.lower()
+        values = [v for k, _, v in self._pairs if k == low]
+        if values or default is not _MISSING:
+            return values or default
+        raise KeyError(key)
 
     def __getitem__(self, key: str) -> str:
-        return self._items[key.lower()][1]
+        low = key.lower()
+        for k, _, value in self._pairs:
+            if k == low:
+                return value
+        raise KeyError(key)
 
     def __setitem__(self, key: str, value) -> None:
-        self._items[key.lower()] = (self._items.get(key.lower(), (key, ""))[0], str(value))
+        low = key.lower()
+        at = next((i for i, (k, _, _) in enumerate(self._pairs) if k == low), None)
+        if at is None:
+            self.add(key, value)
+            return
+        self._pairs[at] = (low, self._pairs[at][1], str(value))
+        self._pairs[at + 1:] = [p for p in self._pairs[at + 1:] if p[0] != low]
 
     def __delitem__(self, key: str) -> None:
-        del self._items[key.lower()]
+        low = key.lower()
+        kept = [p for p in self._pairs if p[0] != low]
+        if len(kept) == len(self._pairs):
+            raise KeyError(key)
+        self._pairs = kept
 
     def __iter__(self) -> Iterator[str]:
-        return (name for name, _ in self._items.values())
+        return iter([name for _, name, _ in self._pairs])
 
     def __len__(self) -> int:
-        return len(self._items)
+        return len(self._pairs)
 
     def __contains__(self, key) -> bool:
-        return isinstance(key, str) and key.lower() in self._items
+        return isinstance(key, str) and any(k == key.lower() for k, _, _ in self._pairs)
 
+    def keys(self) -> list[str]:
+        return [name for _, name, _ in self._pairs]
+
+    def values(self) -> list[str]:
+        return [value for _, _, value in self._pairs]
+
+    def items(self) -> list[tuple[str, str]]:
+        return [(name, value) for _, name, value in self._pairs]
+
+    def copy(self) -> "CIMultiDict":
+        return CIMultiDict(self.items())
+
+    def __repr__(self) -> str:
+        return f"<CIMultiDict({self.items()!r})>"
 
 
 class MultiDict:
@@ -126,15 +192,83 @@ class URL:
 # ---------------------------------------------------------------------------
 
 
-class Response:
+class StreamResponse:
+    """A response whose body the handler writes as it goes
+    (``aiohttp.web.StreamResponse``): ``prepare(request)`` sends the status
+    line and headers, ``write`` a piece of the body and ``write_eof`` its
+    end. Without a ``Content-Length`` the body goes chunked to an HTTP/1.1
+    client and until the connection closes to an HTTP/1.0 one; a ``HEAD``
+    request and a 1xx, 204 or 304 status carry no body."""
+
+    def __init__(self, *, status: int = 200, reason: Optional[str] = None, headers=None):
+        self.status = int(status)
+        self.reason = reason or _phrase(self.status)
+        self.headers = CIMultiDict(headers)
+        self._writer: Optional[asyncio.StreamWriter] = None
+        self._chunked = False
+        self._no_body = False
+        self._eof = False
+
+    @property
+    def prepared(self) -> bool:
+        return self._writer is not None
+
+    async def prepare(self, request: "Request") -> None:
+        if self._writer is not None:
+            return
+        conn = request._conn
+        if conn is None:
+            raise RuntimeError("the request has no connection to answer on")
+        out = CIMultiDict(self.headers)
+        self._no_body = _bodiless(self.status) or request.method == "HEAD"
+        keep = conn.keep_alive and request.content.at_eof()
+        if _bodiless(self.status):
+            for name in ("Content-Length", "Transfer-Encoding"):
+                out.pop(name, None)
+        elif "Content-Length" not in out and request.method != "HEAD":
+            if request.version == "HTTP/1.1":
+                out["Transfer-Encoding"] = "chunked"
+                self._chunked = True
+            else:
+                keep = False  # the body ends where the connection does
+        conn.keep_alive = keep
+        request._prepared = self
+        self._writer = conn.writer
+        _write_head(conn.writer, self.status, self.reason, out, keep_alive=keep)
+        await conn.writer.drain()
+
+    async def write(self, data: bytes) -> None:
+        if self._writer is None:
+            raise RuntimeError("write() before prepare()")
+        if self._eof:
+            raise RuntimeError("write() after write_eof()")
+        if not data or self._no_body:
+            return
+        if self._chunked:
+            self._writer.write(b"%x\r\n" % len(data))
+            self._writer.write(data)
+            self._writer.write(b"\r\n")
+        else:
+            self._writer.write(data)
+        await self._writer.drain()
+
+    async def write_eof(self, data: bytes = b"") -> None:
+        if self._eof:
+            return
+        await self.write(data)
+        self._eof = True
+        if self._chunked and not self._no_body:
+            self._writer.write(b"0\r\n\r\n")
+        await self._writer.drain()
+
+
+class Response(StreamResponse):
     """A whole-body response (``aiohttp.web.Response``'s constructor)."""
 
     def __init__(self, *, body: Optional[bytes] = None, status: int = 200,
                  reason: Optional[str] = None, text: Optional[str] = None, headers=None,
                  content_type: Optional[str] = None):
-        self.status = int(status)
-        self.reason = reason or _phrase(self.status)
-        self.headers = CIDict(headers)
+        super().__init__(status=status, reason=reason, headers=headers)
         if body is not None and text is not None:
             raise ValueError("body and text are not allowed together")
         if text is not None:
@@ -151,7 +285,7 @@ class Response:
         if content_type is not None and "Content-Type" not in self.headers:
             self.headers["Content-Type"] = content_type
 
-    async def _render(self, request: "Request") -> tuple[int, str, CIDict, bytes]:
+    async def _render(self, request: "Request") -> tuple[int, str, CIMultiDict, bytes]:
         return self.status, self.reason, self.headers, self.body or b""
 
 
@@ -172,12 +306,12 @@ class FileResponse(Response):
         super().__init__(status=status, reason=reason, headers=headers)
         self._path = Path(path)
 
-    async def _render(self, request: "Request") -> tuple[int, str, CIDict, bytes]:
+    async def _render(self, request: "Request") -> tuple[int, str, CIMultiDict, bytes]:
         try:
             st = await asyncio.to_thread(os.stat, self._path)
         except FileNotFoundError:
             raise HTTPNotFound()
-        headers = CIDict(self.headers)
+        headers = CIMultiDict(self.headers)
         if "Content-Type" not in headers:
             guessed, _ = mimetypes.guess_type(str(self._path))
             headers["Content-Type"] = guessed or "application/octet-stream"
@@ -240,7 +374,7 @@ class HTTPException(Exception):
     def __init__(self, *, reason: Optional[str] = None, text: Optional[str] = None):
         self.status = self.status_code
         self.reason = reason or _phrase(self.status)
-        self.headers = CIDict()
+        self.headers = CIMultiDict()
         self.text = f"{self.status}: {self.reason}" if text is None else text
         super().__init__(self.reason)
 
@@ -285,7 +419,7 @@ class HTTPRequestEntityTooLarge(HTTPException):
 class BodyPartReader:
     """One part of a ``multipart/form-data`` body."""
 
-    def __init__(self, headers: CIDict, data: bytes):
+    def __init__(self, headers: CIMultiDict, data: bytes):
         self.headers = headers
         self._data = data
         disposition = email.message_from_string(
@@ -341,7 +475,7 @@ def _split_multipart(body: bytes, boundary: bytes) -> list[BodyPartReader]:
             head, data = chunk, b""
         parsed = email.parser.BytesHeaderParser(policy=email.policy.HTTP).parsebytes(
             head + b"\r\n\r\n")
-        parts.append(BodyPartReader(CIDict(parsed.items()), data))
+        parts.append(BodyPartReader(CIMultiDict(parsed.items()), data))
     return parts
 
 
@@ -378,25 +512,155 @@ class _Keys(MutableMapping):
         return len(self._state)
 
 
+class PayloadError(HTTPBadRequest):
+    """A body whose framing broke off or is malformed."""
+
+
+READ_CHUNK = 1 << 18
+
+
+class StreamReader:
+    """A body as it arrives on the connection (``aiohttp.StreamReader``'s
+    reading surface): framed by ``Content-Length``, chunked, or (a response
+    without either) until the connection closes. ``readany`` gives the next
+    bytes there are, ``read(n)`` at most ``n`` (all with ``n < 0``),
+    ``iter_chunked(n)`` pieces of at most ``n``; each gives ``b""`` at the
+    end. ``on_eof`` runs once, when the end has been read."""
+
+    def __init__(self, reader: Optional[asyncio.StreamReader], *, length: Optional[int] = None,
+                 chunked: bool = False, on_eof: Optional[Callable[[], None]] = None,
+                 read_timeout: Optional[Callable[[], Optional[float]]] = None):
+        self._reader = reader
+        self._left = length  # None: chunked, or until the connection closes
+        self._chunked = chunked
+        self._chunk_left = 0
+        self._buffer = b""
+        self._eof = False
+        self._on_eof = on_eof
+        self._read_timeout = read_timeout
+        if reader is None or length == 0:
+            self._finish()
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "StreamReader":
+        stream = cls(None)
+        stream._buffer = bytes(data)
+        return stream
+
+    def _finish(self) -> None:
+        if not self._eof:
+            self._eof = True
+            if self._on_eof is not None:
+                self._on_eof()
+
+    def at_eof(self) -> bool:
+        return self._eof and not self._buffer
+
+    async def _io(self, coro):
+        limit = self._read_timeout() if self._read_timeout is not None else None
+        return await (coro if limit is None else asyncio.wait_for(coro, limit))
+
+    async def _next(self) -> bytes:
+        """The next piece off the wire (b"" at the end)."""
+        if self._eof:
+            return b""
+        reader = self._reader
+        try:
+            if self._chunked:
+                if self._chunk_left == 0:
+                    line = await self._io(reader.readline())
+                    try:
+                        size = int(line.split(b";")[0].strip() or b"x", 16)
+                    except ValueError:
+                        raise PayloadError(reason="bad chunk size")
+                    if size == 0:
+                        while (await self._io(reader.readline())) not in (b"\r\n", b"\n", b""):
+                            pass  # trailers
+                        self._finish()
+                        return b""
+                    self._chunk_left = size
+                data = await self._io(reader.read(min(self._chunk_left, READ_CHUNK)))
+                if not data:
+                    raise PayloadError(reason="the connection closed inside a chunk")
+                self._chunk_left -= len(data)
+                if self._chunk_left == 0:
+                    await self._io(reader.readexactly(2))
+                return data
+            if self._left is None:
+                data = await self._io(reader.read(READ_CHUNK))
+                if not data:
+                    self._finish()
+                return data
+            data = await self._io(reader.read(min(self._left, READ_CHUNK)))
+            if not data:
+                raise PayloadError(reason="the connection closed inside the body")
+            self._left -= len(data)
+            if self._left == 0:
+                self._finish()
+            return data
+        except asyncio.IncompleteReadError:
+            raise PayloadError(reason="the connection closed inside the body")
+
+    async def readany(self) -> bytes:
+        if self._buffer:
+            data, self._buffer = self._buffer, b""
+            if self._reader is None:
+                self._finish()
+            return data
+        return await self._next()
+
+    async def read(self, n: int = -1) -> bytes:
+        if n < 0:
+            parts = []
+            while chunk := await self.readany():
+                parts.append(chunk)
+            return b"".join(parts)
+        if n == 0:
+            return b""
+        data = await self.readany()
+        if len(data) > n:
+            data, self._buffer = data[:n], data[n:] + self._buffer
+        return data
+
+    async def iter_chunked(self, n: int):
+        while chunk := await self.read(n):
+            yield chunk
+
+    async def drain(self, limit: int) -> bool:
+        """Read and drop up to ``limit`` bytes of what is left; True when the
+        end was reached."""
+        seen = 0
+        while not self.at_eof() and seen <= limit:
+            seen += len(await self.readany())
+        return self.at_eof()
+
+
 class Request(_Keys):
-    """A request whose body was read whole before the handler ran; a
-    mapping for per-request keys (``request["k"] = v``, ``request.get``)."""
+    """A request, its body left on the connection until a handler reads it
+    (``content``, or whole through ``read``, ``text``, ``json`` and
+    ``multipart``, which answer ``413`` past the application's
+    ``client_max_size``); a mapping for per-request keys
+    (``request["k"] = v``, ``request.get``)."""
 
     def __init__(self, app: "Application", method: str, target: str, version: str,
-                 headers: CIDict, body: bytes, remote: Optional[str] = None):
+                 headers: CIMultiDict, payload=b"", remote: Optional[str] = None,
+                 conn: Optional["_Connection"] = None):
         self.app = app
         self.method = method.upper()
         self.version = version
         self.rel_url = URL(target)
         self.path = self.rel_url.path
+        self.raw_path = str(self.rel_url)
         self.query = self.rel_url.query
         super().__init__()
         self.headers = headers
         self.remote = remote
         self.match_info: dict[str, str] = {}
-        self._body = body
-        self._read = False
-
+        self.content = (payload if isinstance(payload, StreamReader)
+                        else StreamReader.from_bytes(payload))
+        self._read_bytes: Optional[bytes] = None
+        self._conn = conn
+        self._prepared: Optional[StreamResponse] = None
 
     @property
     def content_type(self) -> str:
@@ -409,12 +673,21 @@ class Request(_Keys):
 
     @property
     def can_read_body(self) -> bool:
-        # As aiohttp's: a body that exists and has not been read yet.
-        return bool(self._body) and not self._read
+        # As aiohttp's: a body that is there and not read to its end yet.
+        return not self.content.at_eof()
 
     async def read(self) -> bytes:
-        self._read = True
-        return self._body
+        """The whole body; ``413`` once more than ``client_max_size`` bytes
+        have come (aiohttp's check, on the bytes read so far)."""
+        if self._read_bytes is None:
+            limit = self.app._client_max_size
+            body = bytearray()
+            while chunk := await self.content.readany():
+                body.extend(chunk)
+                if limit and len(body) > limit:
+                    raise HTTPRequestEntityTooLarge(max_size=limit, actual_size=len(body))
+            self._read_bytes = bytes(body)
+        return self._read_bytes
 
     async def text(self) -> str:
         return (await self.read()).decode(self.charset or "utf-8")
@@ -423,8 +696,7 @@ class Request(_Keys):
         return json.loads(await self.text())
 
     async def multipart(self) -> MultipartReader:
-        self._read = True
-        return MultipartReader(self.headers.get("Content-Type", ""), self._body)
+        return MultipartReader(self.headers.get("Content-Type", ""), await self.read())
 
 
 # ---------------------------------------------------------------------------
@@ -501,20 +773,26 @@ class Router:
         self._routes.extend(routes)
         return routes
 
+    def add_route(self, method: str, path: str, handler) -> RouteDef:
+        """A route for ``method``, or for every method with ``"*"``."""
+        return self.add_routes([RouteDef(method, path, handler)])[0]
+
     def routes(self) -> list[RouteDef]:
         return list(self._routes)
 
     def resolve(self, request: Request) -> Callable[[Request], Awaitable]:
         """The first route, in the order added, whose path and method match
-        (``GET`` also answers ``HEAD``); else a handler raising ``405`` if a
-        path matched, or ``404``."""
+        (``GET`` also answers ``HEAD``, ``*`` every method): a path that
+        matched only under other methods falls through to a later route, as
+        in ``aiohttp``. Else a handler raising ``405`` if a path matched, or
+        ``404``."""
         raw = request.rel_url.raw_path
         allowed: set[str] = set()
         for r in self._routes:
             params = r.resource.match(raw)
             if params is None:
                 continue
-            if r.method == request.method or (r.method, request.method) == ("GET", "HEAD"):
+            if r.method in ("*", request.method) or (r.method, request.method) == ("GET", "HEAD"):
                 request.match_info = params
                 return r.handler
             allowed.add(r.method)
@@ -565,6 +843,330 @@ def _bind(mw, handler):
 
 
 # ---------------------------------------------------------------------------
+# WebSockets (RFC 6455): the server's end here, the client's in
+# api/web_client.py, over one frame codec
+# ---------------------------------------------------------------------------
+
+WS_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+WS_MAX_MSG_SIZE = 4 * 1024 * 1024  # aiohttp's default on both ends
+WS_CLOSE_S = 10.0  # aiohttp's wait for the peer's close frame
+
+
+class WSMsgType(enum.IntEnum):
+    CONTINUATION = 0x0
+    TEXT = 0x1
+    BINARY = 0x2
+    PING = 0x9
+    PONG = 0xA
+    CLOSE = 0x8
+    CLOSING = 0x100
+    CLOSED = 0x101
+    ERROR = 0x102
+
+
+class WSCloseCode(enum.IntEnum):
+    OK = 1000
+    PROTOCOL_ERROR = 1002
+    ABNORMAL_CLOSURE = 1006
+    INVALID_TEXT = 1007
+    MESSAGE_TOO_BIG = 1009
+
+
+class WSMessage(NamedTuple):
+    type: WSMsgType
+    data: Any
+    extra: Any
+
+    def json(self, *, loads=json.loads) -> Any:
+        return loads(self.data)
+
+
+_CLOSED_MESSAGE = WSMessage(WSMsgType.CLOSED, None, None)
+
+
+class WebSocketError(Exception):
+    """A frame that breaks the protocol, with the close code it earns."""
+
+    def __init__(self, code: int, message: str):
+        super().__init__(message)
+        self.code = code
+
+
+def ws_accept(key: str) -> str:
+    """``Sec-WebSocket-Accept`` for a client's ``Sec-WebSocket-Key``."""
+    return base64.b64encode(hashlib.sha1((key + WS_GUID).encode()).digest()).decode()
+
+
+def _xor_mask(data: bytes, key: bytes) -> bytes:
+    """``data`` XOR the 4-byte ``key`` repeated: masks and unmasks."""
+    n = len(data)
+    if not n:
+        return b""
+    pad = (key * (n // 4 + 1))[:n]
+    return (int.from_bytes(data, "little") ^ int.from_bytes(pad, "little")).to_bytes(n, "little")
+
+
+def ws_frame(opcode: int, payload: bytes, *, fin: bool = True, mask: bool = False) -> bytes:
+    """One frame, its length in 7, 16 or 64 bits; masked with a fresh random
+    key where ``mask`` (a client's frames), bare otherwise (a server's)."""
+    n = len(payload)
+    b0 = (0x80 if fin else 0) | opcode
+    bit = 0x80 if mask else 0
+    if n < 126:
+        head = struct.pack("!BB", b0, bit | n)
+    elif n < 1 << 16:
+        head = struct.pack("!BBH", b0, bit | 126, n)
+    else:
+        head = struct.pack("!BBQ", b0, bit | 127, n)
+    if not mask:
+        return head + payload
+    key = os.urandom(4)
+    return head + key + _xor_mask(payload, key)
+
+
+async def ws_read_frame(reader: asyncio.StreamReader, *, masked: bool,
+                        max_size: int) -> tuple[bool, int, bytes]:
+    """(fin, opcode, payload) of the next frame. Raises ``WebSocketError``
+    for a frame whose mask is not what ``masked`` says (a client masks, a
+    server does not), with reserved bits, a control frame over 125 bytes or
+    fragmented, or one past ``max_size`` bytes."""
+    b0, b1 = await reader.readexactly(2)
+    fin, opcode, n = bool(b0 & 0x80), b0 & 0x0F, b1 & 0x7F
+    if b0 & 0x70:
+        raise WebSocketError(WSCloseCode.PROTOCOL_ERROR, "Received frame with non-zero reserved bits")
+    if bool(b1 & 0x80) != masked:
+        raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                             "a client's frames are masked and a server's are not")
+    if n == 126:
+        n = struct.unpack("!H", await reader.readexactly(2))[0]
+    elif n == 127:
+        n = struct.unpack("!Q", await reader.readexactly(8))[0]
+    if opcode >= 0x8 and (n > 125 or not fin):
+        raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                             "Control frame payload cannot be larger than 125 bytes or fragmented")
+    if max_size and n > max_size:
+        raise WebSocketError(WSCloseCode.MESSAGE_TOO_BIG,
+                             f"Message size {n} exceeds limit {max_size}")
+    key = await reader.readexactly(4) if masked else b""
+    payload = await reader.readexactly(n)
+    return fin, opcode, (_xor_mask(payload, key) if masked else payload)
+
+
+class _WebSocket:
+    """The message side of an open WebSocket, on either end. A reader task
+    turns frames into whole messages (fragments joined, text decoded, at
+    most WS_MAX_MSG_SIZE bytes) on a queue, so that ``receive(timeout=)``
+    can give up without cutting a frame; ``receive`` answers a ping with a
+    pong and a close with a close, as aiohttp does by default. ``close()``
+    sends a close frame and waits (up to WS_CLOSE_S) for the peer's."""
+
+    def __init__(self):
+        self._ws_writer: Optional[asyncio.StreamWriter] = None
+        self._mask_out = False
+        self._queue: Optional[asyncio.Queue] = None
+        self._reader_task: Optional[asyncio.Task] = None
+        self._peer_closed: Optional[asyncio.Event] = None
+        self._closed = False
+        self.close_code: Optional[int] = None
+
+    def _attach(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter, *,
+                client: bool) -> None:
+        self._ws_writer = writer
+        self._mask_out = client
+        self._queue = asyncio.Queue()
+        self._peer_closed = asyncio.Event()
+        self._reader_task = asyncio.ensure_future(self._read_messages(reader, masked=not client))
+
+    async def _read_messages(self, reader: asyncio.StreamReader, *, masked: bool) -> None:
+        kind, parts, size = None, [], 0
+        try:
+            while True:
+                fin, opcode, payload = await ws_read_frame(
+                    reader, masked=masked, max_size=WS_MAX_MSG_SIZE)
+                if opcode == WSMsgType.CLOSE:
+                    if len(payload) == 1:
+                        raise WebSocketError(WSCloseCode.PROTOCOL_ERROR, "Invalid close frame")
+                    code = struct.unpack("!H", payload[:2])[0] if payload else 0
+                    self._queue.put_nowait(WSMessage(
+                        WSMsgType.CLOSE, code, payload[2:].decode("utf-8", "replace")))
+                    return
+                if opcode in (WSMsgType.PING, WSMsgType.PONG):
+                    self._queue.put_nowait(WSMessage(WSMsgType(opcode), payload, ""))
+                    continue
+                if opcode in (WSMsgType.TEXT, WSMsgType.BINARY):
+                    if kind is not None:
+                        raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                             "a new message inside a fragmented one")
+                    kind, parts, size = opcode, [], 0
+                elif opcode != WSMsgType.CONTINUATION or kind is None:
+                    raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                         f"Unexpected frame opcode {opcode}")
+                parts.append(payload)
+                size += len(payload)
+                if size > WS_MAX_MSG_SIZE:
+                    raise WebSocketError(WSCloseCode.MESSAGE_TOO_BIG,
+                                         f"Message size {size} exceeds limit {WS_MAX_MSG_SIZE}")
+                if not fin:
+                    continue
+                data = b"".join(parts)
+                if kind == WSMsgType.TEXT:
+                    try:
+                        data = data.decode("utf-8")
+                    except UnicodeDecodeError:
+                        raise WebSocketError(WSCloseCode.INVALID_TEXT, "invalid UTF-8 text message")
+                self._queue.put_nowait(WSMessage(WSMsgType(kind), data, ""))
+                kind, parts = None, []
+        except WebSocketError as exc:
+            self._queue.put_nowait(WSMessage(WSMsgType.ERROR, exc, None))
+        except (asyncio.IncompleteReadError, ConnectionError, OSError):
+            pass
+        finally:
+            self._queue.put_nowait(None)  # the end of the stream
+            self._peer_closed.set()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    async def _send(self, opcode: int, payload: bytes) -> None:
+        if self._ws_writer is None:
+            raise RuntimeError("Call .prepare() first")
+        if self._closed or self._ws_writer.is_closing():
+            raise ConnectionResetError("Cannot write to closing transport")
+        self._ws_writer.write(ws_frame(opcode, payload, mask=self._mask_out))
+        await self._ws_writer.drain()
+
+    async def send_str(self, data: str) -> None:
+        if not isinstance(data, str):
+            raise TypeError(f"data argument must be str ({type(data)!r})")
+        await self._send(WSMsgType.TEXT, data.encode("utf-8"))
+
+    async def send_bytes(self, data: bytes) -> None:
+        if not isinstance(data, (bytes, bytearray, memoryview)):
+            raise TypeError(f"data argument must be byte-ish ({type(data)!r})")
+        await self._send(WSMsgType.BINARY, bytes(data))
+
+    async def close(self, *, code: int = WSCloseCode.OK, message: bytes = b"") -> bool:
+        """Send a close frame, wait for the peer's and drop the connection;
+        False when already closed."""
+        if self._ws_writer is None:
+            raise RuntimeError("Call .prepare() first")
+        if self._closed:
+            return False
+        self._closed = True
+        try:
+            self._ws_writer.write(ws_frame(WSMsgType.CLOSE, struct.pack("!H", code) + message,
+                                           mask=self._mask_out))
+            await self._ws_writer.drain()
+        except (ConnectionError, OSError):
+            self.close_code = WSCloseCode.ABNORMAL_CLOSURE
+            self._drop()
+            return True
+        if self.close_code is None:
+            self.close_code = code
+        try:
+            await asyncio.wait_for(self._peer_closed.wait(), WS_CLOSE_S)
+        except asyncio.TimeoutError:
+            self.close_code = WSCloseCode.ABNORMAL_CLOSURE
+        self._drop()
+        return True
+
+    def _drop(self) -> None:
+        if self._reader_task is not None and not self._reader_task.done():
+            self._reader_task.cancel()
+        self._ws_writer.close()
+
+    async def receive(self, timeout: Optional[float] = None) -> WSMessage:
+        if self._queue is None:
+            raise RuntimeError("Call .prepare() first")
+        while True:
+            if self._closed and self._queue.empty():
+                return _CLOSED_MESSAGE
+            get = self._queue.get()
+            msg = await (get if timeout is None else asyncio.wait_for(get, timeout))
+            if msg is None:  # the connection ended without a close frame
+                self._queue.put_nowait(None)
+                if not self._closed:
+                    self._closed = True
+                    self.close_code = WSCloseCode.ABNORMAL_CLOSURE
+                    self._drop()
+                return _CLOSED_MESSAGE
+            if msg.type == WSMsgType.PING:
+                try:
+                    await self._send(WSMsgType.PONG, msg.data)
+                except ConnectionError:
+                    pass
+                continue
+            if msg.type == WSMsgType.PONG:
+                continue
+            if msg.type == WSMsgType.CLOSE:
+                if not self._closed:
+                    self.close_code = msg.data
+                    await self.close()
+            elif msg.type == WSMsgType.ERROR:
+                self.close_code = msg.data.code
+                await self.close(code=msg.data.code)
+            return msg
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self) -> WSMessage:
+        msg = await self.receive()
+        if msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSING, WSMsgType.CLOSED):
+            raise StopAsyncIteration
+        return msg
+
+
+class WebSocketResponse(_WebSocket, StreamResponse):
+    """The server's end of a WebSocket (``aiohttp.web.WebSocketResponse``):
+    ``prepare(request)`` answers the upgrade (``101``, the accept key, and
+    the first subprotocol of the client's offer that ``protocols`` holds),
+    then the message surface of ``_WebSocket``. Its connection leaves the
+    keep-alive loop and closes when the handler returns."""
+
+    def __init__(self, *, protocols=()):
+        StreamResponse.__init__(self, status=101)
+        _WebSocket.__init__(self)
+        self._protocols = tuple(protocols)
+        self.ws_protocol: Optional[str] = None
+
+    async def prepare(self, request: "Request") -> None:
+        if self._writer is not None:
+            return
+        headers = request.headers
+        if headers.get("Upgrade", "").lower() != "websocket":
+            raise HTTPBadRequest(text=f"No WebSocket UPGRADE hdr: {headers.get('Upgrade')}\n "
+                                      'Can "Upgrade" only to "WebSocket".')
+        if "upgrade" not in headers.get("Connection", "").lower():
+            raise HTTPBadRequest(text=f"No CONNECTION upgrade hdr: {headers.get('Connection')}")
+        if headers.get("Sec-WebSocket-Version") != "13":
+            raise HTTPBadRequest(
+                text=f"Unsupported version: {headers.get('Sec-WebSocket-Version')}")
+        key = headers.get("Sec-WebSocket-Key", "")
+        try:
+            valid = len(base64.b64decode(key, validate=True)) == 16
+        except ValueError:
+            valid = False
+        if not valid:
+            raise HTTPBadRequest(text=f"Handshake error: {key!r}")
+        offered = [p.strip() for p in headers.get("Sec-WebSocket-Protocol", "").split(",")
+                   if p.strip()]
+        self.ws_protocol = next((p for p in offered if p in self._protocols), None)
+        out = CIMultiDict([("Upgrade", "websocket"), ("Connection", "upgrade"),
+                           ("Sec-WebSocket-Accept", ws_accept(key))])
+        if self.ws_protocol:
+            out["Sec-WebSocket-Protocol"] = self.ws_protocol
+        conn = request._conn
+        conn.upgraded, conn.keep_alive = True, False
+        request._prepared = self
+        self._writer = conn.writer
+        _write_head(conn.writer, 101, "Switching Protocols", out, keep_alive=None)
+        await conn.writer.drain()
+        self._attach(conn.reader, conn.writer, client=False)
+
+
+# ---------------------------------------------------------------------------
 # The server
 # ---------------------------------------------------------------------------
 
@@ -573,12 +1175,25 @@ class _BadRequest(Exception):
     pass
 
 
+# What the connection reads and drops of a body a handler left unread before
+# it answers the next request on the connection; past either, it closes.
+DRAIN_LIMIT = 1 << 20
+DRAIN_S = 1.0
+# Closing on a body still arriving, the connection first stops writing and
+# reads and drops what comes for up to LINGER_S (aiohttp lingers too): a
+# socket closed with unread bytes resets, and the reset can destroy the
+# answer (a 413) before the client has read it.
+LINGER_S = 5.0
+
+
 class _Connection:
     def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         self.reader = reader
         self.writer = writer
         self.idle = True
         self.closing = False
+        self.keep_alive = True
+        self.upgraded = False
         self.task: Optional[asyncio.Task] = None
 
 
@@ -600,7 +1215,9 @@ class AppRunner:
 
     async def cleanup(self) -> None:
         """Stop accepting, close idle keep-alive connections now, let a
-        request in flight finish and then close its connection."""
+        request in flight finish and then close its connection. An open
+        WebSocket is a handler in flight, as in aiohttp 3.13: it has up to
+        ``shutdown_timeout`` to close, and is then cancelled."""
         for site in list(self._sites):
             site._server.close()
         for conn in list(self._connections):
@@ -624,41 +1241,53 @@ class AppRunner:
         self._connections.add(conn)
         peer = writer.get_extra_info("peername")
         remote = peer[0] if isinstance(peer, tuple) else None
+        payload = None
         try:
             while not conn.closing:
                 conn.idle = True
                 try:
                     head = await _read_head(reader)
+                    if head is None:
+                        break
+                    conn.idle = False
+                    method, target, version, headers = head
+                    payload = _request_payload(reader, headers)
                 except _BadRequest as exc:
-                    await _write(writer, 400, _phrase(400), CIDict(
+                    await _write(writer, 400, _phrase(400), CIMultiDict(
                         {"Content-Type": "text/plain; charset=utf-8"}),
                         f"400, message:\n  {exc}".encode(), keep_alive=False, head_only=False)
                     break
-                if head is None:
-                    break
-                conn.idle = False
-                method, target, version, headers = head
-                keep = _keep_alive(version, headers)
-                try:
-                    body = await _read_body(reader, headers, self.app._client_max_size)
-                except HTTPRequestEntityTooLarge as exc:
-                    # The unread body is still on the wire: answer and close.
-                    request = Request(self.app, method, target, version, headers, b"", remote)
-                    response, keep = exc._response(), False
+                conn.keep_alive = _keep_alive(version, headers) and not conn.closing
+                request = Request(self.app, method, target, version, headers, payload, remote,
+                                  conn)
+                response, reusable = await self._respond(request)
+                if conn.upgraded:
+                    break  # a WebSocket: its handler has ended
+                if request._prepared is not None:
+                    # The handler streamed its answer; one that raised after
+                    # its head went out leaves the connection cut short.
+                    if response is not request._prepared or not reusable:
+                        break
+                    await response.write_eof()
+                    keep = conn.keep_alive
+                elif not isinstance(response, Response):  # a StreamResponse left unprepared
+                    await response.prepare(request)
+                    await response.write_eof()
+                    keep = conn.keep_alive
                 else:
-                    request = Request(self.app, method, target, version, headers, body, remote)
-                    response, failed = await self._respond(request)
-                    keep = keep and not failed
-                if conn.closing:
-                    keep = False
-                try:
-                    code, reason, out_headers, data = await response._render(request)
-                except HTTPException as exc:  # a FileResponse's file went missing
-                    code, reason, out_headers, data = await exc._response()._render(request)
-                await _write(writer, code, reason, out_headers, data, keep_alive=keep,
-                             head_only=method.upper() == "HEAD")
-                if not keep:
+                    keep = conn.keep_alive and reusable and not conn.closing
+                    if keep and not payload.at_eof():
+                        keep = await _drain(payload)
+                    try:
+                        code, reason, out_headers, data = await response._render(request)
+                    except HTTPException as exc:  # a FileResponse's file went missing
+                        code, reason, out_headers, data = await exc._response()._render(request)
+                    await _write(writer, code, reason, out_headers, data, keep_alive=keep,
+                                 head_only=method.upper() == "HEAD")
+                if not keep or not payload.at_eof():
                     break
+            if payload is not None and not payload.at_eof() and not conn.upgraded:
+                await _linger(reader, writer)
         except (ConnectionError, asyncio.IncompleteReadError):
             pass
         finally:
@@ -668,20 +1297,48 @@ class AppRunner:
             except Exception:  # noqa: BLE001 — the socket is already gone
                 pass
 
-    async def _respond(self, request: Request) -> tuple[Response, bool]:
+    async def _respond(self, request: Request) -> tuple[StreamResponse, bool]:
+        """The handler's response, and whether the connection may serve
+        another request after it."""
         try:
             response = await self.app._handle(request)
         except HTTPException as exc:
-            return exc._response(), False
+            # A body past client_max_size, or one whose framing broke, is
+            # still (partly) on the wire: answer and close.
+            return exc._response(), not isinstance(exc, (HTTPRequestEntityTooLarge, PayloadError))
         except asyncio.CancelledError:
             raise
         except Exception:  # noqa: BLE001 — aiohttp's 500, connection closed
             log.exception("Error handling request %s %s", request.method, request.rel_url)
-            return _server_error(), True
-        if not isinstance(response, Response):
+            return _server_error(), False
+        if not isinstance(response, StreamResponse):
             log.error("handler for %s returned %r, not a Response", request.rel_url, response)
-            return _server_error(), True
-        return response, False
+            return _server_error(), False
+        return response, True
+
+
+async def _linger(reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+    await writer.drain()
+    if writer.can_write_eof():
+        writer.write_eof()
+
+    async def discard():
+        while await reader.read(READ_CHUNK):
+            pass
+
+    try:
+        await asyncio.wait_for(discard(), LINGER_S)
+    except asyncio.TimeoutError:
+        pass
+
+
+async def _drain(payload: StreamReader) -> bool:
+    """Drop the rest of a body the handler left unread; False (close the
+    connection) past DRAIN_LIMIT bytes or DRAIN_S seconds."""
+    try:
+        return await asyncio.wait_for(payload.drain(DRAIN_LIMIT), DRAIN_S)
+    except (asyncio.TimeoutError, HTTPException, ConnectionError):
+        return False
 
 
 def _server_error() -> Response:
@@ -708,7 +1365,6 @@ class TCPSite:
         self._runner._sites.append(self)
 
 
-
 async def _read_line(reader: asyncio.StreamReader) -> bytes:
     try:
         line = await reader.readuntil(b"\n")
@@ -724,7 +1380,8 @@ async def _read_line(reader: asyncio.StreamReader) -> bytes:
 
 
 async def _read_head(reader: asyncio.StreamReader):
-    """The request line and headers, or None at a clean end of stream."""
+    """The request line and headers (every value of a repeated name), or
+    None at a clean end of stream."""
     line = await _read_line(reader)
     while line in (b"\r\n", b"\n"):  # tolerated blank lines between requests
         line = await _read_line(reader)
@@ -736,7 +1393,7 @@ async def _read_head(reader: asyncio.StreamReader):
         raise _BadRequest(f"Bad request line {line[:80]!r}")
     if not version.startswith("HTTP/1.") or not target.startswith("/"):
         raise _BadRequest(f"Bad request line {line[:80]!r}")
-    headers = CIDict()
+    headers = CIMultiDict()
     for _ in range(MAX_HEADERS + 1):
         raw = await _read_line(reader)
         if raw in (b"\r\n", b"\n"):
@@ -746,55 +1403,55 @@ async def _read_head(reader: asyncio.StreamReader):
         name, sep, value = raw.decode("latin-1").partition(":")
         if not sep or not name or name != name.strip():
             raise _BadRequest(f"Bad header line {raw[:80]!r}")
-        headers[name] = value.strip()
+        headers.add(name, value.strip())
     raise _BadRequest("too many headers")
 
 
-async def _read_body(reader: asyncio.StreamReader, headers: CIDict, max_size: int) -> bytes:
+def _request_payload(reader: asyncio.StreamReader, headers: CIMultiDict) -> StreamReader:
+    """The request's body, left on the wire: chunked, or ``Content-Length``
+    bytes (none without one)."""
     if "chunked" in headers.get("Transfer-Encoding", "").lower():
-        chunks, total = [], 0
-        while True:
-            size_line = await _read_line(reader)
-            try:
-                size = int(size_line.split(b";")[0].strip() or b"x", 16)
-            except ValueError:
-                raise _BadRequest("bad chunk size")
-            if size == 0:
-                while (await _read_line(reader)) not in (b"\r\n", b"\n", b""):
-                    pass  # trailers
-                return b"".join(chunks)
-            total += size
-            if max_size and total > max_size:
-                raise HTTPRequestEntityTooLarge(max_size=max_size, actual_size=total)
-            chunks.append(await reader.readexactly(size))
-            await reader.readexactly(2)
-    length = int(headers.get("Content-Length", "0") or 0)
+        return StreamReader(reader, chunked=True)
+    try:
+        length = int(headers.get("Content-Length", "0") or 0)
+    except ValueError:
+        raise _BadRequest("bad Content-Length")
     if length < 0:
         raise _BadRequest("negative Content-Length")
-    if max_size and length > max_size:
-        raise HTTPRequestEntityTooLarge(max_size=max_size, actual_size=length)
-    return await reader.readexactly(length) if length else b""
+    return StreamReader(reader, length=length)
 
 
-def _keep_alive(version: str, headers: CIDict) -> bool:
+def _keep_alive(version: str, headers: CIMultiDict) -> bool:
     tokens = {t.strip().lower() for t in headers.get("Connection", "").split(",")}
     if version == "HTTP/1.0":
         return "keep-alive" in tokens
     return "close" not in tokens
 
 
-async def _write(writer: asyncio.StreamWriter, status: int, reason: str, headers: CIDict,
-                 body: bytes, *, keep_alive: bool, head_only: bool) -> None:
-    out = CIDict(headers)
-    no_body = status in (204, 304) or 100 <= status < 200
-    if not no_body:
-        out["Content-Length"] = str(len(body))
+def _bodiless(status: int) -> bool:
+    return status in (204, 304) or 100 <= status < 200
+
+
+def _write_head(writer: asyncio.StreamWriter, status: int, reason: str, headers: CIMultiDict, *,
+                keep_alive: Optional[bool]) -> None:
+    """The status line and headers (``Connection`` unless ``keep_alive`` is
+    None: an upgrade)."""
+    out = CIMultiDict(headers)
     out["Date"] = email.utils.formatdate(usegmt=True)
     out["Server"] = "panoptikon_tpu_torch"
-    out["Connection"] = "keep-alive" if keep_alive else "close"
+    if keep_alive is not None:
+        out["Connection"] = "keep-alive" if keep_alive else "close"
     lines = [f"HTTP/1.1 {status} {reason}\r\n"]
     lines += [f"{name}: {value}\r\n" for name, value in out.items()]
     writer.write(("".join(lines) + "\r\n").encode("latin-1"))
-    if body and not no_body and not head_only:
+
+
+async def _write(writer: asyncio.StreamWriter, status: int, reason: str, headers: CIMultiDict,
+                 body: bytes, *, keep_alive: bool, head_only: bool) -> None:
+    out = CIMultiDict(headers)
+    if not _bodiless(status):
+        out["Content-Length"] = str(len(body))
+    _write_head(writer, status, reason, out, keep_alive=keep_alive)
+    if body and not _bodiless(status) and not head_only:
         writer.write(body)
     await writer.drain()

@@ -750,24 +750,62 @@ def test_cli_serve_refuses_a_mesh_across_processes(tmp_path, monkeypatch, proces
 
 
 def test_cli_serve_refuses_what_waits(tmp_path, monkeypatch):
-    # An [upstreams].ui (ROADMAP A.7b) is refused at startup, before the
-    # root lock or a device is taken. A [parallel] section is the
-    # reference's: main joins the runtime it names and sets the mesh layout
-    # before the device is taken, and without a coordinator the join does
-    # nothing. --device cuda without CUDA raises.
+    # An [upstreams].ui is served as the reference serves it: serve_all
+    # mounts the reverse proxy after the API routes of every listener, so an
+    # unclaimed path (and a method the API's route does not take) reaches
+    # the upstream while /health still answers from the API. A [parallel]
+    # section is the reference's: main joins the runtime it names and sets
+    # the mesh layout before the device is taken, and without a coordinator
+    # the join does nothing. --device cuda without CUDA raises.
+    import aiohttp
+    import aiohttp.web
     import torch
     import torch.distributed as dist
 
     from panoptikon_tpu_torch import cli
     from panoptikon_tpu_torch.api import server as port_server
+    from panoptikon_tpu_torch.api.proxy import LOOP_GUARD_HEADER
+    from panoptikon_tpu_torch.config import Settings
     from panoptikon_tpu_torch.parallel import mesh as meshlib
     from panoptikon_tpu_torch.parallel import multihost
 
-    cfg = tmp_path / "A.7b.toml"
-    cfg.write_text(f"data_root = '{tmp_path / 'data'}'\n[upstreams]\nui = 'http://127.0.0.1:1'\n")
-    with pytest.raises(RuntimeError, match="A.7b"):
-        cli.main(["serve", "--config", str(cfg), "--device", "cpu"])
-    assert not (tmp_path / "data").exists()
+    async def upstream(request):
+        return aiohttp.web.json_response({"upstream": request.raw_path, "method": request.method,
+                                          "hop": request.headers.get(LOOP_GUARD_HEADER)})
+
+    async def main():
+        stub = aiohttp.web.Application()
+        stub.router.add_route("*", "/{tail:.*}", upstream)
+        stub_runner = aiohttp.web.AppRunner(stub)
+        await stub_runner.setup()
+        await aiohttp.web.TCPSite(stub_runner, "127.0.0.1", 0).start()
+        cfg = tmp_path / "ui.toml"
+        cfg.write_text(f"data_root = '{tmp_path / 'ui-data'}'\n[[listeners]]\nhost = '127.0.0.1'\n"
+                       f"port = 0\n[upstreams]\n"
+                       f"ui = 'http://127.0.0.1:{stub_runner.addresses[0][1]}/'\n")
+        settings = Settings.load(str(cfg))
+        state = AppState.create(settings.data_root, device="cpu")
+        runners = await port_server.serve_all(settings, state)
+        base = f"http://127.0.0.1:{runners[0].addresses[0][1]}"
+        try:
+            async with aiohttp.ClientSession() as session:
+                out = []
+                for method, path in (("GET", "/ui/page?x=1"), ("GET", "/health"),
+                                     ("GET", "/api/search/pql"), ("PUT", "/health")):
+                    async with session.request(method, base + path) as resp:
+                        out.append((resp.status, await resp.json()))
+                return out
+        finally:
+            for runner in runners:
+                await runner.cleanup()
+            await stub_runner.cleanup()
+            state.shutdown()
+
+    ui, health, pql, put = asyncio.run(asyncio.wait_for(main(), 120))
+    assert ui == (200, {"upstream": "/ui/page?x=1", "method": "GET", "hop": "1"})
+    assert health[0] == 200 and "upstream" not in health[1] and "registry_ok" in health[1]
+    assert pql == (200, {"upstream": "/api/search/pql", "method": "GET", "hop": "1"})
+    assert put == (200, {"upstream": "/health", "method": "PUT", "hop": "1"})
 
     joined, layouts = [], []
     real_initialize = multihost.initialize

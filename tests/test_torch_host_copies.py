@@ -287,15 +287,15 @@ DEVICE_UNITS = {
     # The server names its device: AppState carries it (a dataclass field)
     # and create() resolves it, raising without CUDA; its executors run on
     # it; the accelerator report reads torch.cuda and client_config's
-    # multi_chip the port's mesh; serve_all and main refuse [upstreams].ui
-    # (A.7b) through refuse_unported, and main takes --device in place of
-    # the JAX platform pin (a list of devices: the serving mesh), joins the
-    # port's multi-process runtime and refuses a mesh of more than one shard
-    # across processes through refuse_lockstep.
+    # multi_chip the port's mesh; main takes --device in place of the JAX
+    # platform pin (a list of devices: the serving mesh), joins the port's
+    # multi-process runtime and refuses a mesh of more than one shard across
+    # processes through refuse_lockstep. serve_all is the reference's: it
+    # mounts the reverse proxy for [upstreams].ui.
     "api/server.py": {
         "ported": {"AppState.<body>", "AppState.create", "AppState.executor",
-                   "accelerator_report", "client_config", "serve_all", "main"},
-        "added": {"refuse_unported", "refuse_lockstep"},
+                   "accelerator_report", "client_config", "main"},
+        "added": {"refuse_lockstep"},
     },
     # The CLI's device report reads torch.cuda; the reference's table of TPU
     # generations (--env) has no counterpart on the card; serve takes
@@ -312,10 +312,19 @@ _PACKAGE = {r"\bimport panoptikon_tpu\b(?!_)": "import panoptikon_tpu_torch",
             r"\bfrom panoptikon_tpu import\b": "from panoptikon_tpu_torch import",
             r'__import__\("panoptikon_tpu"\)': '__import__("panoptikon_tpu_torch")'}
 _WEB = {r"\bfrom aiohttp import web\b": "from panoptikon_tpu_torch.api import web"}
+# The reverse proxy's header mapping is the transport's CIMultiDict; the
+# async client's session comes from the transport's client half
+# (api/web_client.py, aiohttp's client names), imported where the reference
+# imports aiohttp.
+_PROXY = {r"\bfrom multidict import CIMultiDict\b":
+          "from panoptikon_tpu_torch.api.web import CIMultiDict"}
+_ACLIENT = {r"\bimport aiohttp\b": "from panoptikon_tpu_torch.api import web_client",
+            r"\baiohttp\.": "web_client."}
 RENAMED = {"native/__init__.py": {r"\bcodec\.quantize_int8\(": "codec.quantize_int8_host("},
            # The port's logging configures its own logger tree.
            "utils/logging.py": {r'getLogger\("panoptikon_tpu"\)': 'getLogger("panoptikon_tpu_torch")'},
            "api/server.py": {**_PACKAGE, **_WEB}, "api/policy.py": _WEB, "api/relay.py": _WEB,
+           "api/proxy.py": _PROXY, "aclient.py": {**_PACKAGE, **_ACLIENT},
            "cli.py": _PACKAGE, "desktop.py": _PACKAGE}
 JOBS = ("jobs/queue.py", "jobs/index_sync.py", "jobs/reconcile.py", "jobs/extraction.py",
         "jobs/input_handlers.py", "jobs/outro.py", "jobs/media.py", "jobs/scan.py")
@@ -325,7 +334,9 @@ SERVING = ("utils/env_template.py", "utils/rootlock.py", "utils/schema_gen.py",
            "db/setup.py", "pql/build.py", "api/policy_token.py", "api/search_cache.py",
            "api/policy.py", "api/relay.py", "api/server.py", "jobs/cron.py",
            "jobs/continuous.py", "jobs/supervisor.py", "jobs/prewarm.py", "models/pool.py",
-           "models/http_backend.py", "client.py", "cli.py", "desktop.py")
+           "models/http_backend.py", "client.py", "cli.py", "desktop.py",
+           # The reverse proxy and the async client (A.7b).
+           "api/proxy.py", "aclient.py")
 HOST_COPIES = ("pql/executor.py", "pql/fused.py", "pql/model.py", "pql/preprocess.py",
                "db/schema.py", "db/connection.py", "db/epochs.py", "db/store.py", "db/writer.py",
                "db/bulk.py", "utils/splitmix.py", "models/registry.py", "models/discovery.py",

@@ -1,6 +1,6 @@
-"""The port imports no JAX, no ``aiohttp`` (the card machine has neither)
-and nothing of the JAX package, and never falls back from CUDA to the
-CPU."""
+"""The port imports no JAX, no ``aiohttp`` and no ``multidict`` (the card
+machine has none of them) and nothing of the JAX package, and never falls
+back from CUDA to the CPU."""
 
 import ast
 import subprocess
@@ -20,6 +20,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 sys.modules["panoptikon_tpu"] = None  # and so does any import of the JAX package
 sys.modules["aiohttp"] = None  # and of aiohttp: the port serves on its own transport
+sys.modules["multidict"] = None  # and of multidict: its headers are the transport's
 import panoptikon_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(panoptikon_tpu_torch.__path__, "panoptikon_tpu_torch.")]
 for name in names:
@@ -58,7 +59,8 @@ def test_every_port_module_imports_without_jax():
                  "jobs.supervisor", "jobs.prewarm", "models.pool", "models.http_backend",
                  "client", "cli", "desktop", "utils.env_template", "utils.rootlock",
                  "utils.schema_gen", "utils.version", "utils.toml_edit", "index.sharded",
-                 "parallel.mesh", "parallel.multihost", "parallel.train"):
+                 "parallel.mesh", "parallel.multihost", "parallel.train", "api.proxy",
+                 "api.web_client", "aclient"):
         assert f"panoptikon_tpu_torch.{name}" in names
 
 
@@ -86,17 +88,19 @@ def test_no_port_source_imports_the_jax_package():
     for path in sources:
         modules = _imported_modules(ast.parse(path.read_text()))
         top = {m.split(".")[0] for m in modules}
-        assert not top & {"jax", "jaxlib", "panoptikon_tpu", "aiohttp"}, (path, sorted(modules))
+        assert not top & {"jax", "jaxlib", "panoptikon_tpu", "aiohttp", "multidict"}, (
+            path, sorted(modules))
         assert not any(m.startswith(".") for m in modules), (path, "relative import")
 
 
 def test_chip_smoke_imports_only_the_port():
-    # chip_smoke.py drives the port: no import of jax, aiohttp or the JAX package,
-    # not even of its jax-free modules (the port has its own copies).
+    # chip_smoke.py drives the port: no import of jax, aiohttp, multidict or
+    # the JAX package, not even of its jax-free modules (the port has its own
+    # copies).
     modules = _imported_modules(ast.parse((REPO / "chip_smoke.py").read_text()))
     top = {m.split(".")[0] for m in modules}
     assert "panoptikon_tpu_torch" in top
-    assert not top & {"jax", "jaxlib", "panoptikon_tpu", "aiohttp"}, sorted(modules)
+    assert not top & {"jax", "jaxlib", "panoptikon_tpu", "aiohttp", "multidict"}, sorted(modules)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
