@@ -26,6 +26,8 @@ Layer map:
 - ``index``   — a host ``VectorIndex`` snapshot uploaded to the device and
                 searched through the fused int8 scan.
 - ``_build``  — builds ``csrc/*.cu`` with ``nvcc`` and loads it by ctypes.
+- ``tracing`` — spans and counters at the layers' boundaries, recorded
+                only while ``torch.profiler`` is on.
 - ``api``     — the HTTP server (the reference's handlers on the port's own
                 stdlib transport, ``api/web.py``, and its client half
                 ``api/web_client.py``), the span cache, the policy layer

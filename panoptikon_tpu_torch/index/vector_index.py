@@ -30,6 +30,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from panoptikon_tpu_torch import tracing
 from panoptikon_tpu_torch.ops import codec
 
 MIN_CAPACITY = 4096
@@ -380,7 +381,9 @@ class VectorIndex:
         """Dense group slots → DB item ids (host-side join after top-k)."""
         with self._lock:
             st = self._require(space)
-            table = np.asarray(st.item_of_group, dtype=np.int64)
+            with tracing.span("vector_index.id_table"):
+                table = np.asarray(st.item_of_group, dtype=np.int64)
+            tracing.count("vector_index.id_table_rows", len(table))
         out = np.full(group_slots.shape, -1, dtype=np.int64)
         ok = (group_slots >= 0) & (group_slots < len(table))
         out[ok] = table[group_slots[ok]]

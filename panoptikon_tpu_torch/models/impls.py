@@ -68,6 +68,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from panoptikon_tpu_torch import tracing
 from panoptikon_tpu_torch.device import device as select_device
 from panoptikon_tpu_torch.models import (audio, batching, clip, convert, ocr, text_embed,
                                          weights, whisper)
@@ -222,6 +223,7 @@ class ClipImpl(InferenceModel):
                 clip.embed_texts(self.params, self.cfg, ids)
 
     def _embed_images(self, batch: np.ndarray) -> np.ndarray:
+        tracing.count("impls.clip_upload_bytes", batch.nbytes)
         images = torch.from_numpy(batch).to(self.device)
         if self.cfg.matmul_precision != "int8":
             return clip.embed_images(self.params, self.cfg, images).cpu().numpy()
@@ -253,41 +255,45 @@ class ClipImpl(InferenceModel):
         images, image_pos = [], []
         texts, text_pos = [], []
         want = (self.cfg.image_size, self.cfg.image_size, 3)
-        for i, inp in enumerate(inputs):
-            if inp.file is not None:
-                try:
-                    images.append(decode_image(inp.file, self.cfg.image_size))
-                    image_pos.append(i)
-                except SlotError as err:
-                    outputs[i] = err.to_slot()
-            elif isinstance(inp.data, dict) and "pixels" in inp.data:
-                arr = np.asarray(inp.data["pixels"], dtype=np.float32)
-                if arr.shape != want:
-                    outputs[i] = SlotError("input", f"pixels shape {arr.shape} != {want}").to_slot()
-                else:
-                    images.append(arr)
-                    image_pos.append(i)
-            elif isinstance(inp.data, dict) and "text" in inp.data:
-                texts.append(str(inp.data["text"]))
-                text_pos.append(i)
-            else:
-                outputs[i] = SlotError(
-                    "input", "Input must be an image file or {'text': ...}"
-                ).to_slot()
-
         cap = self.batch_ladder[-1]
-        if images:
-            stacked = np.stack(images)
-            for lo in range(0, len(images), cap):
+        with tracing.span("impls.clip_predict.stack"):
+            for i, inp in enumerate(inputs):
+                if inp.file is not None:
+                    try:
+                        images.append(decode_image(inp.file, self.cfg.image_size))
+                        image_pos.append(i)
+                    except SlotError as err:
+                        outputs[i] = err.to_slot()
+                elif isinstance(inp.data, dict) and "pixels" in inp.data:
+                    arr = np.asarray(inp.data["pixels"], dtype=np.float32)
+                    if arr.shape != want:
+                        outputs[i] = SlotError(
+                            "input", f"pixels shape {arr.shape} != {want}").to_slot()
+                    else:
+                        images.append(arr)
+                        image_pos.append(i)
+                elif isinstance(inp.data, dict) and "text" in inp.data:
+                    texts.append(str(inp.data["text"]))
+                    text_pos.append(i)
+                else:
+                    outputs[i] = SlotError(
+                        "input", "Input must be an image file or {'text': ...}"
+                    ).to_slot()
+            stacked = np.stack(images) if images else None
+        for lo in range(0, len(images), cap):
+            with tracing.span("impls.clip_predict.stack"):
                 part = stacked[lo : lo + cap]
                 bucket = batching.bucket_for(len(part), self.batch_ladder)
-                feats = self._embed_images(batching.pad_batch(part, bucket)[0])
+                padded = batching.pad_batch(part, bucket)[0]
+            feats = self._embed_images(padded)
+            with tracing.span("impls.clip_predict.serialize"):
                 for j, pos in enumerate(image_pos[lo : lo + cap]):
                     outputs[pos] = npy.serialize_npy(feats[j])
         for lo in range(0, len(texts), cap):
             feats = self._embed_texts(self.token_ids(texts[lo : lo + cap]))
-            for j, pos in enumerate(text_pos[lo : lo + cap]):
-                outputs[pos] = npy.serialize_npy(feats[j])
+            with tracing.span("impls.clip_predict.serialize"):
+                for j, pos in enumerate(text_pos[lo : lo + cap]):
+                    outputs[pos] = npy.serialize_npy(feats[j])
         return outputs
 
 

@@ -22,8 +22,9 @@ Four operations, each called ``reps`` times back to back under
 For each it prints one JSON line: device time per call (the sum of the
 CUDA kernels' self time, as the profiler's "Self CUDA time total"), wall
 time per call measured apart from the profiler with a synchronize after
-every call (one request at a time, as a server sees it), the device's idle
-share of that wall time, and the kernels that take the most device time.
+every call (one request at a time, as a server sees it), and the kernels
+that take the most device time. The device's idle share is the
+benchmark's (``device_idle_pct.*``: the union of kernels and copies).
 The full ``key_averages()`` tables go to ``DIR/profile_<name>.txt``. The
 card's name and power limit (nvidia-smi) lead the output.
 
@@ -758,7 +759,6 @@ def _profile(name: str, fn, reps: int, out: Path) -> dict:
     ln_quant_us = sum(e.self_device_time_total for e in kernels if "ln_quant_kernel" in e.key)
     return {
         "op": name, "reps": reps, "device_ms_per_call": device_ms, "wall_ms_per_call": wall_ms,
-        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "attention_ms_per_call": attention_us / reps / 1e3,
         "attention_share": attention_us / device_us,
         "ln_quant_ms_per_call": ln_quant_us / reps / 1e3,
