@@ -13,6 +13,9 @@ embeddings"):
   READY, mirroring the reference's profile/coverage lifecycle.
 - ``row_valid`` (capacity,) bool; ``group_ids`` (capacity,) int32 — dense
   item slots; ``row_ids`` host-side int64 — the DB identity of each row.
+- ``item_of_group`` (capacity,) int64 — the DB item id of each of the first
+  ``num_groups`` slots. A space never holds more items than rows, so the
+  row capacity always holds the table.
 
 Each space is capacity-padded and grows by power-of-two reallocation. Rows
 are appended in ascending id order; deletions clear ``row_valid``
@@ -87,7 +90,8 @@ class _SpaceState:
     row_ids: np.ndarray | None = None
     weights: np.ndarray | None = None
     group_of_item: dict[int, int] = field(default_factory=dict)
-    item_of_group: list[int] = field(default_factory=list)
+    item_of_group: np.ndarray | None = None
+    num_groups: int = 0
     # Largest item id ever assigned a slot: lets chunked ascending appends
     # of strictly-new items take the vectorized bulk path.
     max_item: int = -(2**63)
@@ -173,7 +177,7 @@ class VectorIndex:
             st.row_ids[sl] = row_ids
             st.row_valid[sl] = True
             st.weights[sl] = np.asarray(weights, dtype=np.float32)
-            known = len(st.item_of_group)
+            known = st.num_groups
             if len(item_ids) and bool(
                 np.all(np.diff(item_ids) >= 0)
             ) and (known == 0 or int(item_ids[0]) > st.max_item):
@@ -184,7 +188,8 @@ class VectorIndex:
                 # (``max_item``).
                 uniq, gids_new = np.unique(item_ids, return_inverse=True)
                 gids = (gids_new + known).astype(np.int32)
-                st.item_of_group.extend(uniq.tolist())
+                st.item_of_group[known : known + len(uniq)] = uniq
+                st.num_groups = known + len(uniq)
                 st.group_of_item.update(
                     zip(uniq.tolist(), range(known, known + len(uniq)))
                 )
@@ -194,9 +199,10 @@ class VectorIndex:
                 for j, item in enumerate(item_ids.tolist()):
                     slot = st.group_of_item.get(item)
                     if slot is None:
-                        slot = len(st.item_of_group)
+                        slot = st.num_groups
                         st.group_of_item[item] = slot
-                        st.item_of_group.append(item)
+                        st.item_of_group[slot] = item
+                        st.num_groups += 1
                         if item > st.max_item:
                             st.max_item = item
                     gids[j] = slot
@@ -313,10 +319,7 @@ class VectorIndex:
             vectors = st.vectors[: st.size][live]
             row_ids = st.row_ids[: st.size][live]
             weights = st.weights[: st.size][live]
-            items = np.array(
-                [st.item_of_group[g] for g in st.group_ids[: st.size][live]],
-                dtype=np.int64,
-            )
+            items = st.item_of_group[st.group_ids[: st.size][live]]
             frozen_scale = st.scale
             dim = st.dim
             self._spaces.pop(space)
@@ -349,7 +352,7 @@ class VectorIndex:
                 group_ids=st.group_ids,
                 row_ids=st.row_ids,
                 weights=st.weights,
-                num_groups=max(len(st.item_of_group), 1),
+                num_groups=max(st.num_groups, 1),
                 # The quant arm is exposed only at FULL coverage: rows
                 # appended after the last build/backfill hold zero codes,
                 # and serving them through the int8 path would rank
@@ -382,8 +385,12 @@ class VectorIndex:
         with self._lock:
             st = self._require(space)
             with tracing.span("vector_index.id_table"):
-                table = np.asarray(st.item_of_group, dtype=np.int64)
+                table = st.item_of_group[: st.num_groups]
             tracing.count("vector_index.id_table_rows", len(table))
+        # The view is safe to read without the lock: entries below the count
+        # are never rewritten (remove_items leaves them; compact and
+        # drop_space replace the whole state), and a _grow copies them into
+        # a new buffer while this view keeps the old one alive.
         out = np.full(group_slots.shape, -1, dtype=np.int64)
         ok = (group_slots >= 0) & (group_slots < len(table))
         out[ok] = table[group_slots[ok]]
@@ -396,7 +403,7 @@ class VectorIndex:
                     "dim": st.dim,
                     "rows": st.size,
                     "capacity": st.capacity,
-                    "items": len(st.item_of_group),
+                    "items": st.num_groups,
                     "generation": st.generation,
                     "quant_ready": (st.scale is not None
                                     and st.codes_covered >= st.size),
@@ -421,18 +428,22 @@ class VectorIndex:
         new_gids = np.zeros(cap, dtype=np.int32)
         new_rids = np.full(cap, -1, dtype=np.int64)
         new_w = np.ones(cap, dtype=np.float32)
+        new_items = np.full(cap, -1, dtype=np.int64)
         if st.capacity:
             new_vec[: st.size] = st.vectors[: st.size]
             new_valid[: st.size] = st.row_valid[: st.size]
             new_gids[: st.size] = st.group_ids[: st.size]
             new_rids[: st.size] = st.row_ids[: st.size]
             new_w[: st.size] = st.weights[: st.size]
-        st.vectors, st.row_valid, st.group_ids, st.row_ids, st.weights = (
+            new_items[: st.num_groups] = st.item_of_group[: st.num_groups]
+        (st.vectors, st.row_valid, st.group_ids, st.row_ids, st.weights,
+         st.item_of_group) = (
             new_vec,
             new_valid,
             new_gids,
             new_rids,
             new_w,
+            new_items,
         )
         st.capacity = cap
         if st.codes is not None:

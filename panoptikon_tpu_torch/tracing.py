@@ -21,12 +21,13 @@ Spans:
 - ``impls.clip_predict.stack``: ``ClipImpl.predict``'s inputs read and
   stacked, and each slice padded to its bucket;
   ``impls.clip_predict.serialize``: its embeddings written as npy bytes;
-- ``vector_index.id_table``: the host index's item table turned into an
-  array in ``VectorIndex.item_id_of_groups``.
+- ``vector_index.id_table``: ``VectorIndex.item_id_of_groups`` taking its
+  view of the host index's slot → item table (no copy is made).
 
 Counters:
 
-- ``vector_index.id_table_rows``: the entries of that table, each call;
+- ``vector_index.id_table_rows``: the entries of the table that the call
+  reads, each call;
 - ``impls.clip_upload_bytes``: the bytes of each pixel batch that
   ``ClipImpl`` copies to its device.
 """

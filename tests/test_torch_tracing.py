@@ -75,7 +75,7 @@ def test_item_ids_records_the_id_table_and_its_rows(dindex):
         _item_ids(dindex)
         dindex[0].index.add("other", [1, 2], [1, 2], np.ones((2, DIM), np.float32))
     assert set(tracing.totals()) == {"vector_index.id_table"}
-    # The whole table is turned into an array on every call.
+    # Each call counts the whole table that it reads (no copy is made).
     assert tracing.counters() == {"vector_index.id_table_rows": 2 * ITEMS}
 
 
