@@ -29,6 +29,10 @@ the top batch bucket, shortest chunks first, each slice padded to its own
 (the JAX class pads all of a call's chunks as one batch, which fails past
 the top bucket: ROADMAP §C).
 
+``KimiVlImpl`` (the port's own: no JAX class) is a real VLM captioner,
+Kimi-VL-A3B (``models.kimi_vl``), on the captioner's contract; it takes
+image files and pre-decoded ``{"pixels": ...}`` as ``ClipImpl`` does.
+
 ``TaggerImpl``, ``CaptionerImpl`` and ``VlmTaggerImpl`` take image files,
 as the JAX classes do, and have an array entry each (``tag_arrays``,
 ``caption_arrays``) that takes normalised pixels: ``predict`` is the host
@@ -70,14 +74,15 @@ import torch
 
 from panoptikon_tpu_torch import tracing
 from panoptikon_tpu_torch.device import device as select_device
-from panoptikon_tpu_torch.models import (audio, batching, clip, convert, ocr, text_embed,
-                                         weights, whisper)
+from panoptikon_tpu_torch.models import (audio, batching, clip, convert, kimi_vl, ocr,
+                                         text_embed, weights, whisper)
 from panoptikon_tpu_torch.models.base import InferenceModel, PredictionInput, SlotError
 from panoptikon_tpu_torch.utils import npy
 
 __all__ = ["IMPL_INDEX", "ApiEmbedImpl", "CaptionerImpl", "ClapImpl", "ClipImpl", "HashTokenizer",
-           "Md5LookupImpl", "OcrImpl", "PredictionInput", "TagApiImpl", "TaggerImpl", "TextEmbedImpl",
-           "VlmTaggerImpl", "WhisperImpl", "decode_image", "decode_wav", "load_tokenizer", "npy"]
+           "KimiVlImpl", "Md5LookupImpl", "OcrImpl", "PredictionInput", "TagApiImpl", "TaggerImpl",
+           "TextEmbedImpl", "VlmTaggerImpl", "WhisperImpl", "decode_image", "decode_wav",
+           "load_tokenizer", "npy"]
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -88,6 +93,7 @@ WHISPER_INIT_SEED = 4
 CLAP_INIT_SEED = 5
 CAPTIONER_INIT_SEED = 7
 OCR_INIT_SEED = 11
+KIMI_VL_INIT_SEED = 13
 
 
 def decode_image(payload: bytes, size: int) -> np.ndarray:
@@ -1035,6 +1041,149 @@ class VlmTaggerImpl(CaptionerImpl):
         return outputs
 
 
+class KimiVlImpl(InferenceModel):
+    """Kimi-VL-A3B-Instruct as a captioner (``models.kimi_vl``): image →
+    caption on :class:`CaptionerImpl`'s contract, ``{"text", "confidence",
+    "language", "language_confidence"}`` a slot, the text the generated
+    tokens as ``<id>`` while no tokenizer is given. Inputs are image files
+    (``decode_image``, then MoonViT's normalisation) or pre-decoded
+    ``{"pixels": (S, S, 3)}`` arrays (already normalised, as ``ClipImpl``
+    takes them); anything else is an ``input`` slot error. A call captions
+    its images in slices of at most ``batch_cap``: the tower, the prompt
+    (``prefix_ids``, the image's tokens, ``suffix_ids``) and greedy decoding
+    through the latent cache to ``max_new_tokens``. Each batch shape's
+    latent caches and captured decode step are kept until :meth:`unload`.
+
+    Weights are drawn from ``seed`` at :meth:`load`, unless ``params`` was
+    set before it; real weights need a ``.safetensors`` reader the port does
+    not have, so ``checkpoint`` raises ``ModelLoadError``."""
+
+    def __init__(
+        self,
+        model_arch: str = "Kimi-VL-A3B-Instruct",
+        checkpoint: Optional[str] = None,
+        max_new_tokens: int = 64,
+        image_size: Optional[int] = None,
+        prefix_ids: Sequence[int] = (),
+        suffix_ids: Sequence[int] = (),
+        batch_cap: int = 64,
+        seed: int = KIMI_VL_INIT_SEED,
+        device: str | torch.device = "cuda",
+        **_: Any,
+    ):
+        if model_arch not in kimi_vl.CONFIGS:
+            raise ValueError(f"unknown Kimi-VL arch {model_arch!r}; have {sorted(kimi_vl.CONFIGS)}")
+        self.cfg = kimi_vl.CONFIGS[model_arch]
+        if image_size and image_size != self.cfg.image_size:
+            self.cfg = dataclasses.replace(self.cfg, image_size=int(image_size))
+        self.checkpoint = checkpoint
+        self.max_new_tokens = int(max_new_tokens)
+        self.prefix_ids = tuple(int(i) for i in prefix_ids)
+        self.suffix_ids = tuple(int(i) for i in suffix_ids)
+        self.batch_cap = int(batch_cap)
+        self.seed = int(seed)
+        self.device = select_device(str(device))
+        self.params = None
+        self._decoders: dict = {}
+
+    @classmethod
+    def name(cls) -> str:
+        return "kimi_vl"
+
+    def load(self) -> None:
+        if self.params is not None:
+            return
+        if self.checkpoint:
+            from panoptikon_tpu_torch.models.manager import ModelLoadError
+
+            raise ModelLoadError(
+                f"kimi_vl: no reader for the checkpoint {self.checkpoint!r}: Kimi-VL's weights "
+                "ship as .safetensors, and models.weights has no .safetensors reader")
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.params = kimi_vl.init_params(self.cfg, gen)
+
+    def unload(self) -> None:
+        self.params = None
+        self._decoders = {}
+
+    def prepare(self) -> None:
+        """One image through every stage (library handles, the allocator)."""
+        self.load()
+        size = self.cfg.image_size
+        self._caption(np.zeros((1, size, size, 3), np.float32), max_new=2)
+
+    def _caption(self, images: np.ndarray, keep: Sequence[int] = (),
+                 max_new: Optional[int] = None):
+        """(captions, kept): a caption for each of (N, S, S, 3) normalised
+        pixels, one unpadded batch, and for the batch positions ``keep`` what
+        ``kimi_vl.generate`` keeps of them: ``logits`` (positions, V) at each
+        generated position that was computed, ``image_tokens``, ``tokens``
+        and ``routes`` (each expert layer's picks at each token)."""
+        self.load()
+        pixels = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32)).to(self.device)
+        out = kimi_vl.generate(self.params, self.cfg, pixels, self.prefix_ids, self.suffix_ids,
+                               max_new or self.max_new_tokens, keep, self._decoders)
+        tokens, lengths, logprob = out["tokens"], out["lengths"], out["logprob"]
+        captions = []
+        for j in range(len(images)):
+            toks = tokens[j, : int(lengths[j])].tolist()
+            captions.append({
+                "text": " ".join(f"<{t}>" for t in toks),
+                "confidence": float(np.exp(float(logprob[j]))),
+                "language": "en",
+                "language_confidence": 1.0,
+            })
+        kept = {int(pos): {"logits": out["logits"][i, : out["positions"]],
+                           "image_tokens": out["image_tokens"][i],
+                           "tokens": tokens[int(pos)], "routes": out["routes"][i]}
+                for i, pos in enumerate(keep)}
+        return captions, kept
+
+    def caption_arrays(self, images: np.ndarray) -> list[dict]:
+        """(N, S, S, 3) normalised pixels, one unpadded batch → a caption
+        each: ``{"text", "confidence", "language", "language_confidence"}``."""
+        return self._caption(images)[0]
+
+    def _pixels(self, inp: PredictionInput) -> np.ndarray:
+        size = self.cfg.image_size
+        if inp.file is not None:
+            # decode_image normalises as CLIP does; MoonViT takes mean and
+            # std 0.5 on each channel.
+            arr = decode_image(inp.file, size) * CLIP_STD + CLIP_MEAN
+            return (arr - 0.5) / 0.5
+        if isinstance(inp.data, dict) and "pixels" in inp.data:
+            arr = np.asarray(inp.data["pixels"], dtype=np.float32)
+            if arr.shape != (size, size, 3):
+                raise SlotError("input", f"pixels shape {arr.shape} != {(size, size, 3)}")
+            return arr
+        raise SlotError("input", "Kimi-VL requires an image file or {'pixels': ...}")
+
+    def predict_keeping(self, inputs: Sequence[PredictionInput], keep: Sequence[int] = ()):
+        """:meth:`predict`, and for the input positions ``keep`` what
+        :meth:`_caption` keeps (logits, image tokens, tokens, expert picks)."""
+        self.load()
+        outputs: list[Any] = [None] * len(inputs)
+        images, kept_pos, keep = [], [], set(keep)
+        for i, inp in enumerate(inputs):
+            try:
+                images.append(self._pixels(inp))
+                kept_pos.append(i)
+            except SlotError as err:
+                outputs[i] = err.to_slot()
+        kept: dict = {}
+        for lo in range(0, len(images), self.batch_cap):
+            part = kept_pos[lo : lo + self.batch_cap]
+            want = [j for j, pos in enumerate(part) if pos in keep]
+            caps, extra = self._caption(np.stack(images[lo : lo + self.batch_cap]), want)
+            for pos, cap in zip(part, caps):
+                outputs[pos] = cap
+            kept.update({part[j]: v for j, v in extra.items()})
+        return outputs, kept
+
+    def predict(self, inputs: Sequence[PredictionInput]) -> list[Any]:
+        return self.predict_keeping(inputs)[0]
+
+
 class Md5LookupImpl(InferenceModel):
     """md5-lookup tagger (reference impl/danbooru.py + saucenao/): tags by
     hash against a local dump (JSON/sqlite: md5 → [[namespace, name,
@@ -1680,6 +1829,7 @@ IMPL_INDEX: dict[str, type[InferenceModel]] = {
         ClapImpl,
         CaptionerImpl,
         VlmTaggerImpl,
+        KimiVlImpl,
         Md5LookupImpl,
         ApiEmbedImpl,
         TagApiImpl,

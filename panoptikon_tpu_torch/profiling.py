@@ -2,7 +2,8 @@
 
     python3 -m panoptikon_tpu_torch.profiling [--out DIR] [--reps N]
                                               [--attention | --scan [--b1-before DIR] | --ln
-                                               | --backward [--bwd-before DIR] | --train]
+                                               | --backward [--bwd-before DIR] | --train
+                                               | --kimi]
 
 Four operations, each called ``reps`` times back to back under
 ``torch.profiler`` (CPU and CUDA activity), after three warm-up calls:
@@ -72,6 +73,15 @@ split over two so that all four warps form them), each built alone with its
 ``BWD_WIDE_SHAPES``; with ``--bwd-before DIR``, also the ``attention_bwd.cu``
 of a checkout at DIR (the parent commit), built alone for its seconds and
 timed in the same turns.
+
+``--kimi`` is the probe of Kimi-VL-A3B (``models/kimi_vl.py``) at its
+published widths, seeded weights: MoonViT's attention at 64 × 1,024 × 16 ×
+72 on B3's route (the CUDA cores at D 72) against
+``F.scaled_dot_product_attention``, in turns with CUDA events; then one
+expert layer's routed experts on a balanced routing, at a prefill's rows
+(64 prompts of 278 positions) and a decode step's (64), in their padded
+batched form against a loop over the experts on their exact loads, and the
+padded form's kernels under the profiler.
 
 ``--train`` is the probe of a training step: CLIP ViT-B/32 at full width
 (seeded random f32 master weights) on ``TRAIN_PAIRS`` seeded image and
@@ -738,6 +748,71 @@ def _ln_probe(dev, smi: str, reps: int, out: Path) -> None:
                           **record}), flush=True)
 
 
+KIMI_BATCH = 64
+KIMI_PROMPT = 6 + 256 + 16
+KIMI_ATTN_SHAPE = (64, 1024, 16, 72)
+
+
+def _kimi_probe(dev, smi: str, out: Path) -> None:
+    import torch.nn.functional as F
+
+    from panoptikon_tpu_torch.models import kimi_vl
+    from panoptikon_tpu_torch.ops import vit_attention
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(KIMI_ATTN_SHAPE, generator=gen, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    ops = {"b3": lambda: vit_attention.attention(q, k, v),
+           "sdpa": lambda: F.scaled_dot_product_attention(
+               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)}
+    err = float((ops["b3"]().float() - ops["sdpa"]().float()).abs().max())
+    times = {name: [] for name in ops}
+    for name in ("b3", "sdpa", "sdpa", "b3"):
+        times[name].append(_cuda_ms(ops[name]))
+    print(json.dumps({"card": smi, "probe": "kimi_vision_attention", "shape": KIMI_ATTN_SHAPE,
+                      "route": vit_attention.route(torch.bfloat16, KIMI_ATTN_SHAPE[3]),
+                      "ms": times, "max_abs_diff": err}), flush=True)
+    del q, k, v
+
+    # One expert layer at its published widths, on a balanced routing (each
+    # token picks 6 distinct experts at random, as a trained router's loads
+    # fall): the prefill's rows (64 prompts of 278) and a decode step's (64).
+    cfg = kimi_vl.CONFIGS["Kimi-VL-A3B-Instruct"]
+    e, hd, iw = cfg.experts, cfg.hidden, cfg.expert_width
+    gate_up = (torch.randn((e, hd, 2 * iw), generator=gen, device=dev) * hd ** -0.5).bfloat16()
+    down = (torch.randn((e, iw, hd), generator=gen, device=dev) * iw ** -0.5).bfloat16()
+    for phase, tokens, capacity in (("prefill", KIMI_BATCH * KIMI_PROMPT, None),
+                                    ("decode", KIMI_BATCH, KIMI_BATCH)):
+        h = torch.randn((tokens, hd), generator=gen, device=dev).bfloat16()
+        idx = torch.rand((tokens, e), generator=gen, device=dev).argsort(dim=1)[:, :6]
+        w = torch.rand((tokens, 6), generator=gen, device=dev)
+        loads = torch.bincount(idx.reshape(-1), minlength=e)
+
+        def loop():
+            y = torch.zeros(h.shape, dtype=torch.float32, device=dev)
+            for x in range(e):
+                rows, which = torch.nonzero(idx == x, as_tuple=True)
+                g_, u_ = (h[rows] @ gate_up[x]).chunk(2, dim=-1)
+                y.index_add_(0, rows, ((F.silu(g_) * u_) @ down[x]).float()
+                             * w[rows, which][:, None])
+            return y
+
+        experts = {"padded": lambda: kimi_vl.routed_experts(h, gate_up, down, idx, w,
+                                                             capacity=capacity),
+                   "loop": loop}
+        want = loop()
+        diff = float((experts["padded"]() - want).abs().max())
+        times = {name: [] for name in experts}
+        for name in ("padded", "loop", "loop", "padded"):
+            times[name].append(_cuda_ms(experts[name], reps=5))
+        record = _profile(f"kimi_experts_{phase}", experts["padded"], 3, out)
+        print(json.dumps({"card": smi, "probe": "kimi_experts", "phase": phase,
+                          "tokens": tokens, "load_max": int(loads.max()),
+                          "load_mean": float(loads.float().mean()), "ms": times,
+                          "max_abs_diff": diff, "want_abs_max": float(want.abs().max()),
+                          "padded_top_kernels": record["top_kernels"]}), flush=True)
+
+
 def _profile(name: str, fn, reps: int, out: Path) -> dict:
     for _ in range(3):
         fn()
@@ -790,6 +865,9 @@ def main(argv=None) -> int:
                         help="a CLIP ViT-B/32 training step on each route of B3's backward")
     probes.add_argument("--backward", action="store_true",
                         help="B3's backward past D 128: its wide form's two splits")
+    probes.add_argument("--kimi", action="store_true",
+                        help="Kimi-VL-A3B: the tower's attention route, the routed experts, "
+                             "a caption batch")
     parser.add_argument("--bwd-before", type=Path, default=None, metavar="DIR",
                         help="with --backward, also build and time attention_bwd.cu of the "
                              "checkout at DIR")
@@ -817,6 +895,9 @@ def main(argv=None) -> int:
         return 0
     if args.train:
         _train_probe(dev, smi, args.reps, args.out)
+        return 0
+    if args.kimi:
+        _kimi_probe(dev, smi, args.out)
         return 0
     if args.attention:
         _attention_variants(dev, smi)

@@ -22,14 +22,23 @@ Spans:
   stacked, and each slice padded to its bucket;
   ``impls.clip_predict.serialize``: its embeddings written as npy bytes;
 - ``vector_index.id_table``: ``VectorIndex.item_id_of_groups`` taking its
-  view of the host index's slot → item table (no copy is made).
+  view of the host index's slot → item table (no copy is made);
+- ``kimi_vl.vision``, ``kimi_vl.prefill``, ``kimi_vl.decode``:
+  ``models.kimi_vl.generate``'s stages (MoonViT and the projector; the
+  prompt through the language model; the decode steps, ending with the
+  tokens on the host). The first two end with a synchronize while the
+  profiler is on, so that each holds its own stage's device time.
 
 Counters:
 
 - ``vector_index.id_table_rows``: the entries of the table that the call
   reads, each call;
 - ``impls.clip_upload_bytes``: the bytes of each pixel batch that
-  ``ClipImpl`` copies to its device.
+  ``ClipImpl`` copies to its device;
+- ``kimi_vl.decode_steps``, ``kimi_vl.prefill_tokens``,
+  ``kimi_vl.cache_bytes``: a caption batch's decode steps, prompt tokens
+  and the bytes of the latent cache it runs through (kept across batches
+  of one shape).
 """
 
 from __future__ import annotations

@@ -937,3 +937,40 @@ def test_kernels_with_no_backward_refuse_grad(cuda_device):
     with torch.no_grad():
         assert vit_attention.mha_qkv(qkv, heads=1).shape == (2, 8, 64)
         assert ln_quant.ln_quant_2d(x, g, bta, 4.0).dtype == torch.int8
+
+
+def test_kimi_vl_on_the_card_is_the_reference(cuda_device):
+    # The tiny Kimi-VL on the card in bf16 (the decode steps replayed as a
+    # CUDA graph, kept for the second batch) against
+    # the plain f32 reference on the same weights, applying the card's own
+    # expert picks: the tolerances of tests/test_torch_kimi_vl.py's bf16 case.
+    import json
+    from pathlib import Path
+
+    from benchmark.kinds.caption_build import port_config
+    from benchmark.references import kimi_vl as ref
+    from panoptikon_tpu_torch.models import kimi_vl
+
+    # The test size's configuration file, as the reference reads it.
+    ref_cfg = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "tests" / "data"
+                          / "configs" / "tiny-kimi.json").read_text())
+    cfg = port_config(ref_cfg)
+    assert cfg is kimi_vl.CONFIGS["test-tiny"]
+    params = kimi_vl.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(5))
+    images = torch.randn((48, cfg.image_size, cfg.image_size, 3), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(6))
+    prefix, suffix = (3, 4), (5,)
+    decoders: dict = {}
+    kimi_vl.generate(params, cfg, images.flip(0), prefix, suffix, 7, (), decoders)
+    out = kimi_vl.generate(params, cfg, images, prefix, suffix, 7, tuple(range(48)), decoders)
+    assert len(decoders) == 1 and next(iter(decoders.values())).graph is not None
+    ids = kimi_vl.prompt_ids(cfg, 48, prefix, suffix, cuda_device)
+    full = torch.cat([ids, out["tokens"][:, :6].to(cuda_device)], dim=1)
+    _, want, own = ref.forward(params, ref_cfg, images, full, prompt_len=ids.shape[1],
+                               logits_from=ids.shape[1] - 1,
+                               routes=out["routes"].to(cuda_device))
+    want = want.cpu()
+    gap = (out["logits"].float() - want).abs().amax(-1) / want.std(-1)
+    assert float(gap.max()) < 0.15
+    apart = (out["routes"].sort(-1).values != own.cpu().sort(-1).values).any(-1)
+    assert float(apart.float().mean()) <= 0.1

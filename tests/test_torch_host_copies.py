@@ -487,9 +487,15 @@ def test_listed_divergences_differ_from_the_reference(rel):
         assert name in want and name in got and got[name] != want[name], name
 
 
+# The port's own inference ids, all in resources/config/inference/10_port.toml
+# (models the JAX package does not run).
+PORT_ONLY_IDS = {"vlm/kimi-vl-a3b"}
+
+
 def test_builtin_registry_is_the_reference_s():
     # The port's copy of the built-in TOML parses to the reference's, and
-    # both registries resolve every id alike.
+    # both registries resolve every reference id alike, with the same group
+    # metadata; the port's only other ids are those of its 10_port.toml.
     import tomllib
 
     from panoptikon_tpu.models.registry import Registry as RefRegistry
@@ -500,11 +506,22 @@ def test_builtin_registry_is_the_reference_s():
         tomllib.loads((REPO / "panoptikon_tpu" / rel).read_text())
     got, want = Registry(None), RefRegistry(None)
     assert got.builtin_dir == REPO / "panoptikon_tpu_torch/resources/config/inference"
-    assert got.all_ids() == want.all_ids() and got.metadata() == want.metadata()
+    assert sorted(p.name for p in got.builtin_dir.glob("*.toml")) == ["00_builtin.toml",
+                                                                       "10_port.toml"]
+    port = tomllib.loads((got.builtin_dir / "10_port.toml").read_text())
+    port_ids = {f"{g}/{i}" for g, doc in port["group"].items() for i in doc["inference_ids"]}
+    assert port_ids == PORT_ONLY_IDS
+    assert [i for i in got.all_ids() if i not in PORT_ONLY_IDS] == want.all_ids()
+    meta, want_meta = got.metadata(), want.metadata()
+    assert list(meta) == list(want_meta)
+    for group, entry in meta.items():
+        assert entry["group_metadata"] == want_meta[group]["group_metadata"]
+        ids = {k: v for k, v in entry["inference_ids"].items()
+               if f"{group}/{k}" not in PORT_ONLY_IDS}
+        assert ids == want_meta[group]["inference_ids"]
     for full in want.all_ids():
         group, _, name = full.partition("/")
         assert got.resolve(group, name).config == want.resolve(group, name).config
-
 
 
 @pytest.mark.parametrize("rel", ["api/ui.html", "resources/config/server/default.toml"])

@@ -351,8 +351,12 @@ def test_manager_loads_the_image_tag_entries(model_id, monkeypatch):
 
 def test_impl_index_is_the_reference_s_but_ocr():
     # Every impl_class of the JAX package's index has its port, OCR's
-    # included now, under the same name.
-    assert set(impls.IMPL_INDEX) == set(ref.IMPL_INDEX)
+    # included now, under the same name; the port's only other impl_class is
+    # its own Kimi-VL captioner.
+    assert set(impls.IMPL_INDEX) == set(ref.IMPL_INDEX) | {"kimi_vl"}
     assert impls.IMPL_INDEX["ocr"] is impls.OcrImpl
+    assert impls.IMPL_INDEX["kimi_vl"] is impls.KimiVlImpl
     for name, cls in impls.IMPL_INDEX.items():
-        assert cls.__name__ == ref.IMPL_INDEX[name].__name__ and cls.__module__ == impls.__name__
+        assert cls.__module__ == impls.__name__
+        if name in ref.IMPL_INDEX:
+            assert cls.__name__ == ref.IMPL_INDEX[name].__name__

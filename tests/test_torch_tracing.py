@@ -3,6 +3,8 @@ CPU: nothing recorded without a profiler, the id map's and
 ``ClipImpl.predict``'s spans and counters under one, each span's seconds
 held to its profiler ranges, and the same answers with tracing on and off."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -97,9 +99,17 @@ def _profiled(run, arg):
             pass
     run(arg)
     tracing.reset()
-    with _on() as prof:
-        for _ in range(3):
-            run(arg)
+    # A garbage collection inside a range but outside its span (a pass of
+    # some 300 µs, whose timing moves with whatever the process imported)
+    # is neither's work: none runs while the three calls are measured.
+    gc.collect()
+    gc.disable()
+    try:
+        with _on() as prof:
+            for _ in range(3):
+                run(arg)
+    finally:
+        gc.enable()
     ours = tracing.totals()
     theirs = {name: [e.time_range.end - e.time_range.start
                      for e in prof.events() if e.name == name] for name in ours}
