@@ -9,7 +9,7 @@ Phases, one JSON line each:
 
 1. env      the card (nvidia-smi name and power limit), torch, CUDA, nvcc,
             Triton, SQLite and whether it has FTS5;
-2. build    the four kernel sources of panoptikon_tpu_torch/csrc/, one nvcc
+2. build    the five kernel sources of panoptikon_tpu_torch/csrc/, one nvcc
             each, and the native host codec (csrc/host_codec.cpp, g++), all
             started together (ptxas registers and spills); the host codec
             must build and load; the
@@ -41,7 +41,13 @@ Phases, one JSON line each:
             row-major; F.scaled_dot_product_attention timed beside the bf16
             attention kernels (the library yardstick, never called by the
             port), and torch._int_mm of B1's shapes (the GEMM alone, its
-            yardstick); each case's bound on the card (bytes or operations);
+            yardstick); the int8 GEMMs' fused epilogue at the four of a
+            ViT-L/14 block at 256 images and of its text tower at 64 texts
+            (bf16 out, plus the residual, GELU and int8 out): bit-equal to
+            its plain form but for GELU's int8 codes (at most one apart in
+            under 1e-4 of them), its device time alone (a CUDA graph) and
+            the wrapper's host time a call; each case's bound on the card
+            (bytes or operations);
 4. main     the ViT-B/32 search slice with seeded random bf16 weights: embed
             4,096 images, index them with seeded unit vectors to
             1,048,576 × 512 in a host VectorIndex, build the int8 arm through
@@ -78,7 +84,8 @@ Phases, one JSON line each:
             searched by the text embeddings through the int8 scan at D = 768
             (kernel path equal to the plain path, tie-aware) and by L2
             (recall@10 ≥ 0.99 against the exact L2 top-10); the launch
-            counters of its four kernels are above zero, and every
+            counters of its five kernels are above zero, each predict()
+            call launched the fused epilogue four times a block, and every
             attention launch took the tensor-core route;
 8. composed the composed two-space RRF of bench.py:214-261 (run after phase
             6): 256 seeded unit queries in each of 500,000 × 512 and
@@ -432,6 +439,20 @@ QKV_CASES = {
 LN_CASES = {"vit_l14_image": (256 * 257, 1024), "vit_l14_text": (64 * 77, 768),
             "ragged": (1000, 1280)}
 INT_MM_SHAPE = (256 * 257, 1024, 3 * 1024)  # the ViT-L/14 qkv GEMM
+EPILOGUE_CASES = {
+    # name: (rows, k, n, mode): the four int8 GEMM epilogues of a ViT-L/14
+    # block at 256 images, then those of its text tower at 64 texts of 77
+    # tokens (ops/int8_epilogue.py)
+    "l14_qkv": (256 * 257, 1024, 3072, "bf16"),
+    "l14_out": (256 * 257, 1024, 1024, "residual"),
+    "l14_fc": (256 * 257, 1024, 4096, "gelu_quant"),
+    "l14_proj": (256 * 257, 4096, 1024, "residual"),
+    "text_qkv": (64 * 77, 768, 2304, "bf16"),
+    "text_out": (64 * 77, 768, 768, "residual"),
+    "text_fc": (64 * 77, 768, 3072, "gelu_quant"),
+    "text_proj": (64 * 77, 3072, 768, "residual"),
+}
+EPILOGUE_GRAPH_LAUNCHES, EPILOGUE_HOST_CALLS = 10, 200
 N_SCAN, Q_SCAN, PLANTED = 65_536, 64, (777, 20_000, 60_000)
 Q_SCAN_V2, N_RAGGED = 1024, 10_000  # B2's kernel checks: Q > 512; N not a multiple of 2,048
 N_BATCH, PLAIN_CHUNK = 4096, 256  # the batched search; the plain version's query chunk
@@ -652,6 +673,93 @@ def unit_rows(torch, n: int, dim: int, gen, dev):
     return torch.cat(parts)
 
 
+def epilogue_inputs(torch, rows: int, k: int, n: int, mode: str, dev, seed: int) -> tuple:
+    """Operands of one int8 GEMM epilogue: int32 sums the size of a K-deep
+    GEMM's of int8 codes, weight scales that bring them to about N(0, 1.5),
+    a bias, all f32 as ``clip.quantize_block_weights`` stores them; the
+    residual or the step of GELU's quantize as ``mode`` asks. Returns
+    ``(acc, step, sw, b, extra)``."""
+    from panoptikon_tpu_torch.ops.codec import static_step
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spread = 1600.0 * k**0.5  # codes of std 40 on both sides, K deep
+    acc = (torch.randn((rows, n), generator=gen, device=dev) * spread).round().to(torch.int32)
+    step = static_step(torch.tensor(3.0, device=dev), dev)
+    sw = (torch.rand((1, n), generator=gen, device=dev) + 0.5) * 1.5 / (spread * step)
+    b = torch.randn(n, generator=gen, device=dev) * 0.3
+    extra = {"bf16": {},
+             "residual": {"residual": torch.randn((rows, n), generator=gen, device=dev)
+                          .to(torch.bfloat16)},
+             "gelu_quant": {"out_step": static_step(torch.tensor(4.0, device=dev), dev)}}[mode]
+    return acc, step, sw, b, extra
+
+
+def epilogue_codes_apart(torch, got, want) -> tuple[int, float]:
+    """The largest difference of two int8 outputs' codes and the share of
+    codes that differ."""
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    return int(diff.max().item()), float((diff != 0).float().mean().item())
+
+
+def epilogue_kernels(torch, dev, smi) -> dict:
+    """Phase 3's int8 GEMM epilogue at EPILOGUE_CASES: the kernel against
+    its plain form (the bf16 modes, and the GELU mode's pre-GELU value, bit
+    for bit; GELU's int8 codes at most one apart in under 1e-4 of the
+    entries), timed kernel/plain/plain/kernel with CUDA events beside the
+    bound (bytes read and written at 3.35 TB/s); the kernel's device time
+    alone (a CUDA graph of EPILOGUE_GRAPH_LAUNCHES launches, replayed) and
+    the wrapper's host time a call (EPILOGUE_HOST_CALLS calls back to back,
+    on the host's clock, the device left to drain after)."""
+    from panoptikon_tpu_torch.ops import int8_epilogue as ep
+
+    out = {}
+    for name, (rows, k, n, mode) in EPILOGUE_CASES.items():
+        acc, step, sw, b, extra = epilogue_inputs(torch, rows, k, n, mode, dev, SEED + rows + n)
+
+        def kernel():
+            return ep.int8_epilogue(acc, step, sw, b, **extra)
+
+        def plain():
+            return ep.int8_epilogue_plain(acc, step, sw, b, **extra)
+
+        launched = ep.int8_epilogue.launches
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        require(ep.int8_epilogue.launches == launched + 1 and got.dtype == want.dtype
+                and got.shape == want.shape, f"int8_epilogue {name}: launch, dtype or shape")
+        rec = {"shape": [rows, n], "k": k, "mode": mode}
+        if mode == "gelu_quant":
+            worst, share = epilogue_codes_apart(torch, got, want)
+            require(worst <= 1 and share < 1e-4,
+                    f"int8_epilogue {name}: max code diff {worst}, {share:.2e} differ")
+            pre_gelu = torch.equal(ep.int8_epilogue(acc, step, sw, b),
+                                   ep.int8_epilogue_plain(acc, step, sw, b))
+            require(pre_gelu, f"int8_epilogue {name}: the pre-GELU value differs from plain")
+            rec.update(max_abs_err=worst, codes_differing_share=share)
+        else:
+            require(torch.equal(got, want), f"int8_epilogue {name}: not bit-equal to plain")
+            rec.update(max_abs_err=0, bit_equal=True)
+        rec["ms"], rec["plain_ms"] = paired_ms(torch, kernel, plain, reps=10)
+        rec.update(roofline(0, "f32", nbytes(acc, sw, b, got, *extra.values())))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(EPILOGUE_GRAPH_LAUNCHES):
+                kernel()
+        rec["graph_ms"] = cuda_ms(torch, graph.replay, reps=5, warmup=1) / EPILOGUE_GRAPH_LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EPILOGUE_HOST_CALLS):
+            kernel()
+        rec["host_us_per_call"] = 1e6 * (time.perf_counter() - t0) / EPILOGUE_HOST_CALLS
+        torch.cuda.synchronize()
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        out[name] = rec
+        del acc, got, want, extra, graph
+        torch.cuda.empty_cache()
+    out["card"] = smi
+    return out
+
+
 def attention_roofline(q, k, v, out, causal=False, mask=None) -> dict:
     """QKᵀ and PV: 4·B·H·N_q·N_kv·D operations (half the keys when causal)."""
     b, nq, h, d = q.shape
@@ -745,7 +853,7 @@ def int8_embed_path(torch, dev, smi, counters) -> dict:
     from panoptikon_tpu_torch.index.device_index import DeviceIndex
     from panoptikon_tpu_torch.models import clip
     from panoptikon_tpu_torch.models.impls import ClipImpl, PredictionInput, npy
-    from panoptikon_tpu_torch.ops import codec, exact, int8_scan, scoring
+    from panoptikon_tpu_torch.ops import codec, exact, int8_epilogue, int8_scan, scoring
 
     t0 = time.perf_counter()
     impl = ClipImpl(model_arch="ViT-L-14", precision="int8", batch_cap=L14_BATCH, device=dev)
@@ -756,23 +864,33 @@ def int8_embed_path(torch, dev, smi, counters) -> dict:
     size = cfg.image_size
 
     # 1-3. Five predict() calls of 256 pre-decoded images; the first calibrates.
+    # Each call's tower runs each block's four int8 GEMMs through the fused
+    # epilogue: 4 launches a block (the calibration pass runs none).
     rng = np.random.default_rng(SEED + 10)
     img_emb, batch_s, head_pixels = [], [], []
+    epilogues = {"image": [], "text": []}
     for _ in range(L14_CALLS):
         pixels = rng.standard_normal((L14_BATCH, size, size, 3), dtype=np.float32)
         inputs = [PredictionInput(data={"pixels": p}) for p in pixels]
+        launched = int8_epilogue.int8_epilogue.launches
         t0 = time.perf_counter()
         out = impl.predict(inputs)
         batch_s.append(time.perf_counter() - t0)
+        epilogues["image"].append(int8_epilogue.int8_epilogue.launches - launched)
         img_emb.append(np.stack([npy.parse_npy(o) for o in out]))
         head_pixels.append(pixels[:N_TEXT])
     img_emb = np.concatenate(img_emb)
     texts = [" ".join(rng.choice(WORDS, size=rng.integers(2, 12))) for _ in range(N_TEXT)]
     text_inputs = [PredictionInput(data={"text": t}) for t in texts]
+    launched = int8_epilogue.int8_epilogue.launches
     t0 = time.perf_counter()
     out = impl.predict(text_inputs)
     first_text_s = time.perf_counter() - t0
+    epilogues["text"].append(int8_epilogue.int8_epilogue.launches - launched)
     txt_emb = np.stack([npy.parse_npy(o) for o in out])
+    require(epilogues == {"image": [4 * cfg.vision_layers] * L14_CALLS,
+                          "text": [4 * cfg.text_layers]},
+            f"int8 embed: fused epilogue launches a predict() call {epilogues}")
 
     # 4. Finite, unit-norm embeddings of the right shape.
     n_img = L14_CALLS * L14_BATCH
@@ -874,7 +992,7 @@ def int8_embed_path(torch, dev, smi, counters) -> dict:
         "min_cos_int8_vs_bf16_images_calibration_batch": cos["calibration_batch"],
         "min_cos_int8_vs_bf16_texts": float(cos_t.min()),
         "text_top10_equals_plain": text_agree, "int8_topk_max_abs_err": scan_err,
-        "l2_recall_at_10": recall_l2, "load_s": load_s, "index_build_and_upload_s": index_s,
+        "int8_epilogue_launches_a_call": epilogues, "l2_recall_at_10": recall_l2, "load_s": load_s, "index_build_and_upload_s": index_s,
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
 
@@ -4011,10 +4129,10 @@ out = sys.argv[1]
 
 
 def dump():
-    from panoptikon_tpu_torch.ops import int8_scan, ln_quant, vit_attention
+    from panoptikon_tpu_torch.ops import int8_epilogue, int8_scan, ln_quant, vit_attention
 
     fns = (int8_scan.int8_topk, int8_scan.int8_topk_v2, vit_attention.mha,
-           vit_attention.mha_qkv, ln_quant.ln_quant_2d)
+           vit_attention.mha_qkv, ln_quant.ln_quant_2d, int8_epilogue.int8_epilogue)
     with open(out, "w") as f:
         json.dump({"launches": {fn.__name__: fn.launches for fn in fns},
                    "routes": {fn.__name__: dict(fn.routes) for fn in fns
@@ -5939,7 +6057,8 @@ def main() -> int:
     from panoptikon_tpu_torch.index import VectorIndex
     from panoptikon_tpu_torch.index.device_index import DeviceIndex
     from panoptikon_tpu_torch.models import clip
-    from panoptikon_tpu_torch.ops import codec, exact, int8_scan, ln_quant, scoring, vit_attention
+    from panoptikon_tpu_torch.ops import (codec, exact, int8_epilogue, int8_scan, ln_quant, scoring,
+                                          vit_attention)
 
     dev = device("cuda")
 
@@ -5983,7 +6102,8 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=5) as pool:
         host = pool.submit(build_host_codec)
-        build = dict(pool.map(build_one, ("int8_scan", "attention", "attention_bwd", "ln_quant")))
+        build = dict(pool.map(build_one, ("int8_scan", "attention", "attention_bwd", "ln_quant",
+                                          "int8_epilogue")))
         build.update([host.result()])
     build_s = time.perf_counter() - t0
     # The native host codec is required here: the index builds of phases 4
@@ -6115,6 +6235,8 @@ def main() -> int:
     torch.cuda.synchronize()
     require(torch.equal(int_mm, exact_mm), "torch._int_mm differs from the exact GEMM")
     del int_mm, exact_mm
+    # The fused epilogue after each int8 GEMM of the static-int8 block.
+    epilogue = epilogue_kernels(torch, dev, smi)
 
     n_scan, q_scan, k_scan = N_SCAN, Q_SCAN, OVERSAMPLE * K
     x = torch.randn((n_scan, DIM), generator=gen, device=dev)
@@ -6290,6 +6412,7 @@ def main() -> int:
           "mha_qkv_plain_ms": {n: t[1] for n, t in qkv_ms.items()},
           "ln_quant_ms": {n: t[0] for n, t in ln_ms.items()},
           "ln_quant_plain_ms": {n: t[1] for n, t in ln_ms.items()},
+          "int8_epilogue": epilogue,
           "int_mm_shape": INT_MM_SHAPE, "int_mm_ms": int_mm_ms, "exact_f64_gemm_ms": exact_mm_ms,
           "torch_int_mm_b_column_major_ms": int_mm_ms_b_col,
           "torch_int_mm_b_row_major_ms": int_mm_ms_b_row,
@@ -6313,7 +6436,7 @@ def main() -> int:
     cfg = clip.CONFIGS["ViT-B-32"]
     params = clip.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dtype=torch.bfloat16)
     counters = (int8_scan.int8_topk, int8_scan.int8_topk_v2, vit_attention.mha,
-                vit_attention.mha_qkv, ln_quant.ln_quant_2d)
+                vit_attention.mha_qkv, ln_quant.ln_quant_2d, int8_epilogue.int8_epilogue)
     reset_counts(counters)
 
     img_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -6496,11 +6619,13 @@ def main() -> int:
     l14 = int8_embed_path(torch, dev, smi, counters)
     l14_launches = {fn.__name__: fn.launches for fn in counters}
     l14_routes = read_routes(counters)
-    require(all(l14_launches[name] > 0 for name in ("int8_topk", "mha", "mha_qkv", "ln_quant_2d")),
+    require(all(l14_launches[name] > 0
+                for name in ("int8_topk", "mha", "mha_qkv", "ln_quant_2d", "int8_epilogue")),
             f"int8 path kernel launches {l14_launches}")
     require_tensor_cores(l14_launches, l14_routes, ("mha", "mha_qkv"), "int8 embed")
     emit({"phase": "int8", "launches": l14_launches, "attention_routes": l14_routes, **l14})
     l14_scan_err = l14["int8_topk_max_abs_err"]
+    l14_epilogue_calls = l14["int8_epilogue_launches_a_call"]
 
     del l14
     torch.cuda.empty_cache()
@@ -6595,7 +6720,7 @@ def main() -> int:
     tag_run, tag_pair = tag_path(torch, dev, smi, counters)
     tag_launches = {fn.__name__: fn.launches for fn in counters}
     tag_routes = read_routes(counters)
-    require(all(tag_launches[name] > 0 for name in ("mha", "mha_qkv", "ln_quant_2d")),
+    require(all(tag_launches[name] > 0 for name in ("mha", "mha_qkv", "ln_quant_2d", "int8_epilogue")),
             f"tag path kernel launches {tag_launches}")
     require_tensor_cores(tag_launches, tag_routes, ("mha", "mha_qkv"), "tag path")
     torch.cuda.empty_cache()
@@ -6841,6 +6966,17 @@ def main() -> int:
          "ms": ln_ms["vit_l14_image"][0],
          "plain_ms": ln_ms["vit_l14_image"][1], **bounds["ln_vit_l14_image"], "library_ms": None,
          "tag_launches": tag_launches["ln_quant_2d"], "tag_shape": tag_k["ln_quant"]},
+        {"name": "int8_epilogue", "route": "cuda",
+         "source": "panoptikon_tpu_torch/csrc/int8_epilogue.cu",
+         "replaces": "none: XLA fuses this chain into the GEMM's consumer on the TPU",
+         "launches": total["int8_epilogue"],
+         "max_abs_err": max(r["max_abs_err"] for name, r in epilogue.items() if name != "card"),
+         "ms": epilogue["l14_fc"]["ms"], "plain_ms": epilogue["l14_fc"]["plain_ms"],
+         "bound_ms": epilogue["l14_fc"]["bound_ms"], "bound_by": epilogue["l14_fc"]["bound_by"],
+         "library_ms": None, "l14_launches": l14_launches["int8_epilogue"],
+         "l14_launches_a_call": l14_epilogue_calls,
+         "tag_launches": tag_launches["int8_epilogue"],
+         "shapes": {name: r for name, r in epilogue.items() if name != "card"}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,9 @@ int32 GEMMs through ``torch._int_mm``, per-output-channel weight scales):
   absmax from :func:`calibrate_image_scales` / :func:`calibrate_text_scales`)
   and weights quantized once (:func:`quantize_block_weights`), each block is
   :func:`_block_int8_static`, the serving embed: LayerNorm fused with the
-  int8 quantize (``ops.ln_quant``, kernel B5), prequantized GEMMs, and
-  attention over the unsplit qkv with int8 out (``ops.vit_attention.mha_qkv``,
+  int8 quantize (``ops.ln_quant``, kernel B5), prequantized GEMMs each
+  followed by one fused epilogue (``ops.int8_epilogue``), and attention
+  over the unsplit qkv with int8 out (``ops.vit_attention.mha_qkv``,
   kernel B4);
 - without scales, each linear quantizes its activations per token.
 
@@ -42,7 +43,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from panoptikon_tpu_torch.ops import ln_quant, vit_attention
+from panoptikon_tpu_torch import tracing
+from panoptikon_tpu_torch.ops import int8_epilogue, ln_quant, vit_attention
 from panoptikon_tpu_torch.ops.codec import quantize_static, static_step
 from panoptikon_tpu_torch.ops.exact import int_mm as _int_mm
 from panoptikon_tpu_torch.parallel.mesh import MODEL_AXIS, Split
@@ -235,11 +237,17 @@ def _linear(x, w, b, precision: str = "bf16", act_scale=None, collector=None):
     return y.to(x.dtype)
 
 
+def _f32(b):
+    return None if b is None else b.to(torch.float32).contiguous()
+
+
 def quantize_block_weights(params: Params) -> Params:
     """Quantize every block linear (qkv/out/fc/proj) once to int8 codes and
     f32 per-output-channel scales, ``{"q", "s"}``, matching the int8 path's
-    on-the-fly quantization bit for bit. Other leaves are shared, not
-    copied."""
+    on-the-fly quantization bit for bit, and hold its bias as contiguous f32
+    (the same values: the int8 epilogue adds it in f32, and a bf16 matmul
+    rounds it back exactly), which the fused epilogue reads as it is. Other
+    leaves are shared, not copied."""
     out = dict(params)
     for tower in ("visual", "text"):
         if tower not in params:
@@ -252,9 +260,11 @@ def quantize_block_weights(params: Params) -> Params:
                 "ln_1": blk["ln_1"],
                 "ln_2": blk["ln_2"],
                 "attn": dict(attn, qkv_w=_quantize_weight(attn["qkv_w"]),
-                             out_w=_quantize_weight(attn["out_w"])),
+                             out_w=_quantize_weight(attn["out_w"]),
+                             qkv_b=_f32(attn["qkv_b"]), out_b=_f32(attn["out_b"])),
                 "mlp": dict(mlp, fc_w=_quantize_weight(mlp["fc_w"]),
-                            proj_w=_quantize_weight(mlp["proj_w"])),
+                            proj_w=_quantize_weight(mlp["proj_w"]),
+                            fc_b=_f32(mlp["fc_b"]), proj_b=_f32(mlp["proj_b"])),
             })
         tw["blocks"] = blocks
         out[tower] = tw
@@ -279,36 +289,45 @@ def _attention(x, p, heads: int, causal: bool, precision: str = "bf16", scales=N
                    scales[1] if scales is not None else None, collector)
 
 
-def _linear_prequant(xq, act_scale, w, b):
+def _linear_prequant(xq, act_scale, w, b, residual=None, out_scale=None):
     """int8 GEMM of an already quantized activation (the output of
-    ``ln_quant`` or ``mha_qkv``): ``(xq·wq)·sx·sw + b`` in f32, bf16 out.
-    ``w`` is a prequantized ``{"q", "s"}`` weight."""
-    y = _int8_matmul(xq, w["q"]).to(torch.float32) * static_step(act_scale, xq.device) * w["s"]
-    if b is not None:
-        y = y + b.to(torch.float32)
-    return y.to(torch.bfloat16)
+    ``ln_quant``, ``mha_qkv`` or the fc epilogue), then its fused epilogue
+    (``ops.int8_epilogue``, one kernel on the card): ``(xq·wq)·sx·sw + b``
+    in f32, bf16 out; with ``residual`` that plus the residual, in bf16;
+    with ``out_scale`` the tanh GELU of it, quantized at that calibrated
+    absmax as the next GEMM's int8 input. ``w`` is a prequantized
+    ``{"q", "s"}`` weight. Counts the GEMM's output values as
+    ``clip.int8_epilogue_values``."""
+    acc = _int_mm(xq.reshape(-1, xq.shape[-1]), w["q"])
+    tracing.count("clip.int8_epilogue_values", acc.numel())
+    y = int8_epilogue.int8_epilogue(
+        acc, static_step(act_scale, xq.device), w["s"], b,
+        residual=None if residual is None else residual.reshape(acc.shape),
+        out_step=None if out_scale is None else static_step(out_scale, xq.device))
+    return y.reshape(*xq.shape[:-1], y.shape[-1])
 
 
 def _block_int8_static(x, p, heads: int, causal: bool, scales):
     """The serving embed block: fused LN→quantize (kernel B5) feeding
-    prequantized int8 GEMMs, and attention read from the unsplit qkv with
-    int8 out (kernel B4). Same math as the generic path modulo quantizing
-    from the f32 LN output instead of its bf16 round trip.
+    prequantized int8 GEMMs, attention read from the unsplit qkv with int8
+    out (kernel B4), and each GEMM's epilogue one pass (``_linear_prequant``):
+    the residual adds ride on out's and proj's, and fc's gives proj its int8
+    input. Same math as the generic path modulo quantizing from the f32 LN
+    output instead of its bf16 round trip.
 
     The JAX block also has a split route (``mha``, then a static-int8
     linear) for shapes whose q/k/v blocks overflow the TPU's VMEM. The CUDA
     kernel streams keys through shared memory, so only its head-dim limit
     (``vit_attention.qkv_fused_fits``) applies, and ``mha`` shares that
     limit: the route has no counterpart here."""
+    attn, mlp = p["attn"], p["mlp"]
     aq = ln_quant.ln_quant(x, p["ln_1"], scales[0])
-    qkv = _linear_prequant(aq, scales[0], p["attn"]["qkv_w"], p["attn"]["qkv_b"])
+    qkv = _linear_prequant(aq, scales[0], attn["qkv_w"], attn["qkv_b"])
     att_q = vit_attention.mha_qkv(qkv, heads=heads, causal=causal, out_scale=scales[1])
-    x = x + _linear_prequant(att_q, scales[1], p["attn"]["out_w"], p["attn"]["out_b"])
+    x = _linear_prequant(att_q, scales[1], attn["out_w"], attn["out_b"], residual=x)
     hq = ln_quant.ln_quant(x, p["ln_2"], scales[2])
-    h = _linear_prequant(hq, scales[2], p["mlp"]["fc_w"], p["mlp"]["fc_b"])
-    h = F.gelu(h, approximate="tanh")
-    h = _linear(h, p["mlp"]["proj_w"], p["mlp"]["proj_b"], "int8", scales[3])
-    return x + h
+    hq = _linear_prequant(hq, scales[2], mlp["fc_w"], mlp["fc_b"], out_scale=scales[3])
+    return _linear_prequant(hq, scales[3], mlp["proj_w"], mlp["proj_b"], residual=x)
 
 
 def _block(x, p, heads: int, causal: bool, precision: str = "bf16", scales=None,

@@ -35,6 +35,8 @@ Counters:
   reads, each call;
 - ``impls.clip_upload_bytes``: the bytes of each pixel batch that
   ``ClipImpl`` copies to its device;
+- ``clip.int8_epilogue_values``: the values of each int8 GEMM output that
+  the static-int8 block's fused epilogue consumes (m·n a GEMM);
 - ``kimi_vl.decode_steps``, ``kimi_vl.prefill_tokens``,
   ``kimi_vl.cache_bytes``: a caption batch's decode steps, prompt tokens
   and the bytes of the latent cache it runs through (kept across batches

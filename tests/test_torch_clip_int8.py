@@ -22,7 +22,7 @@ from panoptikon_tpu.models import clip as ref
 from panoptikon_tpu.ops import ln_quant as ref_lnq
 from panoptikon_tpu.ops import vit_attention as ref_attn
 from panoptikon_tpu_torch.models import clip, convert
-from panoptikon_tpu_torch.ops import ln_quant, vit_attention
+from panoptikon_tpu_torch.ops import int8_epilogue, ln_quant, vit_attention
 
 from test_torch_clip import _cos, tokens
 
@@ -185,13 +185,14 @@ def test_static_embed_matches_jax_fused_route(tiny, monkeypatch):
 
 
 def test_static_path_runs_the_fused_block_and_kernels(tiny, monkeypatch):
-    calls = {"block": 0, "mha_qkv": 0, "ln_quant_2d": 0, "mha": 0}
+    calls = {"block": 0, "mha_qkv": 0, "ln_quant_2d": 0, "mha": 0, "epilogue": 0,
+             "int8_linear": 0}
 
-    def spy(module, name, key):
+    def spy(module, name, key, counts=lambda *a, **k: True):
         orig = getattr(module, name)
 
         def wrapped(*args, **kwargs):
-            calls[key] += 1
+            calls[key] += counts(*args, **kwargs)
             return orig(*args, **kwargs)
 
         monkeypatch.setattr(module, name, wrapped)
@@ -200,10 +201,15 @@ def test_static_path_runs_the_fused_block_and_kernels(tiny, monkeypatch):
     spy(vit_attention, "mha_qkv", "mha_qkv")
     spy(vit_attention, "mha", "mha")
     spy(ln_quant, "ln_quant_2d", "ln_quant_2d")
+    spy(int8_epilogue, "int8_epilogue", "epilogue")
+    # _linear's int8 branch: the generic block's, which the static block no longer takes.
+    spy(clip, "_linear", "int8_linear",
+        lambda *a, **k: (a[3] if len(a) > 3 else k.get("precision", "bf16")) == "int8")
     clip.embed_images_scaled(tiny["tq"], INT8, torch.from_numpy(tiny["images"][:2]), tiny["ts"])
     clip.embed_texts_scaled(tiny["tq"], INT8, torch.from_numpy(tiny["ids"][:2]), tiny["tt"])
     layers = CFG.vision_layers + CFG.text_layers
-    assert calls == {"block": layers, "mha_qkv": layers, "ln_quant_2d": 2 * layers, "mha": 0}
+    assert calls == {"block": layers, "mha_qkv": layers, "ln_quant_2d": 2 * layers, "mha": 0,
+                     "epilogue": 4 * layers, "int8_linear": 0}
     # Calibration is the bf16 pass: the split route through mha.
     clip.calibrate_image_scales(tiny["tq"], INT8, torch.from_numpy(tiny["images"][:2]))
     assert calls["mha"] == CFG.vision_layers and calls["mha_qkv"] == layers

@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import EPILOGUE_CASES, epilogue_inputs
 from panoptikon_tpu_torch.ops import codec as host_codec
-from panoptikon_tpu_torch.ops import int8_scan, ln_quant, scoring, vit_attention
+from panoptikon_tpu_torch.ops import int8_epilogue, int8_scan, ln_quant, scoring, vit_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -244,7 +245,8 @@ def test_tagger_trunk_on_the_card_equals_the_cpu(cuda_device, precision):
     # 1e-2 (bf16) and 3e-2 (int8), the tolerances of test_torch_tagger.py:
     # the raw features are unnormalized, so the head turns the two trunks'
     # cosine of 0.99993 (bf16), 0.9995 (int8) into 8e-3 and 2.3e-2; every
-    # attention launch on the tensor cores, B4 and B5 under int8.
+    # attention launch on the tensor cores, B4, B5 and the four GEMM
+    # epilogues of each layer under int8.
     from panoptikon_tpu_torch.models import impls
 
     card = impls.TaggerImpl("ViT-B-32", precision=precision)
@@ -254,10 +256,10 @@ def test_tagger_trunk_on_the_card_equals_the_cpu(cuda_device, precision):
                                            (card.params, card.head, card.head_bias))
     pixels = np.random.default_rng(5).normal(size=(6, 224, 224, 3)).astype(np.float32)
     counts = (vit_attention.mha.routes["tensor_core"], vit_attention.mha_qkv.routes["tensor_core"],
-              ln_quant.ln_quant_2d.launches)
+              ln_quant.ln_quant_2d.launches, int8_epilogue.int8_epilogue.launches)
     got = card.raw_features(pixels).cpu().numpy()
     launched = (vit_attention.mha.routes["tensor_core"], vit_attention.mha_qkv.routes["tensor_core"],
-                ln_quant.ln_quant_2d.launches)
+                ln_quant.ln_quant_2d.launches, int8_epilogue.int8_epilogue.launches)
     want = cpu.raw_features(pixels).numpy()
     cos = np.sum(got * want, -1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
     assert cos.min() >= 0.999
@@ -265,9 +267,9 @@ def test_tagger_trunk_on_the_card_equals_the_cpu(cuda_device, precision):
     assert np.abs(card.probabilities(pixels) - cpu.probabilities(pixels)).max() <= atol
     grew = [b - a for a, b in zip(counts, launched)]
     if precision == "int8":  # calibration (bf16, 12 B3 launches), then the int8 trunk
-        assert grew == [12, 12, 24]
+        assert grew == [12, 12, 24, 48]
     else:
-        assert grew == [12, 0, 0]
+        assert grew == [12, 0, 0, 0]
 
 
 AUDIO_SHAPES = {
@@ -425,6 +427,57 @@ def test_ln_quant_kernel_matches_plain(cuda_device, r, w):
     torch.cuda.synchronize()
     assert ln_quant.ln_quant_2d.launches == before + 1
     assert got.dtype == torch.int8 and _codes_agree(got, want)
+
+
+def _epilogue_agrees(got, want, mode):
+    """The bf16 modes bit for bit; the int8 codes of GELU's mode at most one
+    apart, in under 1e-4 of the entries (its tanh may round an ulp apart
+    from PyTorch's, which moves a bf16 hidden value rarely)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if mode != "gelu_quant":
+        return torch.equal(got, want)
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    share = (diff != 0).float().mean().item()
+    assert diff.max().item() <= 1 and share < 1e-4, share
+    return True
+
+
+@pytest.mark.parametrize("shape", list(EPILOGUE_CASES))
+def test_int8_epilogue_kernel_matches_plain(cuda_device, shape):
+    # The four epilogues of a ViT-L/14 block at 256 images and of its text
+    # tower at 64 texts; GELU's mode also holds its pre-GELU value (the bf16
+    # mode's arithmetic in the kernel) bit for bit.
+    rows, k, n, mode = EPILOGUE_CASES[shape]
+    acc, step, sw, b, extra = epilogue_inputs(torch, rows, k, n, mode, cuda_device, seed=rows + n)
+    before = int8_epilogue.int8_epilogue.launches
+    got = int8_epilogue.int8_epilogue(acc, step, sw, b, **extra)
+    want = int8_epilogue.int8_epilogue_plain(acc, step, sw, b, **extra)
+    torch.cuda.synchronize()
+    assert int8_epilogue.int8_epilogue.launches == before + 1
+    assert _epilogue_agrees(got, want, mode)
+    if mode == "gelu_quant":
+        assert torch.equal(int8_epilogue.int8_epilogue(acc, step, sw, b),
+                           int8_epilogue.int8_epilogue_plain(acc, step, sw, b))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "residual", "gelu_quant"])
+def test_int8_epilogue_kernel_takes_a_padded_gemm_output(cuda_device, mode):
+    # N 36 is padded to 40 by int_mm and cut back, so acc has a row stride of
+    # 40; 77 rows are a ragged last row block; no bias.
+    from panoptikon_tpu_torch.models import clip
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    xq = torch.randint(-127, 128, (77, 64), generator=gen, device=cuda_device, dtype=torch.int8)
+    w = clip._quantize_weight(torch.randn((64, 36), generator=gen, device=cuda_device))
+    acc = clip._int_mm(xq, w["q"])
+    assert acc.stride(0) == 40
+    _, step, _, _, extra = epilogue_inputs(torch, 77, 64, 36, mode, cuda_device, seed=4)
+    got = int8_epilogue.int8_epilogue(acc, step, w["s"], None, **extra)
+    want = int8_epilogue.int8_epilogue_plain(acc, step, w["s"], None, **extra)
+    torch.cuda.synchronize()
+    assert _epilogue_agrees(got, want, mode)
+    with pytest.raises(ValueError, match="N % 4"):
+        int8_epilogue.int8_epilogue(acc[:, :34], step, w["s"][:, :34], None)
 
 
 def planted_betas(sx: float) -> np.ndarray:
