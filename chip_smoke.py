@@ -412,6 +412,8 @@ from pathlib import Path
 
 import numpy as np
 
+from benchmark.roofline import roofline, union_seconds, unit_rows
+
 SEED = 0
 N_IMAGES, IMAGE_BATCH = 4096, 256
 N_ROWS, DIM = 1_048_576, 512
@@ -577,8 +579,6 @@ SERVE_HEALTH_S, SERVE_JOBS_S, SERVE_STOP_S = 180.0, 600.0, 30.0
 # SERVE_CONC_TOTAL (16 coroutines, 160 requests) and SERVE_SEQ.
 PROXY_HEAD_BYTES, PROXY_UPLOAD_BYTES, PROXY_WS_BYTES = 65536, 64 << 20, 1 << 20
 PROXY_PINGS, PROXY_WS_ROUNDS, PROXY_HEAD_S = 100, 100, 5.0
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 LN_OPS_PER_ELEMENT = 9  # two moments (4), normalize (2), affine (2), quantize (1)
 WORDS = ("a photo of the red blue green small large dog cat car tree house beach night "
          "city street person two three on in at with near old new bright dark").split()
@@ -638,12 +638,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def roofline(ops: float, kind: str, moved: int) -> dict:
-    """The bound of one call: operations over the peak of their type, or
-    bytes over the memory rate, whichever is larger."""
-    t_ops, t_bytes = ops / PEAK_OPS_PER_S[kind], moved / HBM_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+def roofline_ms(ops: float, kind: str, moved: int) -> dict:
+    """The benchmark's :func:`roofline` of one call, its bound in ms."""
+    bound = roofline(ops, kind, moved)
+    return {"bound_ms": 1e3 * bound["bound_s"], "bound_by": bound["bound_by"]}
 
 
 def scan_roofline(args, k: int) -> dict:
@@ -651,7 +649,7 @@ def scan_roofline(args, k: int) -> dict:
     and query codes, writes (Q, k) f32 distances, int64 rows and bools."""
     codes, _, _, q_codes = args
     q, (n, d) = q_codes.shape[0], codes.shape
-    return roofline(2 * q * n * d, "int8", nbytes(*args) + q * k * (4 + 8 + 1))
+    return roofline_ms(2 * q * n * d, "int8", nbytes(*args) + q * k * (4 + 8 + 1))
 
 
 def gemm_only_ms(torch, args, reps: int = 5) -> float:
@@ -662,15 +660,6 @@ def gemm_only_ms(torch, args, reps: int = 5) -> float:
 
     codes, q_codes = args[0], args[3]
     return cuda_ms(torch, lambda: exact.int_mm(q_codes, codes.t()), reps=reps, warmup=1)
-
-
-def unit_rows(torch, n: int, dim: int, gen, dev):
-    """n seeded unit rows, made 131,072 at a time."""
-    parts = []
-    for lo in range(0, n, 131_072):
-        x = torch.randn((min(131_072, n - lo), dim), generator=gen, device=dev)
-        parts.append(x / torch.linalg.norm(x, dim=1, keepdim=True))
-    return torch.cat(parts)
 
 
 def epilogue_inputs(torch, rows: int, k: int, n: int, mode: str, dev, seed: int) -> tuple:
@@ -740,7 +729,7 @@ def epilogue_kernels(torch, dev, smi) -> dict:
             require(torch.equal(got, want), f"int8_epilogue {name}: not bit-equal to plain")
             rec.update(max_abs_err=0, bit_equal=True)
         rec["ms"], rec["plain_ms"] = paired_ms(torch, kernel, plain, reps=10)
-        rec.update(roofline(0, "f32", nbytes(acc, sw, b, got, *extra.values())))
+        rec.update(roofline_ms(0, "f32", nbytes(acc, sw, b, got, *extra.values())))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for _ in range(EPILOGUE_GRAPH_LAUNCHES):
@@ -764,7 +753,7 @@ def attention_roofline(q, k, v, out, causal=False, mask=None) -> dict:
     """QKᵀ and PV: 4·B·H·N_q·N_kv·D operations (half the keys when causal)."""
     b, nq, h, d = q.shape
     ops = 4 * b * h * nq * k.shape[1] * d * ((nq + 1) / (2 * nq) if causal else 1)
-    return roofline(ops, "bf16", nbytes(q, k, v, mask, out))
+    return roofline_ms(ops, "bf16", nbytes(q, k, v, mask, out))
 
 
 def sdpa(torch, q, k, v, causal=False, mask=None):
@@ -1088,10 +1077,10 @@ def composed_path(torch, dev, smi, counters) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     spaces = []
     for rows, dim in COMPOSED_SPACES:
-        x = unit_rows(torch, rows, dim, gen, dev)
+        x = unit_rows(rows, dim, gen, dev)
         scale = codec.scale_from_absmax(x.abs().max().item())
         codes = codec.quantize_int8(x, scale)
-        q = unit_rows(torch, COMPOSED_Q, dim, gen, dev)
+        q = unit_rows(COMPOSED_Q, dim, gen, dev)
         spaces.append({"x": x, "q": q, "scale": scale, "codes": codes,
                        "sumsq": scoring.row_sumsq_chunked(codes),
                        "valid": torch.ones(rows, dtype=torch.bool, device=dev),
@@ -1226,12 +1215,12 @@ def _or3_space(torch, dev, n, dim, seed, counters):
     from panoptikon_tpu_torch.ops import codec, exact, int8_scan, scoring
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    x = unit_rows(torch, n, dim, gen, dev)
+    x = unit_rows(n, dim, gen, dev)
     scale = codec.scale_from_absmax(x.abs().max().item())
     codes = torch.cat([codec.quantize_int8(x[lo:lo + 524_288], scale) for lo in range(0, n, 524_288)])
     sumsq = scoring.row_sumsq_chunked(codes)
     valid = torch.ones(n, dtype=torch.bool, device=dev)
-    q = unit_rows(torch, OR3_RECALL_Q, dim, gen, dev)
+    q = unit_rows(OR3_RECALL_Q, dim, gen, dev)
     qc = codec.quantize_int8(q, scale)
     _, want, _ = exact.topk_ascending(exact.pairwise_distance(x, q), valid, K)
     want = want.cpu().numpy()
@@ -1284,15 +1273,10 @@ def busy_share(torch, fn) -> tuple[float, float]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -np.inf
-    for lo, hi in spans:
-        if hi > end:
-            busy += hi - max(lo, end)
-            end = hi
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
     require(spans, "pql: the profiler saw no device activity")
-    return wall, busy / 1e6 / wall
+    return wall, union_seconds(spans) / 1e6 / wall
 
 
 def or3_path(torch, dev, smi, counters):
@@ -1457,7 +1441,7 @@ def rank_join_ms(torch, dev, ex) -> dict:
         surfs, ms = [], {}
         for space, n, dim, _ in OR3_SPACES:
             arrays = ex._device_cache[(space, 1, True)]
-            q = codec.quantize_int8(unit_rows(torch, b, dim, gen, dev), ex.index.snapshot(space).scale)
+            q = codec.quantize_int8(unit_rows(b, dim, gen, dev), ex.index.snapshot(space).scale)
 
             def surface():
                 return scoring.grouped_scores(
@@ -3618,8 +3602,8 @@ def tag_kernels(torch, dev, smi, counters) -> dict:
                                  lambda: ln_quant.ln_quant_plain(x, g, beta, s))
         out["ln_quant"] = {"shape": [rows, width], "max_abs_err": codes, "ms": ms,
                            "plain_ms": plain_ms,
-                           **roofline(LN_OPS_PER_ELEMENT * rows * width, "f32",
-                                      nbytes(x, g, beta, s) + rows * width),
+                           **roofline_ms(LN_OPS_PER_ELEMENT * rows * width, "f32",
+                                         nbytes(x, g, beta, s) + rows * width),
                            "library_ms": None}
     return out
 
@@ -5157,8 +5141,8 @@ def backward_roofline(q, k, v, dout, mask, grads, causal=False) -> dict:
     b, nq, h, d = q.shape
     frac = (nq + 1) / (2 * nq) if causal else 1
     ops = 10 * b * h * nq * k.shape[1] * d * frac
-    return roofline(ops, "bf16" if q.element_size() == 2 else "f32",
-                    nbytes(q, k, v, dout, mask, *grads))
+    return roofline_ms(ops, "bf16" if q.element_size() == 2 else "f32",
+                       nbytes(q, k, v, dout, mask, *grads))
 
 
 def backward_kernels(torch, dev, smi, counters) -> dict:
@@ -6392,8 +6376,8 @@ def main() -> int:
             library_ms[name] = cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal, mask), reps=5)
     for name, (x_ln, g, b_, s_t) in ln_inputs.items():
         r, w = x_ln.shape
-        bounds["ln_" + name] = roofline(LN_OPS_PER_ELEMENT * r * w, "f32",
-                                        nbytes(x_ln, g, b_, s_t) + r * w)
+        bounds["ln_" + name] = roofline_ms(LN_OPS_PER_ELEMENT * r * w, "f32",
+                                           nbytes(x_ln, g, b_, s_t) + r * w)
     bounds["int8_topk_cosine"] = scan_bound
     bounds["int8_topk_v2_cosine"] = v2_bound
     emit({"phase": "kernels", "card": smi, "mha_max_abs_err": attn_err,
@@ -6404,7 +6388,7 @@ def main() -> int:
           "int8_topk_v2_rsqrt_mismatches_all_normal_floats": rsqrt_mismatches,
           "mha_qkv_max_err": qkv_err, "ln_quant_max_code_diff": ln_err,
           "int8_topk_max_abs_err": scan_err, "int8_topk_l2_max_abs_err": scan_l2_err,
-          "attention_routes": attn_routes, "attention_tc_query_rows": vit_attention.TC_QUERY_ROWS,
+          "attention_routes": attn_routes,
           "mha_ms": {n: t[0] for n, t in attn_ms.items()},
           "mha_plain_ms": {n: t[1] for n, t in attn_ms.items()},
           "mha_text_layout_ms": text_layout_ms,

@@ -50,7 +50,7 @@
 // tensor-core work (0.07 ms at 989 TFLOP/s), yet takes about 1.2 ms. Not
 // the tensor cores: the f32 softmax on the CUDA cores (an expf, a division
 // and the mask and max a logit; __fdiv_rn in place of div_rn takes 1.82
-// ms, python3 -m panoptikon_tpu_torch.profiling --attention) and latency,
+// ms in an ablation, PERF.md §6) and latency,
 // since the logits form's 107 KB of shared memory a block leave 2 blocks
 // (8 warps) an SM and the two-pass form's 158 registers 3. wgmma tiles, a
 // producer warp for the loads and a cheaper exact softmax are next.
@@ -317,6 +317,10 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;  // keys per shared-memory tile
 constexpr int kPad = 8;    // bf16 of padding per shared-memory row (16 bytes)
+// Query rows a block: 4 warps of 16 rows (one m16n8k16 A tile each).
+constexpr int kTcWarps = 4;
+constexpr int kTcRows = 16 * kTcWarps;
+constexpr int kTcThreads = 32 * kTcWarps;
 
 // Fragment coordinates (m16n8k16, lane = 4 g + t): an accumulator tile's
 // element e of a lane is at row g + 8 (e / 2), column 2 t + e % 2.
@@ -335,14 +339,12 @@ constexpr int kPad = 8;    // bf16 of padding per shared-memory row (16 bytes)
 //   max; then each lane turns its logits into e = expf(l - m) in place,
 //   summing s; pass 2 streams V alone and forms p = e / s from them. One
 //   QK^T and one expf a logit instead of two.
-template <int D, int kWarps, typename O>
-__global__ void __launch_bounds__(kWarps * 32) mha_tc_kernel(
+template <int D, typename O>
+__global__ void __launch_bounds__(kTcThreads) mha_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const uint8_t* __restrict__ mask, O* __restrict__ out, int ld, int nq, int nkv, int h,
     int causal, int smem_logits, float scale, const float* __restrict__ out_scale) {
   static_assert(D % 16 == 0 && D >= 32 && D <= 128, "head dim");
-  constexpr int kThreads = kWarps * 32;
-  constexpr int kRows = 16 * kWarps;
   constexpr int kLds = D + kPad;
   constexpr int kTileElems = kTile * kLds;
   constexpr int kSteps = D / 16;     // k-steps of QK^T; dim pairs of P.V
@@ -350,15 +352,15 @@ __global__ void __launch_bounds__(kWarps * 32) mha_tc_kernel(
   constexpr int kChunks = D / 8;     // 16-byte chunks of a row
   constexpr int kKeyTiles = kTile / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [kRows][kLds]
-  bf16* ks = qs + kRows * kLds;              // [2][kTile][kLds]
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [kTcRows][kLds]
+  bf16* ks = qs + kTcRows * kLds;            // [2][kTile][kLds]
   // V's double buffer: K's in the logits form (pass 2 reads no K).
   bf16* vs = smem_logits ? ks : ks + 2 * kTileElems;
   float4* lg = reinterpret_cast<float4*>(ks + (smem_logits ? 2 : 4) * kTileElems);
 
   const int b = blockIdx.z;
   const int head = blockIdx.y;
-  const int i0 = blockIdx.x * kRows;
+  const int i0 = blockIdx.x * kTcRows;
   const bf16* qb = q + static_cast<size_t>(b) * nq * ld + head * D;
   const bf16* kb = k + static_cast<size_t>(b) * nkv * ld + head * D;
   const bf16* vb = v + static_cast<size_t>(b) * nkv * ld + head * D;
@@ -369,7 +371,7 @@ __global__ void __launch_bounds__(kWarps * 32) mha_tc_kernel(
   const int t = lane % 4;
   const int iw = i0 + 16 * warp;  // this warp's first query row
   int tiles = (nkv + kTile - 1) / kTile;
-  if (causal) tiles = min(tiles, (min(i0 + kRows, nq) - 1) / kTile + 1);
+  if (causal) tiles = min(tiles, (min(i0 + kTcRows, nq) - 1) / kTile + 1);
   const int steps = 2 * tiles;  // pass 1 over K, then pass 2 over V (and K)
   // Whether this warp has work in key tile j0: rows past N_q have none, and
   // a causal tile wholly above the warp's diagonal is -inf throughout.
@@ -377,7 +379,7 @@ __global__ void __launch_bounds__(kWarps * 32) mha_tc_kernel(
 
   // Rows [row0, row0 + rows) of src into dst; rows >= limit are zeros.
   auto stage = [&](bf16* dst, const bf16* src, int row0, int rows, int limit) {
-    for (int e = threadIdx.x; e < rows * kChunks; e += kThreads) {
+    for (int e = threadIdx.x; e < rows * kChunks; e += kTcThreads) {
       const int r = e / kChunks;
       const int c = e % kChunks;
       const bool ok = row0 + r < limit;
@@ -391,7 +393,7 @@ __global__ void __launch_bounds__(kWarps * 32) mha_tc_kernel(
     if (step >= tiles) stage(vs + (step & 1) * kTileElems, vb, j0, kTile, nkv);
   };
 
-  stage(qs, qb, i0, kRows, nq);
+  stage(qs, qb, i0, kTcRows, nq);
   issue(0);
   cp_async_commit();
 
@@ -421,7 +423,7 @@ __global__ void __launch_bounds__(kWarps * 32) mha_tc_kernel(
     const bool second = st >= tiles;
     const int tile = st % tiles;
     const int j0 = tile * kTile;
-    float4* lgt = lg + tile * kKeyTiles * kThreads + threadIdx.x;  // [tile][n][thread]
+    float4* lgt = lg + tile * kKeyTiles * kTcThreads + threadIdx.x;  // [tile][n][thread]
     if (warp_has(j0)) {
       float sc[kKeyTiles][4];
       if (!(second && smem_logits)) {
@@ -470,7 +472,7 @@ __global__ void __launch_bounds__(kWarps * 32) mha_tc_kernel(
       if (!second && smem_logits) {
 #pragma unroll
         for (int n = 0; n < kKeyTiles; ++n) {
-          lgt[n * kThreads] = make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
+          lgt[n * kTcThreads] = make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
           m[0] = fmaxf(m[0], fmaxf(sc[n][0], sc[n][1]));
           m[1] = fmaxf(m[1], fmaxf(sc[n][2], sc[n][3]));
         }
@@ -500,7 +502,7 @@ __global__ void __launch_bounds__(kWarps * 32) mha_tc_kernel(
         if (smem_logits) {
 #pragma unroll
           for (int n = 0; n < kKeyTiles; ++n) {
-            const float4 e = lgt[n * kThreads];
+            const float4 e = lgt[n * kTcThreads];
             sc[n][0] = e.x;
             sc[n][1] = e.y;
             sc[n][2] = e.z;
@@ -567,10 +569,10 @@ __global__ void __launch_bounds__(kWarps * 32) mha_tc_kernel(
         }
         for (int tl = 0; tl < tiles; ++tl) {
           if (!warp_has(tl * kTile)) continue;
-          float4* lt = lg + tl * kKeyTiles * kThreads + threadIdx.x;
+          float4* lt = lg + tl * kKeyTiles * kTcThreads + threadIdx.x;
 #pragma unroll
           for (int n = 0; n < kKeyTiles; ++n) {
-            float4 e = lt[n * kThreads];
+            float4 e = lt[n * kTcThreads];
             e.x = expf(e.x - m[0]);
             e.y = expf(e.y - m[0]);
             e.z = expf(e.z - m[1]);
@@ -579,7 +581,7 @@ __global__ void __launch_bounds__(kWarps * 32) mha_tc_kernel(
             s[0] += e.y;
             s[1] += e.z;
             s[1] += e.w;
-            lt[n * kThreads] = e;
+            lt[n * kTcThreads] = e;
           }
         }
       }
@@ -640,41 +642,40 @@ __global__ void check_div_rn_kernel(const float* __restrict__ b, int nb,
 // Shared memory of one block: q, two K tiles, two V tiles (the K tiles
 // themselves in the logits form) and, in the logits form, each lane's f32
 // logits of every key tile.
-size_t tc_smem_bytes(int d, int rows, int nkv, int smem_logits) {
+size_t tc_smem_bytes(int d, int nkv, int smem_logits) {
   const size_t row = sizeof(bf16) * static_cast<size_t>(d + kPad);
-  size_t bytes = row * (rows + (smem_logits ? 2 : 4) * kTile);
+  size_t bytes = row * (kTcRows + (smem_logits ? 2 : 4) * kTile);
   if (smem_logits) {
-    bytes += sizeof(float) * static_cast<size_t>((nkv + kTile - 1) / kTile) * kTile * rows;
+    bytes += sizeof(float) * static_cast<size_t>((nkv + kTile - 1) / kTile) * kTile * kTcRows;
   }
   return bytes;
 }
 
-template <int D, int kWarps, typename O>
+template <int D, typename O>
 int launch_tc(const void* q, const void* k, const void* v, const void* mask, void* out,
               const void* out_scale, int ld, int b, int nq, int nkv, int h, int causal,
               int smem_logits, float scale, cudaStream_t stream) {
-  constexpr int kRows = 16 * kWarps;
-  const size_t smem = tc_smem_bytes(D, kRows, nkv, smem_logits);
+  const size_t smem = tc_smem_bytes(D, nkv, smem_logits);
   cudaError_t err = cudaFuncSetAttribute(
-      mha_tc_kernel<D, kWarps, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_tc_kernel<D, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nq + kRows - 1) / kRows, h, b);
-  mha_tc_kernel<D, kWarps, O><<<grid, kWarps * 32, smem, stream>>>(
+  const dim3 grid((nq + kTcRows - 1) / kTcRows, h, b);
+  mha_tc_kernel<D, O><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const uint8_t*>(mask), static_cast<O*>(out), ld, nq, nkv, h, causal,
       smem_logits, scale, static_cast<const float*>(out_scale));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kWarps, typename O>
+template <typename O>
 int launch_tc_d(int d, const void* q, const void* k, const void* v, const void* mask, void* out,
                 const void* out_scale, int ld, int b, int nq, int nkv, int h, int causal,
                 int smem_logits, float scale, cudaStream_t stream) {
 #define PK_TC_CASE(DIM)                                                                  \
   case DIM:                                                                              \
-    return launch_tc<DIM, kWarps, O>(q, k, v, mask, out, out_scale, ld, b, nq, nkv, h,   \
-                                     causal, smem_logits, scale, stream);
+    return launch_tc<DIM, O>(q, k, v, mask, out, out_scale, ld, b, nq, nkv, h, causal,   \
+                             smem_logits, scale, stream);
   switch (d) {
     PK_TC_CASE(32)
     PK_TC_CASE(48)
@@ -687,22 +688,6 @@ int launch_tc_d(int d, const void* q, const void* k, const void* v, const void* 
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PK_TC_CASE
-}
-
-template <typename O>
-int launch_tc_rows(int rows, int d, const void* q, const void* k, const void* v,
-                   const void* mask, void* out, const void* out_scale, int ld, int b, int nq,
-                   int nkv, int h, int causal, int smem_logits, float scale,
-                   cudaStream_t stream) {
-  if (rows == 64) {
-    return launch_tc_d<4, O>(d, q, k, v, mask, out, out_scale, ld, b, nq, nkv, h, causal,
-                             smem_logits, scale, stream);
-  }
-  if (rows == 128) {
-    return launch_tc_d<8, O>(d, q, k, v, mask, out, out_scale, ld, b, nq, nkv, h, causal,
-                             smem_logits, scale, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -759,19 +744,19 @@ int pk_mha_qkv(const void* qkv, void* out, const void* out_scale, int b, int n, 
 // for three tensors, 3 * h * d for the unsplit qkv, ld % 8 == 0); mask (b,
 // nkv) uint8, nonzero = valid key, or null. out (b, nq, h * d): int8 at the
 // static scale out_scale (one f32 on the device) when out_scale is not null,
-// else bf16. d in {32, 48, ..., 128}; rows (query rows a block) 64 or 128;
+// else bf16. d in {32, 48, ..., 128}; a block takes kTcRows (64) query rows.
 // smem_logits 1 keeps the logits in shared memory (tc_smem_bytes; a launch
 // that needs more than the card's 227 KB a block fails), 0 recomputes them.
 int pk_mha_tc(const void* q, const void* k, const void* v, const void* mask, void* out,
               const void* out_scale, int ld, int b, int nq, int nkv, int h, int d, int causal,
-              float scale, int rows, int smem_logits, void* stream) {
+              float scale, int smem_logits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_scale) {
-    return launch_tc_rows<int8_t>(rows, d, q, k, v, mask, out, out_scale, ld, b, nq, nkv, h,
-                                  causal, smem_logits, scale, st);
+    return launch_tc_d<int8_t>(d, q, k, v, mask, out, out_scale, ld, b, nq, nkv, h, causal,
+                               smem_logits, scale, st);
   }
-  return launch_tc_rows<bf16>(rows, d, q, k, v, mask, out, out_scale, ld, b, nq, nkv, h, causal,
-                              smem_logits, scale, st);
+  return launch_tc_d<bf16>(d, q, k, v, mask, out, out_scale, ld, b, nq, nkv, h, causal,
+                           smem_logits, scale, st);
 }
 
 // mismatches[i] (zeroed by the caller) = the number of floats a in [0, 1]

@@ -73,7 +73,7 @@ _SIGNATURES = {
     "pk_mha": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
     "pk_mha_qkv": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
     "pk_mha_tc": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     "pk_check_div_rn": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 }
 _BACKWARD_SIGNATURES = {
@@ -83,13 +83,10 @@ _BACKWARD_SIGNATURES = {
 MAX_HEAD_DIM = 512  # mha's: the CUDA-core kernel's wide instantiation
 QKV_MAX_HEAD_DIM = 128  # mha_qkv's, and the tensor-core kernel's
 ROUTES = ("tensor_core", "cuda_core")
-# The tensor-core kernel's variants, each the faster at the towers' shapes
-# in ``python3 -m panoptikon_tpu_torch.profiling --attention``: query rows a
-# block (64 or 128), and the longest key axis whose logits it keeps in
-# shared memory (longer ones take the two-pass form; 0 for two passes
-# always). 64 rows × 320 keys of f32 logits, with the bf16 q, K and V
-# tiles, take at most 132 KB of a block's 227 KB, at D = 128.
-TC_QUERY_ROWS = 64
+# The longest key axis whose logits the tensor-core kernel keeps in shared
+# memory; longer ones take the two-pass form. A block's 64 query rows × 320
+# keys of f32 logits, with the bf16 q, K and V tiles, take at most 132 KB of
+# its 227 KB, at D = 128.
 TC_LOGITS_MAX_KEYS = 320
 # The tensor-core backward holds one (batch row, head)'s q, K, V, dO, p~ and
 # dS whole in a block's shared memory: N_q and N_kv up to this many rows
@@ -134,7 +131,7 @@ def _tensor_core(q_ptr, k_ptr, v_ptr, mask, out, scale_t, ld, b, n_q, n_kv, h, d
     return lib.pk_mha_tc(
         q_ptr, k_ptr, v_ptr, None if mask is None else mask.data_ptr(), out.data_ptr(),
         None if scale_t is None else scale_t.data_ptr(), ld, b, n_q, n_kv, h, d, int(causal),
-        float(d) ** -0.5, TC_QUERY_ROWS, int(n_kv <= TC_LOGITS_MAX_KEYS),
+        float(d) ** -0.5, int(n_kv <= TC_LOGITS_MAX_KEYS),
         torch.cuda.current_stream(device).cuda_stream,
     )
 

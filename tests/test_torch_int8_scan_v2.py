@@ -296,15 +296,3 @@ def test_candidate_route_on_a_large_corpus():
     assert scoring.candidate_route(512, n, 1025) == "b2"
     assert scoring.candidate_route(512, n, 4096) == "b2"
     assert scoring.candidate_route(512, n, 4097) == "surface"
-
-
-def test_scan_ablation_edits_apply_to_the_kernel_source():
-    # profiling --scan's dot-stage build replaces B2's fold in
-    # csrc/int8_scan.cu: the text it replaces must be there, once.
-    from panoptikon_tpu_torch import _build, profiling
-
-    text = (_build.CSRC / "int8_scan.cu").read_text()
-    for name, edits in profiling.SCAN_ABLATIONS.items():
-        for old, _ in edits:
-            assert text.count(old) == 1, (name, old)
-    assert {"dots_only", "b1_dots_only"} <= set(profiling.SCAN_ABLATIONS)

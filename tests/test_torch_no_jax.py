@@ -46,7 +46,7 @@ def test_every_port_module_imports_without_jax():
     # host copies included
     assert len(names) >= 27
     for name in ("ops.ln_quant", "ops.vit_attention", "ops.int8_scan", "models.clip",
-                 "models.impls", "models.convert", "profiling", "index.vector_index",
+                 "models.impls", "models.convert", "index.vector_index",
                  "models.base", "models.batching", "utils.npy", "ops.fusion", "pql.executor",
                  "pql.fused", "pql.model", "pql.preprocess", "db.store", "db.writer",
                  "utils.splitmix", "models.text_embed", "models.weights", "models.registry",

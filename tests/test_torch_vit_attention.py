@@ -279,31 +279,6 @@ def test_one_pass_rounding_would_break_the_int8_limit():
     assert (codes != want).float().mean().item() > 5e-3
 
 
-def test_attention_ablation_edits_apply_to_the_kernel_source():
-    # The probe's timing-only edits of csrc/attention.cu and the headers it
-    # includes (which the probe copies and edits with it) must each find its
-    # text, or the ablation stops at build time on the card.
-    from panoptikon_tpu_torch import _build, profiling
-
-    text = "".join(path.read_text() for path in (_build.CSRC / "attention.cu",
-                                                 *sorted(_build.CSRC.glob("*.cuh"))))
-    for name, edits in profiling.ABLATIONS.items():
-        for old, _ in [*edits, *((case, "") for case in profiling._OTHER_DIMS)]:
-            assert old in text, (name, old)
-
-
-def test_backward_probe_edit_applies_to_the_kernel_source():
-    # profiling --backward builds csrc/attention_bwd.cu with its wide
-    # instantiation's other form: the edit must find its one line, and
-    # applied, give back the form as built.
-    from panoptikon_tpu_torch import _build, profiling
-
-    text = (_build.CSRC / "attention_bwd.cu").read_text()
-    old, new = profiling.wide_split_edit(text)
-    assert text.count(old) == 1 and old != new
-    assert profiling.wide_split_edit(text.replace(old, new)) == (new, old)
-
-
 @pytest.mark.parametrize("smem_logits", [True, False])
 @pytest.mark.parametrize("case", ["image", "text_causal"])
 def test_kernel_order_matches_pallas_kernel(case, smem_logits):
