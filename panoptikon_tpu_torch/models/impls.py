@@ -94,6 +94,11 @@ CLAP_INIT_SEED = 5
 CAPTIONER_INIT_SEED = 7
 OCR_INIT_SEED = 11
 KIMI_VL_INIT_SEED = 13
+# The pixels of an image slice go to the card in chunks of this many bytes,
+# each uploaded while the host copies the next into the staging buffer (on
+# the card's host every size from 2 to 160 MB staged a slice alike: PERF.md
+# §6).
+STAGE_CHUNK_BYTES = 16 << 20
 
 
 def decode_image(payload: bytes, size: int) -> np.ndarray:
@@ -153,7 +158,8 @@ class ClipImpl(InferenceModel):
     of at most the top batch bucket, each padded to its own bucket (the JAX
     class pads a call as one batch and raises past the top bucket: ROADMAP
     §C, C.4); with int8 the first image slice and the first text slice
-    calibrate."""
+    calibrate. Image slices share one staging buffer, so an instance takes
+    one call at a time, as the model manager's dispatch gives it."""
 
     def __init__(
         self,
@@ -181,6 +187,10 @@ class ClipImpl(InferenceModel):
         # frozen — standard PTQ calibration.
         self._act_scales = None
         self._text_scales = None
+        # The host buffer image slices are staged in (allocated at first
+        # use), and the event after its last upload (CUDA only).
+        self._staging: Optional[torch.Tensor] = None
+        self._staged = None
 
     @classmethod
     def name(cls) -> str:
@@ -203,6 +213,8 @@ class ClipImpl(InferenceModel):
         self.params = None
         self._act_scales = None
         self._text_scales = None
+        self._staging = None
+        self._staged = None
 
     def prepare(self) -> None:
         """Prewarm every bucket shape (kernel builds, library handles). With
@@ -228,9 +240,40 @@ class ClipImpl(InferenceModel):
                 clip.embed_images(self.params, self.cfg, images)
                 clip.embed_texts(self.params, self.cfg, ids)
 
-    def _embed_images(self, batch: np.ndarray) -> np.ndarray:
-        tracing.count("impls.clip_upload_bytes", batch.nbytes)
-        images = torch.from_numpy(batch).to(self.device)
+    def _stage_images(self, images: Sequence[np.ndarray], bucket: int) -> torch.Tensor:
+        """The (bucket, S, S, 3) f32 batch of ``images`` on the device, pad
+        rows repeating row 0 as ``batching.pad_batch`` pads them. The rows
+        are copied straight into the leading ``bucket`` rows of one reused
+        host buffer of the top bucket, page-locked on a CUDA device, where
+        each chunk of :data:`STAGE_CHUNK_BYTES` is uploaded ``non_blocking``
+        once it is written: the card copies one chunk while the host writes
+        the next. An event recorded after the last chunk's copy is waited on
+        before the buffer is written again. On the CPU the buffer's rows are
+        the batch."""
+        rows = [*images, *[images[0]] * (bucket - len(images))]
+        cuda = self.device.type == "cuda"
+        if self._staging is None:
+            size = self.cfg.image_size
+            self._staging = torch.empty((self.batch_ladder[-1], size, size, 3),
+                                        dtype=torch.float32, pin_memory=cuda)
+        elif self._staged is not None:
+            self._staged.synchronize()
+        staging = self._staging[:bucket]
+        batch = torch.empty_like(staging, device=self.device) if cuda else staging
+        step = max(1, STAGE_CHUNK_BYTES // staging[0].nbytes)
+        for lo in range(0, bucket, step):
+            chunk = slice(lo, lo + step)
+            torch.stack([torch.from_numpy(r) for r in rows[chunk]], out=staging[chunk])
+            if cuda:
+                batch[chunk].copy_(staging[chunk], non_blocking=True)
+        tracing.count("impls.clip_upload_bytes", staging.nbytes)
+        if cuda:
+            self._staged = torch.cuda.Event()
+            self._staged.record()
+            tracing.count("impls.clip_staged_upload_bytes", staging.nbytes)
+        return batch
+
+    def _embed_images(self, images: torch.Tensor) -> np.ndarray:
         if self.cfg.matmul_precision != "int8":
             return clip.embed_images(self.params, self.cfg, images).cpu().numpy()
         if self._act_scales is None:
@@ -271,7 +314,8 @@ class ClipImpl(InferenceModel):
                     except SlotError as err:
                         outputs[i] = err.to_slot()
                 elif isinstance(inp.data, dict) and "pixels" in inp.data:
-                    arr = np.asarray(inp.data["pixels"], dtype=np.float32)
+                    # Contiguous: torch.from_numpy takes no negative strides.
+                    arr = np.ascontiguousarray(inp.data["pixels"], dtype=np.float32)
                     if arr.shape != want:
                         outputs[i] = SlotError(
                             "input", f"pixels shape {arr.shape} != {want}").to_slot()
@@ -285,13 +329,11 @@ class ClipImpl(InferenceModel):
                     outputs[i] = SlotError(
                         "input", "Input must be an image file or {'text': ...}"
                     ).to_slot()
-            stacked = np.stack(images) if images else None
         for lo in range(0, len(images), cap):
             with tracing.span("impls.clip_predict.stack"):
-                part = stacked[lo : lo + cap]
-                bucket = batching.bucket_for(len(part), self.batch_ladder)
-                padded = batching.pad_batch(part, bucket)[0]
-            feats = self._embed_images(padded)
+                part = images[lo : lo + cap]
+                batch = self._stage_images(part, batching.bucket_for(len(part), self.batch_ladder))
+            feats = self._embed_images(batch)
             with tracing.span("impls.clip_predict.serialize"):
                 for j, pos in enumerate(image_pos[lo : lo + cap]):
                     outputs[pos] = npy.serialize_npy(feats[j])

@@ -19,7 +19,8 @@ Names are ``<module>.<unit>[.<stage>]``.
 Spans:
 
 - ``impls.clip_predict.stack``: ``ClipImpl.predict``'s inputs read and
-  stacked, and each slice padded to its bucket;
+  checked, and each slice's rows, padded to its bucket, copied into the
+  staging buffer and its chunk uploads queued;
   ``impls.clip_predict.serialize``: its embeddings written as npy bytes;
 - ``vector_index.id_table``: ``VectorIndex.item_id_of_groups`` taking its
   view of the host index's slot → item table (no copy is made);
@@ -35,6 +36,8 @@ Counters:
   reads, each call;
 - ``impls.clip_upload_bytes``: the bytes of each pixel batch that
   ``ClipImpl`` copies to its device;
+- ``impls.clip_staged_upload_bytes``: those of them uploaded from its
+  page-locked staging buffer (CUDA only, so absent on the CPU);
 - ``clip.int8_epilogue_values``: the values of each int8 GEMM output that
   the static-int8 block's fused epilogue consumes (m·n a GEMM);
 - ``kimi_vl.decode_steps``, ``kimi_vl.prefill_tokens``,

@@ -189,6 +189,89 @@ def test_every_row_past_the_top_bucket(precision):
                                                 *timpl.predict(images[4:])]]))
 
 
+def _pixels(seed, n, size):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(size, size, 3)).astype(np.float32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("rows_a_chunk", [1, 3, 64], ids=["row", "three_rows", "one_chunk"])
+@pytest.mark.parametrize("n", [8, 5, 1], ids=["full", "partial", "one"])
+def test_staged_rows_are_the_padded_batch(n, rows_a_chunk, monkeypatch):
+    # The rows are copied straight into the staging buffer, chunk by chunk:
+    # its leading rows are exactly the stacked slice padded as pad_batch
+    # pads it (pad rows repeat row 0).
+    timpl = impls.ClipImpl(model_arch="test-tiny", batch_cap=8, device="cpu")
+    size = timpl.cfg.image_size
+    monkeypatch.setattr(impls, "STAGE_CHUNK_BYTES", rows_a_chunk * size * size * 3 * 4)
+    images = _pixels(n, n, size)
+    bucket = impls.batching.bucket_for(n, timpl.batch_ladder)
+    got = timpl._stage_images(images, bucket)
+    want = impls.batching.pad_batch(np.stack(images), bucket)[0]
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert timpl._staging.shape == (8, size, size, 3) and timpl._staged is None
+
+
+def test_successive_stagings_leave_no_stale_rows(monkeypatch):
+    timpl = impls.ClipImpl(model_arch="test-tiny", batch_cap=8, device="cpu")
+    size = timpl.cfg.image_size
+    monkeypatch.setattr(impls, "STAGE_CHUNK_BYTES", 3 * size * size * 3 * 4)
+    buffer = None
+    for seed, n in [(1, 8), (2, 3), (3, 8), (4, 1), (5, 5)]:
+        images = _pixels(seed, n, size)
+        bucket = impls.batching.bucket_for(n, timpl.batch_ladder)
+        got = timpl._stage_images(images, bucket).numpy()
+        np.testing.assert_array_equal(got, impls.batching.pad_batch(np.stack(images), bucket)[0])
+        buffer = timpl._staging if buffer is None else buffer
+        assert timpl._staging is buffer  # one buffer, allocated once
+    timpl.unload()
+    assert timpl._staging is None and timpl._staged is None
+
+
+def _stacked_path(timpl, images):
+    """What predict returned for ``images`` before the staging buffer: the
+    call's images stacked, each slice padded by pad_batch, then uploaded."""
+    stacked, cap, out = np.stack(images), timpl.batch_ladder[-1], []
+    for lo in range(0, len(images), cap):
+        part = stacked[lo : lo + cap]
+        padded = impls.batching.pad_batch(part, impls.batching.bucket_for(
+            len(part), timpl.batch_ladder))[0]
+        feats = timpl._embed_images(torch.from_numpy(padded).to(timpl.device))
+        out += [npy.serialize_npy(f) for f in feats[: len(part)]]
+    return out
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_predict_bytes_equal_the_stacked_path(precision):
+    # Two slices past the top bucket (4 + 1), then a partial one: the staged
+    # path gives the npy bytes of the stacked path, calibration included.
+    kwargs = dict(model_arch="test-tiny", precision=precision, batch_cap=4, device="cpu")
+    staged, stacked = impls.ClipImpl(**kwargs), impls.ClipImpl(**kwargs)
+    staged.load()
+    stacked.params = staged.params
+    size = staged.cfg.image_size
+    for seed, n in [(11, 5), (12, 3)]:
+        images = _pixels(seed, n, size)
+        got = staged.predict([PredictionInput(data={"pixels": p}) for p in images])
+        assert got == _stacked_path(stacked, images)
+    if precision == "int8":
+        assert torch.equal(staged._act_scales, stacked._act_scales)
+
+
+def test_predict_takes_pixels_of_any_layout():
+    # Pixels that are a strided view or a nested list embed as their
+    # contiguous f32 copy does.
+    timpl = impls.ClipImpl(model_arch="test-tiny", batch_cap=4, device="cpu")
+    size = timpl.cfg.image_size
+    (a,) = _pixels(21, 1, size)
+    flipped = np.ascontiguousarray(a[::-1, :, ::-1])
+    f64 = a.astype(np.float64)
+    got = timpl.predict([PredictionInput(data={"pixels": x}) for x in
+                         (a[::-1, :, ::-1], f64.tolist(), a.T.copy().T)])
+    want = timpl.predict([PredictionInput(data={"pixels": x}) for x in (flipped, a, a)])
+    assert got == want
+
+
 # ---------------------------------------------------------------------------
 # The host-only impls (copied text for text; test_torch_host_copies.py holds
 # the text): both packages on the same dumps and the same localhost stub.
